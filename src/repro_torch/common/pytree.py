@@ -1,0 +1,80 @@
+"""Helpers over parameter trees: nested dicts whose leaves are tensors.
+
+Trees keep the JAX package's layout (``{"dense_0": {"w": [din, dout],
+"b": [dout]}, ...}``) so a JAX tree converts 1:1 (``repro_torch.convert``).
+A *stacked* tree carries a leading client axis on every leaf.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Sequence
+
+import numpy as np
+import torch
+
+Pytree = Any
+
+
+def tree_map(fn: Callable, tree: Pytree, *rest: Pytree) -> Pytree:
+    """Apply ``fn`` leafwise over trees of identical structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    return fn(tree, *rest)
+
+
+def tree_flatten(tree: Pytree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """``{"a/b": leaf}`` in insertion order."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(tree_flatten(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def tree_unflatten(flat: Dict[str, torch.Tensor]) -> Pytree:
+    """Inverse of :func:`tree_flatten`."""
+    out: dict = {}
+    for path, v in flat.items():
+        node = out
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def tree_leaves(tree: Pytree) -> list:
+    return list(tree_flatten(tree).values())
+
+
+def tree_stack(trees: Sequence[Pytree]) -> Pytree:
+    """Stack homogeneous trees along a new leading (client) axis."""
+    return tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)
+
+
+def tree_weighted_mean_stacked(stack: Pytree, weights) -> Pytree:
+    """FedAvg aggregation over the leading (client) axis: one contraction
+    per leaf with the weights normalized in float64, then cast to fp32."""
+    w = np.asarray(weights, dtype=np.float64)
+    w = (w / w.sum()).astype(np.float32)
+
+    def mean(x):
+        wt = torch.as_tensor(w, device=x.device)
+        return torch.tensordot(wt, x.float(), dims=([0], [0])).to(x.dtype)
+    return tree_map(mean, stack)
+
+
+def tree_isfinite(tree: Pytree) -> torch.Tensor:
+    """0-dim bool tensor: every floating leaf is finite (no host sync)."""
+    leaves = [torch.isfinite(x).all() for x in tree_leaves(tree)
+              if x.is_floating_point()]
+    if not leaves:
+        return torch.tensor(True)
+    return torch.stack(leaves).all()
+
+
+def tree_to(tree: Pytree, device) -> Pytree:
+    return tree_map(lambda x: x.to(device), tree)

@@ -1,0 +1,26 @@
+"""Parameter trees between the JAX package's layout (nested dicts of
+arrays, handed over as numpy) and the port's tensors.
+
+The layouts are identical by construction (``core/nets.py``), so the
+conversion is leafwise: ``to_torch(jax_tree_as_numpy)`` and back with
+``to_numpy``.  Tests use it to inject the JAX package's ``jax.random``
+initialisation, which PyTorch cannot reproduce.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.common.pytree import tree_map
+
+
+def to_torch(tree, device="cpu"):
+    """Nested dict of array-likes -> nested dict of tensors on ``device``
+    (copies, so later in-place use never aliases the caller's arrays)."""
+    return tree_map(
+        lambda x: torch.tensor(np.asarray(x), device=device), tree)
+
+
+def to_numpy(tree):
+    """Nested dict of tensors -> nested dict of numpy arrays."""
+    return tree_map(lambda x: x.detach().cpu().numpy(), tree)

@@ -1,0 +1,140 @@
+"""Pluggable server aggregation strategies + registry.
+
+The round engine trains all active clients into one stacked tree per
+prototype group and hands the stacks to a :class:`ServerStrategy`.
+
+Ported: ``fedavg`` (weighted parameter average) and homogeneous
+``feddf`` (FedAvg init + server-side ensemble distillation).  The other
+names the JAX package registers raise ``NotImplementedError`` naming
+their ROADMAP.md item.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.common.pytree import Pytree, tree_weighted_mean_stacked
+from repro_torch.core.client import evaluate
+from repro_torch.core.nets import Net
+
+
+@dataclasses.dataclass
+class GroupRound:
+    """One prototype group's view of a round: the clients' locally
+    trained params stacked on a leading [K_g] axis, plus their data
+    weights."""
+
+    net: Net
+    prev_global: dict
+    stack: Optional[Pytree]      # [K_g, ...]; None if no client this round
+    weights: np.ndarray          # [K_g] local dataset sizes
+
+
+@dataclasses.dataclass
+class RoundContext:
+    """Server-side context a strategy may consume when aggregating."""
+
+    cfg: Any                     # FLConfig
+    round: int
+    heterogeneous: bool
+    source: Any = None
+    val_x: Any = None
+    val_y: Any = None
+    test_x: Any = None
+    test_y: Any = None
+
+
+class ServerStrategy:
+    """Interface: consume stacked client trees, emit new globals
+    ``(new globals per group, new server state, per-group info dicts)``."""
+
+    name: str = "base"
+    needs_source: bool = False
+
+    def local_prox_mu(self, cfg) -> float:
+        return 0.0
+
+    def init_state(self, globals_: List[dict]):
+        return None
+
+    def aggregate(self, groups: List[GroupRound], state, ctx: RoundContext
+                  ) -> Tuple[List[dict], Any, List[dict]]:
+        raise NotImplementedError
+
+
+_REGISTRY: Dict[str, Callable[[], ServerStrategy]] = {}
+# strategies of the JAX package that the port does not run yet
+_PENDING = {"fedprox": "ROADMAP.md queue 1 item 6",
+            "fedavgm": "ROADMAP.md queue 1 item 6",
+            "trimmed_mean": "ROADMAP.md queue 1 item 10",
+            "coordinate_median": "ROADMAP.md queue 1 item 10"}
+
+
+def register_strategy(name: str):
+    def deco(cls):
+        cls.name = name
+        _REGISTRY[name] = cls
+        return cls
+    return deco
+
+
+def get_strategy(name: str) -> ServerStrategy:
+    if name in _PENDING:
+        raise NotImplementedError(f"strategy {name!r} is not ported yet "
+                                  f"({_PENDING[name]})")
+    if name not in _REGISTRY:
+        raise ValueError(f"unknown strategy {name!r}; registered: "
+                         f"{available_strategies()}")
+    return _REGISTRY[name]()
+
+
+def available_strategies() -> List[str]:
+    return sorted(_REGISTRY)
+
+
+@register_strategy("fedavg")
+class FedAvg(ServerStrategy):
+    def aggregate(self, groups, state, ctx):
+        new = [g.prev_global if g.stack is None
+               else tree_weighted_mean_stacked(g.stack, g.weights)
+               for g in groups]
+        return new, state, [{} for _ in groups]
+
+
+@register_strategy("feddf")
+class FedDF(ServerStrategy):
+    """Ensemble distillation fusion (Algorithm 1), homogeneous cohorts."""
+
+    needs_source = True
+
+    def aggregate(self, groups, state, ctx):
+        from repro_torch.core import feddf as feddf_mod
+        cfg = ctx.cfg
+        if ctx.source is None:
+            raise ValueError("FedDF needs a distillation source")
+        if ctx.heterogeneous:
+            raise NotImplementedError("heterogeneous FedDF (Algorithm 3) "
+                                      "waits for ROADMAP.md queue 1 item 9")
+        g = groups[0]
+        if g.stack is None:
+            return [g.prev_global], state, [{}]
+        avg = tree_weighted_mean_stacked(g.stack, g.weights)
+        pre_acc = (evaluate(g.net, avg, ctx.test_x, ctx.test_y)
+                   if ctx.test_x is not None else None)
+        student = avg if cfg.feddf_init_from == "average" else g.prev_global
+        fused, info = feddf_mod.feddf_fuse_stacked(
+            g.net, g.stack, g.weights, ctx.source, cfg.fusion,
+            ctx.val_x, ctx.val_y, seed=cfg.seed + ctx.round,
+            student=student)
+        return [fused], state, [{
+            "distill_steps": info["steps"],
+            "pre_distill_acc": pre_acc,
+            "teacher_forwards": info.get("teacher_batch_forwards", 0),
+            "logit_bank": info.get("logit_bank", False),
+            "bank": info.get("bank_decision", ""),
+            "bank_dtype": info.get("bank_dtype", ""),
+            "bank_nbytes": info.get("bank_nbytes", 0),
+            "teachers_filtered": 0,
+            "diverged": info.get("diverged", False)}]

@@ -1,0 +1,68 @@
+"""The serial reference driver.
+
+Phase order per round t:
+
+    sample_cohort -> build_round_batches -> train_clients -> aggregate
+    -> evaluate_round
+
+Nothing overlaps; round t+1's client training starts from round t's
+fused globals.  ``phase_seconds`` keeps each round's wall seconds per
+phase; the device is synchronised at each phase end so that queued work
+is charged to the phase that issued it.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List
+
+import torch
+
+from repro_torch.core.engine import RoundEngine
+from repro_torch.drivers.base import Driver, register_driver
+
+
+@register_driver("sync")
+class SyncDriver(Driver):
+    def __init__(self, staleness: int = 0, prefetch: int = 1):
+        if staleness != 0:
+            raise ValueError(
+                f"{type(self).__name__} runs sync semantics; staleness="
+                f"{staleness} only applies to the async_pipelined driver")
+        super().__init__(staleness=staleness, prefetch=prefetch)
+        self.phase_seconds: List[Dict[str, float]] = []
+
+    def run(self, engine: RoundEngine, *, init_globals=None):
+        globals_, state, logs, rng = self._setup(engine, init_globals)
+        rounds_to_target = None
+        device = engine.device
+
+        def timed(phases, name, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            phases[name] = time.perf_counter() - t0
+            return out
+
+        for t in range(1, engine.cfg.rounds + 1):
+            phases: Dict[str, float] = {}
+            active = timed(phases, "sample_cohort", engine.sample_cohort,
+                           rng)
+            batches = timed(phases, "build_round_batches",
+                            engine.build_round_batches, t, active)
+            groups = timed(phases, "train_clients", engine.train_clients, t,
+                           globals_, batches)
+            globals_, state, infos = timed(phases, "aggregate",
+                                           engine.aggregate, t, groups,
+                                           state)
+            round_logs = timed(phases, "evaluate_round",
+                               engine.evaluate_round, t, globals_, groups,
+                               infos)
+            self.phase_seconds.append(phases)
+            for p, log in enumerate(round_logs):
+                logs[p].append(log)
+            if engine.target_reached(round_logs):
+                rounds_to_target = t
+                break
+
+        return self._results(engine, logs, globals_, rounds_to_target)

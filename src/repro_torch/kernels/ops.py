@@ -1,0 +1,57 @@
+"""Dispatch of the port's kernels by the tensors' device.
+
+A CPU tensor takes the kernel's plain version (``kernels/ref.py``); a CUDA
+tensor takes the CUDA kernel, and a failed build or launch raises.  There
+is no path on which a CUDA tensor silently reaches the plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.common.options import FUSED_KERNEL_MODES
+from repro_torch.kernels import ref
+
+
+def use_fused_kernel(flag, device) -> bool:
+    """Resolve ``FusionConfig.use_fused_kernel`` for tensors on ``device``.
+
+    ``"auto"`` and ``True`` take the fused loss (the kernel on a CUDA
+    device, its plain version on the CPU); ``True`` on the CPU raises,
+    since the CUDA kernel has no CPU mode (the JAX package's interpret
+    mode has no counterpart here).  ``False`` is the explicit unfused route.
+    Any other value raises (``bool("off")`` would silently enable it)."""
+    if flag == "auto":
+        return True
+    if not isinstance(flag, bool):
+        raise ValueError(f"use_fused_kernel must be one of "
+                         f"{FUSED_KERNEL_MODES}, got {flag!r}")
+    if flag and torch.device(device).type != "cuda":
+        raise NotImplementedError(
+            "use_fused_kernel=True asks for the CUDA kernel, which runs on "
+            "CUDA tensors only; use 'auto' (plain version on the CPU) or "
+            "False.  The on-the-fly kernels K2/K3 are ROADMAP.md queue 2.")
+    return flag
+
+
+def ensemble_kl_loss_bank(student_logits: torch.Tensor,
+                          bank_rows: torch.Tensor, scales, idx: torch.Tensor,
+                          temperature: float = 1.0) -> torch.Tensor:
+    """AVGLOGITS loss fused with the bank gather + dequantize (K1).
+
+    student: [..., V]; bank_rows: [N, V] in the bank's storage dtype;
+    scales: per-row [N] float32 dequant scales, or None for unquantized
+    banks; idx: [...] int64 sampled bank rows."""
+    v = student_logits.shape[-1]
+    s2 = student_logits.reshape(-1, v)
+    idx2 = idx.reshape(-1)
+    if s2.is_cuda:
+        from repro_torch.kernels.ensemble_kl_bank import ensemble_kl_bank
+        return ensemble_kl_bank(s2, bank_rows, scales, idx2, temperature)
+    for name, t in (("bank_rows", bank_rows), ("idx", idx2),
+                    ("scales", scales)):
+        if t is not None and t.is_cuda:
+            raise ValueError(f"{name} is on {t.device} while the student "
+                             f"logits are on the CPU")
+    row_scale = (torch.ones(idx2.shape, dtype=torch.float32)
+                 if scales is None else scales[idx2].float())
+    return ref.ensemble_kl_bank(s2, bank_rows, row_scale, idx2, temperature)
