@@ -119,7 +119,8 @@ def to_fl_config(spec: ExperimentSpec) -> FLConfig:
         feddf_init_from=s.feddf_init_from,
         target_accuracy=spec.target_accuracy,
         bucketing=BucketConfig(kind=spec.bucket.kind,
-                               max_buckets=spec.bucket.max_buckets))
+                               max_buckets=spec.bucket.max_buckets),
+        population=spec.population_config())
 
 
 class Experiment:
@@ -130,11 +131,13 @@ class Experiment:
         self.spec = spec.validate()
 
     def run(self, *, init_globals: Optional[List[dict]] = None,
-            index_stream=None) -> RunResult:
-        """Run every round.  ``init_globals`` (trees on any device) and
-        ``index_stream`` (see ``data/distill_sources.UnlabeledDataset``)
-        replace the run's own initialisation and distillation index draws,
-        e.g. with the JAX package's."""
+            index_stream=None, draw_stream=None) -> RunResult:
+        """Run every round.  ``init_globals`` (trees on any device),
+        ``index_stream`` (a pool source's distillation indices, see
+        ``data/distill_sources.UnlabeledDataset``) and ``draw_stream`` (a
+        generator or noise source's random draws) replace the run's own
+        initialisation and distillation draws, e.g. with the JAX
+        package's."""
         spec = self.spec
         bundle = build_task_bundle(spec)
         train, val, test, parts = build_splits(spec, bundle)
@@ -142,6 +145,8 @@ class Experiment:
         source = build_source(spec, bundle, train, self.device)
         if index_stream is not None:
             source.indices = index_stream
+        if draw_stream is not None:
+            source.draws = draw_stream
         if init_globals is not None:
             init_globals = [tree_to(g, self.device) for g in init_globals]
         engine = RoundEngine(nets, client_proto, train, parts, val, test,

@@ -7,9 +7,10 @@ task(name)    ``fn(n_samples, seed, **params) -> TaskBundle``
 model(name)   ``fn(task: TaskBundle, **params) -> Net``
 source(name)  ``fn(task, train, seed, device, **params) -> DistillSource``
 
-Ported: task ``blobs``, model ``mlp``, source ``unlabeled``.  The other
-names the JAX package registers raise ``NotImplementedError`` naming
-their ROADMAP.md item; unknown names raise ``ValueError``.
+Ported: task ``blobs``, model ``mlp``, sources ``unlabeled``,
+``in_domain``, ``generator`` and ``noise``.  The other names the JAX
+package registers raise ``NotImplementedError`` naming their ROADMAP.md
+item; unknown names raise ``ValueError``.
 """
 from __future__ import annotations
 
@@ -19,7 +20,10 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from repro_torch.core.nets import Net, mlp
-from repro_torch.data.distill_sources import DistillSource, UnlabeledDataset
+from repro_torch.data.distill_sources import (DistillSource,
+                                              GeneratorSource,
+                                              RandomNoiseSource,
+                                              UnlabeledDataset)
 from repro_torch.data.synthetic import Dataset, gaussian_mixture
 
 
@@ -63,9 +67,7 @@ register_task, get_task, available_tasks = _make_registry(
 register_model, get_model, available_models = _make_registry(
     "model", {"tiny_transformer": "ROADMAP.md queue 1 item 4"})
 register_source, get_source, available_sources = _make_registry(
-    "source", {"in_domain": "ROADMAP.md queue 1 item 8",
-               "generator": "ROADMAP.md queue 1 item 8 and kernel K2",
-               "noise": "ROADMAP.md queue 1 item 8 and kernel K2"})
+    "source", {})
 register_quantizer, get_quantizer, available_quantizers = _make_registry(
     "quantizer", {"binarize": "ROADMAP.md queue 1 item 9"})
 
@@ -104,3 +106,30 @@ def _unlabeled_source(task: TaskBundle, train: Dataset, seed: int = 0,
     x = np.random.default_rng(seed + 7).uniform(
         low, high, (n,) + tuple(task.distill_shape)).astype(np.float32)
     return UnlabeledDataset(x, device=device)
+
+
+@register_source("in_domain")
+def _in_domain_source(task: TaskBundle, train: Dataset, seed: int = 0,
+                      device="cpu") -> DistillSource:
+    """The training inputs themselves, labels discarded (Fig. 5's
+    best-case control)."""
+    return UnlabeledDataset(train.x, device=device)
+
+
+@register_source("generator")
+def _generator_source(task: TaskBundle, train: Dataset, seed: int = 0,
+                      device="cpu", mean: float = 0.0, std: float = 1.5,
+                      latent_dim: int = 16,
+                      hidden: int = 64) -> DistillSource:
+    return GeneratorSource(tuple(task.distill_shape),
+                           discrete_vocab=task.vocab, mean=mean, std=std,
+                           latent_dim=latent_dim, hidden=hidden, seed=seed,
+                           device=device)
+
+
+@register_source("noise")
+def _noise_source(task: TaskBundle, train: Dataset, seed: int = 0,
+                  device="cpu", low: float = -3.0,
+                  high: float = 3.0) -> DistillSource:
+    return RandomNoiseSource(tuple(task.distill_shape), low=low, high=high,
+                             discrete_vocab=task.vocab, device=device)

@@ -599,6 +599,17 @@ class ExperimentSpec:
         with open(path) as f:
             return cls.from_json(f.read())
 
+    def population_config(self):
+        """The engine-level :class:`PopulationConfig` of this spec."""
+        from repro_torch.population.config import (PopulationConfig,
+                                                   TrafficConfig)
+        pop = self.population
+        return PopulationConfig(
+            size=pop.size, sampler=pop.sampler,
+            buffer_size=pop.buffer_size, max_staleness=pop.max_staleness,
+            staleness_exponent=pop.staleness_exponent,
+            traffic=TrafficConfig(**pop.traffic.to_dict()))
+
     # -- validation -------------------------------------------------------
 
     def validate(self) -> "ExperimentSpec":
@@ -652,6 +663,18 @@ class ExperimentSpec:
         if self.driver.staleness < 0 or self.driver.prefetch < 0:
             raise ValueError("driver.staleness and driver.prefetch must be "
                              ">= 0")
+        if self.driver.staleness and self.driver.kind not in (
+                "async_pipelined", "buffered_async"):
+            raise ValueError(
+                f"driver.staleness > 0 only applies to the "
+                f"'async_pipelined' / 'buffered_async' drivers, got kind "
+                f"{self.driver.kind!r}")
+        if self.driver.kind == "buffered_async" \
+                and self.driver.staleness > 1:
+            raise ValueError(
+                f"buffered_async bounds driver.staleness to 0 or 1 "
+                f"(upload staleness is population.max_staleness), got "
+                f"{self.driver.staleness}")
         if self.dist.transport not in TRANSPORT_KINDS:
             raise ValueError(
                 f"dist.transport must be one of {TRANSPORT_KINDS}, got "
@@ -664,6 +687,17 @@ class ExperimentSpec:
             raise ValueError(
                 f"population.sampler must be one of {SAMPLER_KINDS}, got "
                 f"{self.population.sampler!r}")
+        # population knobs share their ranges with the engine-level
+        # mirror: one validator, no drift between the two layers
+        self.population_config().validate()
+        if self.driver.kind == "buffered_async" \
+                and self.driver.staleness > self.population.max_staleness:
+            raise ValueError(
+                f"buffered_async with driver.staleness="
+                f"{self.driver.staleness} needs population.max_staleness "
+                f">= {self.driver.staleness} (overlap-trained uploads "
+                f"would all be stale-dropped), got "
+                f"{self.population.max_staleness}")
 
         if not self.cohort.prototypes:
             raise ValueError("cohort needs at least one prototype")
@@ -701,8 +735,6 @@ class ExperimentSpec:
             (self.privacy != PrivacySpec(), "DP / quantized uploads", "9"),
             (self.local_optimizer != "sgd", "local Adam", "5"),
             (self.sharding.shard_clients, "client-axis sharding", "11"),
-            (self.population != PopulationSpec(), "client populations",
-             "10"),
             (self.faults != FaultSpec(), "fault injection", "10"),
             (self.obs != ObsSpec(), "the flight recorder", "10"),
         ]

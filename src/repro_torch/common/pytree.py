@@ -78,3 +78,39 @@ def tree_isfinite(tree: Pytree) -> torch.Tensor:
 
 def tree_to(tree: Pytree, device) -> Pytree:
     return tree_map(lambda x: x.to(device), tree)
+
+
+def tree_take(tree: Pytree, idx) -> Pytree:
+    """Gather along the leading (client) axis of a stacked tree."""
+    def take(x):
+        return x[torch.as_tensor(np.asarray(idx), dtype=torch.int64,
+                                 device=x.device)]
+    return tree_map(take, tree)
+
+
+def tree_cat(trees: Sequence[Pytree]) -> Pytree:
+    """Concatenate stacked trees along the leading (client) axis."""
+    if len(trees) == 1:
+        return trees[0]
+    return tree_map(lambda *xs: torch.cat(xs, dim=0), *trees)
+
+
+def tree_check_like(tree: Pytree, like: Pytree, what: str = "pytree") -> None:
+    """Raise ValueError naming the first structural mismatch between
+    ``tree`` and the prototype ``like`` (paths, shapes, dtypes).  The
+    leaves of ``like`` are anything with ``.shape`` and ``.dtype``."""
+    got, want = tree_flatten(tree), tree_flatten(like)
+    if list(got) != list(want):
+        missing = sorted(set(want) - set(got))
+        extra = sorted(set(got) - set(want))
+        raise ValueError(
+            f"{what} structure mismatch: missing leaves {missing[:4]}, "
+            f"unexpected leaves {extra[:4]}")
+    for p, g in got.items():
+        w = want[p]
+        if tuple(g.shape) != tuple(w.shape):
+            raise ValueError(f"{what} leaf {p!r} has shape "
+                             f"{tuple(g.shape)}, expected {tuple(w.shape)}")
+        if g.dtype != w.dtype:
+            raise ValueError(f"{what} leaf {p!r} has dtype {g.dtype}, "
+                             f"expected {w.dtype}")

@@ -3,8 +3,9 @@
 A round decomposes into explicit phases that round *drivers*
 (``repro_torch.drivers``) compose:
 
-  ``sample_cohort``        draw the round's active clients (the only phase
-                           that advances the host rng);
+  ``sample_cohort``        draw the round's active clients through the
+                           configured cohort sampler (the only phase that
+                           advances the host rng);
   ``build_round_batches``  host-side numpy batch tensors per prototype
                            group, a pure function of ``(round, cohort)``;
   ``train_clients``        every group's clients in one batched local
@@ -15,15 +16,17 @@ A round decomposes into explicit phases that round *drivers*
   ``evaluate_round``       test/val accuracy per prototype -> ``RoundLog``.
 
 Every tensor of a run lives on the engine's ``device``; the numpy batches
-cross to it once per round and the eval sets once per run.  Heterogeneous
+cross to it once per round and the eval sets once per run.
+``population()`` is the buffered-async driver's seam (registry, traffic
+model and upload buffer over the engine's sampler).  Heterogeneous
 cohorts, step-count bucketing other than ``none``, drop-worst, quantized
-or DP uploads, local Adam, populations, faults and meshes wait for their
+or DP uploads, local Adam, fault injection and meshes wait for their
 ROADMAP.md items and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +34,8 @@ import torch
 from repro_torch.common.options import BUCKET_KINDS
 from repro_torch.common.pytree import tree_to
 from repro_torch.core import feddf as feddf_mod
-from repro_torch.core.client import (build_batched_batches, evaluate,
+from repro_torch.core.client import (assign_buckets, bucket_capacities,
+                                     build_batched_batches, evaluate,
                                      make_batched_local_update,
                                      n_local_steps)
 from repro_torch.core.nets import Net
@@ -39,6 +43,8 @@ from repro_torch.core.strategies import GroupRound, RoundContext, get_strategy
 from repro_torch.data.distill_sources import DistillSource
 from repro_torch.data.synthetic import Dataset
 from repro_torch.optim.optimizers import sgd
+from repro_torch.population.config import FaultConfig, PopulationConfig
+from repro_torch.population.scheduler import SamplerContext, make_sampler
 
 
 @dataclasses.dataclass
@@ -69,6 +75,12 @@ class FLConfig:
     feddf_init_from: str = "average"  # average | previous
     target_accuracy: Optional[float] = None
     bucketing: BucketConfig = dataclasses.field(default_factory=BucketConfig)
+    # population / traffic / sampler axis; the defaults reproduce the
+    # fixed-roster uniform draw bit for bit
+    population: PopulationConfig = dataclasses.field(
+        default_factory=PopulationConfig)
+    # fault injection (not ported: an enabled config raises)
+    faults: FaultConfig = dataclasses.field(default_factory=FaultConfig)
 
 
 @dataclasses.dataclass
@@ -175,6 +187,9 @@ class RoundEngine:
             _pending("drop-worst", "9")
         if cfg.local_optimizer != "sgd":
             _pending(f"local optimizer {cfg.local_optimizer!r}", "5")
+        cfg.faults.validate()
+        if cfg.faults.enabled:
+            _pending("fault injection", "10")
         self.nets = nets
         self.client_proto = list(client_proto)
         self.train = train
@@ -199,6 +214,7 @@ class RoundEngine:
                  if self.client_proto[k] == p] or [1])
             for p in range(self.n_proto)]
         self.batch_seed_mult = 100_003
+        self._init_sampler()
         self.val_x = torch.as_tensor(val.x, device=self.device)
         self.val_y = torch.as_tensor(val.y, device=self.device)
         self.test_x = torch.as_tensor(test.x, device=self.device)
@@ -208,6 +224,41 @@ class RoundEngine:
             make_batched_local_update(self.nets[p], sgd(cfg.local_lr),
                                       prox_mu=prox)
             for p in range(self.n_proto)]
+
+    def _init_sampler(self) -> None:
+        """Bind the cohort sampler to the run-fixed population facts, as
+        the JAX package's engine does.  The default (uniform sampler,
+        population == partitions) is ``rng.choice(n_clients, n_active,
+        replace=False)`` bit for bit."""
+        cfg = self.cfg
+        cfg.population.validate()
+        proto_counts = [sum(1 for q in self.client_proto if q == p)
+                        for p in range(self.n_proto)]
+        k_cap = [min(self.n_active, c) if c else 1 for c in proto_counts]
+        self.population_size = int(cfg.population.size or self.n_clients)
+        self._part_bucket = np.zeros(self.n_clients, np.int64)
+        sampler_caps = []
+        for p in range(self.n_proto):
+            ks = [k for k in range(self.n_clients)
+                  if self.client_proto[k] == p]
+            steps_p = [self.client_steps[k] for k in ks]
+            caps = bucket_capacities(steps_p or [1], cfg.bucketing.kind,
+                                     cfg.bucketing.max_buckets)
+            counts = np.bincount(assign_buckets(steps_p, caps)
+                                 if steps_p else [], minlength=len(caps))
+            if ks:
+                self._part_bucket[ks] = assign_buckets(steps_p, caps)
+            sampler_caps.append([min(k_cap[p], int(c)) or 1 for c in counts])
+        pop_part = np.arange(self.population_size,
+                             dtype=np.int64) % self.n_clients
+        self.sampler = make_sampler(cfg.population.sampler).bind(
+            SamplerContext(
+                n_clients=self.population_size,
+                n_partitions=self.n_clients,
+                proto=np.asarray(self.client_proto, np.int64)[pop_part],
+                bucket=self._part_bucket[pop_part],
+                bucket_client_caps=sampler_caps))
+        self._population = None  # built lazily by population()
 
     def make_rng(self) -> np.random.Generator:
         return np.random.default_rng(self.cfg.seed)
@@ -225,10 +276,37 @@ class RoundEngine:
     # -- phases -----------------------------------------------------------
 
     def sample_cohort(self, rng: np.random.Generator) -> np.ndarray:
-        """The uniform cohort draw, ``rng.choice(n_clients, n_active,
-        replace=False)``, as the JAX package's default sampler makes it."""
-        k = min(self.n_active, self.n_clients)
-        return rng.choice(self.n_clients, size=k, replace=False)
+        """Draw the round's active clients through the cohort sampler.
+        With a registered population larger than the partition roster,
+        sampled ids map onto data partitions round-robin."""
+        active = self.sampler.sample(rng, self.n_active)
+        if self.population_size != self.n_clients:
+            active = np.asarray(active) % self.n_clients
+        return active
+
+    def population(self):
+        """The lazily-built :class:`PopulationManager` (buffered-async
+        driver seam): registry + traffic model + upload buffer sharing
+        this engine's bound sampler."""
+        if self._population is None:
+            from repro_torch.population.manager import PopulationManager
+            self._population = PopulationManager(
+                self.cfg.population, seed=self.cfg.seed,
+                n_partitions=self.n_clients,
+                partition_sizes=[len(p) for p in self.parts],
+                client_steps=self.client_steps,
+                client_proto=self.client_proto,
+                client_bucket=self._part_bucket,
+                n_active=self.n_active, sampler=self.sampler,
+                faults=self.cfg.faults)
+        return self._population
+
+    def guard_globals(self, globals_: List[dict], last_good: List[dict]
+                      ) -> Tuple[List[dict], List[bool]]:
+        """Divergence rollback of non-finite fused globals, which the JAX
+        package gates on fault injection.  The engine refuses an enabled
+        ``FaultConfig``, so here it is the identity."""
+        return globals_, [False] * len(globals_)
 
     def build_round_batches(self, t: int, active: np.ndarray
                             ) -> List[Optional[RoundBatches]]:

@@ -5,23 +5,28 @@ AVGLOGITS (paper §3):
     x_{t,j} = x_{t,j-1} - eta * d/dx KL( sigma(mean_k f(x_k, d)),
                                          sigma(f(x_{t,j-1}, d)) )
 
-The teachers are frozen during fusion, so the round's averaged teacher
-logits are precomputed once into a device-resident logit bank
-(``core/logit_bank.py``) and each distillation step gathers bank rows by
-the sampled indices.  With ``use_fused_kernel`` ``"auto"`` or ``True`` the
-loss is the fused bank kernel pair (``kernels/ops.ensemble_kl_loss_bank``:
-the CUDA kernel on the card, its plain version on the CPU); ``False`` is
-the explicit unfused route (gather, ``dequantize_rows``,
-:func:`avg_logits_kl_pre`).
+The teachers are frozen during fusion, so for a source with a pool the
+round's averaged teacher logits are precomputed once into a
+device-resident logit bank (``core/logit_bank.py``) and each distillation
+step gathers bank rows by the sampled indices (kernel K1).  Without a
+bank (``logit_bank="off"``, ``auto`` skipping a run too short to amortize
+it, or a pool-less source: ``generator``, ``noise``) every step runs the
+K teachers on its batch under ``torch.no_grad()`` and the loss takes the
+stacked ``[K, B, V]`` logits (kernel K2).  Teacher weights (the
+buffered-async driver's staleness importance) replace the uniform mean
+with a weighted consensus: folded into the bank rows, or on the
+on-the-fly path computed in PyTorch and handed to kernel K3 as ``[B, V]``
+rows.  With ``use_fused_kernel`` ``"auto"`` or ``True`` the loss is the
+fused kernel pair (``kernels/ops.py``: the CUDA kernel on the card, its
+plain version on the CPU); ``False`` is the explicit unfused route.
 
 The student trains with Adam + cosine in chunks of ``eval_every`` steps.
-The host reads nothing inside a chunk: the chunk's indices are moved to
-the device once, and the validation accuracy (the early-stopping signal)
-is read once per chunk.
+The host reads nothing inside a chunk: the chunk's indices or random
+draws are moved to the device once, and the validation accuracy (the
+early-stopping signal) is read once per chunk, as is the divergence
+guard's finiteness check when it is on.
 
-The on-the-fly path (no bank: bank off, skipped, or a pool-less source,
-which needs kernel K2), teacher weighting (K3), SWAG teachers and
-heterogeneous fusion wait for ROADMAP.md queue 1 item 9 and queue 2.
+SWAG teachers and heterogeneous fusion wait for ROADMAP.md queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -32,14 +37,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.common.pytree import (tree_flatten, tree_map,
-                                       tree_unflatten,
+from repro_torch.common.pytree import (tree_flatten, tree_isfinite,
+                                       tree_map, tree_unflatten,
                                        tree_weighted_mean_stacked)
-from repro_torch.core.logit_bank import (LogitBank, dequantize_rows,
-                                         resolve_bank)
+from repro_torch.core.logit_bank import (TEACHER_FORWARDS, LogitBank,
+                                         dequantize_rows, resolve_bank)
 from repro_torch.core.nets import Net
 from repro_torch.data.distill_sources import DistillSource
-from repro_torch.kernels.ops import ensemble_kl_loss_bank, use_fused_kernel
+from repro_torch.kernels.ops import (ensemble_kl_loss, ensemble_kl_loss_bank,
+                                     ensemble_kl_loss_pre, use_fused_kernel)
 from repro_torch.optim.optimizers import adam, apply_updates, sgd
 from repro_torch.optim.schedules import cosine
 
@@ -59,11 +65,36 @@ def avg_logits_kl_pre(student_logits: torch.Tensor,
 
 
 def avg_logits_kl(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
-                  temperature: float = 1.0) -> torch.Tensor:
+                  temperature: float = 1.0,
+                  teacher_weights: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """KL( softmax(mean_k teacher), softmax(student) ), mean over batch.
-    teacher_logits: [K, B, C] (raw, un-averaged); student_logits: [B, C]."""
-    return avg_logits_kl_pre(student_logits,
-                             teacher_logits.float().mean(dim=0), temperature)
+    teacher_logits: [K, B, C] (raw, un-averaged); student_logits: [B, C].
+    ``teacher_weights`` ([K], normalized) replaces the uniform mean with a
+    weighted consensus; None keeps the uniform mean."""
+    t = teacher_logits.float()
+    t_avg = (t.mean(dim=0) if teacher_weights is None
+             else _consensus(teacher_weights, t))
+    return avg_logits_kl_pre(student_logits, t_avg, temperature)
+
+
+def _consensus(teacher_weights: torch.Tensor,
+               teacher_logits: torch.Tensor) -> torch.Tensor:
+    """``tensordot(w, t)`` over the teacher axis, in float32."""
+    w = teacher_weights.to(device=teacher_logits.device, dtype=torch.float32)
+    return torch.tensordot(w, teacher_logits.float(), dims=([0], [0]))
+
+
+def normalize_teacher_weights(weights) -> Optional[torch.Tensor]:
+    """Importance weights -> normalized [K] float32 CPU tensor (None passes
+    through); normalized in float64, as the JAX package does."""
+    if weights is None:
+        return None
+    w = np.asarray(weights, np.float64)
+    total = w.sum()
+    if total <= 0:
+        raise ValueError(f"teacher weights must have a positive sum, got {w}")
+    return torch.from_numpy((w / total).astype(np.float32))
 
 
 @dataclasses.dataclass
@@ -141,6 +172,10 @@ def _accuracy(net: Net, params, x: torch.Tensor, y: torch.Tensor,
     return float(np.float32(correct.item()) / np.float32(len(y)))
 
 
+def _params_device(params) -> torch.device:
+    return next(iter(tree_flatten(params).values())).device
+
+
 def distill(
     student_net: Net,
     student_params,
@@ -151,54 +186,79 @@ def distill(
     val_y: Optional[torch.Tensor] = None,
     seed: int = 0,
     bank: Optional[LogitBank] = None,
+    teacher_weights=None,
 ) -> Tuple[dict, dict]:
-    """Server-side ensemble distillation on the logit bank; returns
-    ``(params, info)``.  The best-validation params are returned (strict
+    """Server-side ensemble distillation; returns ``(params, info)``.
+
+    ``teacher_logit_fns``: callables x -> [K_g, B, C], concatenated over
+    the teacher axis.  The best-validation params are returned (strict
     ``acc > best_acc`` from an initial -1.0), and the loop stops once
-    ``step - best_step >= patience``."""
+    ``step - best_step >= patience``.  ``teacher_weights`` ([K] in concat
+    order, any positive scale; None = uniform) biases the teacher
+    consensus.  With ``fusion.divergence_guard`` the params are checked
+    for non-finite values after every chunk; on a hit the loop stops and
+    returns the best-validation params (or, without validation, the
+    pre-distill student) with ``info["diverged"] = True``."""
     if fusion.batch_capacity is not None or fusion.batch_sizes is not None:
         raise NotImplementedError("distill-axis bucketing (heterogeneous "
                                   "fusion) waits for ROADMAP.md queue 1 "
                                   "item 9")
+    teacher_weights = normalize_teacher_weights(teacher_weights)
     decision = "bank" if bank is not None else "on_the_fly"
     built_here = False
     if bank is None and fusion.logit_bank != "off" and teacher_logit_fns:
         bank, reason = resolve_bank(
             teacher_logit_fns, source, fusion,
-            expected_steps=expected_distill_steps(fusion, val_x is not None))
+            expected_steps=expected_distill_steps(fusion, val_x is not None),
+            teacher_weights=teacher_weights)
         decision = _bank_decision(reason)
         built_here = bank is not None
-    if bank is None:
-        raise NotImplementedError(
-            f"on-the-fly distillation (bank decision {decision!r}) needs "
-            f"the raw-teacher kernel K2, ROADMAP.md queue 2")
-    device = bank.logits.device
+    n_teachers = sum(int(getattr(f, "n_teachers", 1))
+                     for f in teacher_logit_fns)
+    device = (bank.logits.device if bank is not None
+              else _params_device(student_params))
     fused = use_fused_kernel(fusion.use_fused_kernel, device)
     opt = _make_distill_opt(fusion)
+    # a bank already folded the weights into its rows
+    weights = (teacher_weights.to(device)
+               if teacher_weights is not None and bank is None else None)
 
     flat = {p: v.detach().clone() for p, v in
             tree_flatten(student_params).items()}
     trainable = student_net.trainable_mask(student_params)
     names = [p for p in flat if trainable[p]]
     opt_state = opt.init([flat[p] for p in names])
-    pool, bank_rows, scales = bank.pool, bank.logits, bank.scales
     temp = float(fusion.temperature)
 
-    def step_fn(idx, step):
+    def loss_fn(s_logits, x, idx):
+        if bank is not None:
+            if fused:
+                return ensemble_kl_loss_bank(s_logits, bank.logits,
+                                             bank.scales, idx, temp)
+            t_avg = dequantize_rows(
+                bank.logits[idx],
+                None if bank.scales is None else bank.scales[idx])
+            return avg_logits_kl_pre(s_logits, t_avg, temp)
+        with torch.no_grad():
+            t_logits = torch.cat([f(x) for f in teacher_logit_fns], dim=0)
+        if not fused:
+            return avg_logits_kl(s_logits, t_logits, temp, weights)
+        if weights is None:
+            return ensemble_kl_loss(s_logits, t_logits, temp)
+        # the weighted consensus outside the kernel, as JAX computes it
+        # outside the Pallas call; the kernel takes its [B, V] rows
+        return ensemble_kl_loss_pre(s_logits, _consensus(weights, t_logits),
+                                    temp)
+
+    def step_fn(x, idx, step):
         nonlocal opt_state
         with torch.enable_grad():
             leaves = dict(flat)
             for p in names:
                 leaves[p] = flat[p].detach().requires_grad_(True)
-            s_logits = student_net.apply(tree_unflatten(leaves), pool[idx],
+            s_logits = student_net.apply(tree_unflatten(leaves), x,
                                          train=True)
-            if fused:
-                loss = ensemble_kl_loss_bank(s_logits, bank_rows, scales,
-                                             idx, temp)
-            else:
-                t_avg = dequantize_rows(
-                    bank_rows[idx], None if scales is None else scales[idx])
-                loss = avg_logits_kl_pre(s_logits, t_avg, temp)
+            loss = loss_fn(s_logits, x, idx)
             grads = torch.autograd.grad(loss, [leaves[p] for p in names])
         with torch.no_grad():
             cur = [flat[p] for p in names]
@@ -209,13 +269,29 @@ def distill(
     have_val = val_x is not None
     best = (student_params, -1.0, 0)
     history = []
-    stream = source.index_stream(seed, fusion.batch_size, fusion.eval_every)
+    ee = fusion.eval_every
+    if bank is not None:
+        stream = source.index_stream(seed, fusion.batch_size, ee)
+    else:
+        stream = source.input_stream(seed, fusion.batch_size, ee)
+    guard = bool(fusion.divergence_guard)
+    diverged = False
     step = 0
     while step < fusion.max_steps:
-        idx_chunk = next(stream).to(device)
-        for j in range(fusion.eval_every):
-            step_fn(idx_chunk[j], step)
+        block = next(stream).to(device)
+        for j in range(ee):
+            if bank is not None:
+                step_fn(bank.pool[block[j]], block[j], step)
+            else:
+                step_fn(block[j], None, step)
             step += 1
+        if bank is None and n_teachers:
+            TEACHER_FORWARDS.add(ee * n_teachers)
+        if guard and not bool(tree_isfinite(flat)):
+            # a non-finite distill state can only get worse: stop and
+            # roll back to the last-good params
+            diverged = True
+            break
         if have_val:
             params = tree_unflatten(flat)
             acc = _accuracy(student_net, params, val_x, val_y)
@@ -228,17 +304,19 @@ def distill(
     if have_val:
         best_params, best_acc, best_step = best
     else:
-        best_params, best_acc, best_step = tree_unflatten(flat), -1.0, 0
+        best_params = student_params if diverged else tree_unflatten(flat)
+        best_acc, best_step = -1.0, 0
     info = {"steps": step, "best_val_acc": best_acc,
             "best_step": best_step, "val_history": history,
-            "diverged": False,
-            "logit_bank": True,
+            "diverged": diverged,
+            "logit_bank": bank is not None,
             "bank_decision": decision,
-            "bank_dtype": bank.dtype_name,
-            "bank_nbytes": bank.nbytes,
+            "bank_dtype": bank.dtype_name if bank is not None else "",
+            "bank_nbytes": bank.nbytes if bank is not None else 0,
             "bank_build_s": bank.build_time_s if built_here else 0.0,
-            "teacher_batch_forwards": (bank.n_teacher_batch_forwards
-                                       if built_here else 0),
+            "teacher_batch_forwards": (
+                bank.n_teacher_batch_forwards if built_here
+                else (0 if bank is not None else step * n_teachers)),
             "batch_capacity": int(fusion.batch_size),
             "padded_rows_per_step": 0}
     return best_params, info
@@ -257,14 +335,15 @@ def feddf_fuse_stacked(
     teacher_weights=None,
 ) -> Tuple[dict, dict]:
     """Algorithm 1 on an already-stacked [K, ...] teacher tree.
-    ``student=None`` initialises from the weighted average (line 6)."""
+    ``student=None`` initialises from the weighted average (line 6).
+    ``teacher_weights`` (per-teacher importance, e.g. the buffered-async
+    ``(1+s)^-a`` staleness weights) biases the teacher consensus; None
+    keeps the paper's uniform AVGLOGITS."""
     if fusion.swag_samples > 0:
         raise NotImplementedError("SWAG teachers wait for ROADMAP.md queue "
                                   "1 item 9")
-    if teacher_weights is not None:
-        raise NotImplementedError("weighted teacher consensus (kernel K3) "
-                                  "waits for ROADMAP.md queue 2")
     if student is None:
         student = tree_weighted_mean_stacked(teacher_stack, weights)
     tfn = make_teacher_logits_fn(net, teacher_stack)
-    return distill(net, student, [tfn], source, fusion, val_x, val_y, seed)
+    return distill(net, student, [tfn], source, fusion, val_x, val_y, seed,
+                   teacher_weights=teacher_weights)

@@ -12,8 +12,10 @@ Rows are stored as float32, bfloat16, int8 or fp8 e4m3; the quantized
 dtypes carry one fp32 scale per row, and the fused distillation kernel
 dequantizes rows in registers (``kernels/ensemble_kl_bank.py``).
 
-The persistent cross-round cache and teacher weighting wait for ROADMAP.md
-queue 1 items 7 and 10.
+Teacher weights (the buffered-async driver's staleness importance) fold
+into the stored rows at build time: the bank holds the weighted consensus
+instead of the uniform mean, and the distillation steps stay the same.
+The persistent cross-round cache waits for ROADMAP.md queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -36,6 +38,26 @@ _FP8_E4M3_MAX = 448.0  # largest finite float8_e4m3fn value
 _QUANT_MAX = {"int8": _INT8_MAX, "fp8_e4m3": _FP8_E4M3_MAX}
 _STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
             "int8": torch.int8, "fp8_e4m3": torch.float8_e4m3fn}
+
+
+class Counter:
+    """A plain process-wide work counter (``add`` / ``reset`` /
+    ``count``)."""
+
+    def __init__(self):
+        self.count = 0
+
+    def add(self, n: int) -> None:
+        self.count += int(n)
+
+    def reset(self) -> None:
+        self.count = 0
+
+
+# Teacher *batch* forwards (one teacher, one batch of rows), from bank
+# builds and on-the-fly distillation chunks alike: the evidence that the
+# bank removes the K x steps redundancy.
+TEACHER_FORWARDS = Counter()
 
 
 @dataclasses.dataclass
@@ -106,26 +128,44 @@ def dequantize_rows(rows: torch.Tensor,
     return out
 
 
+def _normalized_weights(teacher_weights, k_total: int,
+                        device) -> torch.Tensor:
+    w = torch.as_tensor(teacher_weights, dtype=torch.float32).reshape(-1)
+    if tuple(w.shape) != (k_total,):
+        raise ValueError(
+            f"teacher_weights must have shape ({k_total},) to match the "
+            f"concatenated teacher axis, got {tuple(w.shape)}")
+    return (w / w.sum()).to(device)
+
+
 def build_logit_bank(teacher_logit_fns: Sequence[Callable], pool, *,
                      chunk_size: int = DEFAULT_CHUNK,
-                     dtype: str = "float32") -> LogitBank:
+                     dtype: str = "float32",
+                     teacher_weights=None) -> LogitBank:
     """One chunked pass of every teacher group over ``pool`` -> LogitBank.
 
     Each chunk evaluates all groups' stacked teachers ([K_g, c, C] each),
-    concatenates them along the teacher axis and reduces to the fp32 mean;
-    the full [K, N, C] tensor never exists.  The quantized dtypes quantize
-    each chunk's mean in the same pass."""
+    concatenates them along the teacher axis and reduces to the fp32 mean,
+    or to the ``teacher_weights`` consensus (``[K]`` in concat order, any
+    positive scale: renormalized here); the full [K, N, C] tensor never
+    exists.  The quantized dtypes quantize each chunk's rows in the same
+    pass."""
     t0 = time.perf_counter()
     bank_dtype(dtype)
     n = int(pool.shape[0])
     c = max(1, min(int(chunk_size), n))
     rows, scales, k_total, n_chunks = [], [], 0, 0
+    w_norm = None
     with torch.no_grad():
         for s in range(0, n, c):
             t = torch.cat([f(pool[s:s + c]) for f in teacher_logit_fns],
                           dim=0).float()
             k_total = int(t.shape[0])
-            mean = t.mean(dim=0)
+            if teacher_weights is not None and w_norm is None:
+                w_norm = _normalized_weights(teacher_weights, k_total,
+                                             t.device)
+            mean = (t.mean(dim=0) if w_norm is None
+                    else torch.tensordot(w_norm, t, dims=([0], [0])))
             if dtype in QUANTIZED_BANK_DTYPES:
                 q, sc = quantize_rows(mean, dtype)
                 rows.append(q)
@@ -133,6 +173,7 @@ def build_logit_bank(teacher_logit_fns: Sequence[Callable], pool, *,
             else:
                 rows.append(mean.to(_STORAGE[dtype]))
             n_chunks += 1
+            TEACHER_FORWARDS.add(k_total)
     return LogitBank(pool=pool, logits=torch.cat(rows),
                      n_teachers=k_total,
                      n_teacher_batch_forwards=n_chunks * k_total,
@@ -142,7 +183,8 @@ def build_logit_bank(teacher_logit_fns: Sequence[Callable], pool, *,
 
 
 def resolve_bank(teacher_logit_fns: Sequence[Callable], source, fusion, *,
-                 expected_steps: Optional[int] = None
+                 expected_steps: Optional[int] = None,
+                 teacher_weights=None
                  ) -> Tuple[Optional[LogitBank], str]:
     """Resolve ``FusionConfig.logit_bank`` against the source.
 
@@ -150,7 +192,8 @@ def resolve_bank(teacher_logit_fns: Sequence[Callable], source, fusion, *,
     / ``no_teachers`` / ``no_pool`` / ``skipped_small_run``.  ``auto``
     builds whenever the source has a pool and the run is expected to
     touch at least ``N`` pool rows (``expected_steps x batch_size >= N``);
-    a shorter run keeps the on-the-fly path."""
+    a shorter run keeps the on-the-fly path.  ``teacher_weights`` fold
+    into the bank rows (:func:`build_logit_bank`)."""
     mode = getattr(fusion, "logit_bank", "off")
     if mode not in LOGIT_BANK_MODES:
         raise ValueError(f"logit_bank must be one of {LOGIT_BANK_MODES}, "
@@ -164,11 +207,13 @@ def resolve_bank(teacher_logit_fns: Sequence[Callable], source, fusion, *,
         if mode == "on":
             warnings.warn(
                 f"logit_bank='on' but source {type(source).__name__} has "
-                f"no indexable pool()", UserWarning, stacklevel=2)
+                f"no indexable pool(); falling back to on-the-fly teacher "
+                f"forwards", UserWarning, stacklevel=2)
         return None, "no_pool"
     bank_dtype(fusion.bank_dtype)
     if (mode == "auto" and expected_steps is not None
             and expected_steps * fusion.batch_size < len(pool)):
         return None, "skipped_small_run"
     return build_logit_bank(teacher_logit_fns, pool,
-                            dtype=fusion.bank_dtype), "built"
+                            dtype=fusion.bank_dtype,
+                            teacher_weights=teacher_weights), "built"

@@ -30,6 +30,17 @@ class GroupRound:
     prev_global: dict
     stack: Optional[Pytree]      # [K_g, ...]; None if no client this round
     weights: np.ndarray          # [K_g] local dataset sizes
+    # FedAsync staleness importance (1+s)^-a per client, set by the
+    # buffered_async driver; None (every sync round, and every buffered
+    # round whose uploads are all fresh) keeps the plain aggregation
+    importance: Optional[np.ndarray] = None
+
+    def effective_weights(self) -> np.ndarray:
+        """Data weights scaled by staleness importance (if any)."""
+        if self.importance is None:
+            return self.weights
+        return (np.asarray(self.weights, np.float64)
+                * np.asarray(self.importance, np.float64))
 
 
 @dataclasses.dataclass
@@ -98,7 +109,8 @@ def available_strategies() -> List[str]:
 class FedAvg(ServerStrategy):
     def aggregate(self, groups, state, ctx):
         new = [g.prev_global if g.stack is None
-               else tree_weighted_mean_stacked(g.stack, g.weights)
+               else tree_weighted_mean_stacked(g.stack,
+                                               g.effective_weights())
                for g in groups]
         return new, state, [{} for _ in groups]
 
@@ -120,14 +132,15 @@ class FedDF(ServerStrategy):
         g = groups[0]
         if g.stack is None:
             return [g.prev_global], state, [{}]
-        avg = tree_weighted_mean_stacked(g.stack, g.weights)
+        w_eff = g.effective_weights()
+        avg = tree_weighted_mean_stacked(g.stack, w_eff)
         pre_acc = (evaluate(g.net, avg, ctx.test_x, ctx.test_y)
                    if ctx.test_x is not None else None)
         student = avg if cfg.feddf_init_from == "average" else g.prev_global
         fused, info = feddf_mod.feddf_fuse_stacked(
-            g.net, g.stack, g.weights, ctx.source, cfg.fusion,
+            g.net, g.stack, w_eff, ctx.source, cfg.fusion,
             ctx.val_x, ctx.val_y, seed=cfg.seed + ctx.round,
-            student=student)
+            student=student, teacher_weights=g.importance)
         return [fused], state, [{
             "distill_steps": info["steps"],
             "pre_distill_acc": pre_acc,

@@ -1,18 +1,23 @@
 """Round-driver protocol + registry.
 
 A :class:`Driver` owns the round loop over a :class:`~repro_torch.core.
-engine.RoundEngine`; the engine owns the math.  Only ``sync`` is ported;
-the JAX package's other drivers raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+engine.RoundEngine`; the engine owns the math.  ``sync`` and
+``buffered_async`` are ported; the JAX package's other drivers raise
+``NotImplementedError`` naming their ROADMAP.md item.  Every driver keeps
+``phase_seconds``: each round's wall seconds per phase, with the device
+synchronised at each phase end so that queued work is charged to the
+phase that issued it.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
+
+import torch
 
 from repro_torch.core.engine import FLResult, RoundEngine, RoundLog
 
 _PENDING = {"async_pipelined": "ROADMAP.md queue 1 item 10",
-            "buffered_async": "ROADMAP.md queue 1 item 10",
             "distributed": "ROADMAP.md queue 1 item 10",
             "multihost": "ROADMAP.md queue 1 item 11"}
 
@@ -30,6 +35,7 @@ class Driver:
             raise ValueError(f"prefetch must be >= 0, got {prefetch}")
         self.staleness = staleness
         self.prefetch = prefetch
+        self.phase_seconds: List[Dict[str, float]] = []
 
     def run(self, engine: RoundEngine, *,
             init_globals: Optional[List[dict]] = None
@@ -42,6 +48,17 @@ class Driver:
         state = engine.init_state(globals_)
         logs: List[List[RoundLog]] = [[] for _ in range(engine.n_proto)]
         return globals_, state, logs, engine.make_rng()
+
+    @staticmethod
+    def _timed(engine: RoundEngine, phases: Dict[str, float], name: str,
+               fn, *args):
+        """``fn(*args)``, its wall seconds added to ``phases[name]``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize(engine.device)
+        phases[name] = phases.get(name, 0.0) + time.perf_counter() - t0
+        return out
 
     @staticmethod
     def _results(engine: RoundEngine, logs, globals_, rounds_to_target):

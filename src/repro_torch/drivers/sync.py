@@ -7,15 +7,11 @@ Phase order per round t:
 
 Nothing overlaps; round t+1's client training starts from round t's
 fused globals.  ``phase_seconds`` keeps each round's wall seconds per
-phase; the device is synchronised at each phase end so that queued work
-is charged to the phase that issued it.
+phase.
 """
 from __future__ import annotations
 
-import time
-from typing import Dict, List
-
-import torch
+from typing import Dict
 
 from repro_torch.core.engine import RoundEngine
 from repro_torch.drivers.base import Driver, register_driver
@@ -29,20 +25,13 @@ class SyncDriver(Driver):
                 f"{type(self).__name__} runs sync semantics; staleness="
                 f"{staleness} only applies to the async_pipelined driver")
         super().__init__(staleness=staleness, prefetch=prefetch)
-        self.phase_seconds: List[Dict[str, float]] = []
 
     def run(self, engine: RoundEngine, *, init_globals=None):
         globals_, state, logs, rng = self._setup(engine, init_globals)
         rounds_to_target = None
-        device = engine.device
 
         def timed(phases, name, fn, *args):
-            t0 = time.perf_counter()
-            out = fn(*args)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            phases[name] = time.perf_counter() - t0
-            return out
+            return self._timed(engine, phases, name, fn, *args)
 
         for t in range(1, engine.cfg.rounds + 1):
             phases: Dict[str, float] = {}

@@ -29,8 +29,47 @@ def use_fused_kernel(flag, device) -> bool:
         raise NotImplementedError(
             "use_fused_kernel=True asks for the CUDA kernel, which runs on "
             "CUDA tensors only; use 'auto' (plain version on the CPU) or "
-            "False.  The on-the-fly kernels K2/K3 are ROADMAP.md queue 2.")
+            "False.")
     return flag
+
+
+def _check_on_cpu(**tensors) -> None:
+    for name, t in tensors.items():
+        if t is not None and t.is_cuda:
+            raise ValueError(f"{name} is on {t.device} while the student "
+                             f"logits are on the CPU")
+
+
+def ensemble_kl_loss(student_logits: torch.Tensor,
+                     teacher_logits: torch.Tensor,
+                     temperature: float = 1.0) -> torch.Tensor:
+    """AVGLOGITS loss against the raw teachers (K2, the on-the-fly path).
+
+    student: [..., V]; teachers: [K, ..., V] float32 or bfloat16; leading
+    dims are flattened into rows."""
+    v = student_logits.shape[-1]
+    s2 = student_logits.reshape(-1, v)
+    t2 = teacher_logits.reshape(teacher_logits.shape[0], -1, v)
+    if s2.is_cuda:
+        from repro_torch.kernels.ensemble_kl import ensemble_kl
+        return ensemble_kl(s2, t2.contiguous(), temperature)
+    _check_on_cpu(teacher_logits=t2)
+    return ref.ensemble_kl(s2, t2, temperature)
+
+
+def ensemble_kl_loss_pre(student_logits: torch.Tensor,
+                         teacher_avg_logits: torch.Tensor,
+                         temperature: float = 1.0) -> torch.Tensor:
+    """AVGLOGITS loss against pre-averaged teacher rows (K3, the weighted
+    teacher consensus).  student, teacher_avg: [..., V]."""
+    v = student_logits.shape[-1]
+    s2 = student_logits.reshape(-1, v)
+    t2 = teacher_avg_logits.reshape(-1, v)
+    if s2.is_cuda:
+        from repro_torch.kernels.ensemble_kl import ensemble_kl_pre
+        return ensemble_kl_pre(s2, t2.contiguous(), temperature)
+    _check_on_cpu(teacher_avg_logits=t2)
+    return ref.ensemble_kl_pre(s2, t2, temperature)
 
 
 def ensemble_kl_loss_bank(student_logits: torch.Tensor,
@@ -47,11 +86,7 @@ def ensemble_kl_loss_bank(student_logits: torch.Tensor,
     if s2.is_cuda:
         from repro_torch.kernels.ensemble_kl_bank import ensemble_kl_bank
         return ensemble_kl_bank(s2, bank_rows, scales, idx2, temperature)
-    for name, t in (("bank_rows", bank_rows), ("idx", idx2),
-                    ("scales", scales)):
-        if t is not None and t.is_cuda:
-            raise ValueError(f"{name} is on {t.device} while the student "
-                             f"logits are on the CPU")
+    _check_on_cpu(bank_rows=bank_rows, idx=idx2, scales=scales)
     row_scale = (torch.ones(idx2.shape, dtype=torch.float32)
                  if scales is None else scales[idx2].float())
     return ref.ensemble_kl_bank(s2, bank_rows, row_scale, idx2, temperature)

@@ -107,14 +107,40 @@ def test_avg_logits_kl_matches_jax():
     assert got == pytest.approx(want, rel=1e-6, abs=1e-7)
 
 
+def _assert_params_close(tp, jp, atol=ATOL):
+    tflat = tree_flatten(tp)
+    for path, v in jax.tree_util.tree_flatten_with_path(jp)[0]:
+        key = "/".join(str(p.key) for p in path)
+        np.testing.assert_allclose(tflat[key].numpy(), np.asarray(v),
+                                   rtol=0, atol=atol)
+
+
 @pytest.mark.parametrize("mode", ["off", "auto"])
 def test_paths_without_a_bank_raise(mode):
     """No bank (bank off, or auto skipping a run too short to amortize
-    it) is the on-the-fly path, which needs kernel K2: not ported."""
-    _, tn, _, tstack, pool, val = _setup()
-    ft = tfeddf.FusionConfig(max_steps=20, patience=0, eval_every=20,
-                             batch_size=4, logit_bank=mode)
-    with pytest.raises(NotImplementedError, match="K2"):
-        tfeddf.feddf_fuse_stacked(tn, tstack, [1.0, 1.0, 1.0], TSource(pool),
-                                  ft, torch.from_numpy(val.x),
-                                  torch.from_numpy(val.y))
+    it) is the on-the-fly path: every step runs the teachers on the
+    sampled pool rows (kernel K2's plain version on the CPU).  It no
+    longer raises; it matches the JAX package's on-the-fly distill, step
+    count, bank decision and teacher-forward count exactly."""
+    jn, tn, jstack, tstack, pool, val = _setup()
+    # batch 4 x (earliest stop 40 steps) < 300 pool rows: auto skips
+    fj = jfeddf.FusionConfig(max_steps=40, patience=20, eval_every=20,
+                             batch_size=4, temperature=2.0,
+                             logit_bank=mode)
+    ft = tfeddf.FusionConfig(**dataclasses.asdict(fj))
+    jp, jinfo = jfeddf.feddf_fuse_stacked(
+        jn, jstack, [1.0, 2.0, 1.0], JSource(pool), fj, jnp.asarray(val.x),
+        val.y, seed=3)
+    tp, tinfo = tfeddf.feddf_fuse_stacked(
+        tn, tstack, [1.0, 2.0, 1.0],
+        TSource(pool, indices=jax_index_stream(300)), ft,
+        torch.from_numpy(val.x), torch.from_numpy(val.y), seed=3)
+    want = "on_the_fly" if mode == "off" else "skipped_small_run"
+    assert tinfo["bank_decision"] == jinfo["bank_decision"] == want
+    for k in ("steps", "best_step", "logit_bank", "bank_nbytes",
+              "teacher_batch_forwards"):
+        assert tinfo[k] == jinfo[k], k
+    assert tinfo["teacher_batch_forwards"] == tinfo["steps"] * 3
+    assert [s for s, _ in tinfo["val_history"]] == \
+        [s for s, _ in jinfo["val_history"]]
+    _assert_params_close(tp, jp)

@@ -100,7 +100,7 @@ def test_cpu_tensors_take_the_plain_version():
 def test_fused_flag_resolution():
     assert ops.use_fused_kernel("auto", "cpu") is True
     assert ops.use_fused_kernel(False, "cpu") is False
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="CUDA tensors only"):
         ops.use_fused_kernel(True, "cpu")
     with pytest.raises(ValueError):
         ops.use_fused_kernel("off", "cpu")

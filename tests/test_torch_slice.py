@@ -92,9 +92,94 @@ def test_spec_json_round_trips_in_both_packages():
     assert default == japi.ExperimentSpec().to_json()
 
 
+def jax_latent_stream(latent_dim):
+    """The latents JAX's generator source draws per distill step."""
+    def stream(seed, batch_size, chunk):
+        key = jax.random.PRNGKey(seed)
+        while True:
+            block = []
+            for _ in range(chunk):
+                key, k1 = jax.random.split(key)
+                block.append(np.asarray(jax.random.normal(
+                    k1, (batch_size, latent_dim))))
+            yield np.stack(block)
+    return stream
+
+
+def generator_spec(pkg):
+    d = tiny_spec(pkg).to_dict()
+    d["source"] = {"name": "generator", "params": {"latent_dim": 8}}
+    return pkg.ExperimentSpec.from_dict(d)
+
+
+def test_generator_quickstart_matches_jax_round_by_round(monkeypatch):
+    """The Fig. 5 generator source: no pool, so every round distils on
+    the fly (K2's plain version).  The JAX decoder weights, init and
+    latents are injected into the port."""
+    from repro_torch.api import experiment as texp
+    from repro_torch.data.distill_sources import GeneratorSource
+    jspec = generator_spec(japi)
+    jres = japi.Experiment(jspec).run()
+    bundle = japi.build_task_bundle(jspec)
+    jnet = japi.build_cohort(jspec, bundle)[0][0]
+    jsrc = japi.build_source(jspec, bundle,
+                             japi.build_splits(jspec, bundle)[0])
+    init = jax.tree.map(np.asarray, jnet.init(jax.random.PRNGKey(jspec.seed)))
+
+    def source_with_jax_weights(spec, bundle, train, device):
+        return GeneratorSource(
+            (2,), latent_dim=8, hidden=jsrc.hidden, mean=jsrc.mean,
+            std=jsrc.std, device=device, w1=np.asarray(jsrc._w1),
+            w2=np.asarray(jsrc._w2))
+    monkeypatch.setattr(texp, "build_source", source_with_jax_weights)
+    tspec = tapi.ExperimentSpec.from_json(jspec.to_json())
+    tres = tapi.Experiment(tspec, device="cpu").run(
+        init_globals=[convert.to_torch(init)],
+        draw_stream=jax_latent_stream(8))
+
+    n_test = int(600 * 0.2)
+    for jl, tl in zip(jres.result.logs, tres.result.logs, strict=True):
+        assert tl.bank == jl.bank == "on_the_fly"
+        assert tl.distill_steps == jl.distill_steps
+        assert tl.teacher_forwards == jl.teacher_forwards == \
+            tl.distill_steps * tl.n_participants
+        assert abs(tl.test_acc - jl.test_acc) <= 1.0 / n_test + 1e-12
+    tflat = tree_flatten(tres.global_params[0])
+    for path, v in jax.tree_util.tree_flatten_with_path(
+            jres.global_params[0])[0]:
+        key = "/".join(str(p.key) for p in path)
+        np.testing.assert_allclose(tflat[key].numpy(), np.asarray(v),
+                                   rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("change", [
+    {"source": {"name": "generator", "params": {"latent_dim": 8}}},
+    {"source": {"name": "noise", "params": {"low": -2.0}}},
+    {"source": {"name": "in_domain", "params": {}}},
+    {"driver": {"kind": "buffered_async", "staleness": 1, "prefetch": 1},
+     "population": {"size": 12, "sampler": "prioritized", "buffer_size": 2,
+                    "max_staleness": 3, "staleness_exponent": 0.5,
+                    "traffic": {"arrival": "bernoulli", "rate": 0.9,
+                                "latency": 1.0, "jitter": 0.2,
+                                "straggler_frac": 0.1,
+                                "straggler_mult": 4.0, "dropout": 0.05}}},
+])
+def test_new_spec_json_round_trips_in_both_packages(change):
+    d = tiny_spec(japi).to_dict()
+    d.update(change)
+    jspec = japi.ExperimentSpec.from_dict(d).validate()
+    text = jspec.to_json()
+    tspec = tapi.ExperimentSpec.from_json(text)
+    assert tspec.to_json() == text
+    assert tspec.validate() is tspec
+
+
 @pytest.mark.parametrize("change,exc", [
     ({"driver": {"kind": "async_pipelined", "staleness": 1,
                  "prefetch": 1}}, NotImplementedError),
+    ({"faults": {"nan_rate": 0.1}}, NotImplementedError),
+    ({"cohort": {"prototypes": [{"name": "mlp", "params": {}}] * 2,
+                 "assignment": "round_robin"}}, NotImplementedError),
     ({"bucket": {"kind": "pow2", "max_buckets": 4}}, NotImplementedError),
     ({"strategy": {"name": "fedavgm"}}, NotImplementedError),
     ({"task": {"name": "nope", "n_samples": 10, "seed": None,
