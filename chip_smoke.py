@@ -17,10 +17,15 @@ and in order:
    path's shape and two wider ones, for every bank dtype and two
    temperatures; K2 (raw teachers) and K3 (pre-averaged rows) at their
    paths' shape and two wider ones, K = 1 too, float32 and bfloat16
-   teachers, two temperatures;
-4. drives three paths through ``Experiment(spec).run()`` on the card at
-   the quickstart's published widths, 3 rounds each, with every launch
-   count set to 0 just before a path and read just after it:
+   teachers, two temperatures; K4 (causal / sliding-window attention) at
+   the serve path's shape, gemma3's local width and two ragged shapes,
+   float32 and bfloat16, beside ``scaled_dot_product_attention`` (timed
+   only); K5 (Mamba2 SSD scan, y and final state) at the serve path's
+   shape, mamba2-2.7b's width and two ragged shapes;
+4. drives four paths on the card, with every launch count set to 0 just
+   before a path and read just after it.  Paths 1-3 go through
+   ``Experiment(spec).run()`` at the quickstart's published widths, 3
+   rounds each:
    - path 1, the FedDF quickstart (``unlabeled`` pool, logit bank): every
      round uses the bank and K1 launches once per distill step;
    - path 2, the paper's Fig. 5 ``generator`` source (no pool): every
@@ -29,9 +34,14 @@ and in order:
      ``noise`` source under traffic latency: stale uploads reach fusion,
      which takes the weighted consensus, so K2 + K3 launch once per
      distill step with K3 launching;
-   and checks that the globals are finite; then reruns the first rounds
-   of each path on the card and on the CPU (plain versions) from the same
-   seed and compares them;
+   and each checks that the globals are finite, then reruns its first
+   rounds on the card and on the CPU (plain versions) from the same seed
+   and compares them.  Path 4 serves zamba2-1.2b at full width and depth
+   through ``repro_torch.launch.serve.serve`` (batch 4, a 2000-token
+   prompt, 32 tokens): K4 launches 5 and K5 33 times in the prefill and
+   neither in decode; it profiles one prefill, checks forward against
+   prefill + 2 forced decode steps at full depth on the card, and 10
+   layers at full width on the card against the CPU;
 5. prints one ``{"kernels": [...]}`` line, the card line, and as its last
    line ``{"ok": true, "device": {...}}``.
 
@@ -41,6 +51,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -86,6 +97,39 @@ K2_GRAD_RTOL, K2_GRAD_ATOL = 1e-4, 1e-7
 #   O(T / B), the JAX package's 3e-7 absolute applies.
 FWD_ATOL, FWD_RTOL = 5e-6, 2e-6
 BWD_ATOL = 3e-7
+
+# K4 (B, H, S, D, window): the serve path's shared attention block
+# (zamba2-1.2b: 32 heads x 64, prompt 2000, causal); gemma3's local-layer
+# width with equal heads (D 256, window 1024); two ragged cases of
+# tests/test_kernels.py.  Against the plain version, the JAX package's
+# tolerances (tests/test_kernels.py): rtol 1e-4 / atol 1e-5 in float32,
+# 3e-2 in bfloat16.
+K4_SHAPES = [(4, 32, 2000, 64, None), (1, 8, 4096, 256, 1024),
+             (1, 2, 100, 8, 24), (2, 4, 128, 32, 32)]
+K4_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (3e-2, 3e-2)}
+# K5 (B, S, H, P, N): the serve path's Mamba2 layers (zamba2-1.2b, prompt
+# 2000); mamba2-2.7b's width; two ragged cases of tests/test_kernels.py.
+# Against the plain version at the config's chunk (256; the kernel scans in
+# chunks of 64), y and final state, rtol 1e-4 / atol 1e-5
+# (tests/test_kernels.py); the small cases also against the sequential
+# recurrence.
+K5_SHAPES = [(4, 2000, 64, 64, 64), (1, 4096, 80, 64, 128),
+             (1, 17, 2, 8, 4), (1, 50, 3, 8, 16)]
+K5_CHUNK = 256
+K5_RTOL, K5_ATOL = 1e-4, 1e-5
+# Path 4: zamba2-1.2b served at full width and depth.
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "zamba2-1.2b", 4, 2000, 32
+SERVE_K4, SERVE_K5 = 5, 33          # launches per prefill (38 layers)
+# Check (a): forward(prompt + 2) against prefill(prompt) + 2 forced decode
+# steps on the card, tests/test_decode.py's tolerances.
+PREFILL_RTOL, PREFILL_ATOL, DECODE_ATOL = 2e-3, 2e-4, 2e-3
+# Check (b): 10 layers (one pattern repeat + a 3-mamba tail) at full width,
+# batch 1, prompt 300, 4 forced decode steps, card (kernels) against CPU
+# (plain versions) from the same weights drawn once on the CPU, held to
+# 1e-3 of the largest logit.  Beside it every run measures the CPU's own
+# sensitivity: the same run with the weights moved by about one unit in the
+# last place.
+CPU_LAYERS, CPU_PROMPT, CPU_STEPS, CPU_REL_ATOL = 10, 300, 4, 1e-3
 
 # The quickstart main path (examples/quickstart.py at its published widths),
 # and each later path, 3 rounds each.
@@ -379,6 +423,330 @@ def k2_phase(device):
     return rows, errors
 
 
+def excess(got, want, rtol: float, atol: float):
+    """(max |got - want|, max of |got - want| - atol - rtol |want|): the
+    check passes when the second is <= 0."""
+    d = (got.float() - want.float()).abs()
+    return (float(d.max()),
+            float((d - atol - rtol * want.float().abs()).max()))
+
+
+def bound(byt: float, ops: float) -> dict:
+    by_bytes, by_ops = byt / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
+    return {"bytes": byt, "ops": ops,
+            "bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def k4_bound(b, h, s, d, window, elem) -> dict:
+    """q, k, v read and o written once; 4 D flops (q.k and p.v) for every
+    (query, key) pair the mask lets through."""
+    w = s if window is None else window
+    pairs = sum(min(i + 1, w) for i in range(s))
+    return bound(4 * b * h * s * d * elem, 4 * d * b * h * pairs)
+
+
+def k5_bound(b, s, h, p, n, elem) -> dict:
+    """x, dt, a_log, B, C read and y, the final state written once; per
+    (batch, head) and kernel chunk of l valid steps 4 l N P (inter-chunk
+    output and state update) + l (l + 1) (N + P) (C.B and the intra-chunk
+    product, lower triangles) + l (l - 1) / 2 (segment sums) flops."""
+    from repro_torch.kernels.ssd_scan import CHUNK
+    ops = 0
+    for c0 in range(0, s, CHUNK):
+        ln = min(CHUNK, s - c0)
+        ops += 4 * ln * n * p + ln * (ln + 1) * (n + p) + ln * (ln - 1) // 2
+    byt = (2 * b * s * h * p * elem + 4 * b * s * h + 4 * h
+           + 2 * b * s * n * elem + 4 * b * h * n * p)
+    return bound(byt, b * h * ops)
+
+
+def timed(fn) -> dict:
+    """Device time (CUDA-graph replay) and eager per-call time of ``fn``,
+    with few repeats: these calls take up to milliseconds."""
+    return {"ms": device_ms(fn, reps=10, iters=5),
+            "call_ms": call_ms(fn, iters=20, warmup=3)}
+
+
+def k4_phase(device):
+    """K4 against its plain version in float32 and bfloat16 at every shape;
+    timings of kernel, plain version and the library call
+    (scaled_dot_product_attention, timed only) at each shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.swa_attn import swa_attn
+    rows, errors = [], []
+    for (b, h, s, d, w) in K4_SHAPES:
+        gen = torch.Generator().manual_seed(b + h + s + d)
+        qkv32 = [torch.randn(b, h, s, d, generator=gen).to(device)
+                 for _ in range(3)]
+        for dtype_name, (rtol, atol) in K4_TOL.items():
+            q, k, v = (t.to(getattr(torch, dtype_name)) for t in qkv32)
+            got = swa_attn(q, k, v, w)
+            want = ref.swa_attn(q, k, v, w)
+            torch.cuda.synchronize()
+            err, over = excess(got, want, rtol, atol)
+            ok = over <= 0 and got.dtype == q.dtype and bool(
+                torch.isfinite(got.float()).all())
+            errors.append({"B": b, "H": h, "S": s, "D": d, "window": w,
+                           "dtype": dtype_name, "max_abs_err": err,
+                           "rtol": rtol, "atol": atol, "ok": ok})
+            del got, want
+            if s < 1000 and dtype_name != "float32":
+                continue
+            if w is None:
+                lib = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                             is_causal=True)
+            else:
+                i = torch.arange(s, device=device)
+                mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :]
+                                                     < w)
+                lib = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                             attn_mask=mask)
+            with torch.no_grad():
+                t_k = timed(lambda: swa_attn(q, k, v, w))
+                t_p = timed(lambda: ref.swa_attn(q, k, v, w))
+                t_l = timed(lib)
+            rows.append({"B": b, "H": h, "S": s, "D": d, "window": w,
+                         "dtype": dtype_name, **t_k,
+                         "plain_ms": t_p["ms"], "plain_call_ms":
+                         t_p["call_ms"], "library_ms": t_l["ms"],
+                         "library_call_ms": t_l["call_ms"],
+                         **k4_bound(b, h, s, d, w, q.element_size())})
+        del qkv32, q, k, v
+        torch.cuda.empty_cache()
+    return rows, errors
+
+
+def k5_inputs(b, s, h, p, n, device):
+    """tests/test_kernels.py's distributions: x ~ N(0,1), dt =
+    softplus(N(0,1)) / 10, a_log ~ N(0,1) / 2, B and C ~ N(0,1) / 2."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(b + s + h + n)
+    x = torch.randn(b, s, h, p, generator=gen)
+    dt = F.softplus(torch.randn(b, s, h, generator=gen)) * 0.1
+    a_log = torch.randn(h, generator=gen) * 0.5
+    bm = torch.randn(b, s, n, generator=gen) * 0.5
+    cm = torch.randn(b, s, n, generator=gen) * 0.5
+    return [t.to(device) for t in (x, dt, a_log, bm, cm)]
+
+
+def k5_phase(device):
+    """K5 against its plain version (y and final state) at every shape, and
+    against the sequential recurrence at the small ones; timings."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    rows, errors = [], []
+    for (b, s, h, p, n) in K5_SHAPES:
+        args = k5_inputs(b, s, h, p, n, device)
+        y, final = ssd_scan(*args)
+        y_ref, final_ref = ref.ssd_scan(*args, K5_CHUNK)
+        torch.cuda.synchronize()
+        err_y, over_y = excess(y, y_ref, K5_RTOL, K5_ATOL)
+        err_s, over_s = excess(final, final_ref, K5_RTOL, K5_ATOL)
+        rec = {"B": b, "S": s, "H": h, "P": p, "N": n,
+               "max_abs_err": max(err_y, err_s), "y_err": err_y,
+               "state_err": err_s, "rtol": K5_RTOL, "atol": K5_ATOL}
+        ok = max(over_y, over_s) <= 0 and bool(torch.isfinite(y).all())
+        if s < 1000:
+            err_q, over_q = excess(y, ref.ssd_scan_sequential(*args),
+                                   K5_RTOL, K5_ATOL)
+            rec["sequential_err"] = err_q
+            ok = ok and over_q <= 0
+        rec["ok"] = ok
+        errors.append(rec)
+        del y, final, y_ref, final_ref
+        with torch.no_grad():
+            t_k = timed(lambda: ssd_scan(*args))
+            t_p = timed(lambda: ref.ssd_scan(*args, K5_CHUNK))
+        rows.append({"B": b, "S": s, "H": h, "P": p, "N": n, **t_k,
+                     "plain_ms": t_p["ms"], "plain_call_ms": t_p["call_ms"],
+                     "library_ms": None,
+                     **k5_bound(b, s, h, p, n, args[0].element_size())})
+        del args
+        torch.cuda.empty_cache()
+    return rows, errors
+
+
+def serve_path(device):
+    """Path 4: zamba2-1.2b served at full width and depth on the card
+    (``repro_torch.launch.serve.serve``): batch 4, a 2000-token prompt, 32
+    tokens, seed 0; then checks (a) and (b)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.common.pytree import tree_leaves, tree_map
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+    from torch.profiler import ProfilerActivity, profile
+    cfg = configs.get(SERVE_ARCH)
+    gen = torch.Generator().manual_seed(0)
+    t0 = time.perf_counter()
+    params = T.init(cfg, gen, device=device)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    toks = torch.randint(0, cfg.vocab_size,
+                         (SERVE_BATCH, SERVE_PROMPT + 2), generator=gen)
+    prompts = toks[:, :SERVE_PROMPT]
+    report = {"arch": cfg.name, "batch": SERVE_BATCH,
+              "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+              "params_stored": n_params,
+              "init_s": time.perf_counter() - t0}
+    problems = []
+
+    # one prefill alone: its launches
+    torch.cuda.synchronize()
+    reset_all_launches()
+    with torch.no_grad():
+        T.prefill(params, cfg, {"tokens": prompts.to(device)},
+                  max_seq=SERVE_PROMPT + SERVE_GEN, last_only=True)
+    torch.cuda.synchronize()
+    prefill_launches = {k: n for k, n in all_launches().items() if n}
+
+    # the path: serve(), every count set to 0 just before and read after
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    res = serve(cfg, params, prompts, SERVE_GEN, device=device,
+                generator=torch.Generator().manual_seed(0))
+    launches = all_launches()
+    report.update(
+        launches=launches, prefill_launches=prefill_launches,
+        prefill_s=res.prefill_s, decode_s=res.decode_s,
+        decode_tokens_per_s=res.decode_tokens_per_s,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        tokens=res.tokens[:, :8].tolist())
+    decode_launches = {k: launches[k] - prefill_launches.get(k, 0)
+                       for k in launches}
+    report["decode_launches"] = decode_launches
+    if prefill_launches != {"swa_attn": SERVE_K4, "ssd_scan": SERVE_K5}:
+        problems.append(f"prefill launched {prefill_launches}, expected "
+                        f"swa_attn {SERVE_K4} and ssd_scan {SERVE_K5}")
+    if any(decode_launches.values()):
+        problems.append(f"decode launched kernels: {decode_launches}")
+    if tuple(res.tokens.shape) != (SERVE_BATCH, SERVE_GEN) or not (
+            0 <= int(res.tokens.min())
+            and int(res.tokens.max()) < cfg.vocab_size):
+        problems.append(f"tokens {tuple(res.tokens.shape)} out of range")
+    if not all(bool(torch.isfinite(t).all())
+               for t in [res.prefill_logits, *res.step_logits]):
+        problems.append("non-finite logits")
+
+    # the prefill's busy share and device time by kernel, from a trace
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.no_grad():
+            T.prefill(params, cfg, {"tokens": prompts.to(device)},
+                      max_seq=SERVE_PROMPT + SERVE_GEN, last_only=True)
+        torch.cuda.synchronize()
+    report["prefill_device"] = device_time(prof, res.prefill_s,
+                                           ("swa_attn", "ssd_scan", "gemm"))
+    # and of one decode step, continued from a fresh prefill: step 0 timed
+    # unprofiled, step 1 traced
+    with torch.no_grad():
+        lg, caches = T.prefill(params, cfg, {"tokens": prompts.to(device)},
+                               max_seq=SERVE_PROMPT + SERVE_GEN,
+                               last_only=True)
+        tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True)
+        step_s = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         ) if i else contextlib.nullcontext() as prof:
+                T.decode_step(params, cfg, {"tokens": tok}, caches,
+                              SERVE_PROMPT + i)
+                torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+        del caches
+    report["decode_step_s"] = step_s
+    report["decode_device"] = device_time(prof, step_s[0], ("gemm", "gemv"))
+
+    # (a) full depth on the card: forward(prompt + 2) against prefill +
+    # two teacher-forced decode steps
+    with torch.no_grad():
+        dev_toks = toks.to(device)
+        full = T.forward(params, cfg, {"tokens": dev_toks})
+        pre, caches = T.prefill(params, cfg,
+                                {"tokens": dev_toks[:, :SERVE_PROMPT]},
+                                max_seq=SERVE_PROMPT + 2)
+        err_p, over_p = excess(pre, full[:, :SERVE_PROMPT], PREFILL_RTOL,
+                               PREFILL_ATOL)
+        del pre
+        err_d = []
+        for i in range(2):
+            dec, caches = T.decode_step(
+                params, cfg,
+                {"tokens": dev_toks[:, SERVE_PROMPT + i: SERVE_PROMPT + i
+                                    + 1]}, caches, SERVE_PROMPT + i)
+            err_d.append(float((dec[:, 0] - full[:, SERVE_PROMPT + i])
+                               .abs().max()))
+        max_logit = float(full.abs().max())
+        del full, caches
+    check_a = {"prefill_err": err_p, "prefill_rtol": PREFILL_RTOL,
+               "prefill_atol": PREFILL_ATOL, "decode_err": err_d,
+               "decode_atol": DECODE_ATOL, "max_abs_logit": max_logit}
+    report["check_a"] = check_a
+    if over_p > 0 or max(err_d) >= DECODE_ATOL:
+        problems.append(f"check (a) full depth: {check_a}")
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) 10 layers at full width: the card (kernels) against the CPU
+    # (plain versions) from the same weights drawn once on the CPU; beside
+    # it, the CPU's own sensitivity (weights moved by about one unit in the
+    # last place)
+    small = dataclasses.replace(cfg, n_layers=CPU_LAYERS)
+    cpu_params = T.init(small, torch.Generator().manual_seed(1))
+    gen_ulp = torch.Generator().manual_seed(3)
+    nudged = tree_map(lambda x: x * (1 + 2.0 ** -23 * torch.randn(
+        x.shape, generator=gen_ulp)), cpu_params)
+    stoks = torch.randint(0, cfg.vocab_size, (1, CPU_PROMPT + CPU_STEPS),
+                          generator=torch.Generator().manual_seed(2))
+    cpu = torch.device("cpu")
+    runs = {}
+    for name, c, dev, p in (
+            ("cuda", small, device, tree_map(lambda x: x.to(device),
+                                             cpu_params)),
+            ("cpu", small, cpu, cpu_params),
+            ("cpu_nudged", small, cpu, nudged)):
+        reset_all_launches()
+        with torch.no_grad():
+            t = stoks.to(dev)
+            lg, caches = T.prefill(p, c, {"tokens": t[:, :CPU_PROMPT]},
+                                   max_seq=CPU_PROMPT + CPU_STEPS)
+            steps = []
+            for i in range(CPU_STEPS):
+                d, caches = T.decode_step(
+                    p, c, {"tokens": t[:, CPU_PROMPT + i:
+                                       CPU_PROMPT + i + 1]},
+                    caches, CPU_PROMPT + i)
+                steps.append(d.cpu())
+        runs[name] = (lg.cpu(), torch.cat(steps, dim=1),
+                      {k: n for k, n in all_launches().items() if n})
+        del p, caches
+    lg_c, st_c, l_c = runs["cpu"]
+    scale = float(lg_c.abs().max())
+
+    def diff(name):
+        lg, st, _ = runs[name]
+        return (float((lg - lg_c).abs().max()),
+                float((st - st_c).abs().max()))
+    check_b = {"layers": CPU_LAYERS, "prompt": CPU_PROMPT,
+               "steps": CPU_STEPS, "max_abs_logit": scale,
+               "atol": CPU_REL_ATOL * scale,
+               "prefill_err": diff("cuda")[0], "decode_err": diff("cuda")[1],
+               "cpu_one_ulp_prefill_decode": diff("cpu_nudged"),
+               "launches_cuda": runs["cuda"][2], "launches_cpu": l_c}
+    report["check_b"] = check_b
+    if (max(check_b["prefill_err"], check_b["decode_err"]) > check_b["atol"]
+            or runs["cuda"][2] != {"swa_attn": 1, "ssd_scan": CPU_LAYERS - 1}
+            or l_c):
+        problems.append(f"check (b) card vs CPU: {check_b}")
+    return report, problems
+
+
 def quickstart_spec(rounds: int):
     """examples/quickstart.py's FedDF spec at its published widths."""
     from repro_torch.api import (CohortSpec, ExperimentSpec, FusionSpec,
@@ -426,9 +794,10 @@ def max_abs_diff(a, b) -> float:
     return max(float((fa[k].cpu() - fb[k].cpu()).abs().max()) for k in fa)
 
 
-def device_time(prof, round_wall_s: float) -> dict:
-    """Kernel time on the card from a profiler trace, by kernel name.
-    Reported only: a trace without device events reads 'not measured'."""
+def device_time(prof, round_wall_s: float, kernels=("bank_kl",)) -> dict:
+    """Kernel time on the card from a profiler trace, by kernel name, with
+    the sum over the names that contain each of ``kernels``.  Reported
+    only: a trace without device events reads 'not measured'."""
     from torch.autograd import DeviceType
     by_name = {}
     for e in prof.key_averages():
@@ -441,22 +810,29 @@ def device_time(prof, round_wall_s: float) -> dict:
     return {"device_s": total, "round_wall_s": round_wall_s,
             "busy_share": total / round_wall_s,
             "n_kernels": sum(c for _, c in by_name.values()),
-            "bank_kernels_s": sum(t for k, (t, _) in by_name.items()
-                                  if "bank_kl" in k),
+            **{f"{name}_s": sum(t for k, (t, _) in by_name.items()
+                                if name in k) for name in kernels},
             "top": [(k[:80], t, c) for k, (t, c) in top]}
 
 
-def reset_all_launches():
+def _kernel_modules():
     from repro_torch.kernels import ensemble_kl as k2
     from repro_torch.kernels import ensemble_kl_bank as k1
-    k1.reset_launches()
-    k2.reset_launches()
+    from repro_torch.kernels import ssd_scan as k5
+    from repro_torch.kernels import swa_attn as k4
+    return k1, k2, k4, k5
+
+
+def reset_all_launches():
+    for mod in _kernel_modules():
+        mod.reset_launches()
 
 
 def all_launches() -> dict:
-    from repro_torch.kernels import ensemble_kl as k2
-    from repro_torch.kernels import ensemble_kl_bank as k1
-    return {**k1.LAUNCHES, **k2.LAUNCHES}
+    out = {}
+    for mod in _kernel_modules():
+        out.update(mod.LAUNCHES)
+    return out
 
 
 def run_path(spec):
@@ -635,9 +1011,10 @@ def main() -> int:
     # 2. build
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    libs = build.build(["ensemble_kl_bank", "ensemble_kl"])
+    libs = build.build(["ensemble_kl_bank", "ensemble_kl", "swa_attn",
+                        "ssd_scan"])
     report["build_s"] = time.perf_counter() - t0
-    print(f"build: {report['build_s']:.2f} s (both sources in parallel)",
+    print(f"build: {report['build_s']:.2f} s (all sources in parallel)",
           flush=True)
     for lib in libs.values():
         for line in lib.log.splitlines():
@@ -671,8 +1048,36 @@ def main() -> int:
                 f"{r['teachers']}" if "kernel" in r else
                 f"K1 B={r['B']} N={r['N']} V={r['V']} {r['bank']}")
         print(f"  time {what}: " + "; ".join(parts))
-    problems = [f"kernel check failed: {e}" for e in errors + k2_errors
-                if not e["ok"]]
+    k4_timings, k4_errors = k4_phase(device)
+    k5_timings, k5_errors = k5_phase(device)
+    report.update(k4_errors=k4_errors, k4_timings=k4_timings,
+                  k5_errors=k5_errors, k5_timings=k5_timings)
+    for e in k4_errors:
+        print(f"  check swa_attn B={e['B']} H={e['H']} S={e['S']} D={e['D']} "
+              f"window={e['window']} {e['dtype']:8s}: max abs err "
+              f"{e['max_abs_err']:.2e} (rtol {e['rtol']:.0e} atol "
+              f"{e['atol']:.0e}) {'ok' if e['ok'] else 'FAIL'}")
+    for e in k5_errors:
+        print(f"  check ssd_scan B={e['B']} S={e['S']} H={e['H']} P={e['P']} "
+              f"N={e['N']}: y {e['y_err']:.2e} state {e['state_err']:.2e} "
+              f"sequential {e.get('sequential_err', '-')} "
+              f"{'ok' if e['ok'] else 'FAIL'}")
+    for name, rows in (("swa_attn", k4_timings), ("ssd_scan", k5_timings)):
+        for r in rows:
+            shape = " ".join(f"{k}={r[k]}" for k in
+                             ("B", "H", "S", "D", "window", "dtype", "P",
+                              "N") if k in r)
+            lib = ("-" if r["library_ms"] is None else
+                   f"{r['library_ms'] * 1e3:.1f} / "
+                   f"{r['library_call_ms'] * 1e3:.1f}")
+            print(f"  time {name} {shape}: {r['ms'] * 1e3:.1f} us device / "
+                  f"{r['call_ms'] * 1e3:.1f} us per call; plain "
+                  f"{r['plain_ms'] * 1e3:.1f} / "
+                  f"{r['plain_call_ms'] * 1e3:.1f}; library {lib}; bound "
+                  f"{r['bound_ms'] * 1e3:.1f} us by {r['bound_by']}",
+                  flush=True)
+    problems = [f"kernel check failed: {e}" for e in
+                errors + k2_errors + k4_errors + k5_errors if not e["ok"]]
 
     # 4. the paths, each with its own launch counts
     paths = {}
@@ -685,9 +1090,28 @@ def main() -> int:
         paths[name] = rep
         problems += [f"{name}: {p}" for p in path_problems]
         print_path(name, rep)
+    t0 = time.perf_counter()
+    rep, path_problems = serve_path(device)
+    rep["total_s"] = time.perf_counter() - t0
+    paths["path4_serve"] = rep
+    problems += [f"path4_serve: {p}" for p in path_problems]
     report["paths"] = paths
     print(f"  path 1 round 1 on the card, from a profiler trace: "
           f"{paths['path1_quickstart']['round1_device']}")
+    print(f"  path4_serve {rep['arch']} batch {rep['batch']} prompt "
+          f"{rep['prompt']} gen {rep['gen']}: init {rep['init_s']:.1f} s, "
+          f"prefill {rep['prefill_s']:.3f} s, decode {rep['decode_s']:.3f} s "
+          f"({rep['decode_tokens_per_s']:.1f} tok/s), peak "
+          f"{rep['peak_mem_bytes'] / 2**30:.2f} GiB; launches prefill "
+          f"{rep['prefill_launches']} decode {rep['decode_launches']}; "
+          f"whole path {rep['total_s']:.1f} s")
+    print(f"  path4_serve prefill on the card, from a profiler trace: "
+          f"{rep['prefill_device']}")
+    print(f"  path4_serve decode step on the card, from a profiler trace: "
+          f"{rep['decode_device']}")
+    print(f"  path4_serve check (a) full depth: {rep['check_a']}")
+    print(f"  path4_serve check (b) card vs CPU: {rep['check_b']}",
+          flush=True)
 
     # 5. output
     def timing(rows, **key):
@@ -724,6 +1148,22 @@ def main() -> int:
                 "plain_call_ms": t[f"plain_{kind}_call_ms"],
                 "bound_ms": t[f"{kind}_bound_ms"],
                 "bound_by": t[f"{kind}_bound_by"], "library_ms": None})
+    for name, rows, errs, line, lib in (
+            ("swa_attn", k4_timings, k4_errors, "src/repro/kernels/"
+             "swa_attn.py:32", True),
+            ("ssd_scan", k5_timings, k5_errors, "src/repro/kernels/"
+             "ssd_scan.py:28", False)):
+        t = rows[0]                 # the serve path's shape, float32
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + name + ".cu",
+            "replaces": line,
+            "launches": paths["path4_serve"]["launches"][name],
+            "max_abs_err": max(e["max_abs_err"] for e in errs
+                               if e.get("dtype", "float32") == "float32"),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "call_ms": t["call_ms"], "plain_call_ms": t["plain_call_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"] if lib else None})
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - start_s
     out_dir = ROOT / "chiprun_out"

@@ -1,8 +1,10 @@
-"""Helpers over parameter trees: nested dicts whose leaves are tensors.
+"""Helpers over parameter trees: nested dicts, tuples and lists (named
+tuples included) whose leaves are tensors.
 
 Trees keep the JAX package's layout (``{"dense_0": {"w": [din, dout],
-"b": [dout]}, ...}``) so a JAX tree converts 1:1 (``repro_torch.convert``).
-A *stacked* tree carries a leading client axis on every leaf.
+"b": [dout]}, ...}``; a model's ``{"blocks": ({...}, ...), "tail": (...)}``)
+so a JAX tree converts 1:1 (``repro_torch.convert``).  A *stacked* tree
+carries a leading client axis on every leaf.
 """
 from __future__ import annotations
 
@@ -19,15 +21,30 @@ def tree_map(fn: Callable, tree: Pytree, *rest: Pytree) -> Pytree:
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
+    if isinstance(tree, (tuple, list)):
+        out = [tree_map(fn, x, *(r[i] for r in rest))
+               for i, x in enumerate(tree)]
+        if hasattr(tree, "_fields"):                    # a NamedTuple
+            return type(tree)(*out)
+        return type(tree)(out)
     return fn(tree, *rest)
 
 
+def _children(tree: Pytree):
+    if isinstance(tree, dict):
+        return tree.items()
+    if isinstance(tree, (tuple, list)):
+        return enumerate(tree)
+    return None
+
+
 def tree_flatten(tree: Pytree, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """``{"a/b": leaf}`` in insertion order."""
+    """``{"a/b": leaf}`` in insertion order; a tuple or list contributes
+    its indices (``"blocks/0/mixer/wq"``)."""
     out: Dict[str, torch.Tensor] = {}
-    for k, v in tree.items():
+    for k, v in _children(tree):
         path = f"{prefix}/{k}" if prefix else str(k)
-        if isinstance(v, dict):
+        if _children(v) is not None:
             out.update(tree_flatten(v, path))
         else:
             out[path] = v
@@ -35,7 +52,8 @@ def tree_flatten(tree: Pytree, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 
 def tree_unflatten(flat: Dict[str, torch.Tensor]) -> Pytree:
-    """Inverse of :func:`tree_flatten`."""
+    """Inverse of :func:`tree_flatten` for trees of dicts (a tuple comes
+    back as a dict keyed by its indices)."""
     out: dict = {}
     for path, v in flat.items():
         node = out

@@ -1,5 +1,5 @@
-"""Parameter trees between the JAX package's layout (nested dicts of
-arrays, handed over as numpy) and the port's tensors.
+"""Parameter trees between the JAX package's layout (nested dicts, tuples
+and lists of arrays, handed over as numpy) and the port's tensors.
 
 The layouts are identical by construction (``core/nets.py``), so the
 conversion is leafwise: ``to_torch(jax_tree_as_numpy)`` and back with
@@ -15,12 +15,12 @@ from repro_torch.common.pytree import tree_map
 
 
 def to_torch(tree, device="cpu"):
-    """Nested dict of array-likes -> nested dict of tensors on ``device``
+    """Tree of array-likes -> the same tree of tensors on ``device``
     (copies, so later in-place use never aliases the caller's arrays)."""
     return tree_map(
         lambda x: torch.tensor(np.asarray(x), device=device), tree)
 
 
 def to_numpy(tree):
-    """Nested dict of tensors -> nested dict of numpy arrays."""
+    """Tree of tensors -> the same tree of numpy arrays."""
     return tree_map(lambda x: x.detach().cpu().numpy(), tree)

@@ -6,6 +6,8 @@ is no path on which a CUDA tensor silently reaches the plain version.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from repro_torch.common.options import FUSED_KERNEL_MODES
@@ -36,8 +38,8 @@ def use_fused_kernel(flag, device) -> bool:
 def _check_on_cpu(**tensors) -> None:
     for name, t in tensors.items():
         if t is not None and t.is_cuda:
-            raise ValueError(f"{name} is on {t.device} while the student "
-                             f"logits are on the CPU")
+            raise ValueError(f"{name} is on {t.device} while the first "
+                             f"operand is on the CPU")
 
 
 def ensemble_kl_loss(student_logits: torch.Tensor,
@@ -90,3 +92,30 @@ def ensemble_kl_loss_bank(student_logits: torch.Tensor,
     row_scale = (torch.ones(idx2.shape, dtype=torch.float32)
                  if scales is None else scales[idx2].float())
     return ref.ensemble_kl_bank(s2, bank_rows, row_scale, idx2, temperature)
+
+
+def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """Causal attention, optionally windowed (K4): q/k/v [B,H,S,D] with
+    equal head counts; the output is in q's dtype."""
+    if q.is_cuda:
+        from repro_torch.kernels.swa_attn import swa_attn
+        return swa_attn(q, k, v, window)
+    _check_on_cpu(k=k, v=v)
+    return ref.swa_attn(q, k, v, window)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+             bmat: torch.Tensor, cmat: torch.Tensor, chunk: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD scan from a zero state (K5): x [B,S,H,P], dt [B,S,H],
+    a_log [H], bmat / cmat [B,S,N] -> (y [B,S,H,P] in x's dtype, final
+    state [B,H,N,P] float32).  The plain version scans in chunks of
+    ``chunk``; the kernel in its own (``ssd_scan.CHUNK``)."""
+    if x.is_cuda:
+        from repro_torch.kernels.ssd_scan import ssd_scan as kernel
+        return kernel(x.contiguous(), dt.float().contiguous(),
+                      a_log.float().contiguous(), bmat.contiguous(),
+                      cmat.contiguous())
+    _check_on_cpu(dt=dt, a_log=a_log, bmat=bmat, cmat=cmat)
+    return ref.ssd_scan(x, dt, a_log, bmat, cmat, chunk)

@@ -22,8 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import heapq
-from typing import (Any, Dict, List, NamedTuple, Optional, Sequence,
-                    Tuple)
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -34,8 +33,10 @@ from repro_torch.population.scheduler import CohortSampler
 from repro_torch.population.traffic import TrafficModel
 
 
-class _LeafSpec(NamedTuple):
-    """Shape and dtype of one expected upload leaf."""
+@dataclasses.dataclass(frozen=True)
+class _LeafSpec:
+    """Shape and dtype of one expected upload leaf (a leaf of the tree
+    helpers, which walk tuples)."""
     shape: tuple
     dtype: Any
 
