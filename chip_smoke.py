@@ -18,9 +18,11 @@ and in order:
    temperatures; K2 (raw teachers) and K3 (pre-averaged rows) at their
    paths' shape and two wider ones, K = 1 too, float32 and bfloat16
    teachers, two temperatures; K4 (causal / sliding-window attention) at
-   the serve path's shape, gemma3's local width and two ragged shapes,
-   float32 and bfloat16, beside ``scaled_dot_product_attention`` (timed
-   only); K5 (Mamba2 SSD scan, y and final state) at the serve path's
+   the serve path's shape, gemma3's local width, D = 80, D = 128 with a
+   window and two ragged shapes, float32 and bfloat16, beside
+   ``scaled_dot_product_attention`` (timed only), after checking that its
+   library holds tensor-core (HMMA) instructions and that its serve-path
+   instantiations spill no registers; K5 (Mamba2 SSD scan, y and final state) at the serve path's
    shape, mamba2-2.7b's width and two ragged shapes;
 4. drives four paths on the card, with every launch count set to 0 just
    before a path and read just after it.  Paths 1-3 go through
@@ -54,6 +56,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -64,6 +67,11 @@ ROOT = Path(__file__).resolve().parent
 # published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 494.7e12       # tensor cores
+BF16_FLOPS_PER_S = 989e12         # tensor cores
+# exponentials: 16 ex2 per SM and clock (the special-function units), 132
+# SMs at the 1.98 GHz maximum SM clock
+EXP_PER_S = 16 * 132 * 1.98e9
 
 # (B, N, V): the main path's distill batch over its pool of 3-class rows;
 # the repo's roofline records' shape (experiments/dryrun/distill_kl_*
@@ -99,12 +107,14 @@ FWD_ATOL, FWD_RTOL = 5e-6, 2e-6
 BWD_ATOL = 3e-7
 
 # K4 (B, H, S, D, window): the serve path's shared attention block
-# (zamba2-1.2b: 32 heads x 64, prompt 2000, causal); gemma3's local-layer
-# width with equal heads (D 256, window 1024); two ragged cases of
-# tests/test_kernels.py.  Against the plain version, the JAX package's
-# tolerances (tests/test_kernels.py): rtol 1e-4 / atol 1e-5 in float32,
-# 3e-2 in bfloat16.
+# (zamba2-1.2b: 32 heads x 64, prompt 2000, causal; first: it feeds the
+# kernels line); gemma3's local-layer width with equal heads (D 256, window
+# 1024); D = 80 (zero-padded in the kernel's 128 bucket) and D = 128 with
+# a window; two ragged cases of tests/test_kernels.py.  Against the plain
+# version, the JAX package's tolerances (tests/test_kernels.py): rtol 1e-4
+# / atol 1e-5 in float32, 3e-2 in bfloat16.
 K4_SHAPES = [(4, 32, 2000, 64, None), (1, 8, 4096, 256, 1024),
+             (1, 4, 300, 80, None), (2, 8, 1000, 128, 256),
              (1, 2, 100, 8, 24), (2, 4, 128, 32, 32)]
 K4_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (3e-2, 3e-2)}
 # K5 (B, S, H, P, N): the serve path's Mamba2 layers (zamba2-1.2b, prompt
@@ -439,11 +449,53 @@ def bound(byt: float, ops: float) -> dict:
 
 
 def k4_bound(b, h, s, d, window, elem) -> dict:
-    """q, k, v read and o written once; 4 D flops (q.k and p.v) for every
-    (query, key) pair the mask lets through."""
+    """The tensor-core bound: q, k, v read and o written once; 4 D flops
+    (q.k and p.v) and one exponential for every (query, key) pair the mask
+    lets through.  float32 runs three TF32 passes on the tensor cores,
+    bfloat16 one bf16 pass.  The bound is the largest of the three times,
+    ``bound_detail`` names it."""
     w = s if window is None else window
-    pairs = sum(min(i + 1, w) for i in range(s))
-    return bound(4 * b * h * s * d * elem, 4 * d * b * h * pairs)
+    pairs = b * h * sum(min(i + 1, w) for i in range(s))
+    byt, ops = 4 * b * h * s * d * elem, 4 * d * pairs
+    times = {"bytes": byt / HBM_BYTES_PER_S,
+             "tensor cores": (3 * ops / TF32_FLOPS_PER_S if elem == 4
+                              else ops / BF16_FLOPS_PER_S),
+             "exponentials": pairs / EXP_PER_S}
+    detail = max(times, key=times.get)
+    return {"bytes": byt, "ops": ops, "exps": pairs,
+            "bound_ms": times[detail] * 1e3,
+            "bound_by": "bytes" if detail == "bytes" else "operations",
+            "bound_detail": detail}
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel's mangled name: {"spill_stores", "spill_loads" (bytes),
+    "registers"}} from nvcc's -Xptxas -v output."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        words = line.replace(",", " ").split()
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            usage[name] = {}
+        elif "spill stores" in line and name:
+            at = [i for i, w in enumerate(words) if w == "spill"]
+            usage[name].update(spill_stores=int(words[at[0] - 2]),
+                               spill_loads=int(words[at[-1] - 2]))
+        elif "Used" in words and "registers" in words and name:
+            usage[name]["registers"] = int(words[words.index("Used") + 1])
+    return usage
+
+
+def hmma_count(lib_path) -> int:
+    """Tensor-core instructions (HMMA) in a built library's SASS."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        raise RuntimeError("cuobjdump not found beside nvcc nor on PATH")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    return sum(1 for line in sass.splitlines() if " HMMA" in line)
 
 
 def k5_bound(b, s, h, p, n, elem) -> dict:
@@ -1018,8 +1070,26 @@ def main() -> int:
           flush=True)
     for lib in libs.values():
         for line in lib.log.splitlines():
-            if "registers" in line or "smem" in line or "Compiling" in line:
+            if ("registers" in line or "smem" in line or "Compiling" in line
+                    or (lib.name == "swa_attn" and "spill" in line)):
                 print(f"  ptxas {lib.name}: {line.strip()}")
+    # K4 runs on the tensor cores, and its serve-path instantiations (head
+    # dimension bucket 64, f32 and bf16) spill nothing
+    k4_lib = libs["swa_attn"]
+    report["k4_hmma"] = hmma_count(k4_lib.path)
+    report["k4_ptxas"] = ptxas_usage(k4_lib.log)
+    print(f"  swa_attn: {report['k4_hmma']} HMMA instructions "
+          f"(cuobjdump -sass)", flush=True)
+    build_problems = []
+    if report["k4_hmma"] == 0:
+        build_problems.append("swa_attn has no HMMA instruction")
+    d64 = {n: u for n, u in report["k4_ptxas"].items()
+           if "IfLi64E" in n or "bfloat16Li64E" in n}
+    if len(d64) != 2 or any(u.get("spill_stores") != 0
+                            or u.get("spill_loads") != 0
+                            for u in d64.values()):
+        build_problems.append(f"swa_attn's D <= 64 instantiations spill or "
+                              f"are missing: {d64}")
 
     # 3. kernels vs plain versions
     timings, errors = kernel_phase(device)
@@ -1074,10 +1144,11 @@ def main() -> int:
                   f"{r['call_ms'] * 1e3:.1f} us per call; plain "
                   f"{r['plain_ms'] * 1e3:.1f} / "
                   f"{r['plain_call_ms'] * 1e3:.1f}; library {lib}; bound "
-                  f"{r['bound_ms'] * 1e3:.1f} us by {r['bound_by']}",
-                  flush=True)
-    problems = [f"kernel check failed: {e}" for e in
-                errors + k2_errors + k4_errors + k5_errors if not e["ok"]]
+                  f"{r['bound_ms'] * 1e3:.1f} us by "
+                  f"{r.get('bound_detail', r['bound_by'])}", flush=True)
+    problems = build_problems + [
+        f"kernel check failed: {e}" for e in
+        errors + k2_errors + k4_errors + k5_errors if not e["ok"]]
 
     # 4. the paths, each with its own launch counts
     paths = {}
@@ -1163,7 +1234,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "call_ms": t["call_ms"], "plain_call_ms": t["plain_call_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"] if lib else None})
+            "library_ms": t["library_ms"] if lib else None,
+            **({"bound_detail": t["bound_detail"]} if lib else {})})
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - start_s
     out_dir = ROOT / "chiprun_out"

@@ -174,8 +174,12 @@ def test_cuda_swa_matches_plain_on_card(dtype_name):
     from repro_torch.kernels import swa_attn as k4
     dt = getattr(torch, dtype_name)
     tol = (RTOL, ATOL) if dtype_name == "float32" else (BF16_TOL, BF16_TOL)
+    # ragged S and D; D = 80 and 128 (the 128 bucket, one zero-padded); a
+    # single query; window 1 (each query sees only itself)
     for b, h, s, d, w in ((1, 2, 100, 8, 24), (2, 4, 128, 32, 32),
-                          (1, 2, 300, 64, None), (1, 1, 130, 256, 64)):
+                          (1, 2, 300, 64, None), (1, 1, 130, 256, 64),
+                          (1, 2, 300, 80, None), (1, 2, 200, 128, 64),
+                          (2, 2, 1, 64, None), (1, 2, 150, 64, 1)):
         q, k, v = (torch.from_numpy(t).to(dt).cuda() for t in _qkv(b, h, s,
                                                                     d))
         before = k4.LAUNCHES["swa_attn"]
