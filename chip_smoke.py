@@ -22,8 +22,12 @@ and in order:
    window and two ragged shapes, float32 and bfloat16, beside
    ``scaled_dot_product_attention`` (timed only), after checking that its
    library holds tensor-core (HMMA) instructions and that its serve-path
-   instantiations spill no registers; K5 (Mamba2 SSD scan, y and final state) at the serve path's
-   shape, mamba2-2.7b's width and two ragged shapes;
+   instantiations spill no registers; K5 (Mamba2 SSD scan, y and final
+   state) at the serve path's shape, mamba2-2.7b's width and two ragged
+   shapes in float32, and at the serve path's shape and one ragged shape in
+   bfloat16, after checking that its library holds tensor-core (HMMA)
+   instructions and that its float32 N = P = 64 instantiation (the serve
+   path's) spills no registers;
 4. drives four paths on the card, with every launch count set to 0 just
    before a path and read just after it.  Paths 1-3 go through
    ``Experiment(spec).run()`` at the quickstart's published widths, 3
@@ -118,13 +122,15 @@ K4_SHAPES = [(4, 32, 2000, 64, None), (1, 8, 4096, 256, 1024),
              (1, 2, 100, 8, 24), (2, 4, 128, 32, 32)]
 K4_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (3e-2, 3e-2)}
 # K5 (B, S, H, P, N): the serve path's Mamba2 layers (zamba2-1.2b, prompt
-# 2000); mamba2-2.7b's width; two ragged cases of tests/test_kernels.py.
-# Against the plain version at the config's chunk (256; the kernel scans in
-# chunks of 64), y and final state, rtol 1e-4 / atol 1e-5
-# (tests/test_kernels.py); the small cases also against the sequential
-# recurrence.
+# 2000; first: it feeds the kernels line); mamba2-2.7b's width; two ragged
+# cases of tests/test_kernels.py.  Against the plain version at the
+# config's chunk (256; the kernel scans in chunks of 64), y and final
+# state, rtol 1e-4 / atol 1e-5 in float32 (tests/test_kernels.py); the
+# small cases also against the sequential recurrence.  bfloat16 x, B and C
+# at K5_BF16_SHAPES, held at K4's bfloat16 tolerance (3e-2).
 K5_SHAPES = [(4, 2000, 64, 64, 64), (1, 4096, 80, 64, 128),
              (1, 17, 2, 8, 4), (1, 50, 3, 8, 16)]
+K5_BF16_SHAPES = [(4, 2000, 64, 64, 64), (1, 50, 3, 8, 16)]
 K5_CHUNK = 256
 K5_RTOL, K5_ATOL = 1e-4, 1e-5
 # Path 4: zamba2-1.2b served at full width and depth.
@@ -499,18 +505,28 @@ def hmma_count(lib_path) -> int:
 
 
 def k5_bound(b, s, h, p, n, elem) -> dict:
-    """x, dt, a_log, B, C read and y, the final state written once; per
-    (batch, head) and kernel chunk of l valid steps 4 l N P (inter-chunk
-    output and state update) + l (l + 1) (N + P) (C.B and the intra-chunk
-    product, lower triangles) + l (l - 1) / 2 (segment sums) flops."""
+    """The tensor-core bound: x, dt, a_log, B, C read and y, the final
+    state written once; per (batch, head) and kernel chunk of l valid steps
+    4 l N P (inter-chunk output and state update) + l (l + 1) (N + P) (C.B
+    and the intra-chunk product, lower triangles) + l (l - 1) / 2 (segment
+    sums) flops, as three TF32 passes on the tensor cores for float32
+    inputs and one bf16 pass for bfloat16.  The bound is the larger of the
+    two times, ``bound_detail`` names it."""
     from repro_torch.kernels.ssd_scan import CHUNK
     ops = 0
     for c0 in range(0, s, CHUNK):
         ln = min(CHUNK, s - c0)
         ops += 4 * ln * n * p + ln * (ln + 1) * (n + p) + ln * (ln - 1) // 2
+    ops *= b * h
     byt = (2 * b * s * h * p * elem + 4 * b * s * h + 4 * h
            + 2 * b * s * n * elem + 4 * b * h * n * p)
-    return bound(byt, b * h * ops)
+    times = {"bytes": byt / HBM_BYTES_PER_S,
+             "tensor cores": (3 * ops / TF32_FLOPS_PER_S if elem == 4
+                              else ops / BF16_FLOPS_PER_S)}
+    detail = max(times, key=times.get)
+    return {"bytes": byt, "ops": ops, "bound_ms": times[detail] * 1e3,
+            "bound_by": "bytes" if detail == "bytes" else "operations",
+            "bound_detail": detail}
 
 
 def timed(fn) -> dict:
@@ -586,38 +602,50 @@ def k5_inputs(b, s, h, p, n, device):
 
 
 def k5_phase(device):
-    """K5 against its plain version (y and final state) at every shape, and
-    against the sequential recurrence at the small ones; timings."""
+    """K5 against its plain version (y and final state) at every shape in
+    float32, against the sequential recurrence at the small ones, and in
+    bfloat16 (x, B and C) at K5_BF16_SHAPES; timings of every float32
+    shape and of the serve path's shape in bfloat16."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan
+    cases = ([(shape, "float32") for shape in K5_SHAPES]
+             + [(shape, "bfloat16") for shape in K5_BF16_SHAPES])
     rows, errors = [], []
-    for (b, s, h, p, n) in K5_SHAPES:
+    for (b, s, h, p, n), dtype_name in cases:
         args = k5_inputs(b, s, h, p, n, device)
+        if dtype_name == "bfloat16":
+            for i in (0, 3, 4):     # x, B and C; dt and a_log stay float32
+                args[i] = args[i].to(torch.bfloat16)
+        rtol, atol = ((K5_RTOL, K5_ATOL) if dtype_name == "float32"
+                      else K4_TOL["bfloat16"])
         y, final = ssd_scan(*args)
         y_ref, final_ref = ref.ssd_scan(*args, K5_CHUNK)
         torch.cuda.synchronize()
-        err_y, over_y = excess(y, y_ref, K5_RTOL, K5_ATOL)
-        err_s, over_s = excess(final, final_ref, K5_RTOL, K5_ATOL)
-        rec = {"B": b, "S": s, "H": h, "P": p, "N": n,
+        err_y, over_y = excess(y, y_ref, rtol, atol)
+        err_s, over_s = excess(final, final_ref, rtol, atol)
+        rec = {"B": b, "S": s, "H": h, "P": p, "N": n, "dtype": dtype_name,
                "max_abs_err": max(err_y, err_s), "y_err": err_y,
-               "state_err": err_s, "rtol": K5_RTOL, "atol": K5_ATOL}
-        ok = max(over_y, over_s) <= 0 and bool(torch.isfinite(y).all())
-        if s < 1000:
+               "state_err": err_s, "rtol": rtol, "atol": atol}
+        ok = (max(over_y, over_s) <= 0 and y.dtype == args[0].dtype
+              and bool(torch.isfinite(y.float()).all()))
+        if s < 1000 and dtype_name == "float32":
             err_q, over_q = excess(y, ref.ssd_scan_sequential(*args),
-                                   K5_RTOL, K5_ATOL)
+                                   rtol, atol)
             rec["sequential_err"] = err_q
             ok = ok and over_q <= 0
         rec["ok"] = ok
         errors.append(rec)
         del y, final, y_ref, final_ref
-        with torch.no_grad():
-            t_k = timed(lambda: ssd_scan(*args))
-            t_p = timed(lambda: ref.ssd_scan(*args, K5_CHUNK))
-        rows.append({"B": b, "S": s, "H": h, "P": p, "N": n, **t_k,
-                     "plain_ms": t_p["ms"], "plain_call_ms": t_p["call_ms"],
-                     "library_ms": None,
-                     **k5_bound(b, s, h, p, n, args[0].element_size())})
+        if dtype_name == "float32" or s >= 1000:
+            with torch.no_grad():
+                t_k = timed(lambda: ssd_scan(*args))
+                t_p = timed(lambda: ref.ssd_scan(*args, K5_CHUNK))
+            rows.append({"B": b, "S": s, "H": h, "P": p, "N": n,
+                         "dtype": dtype_name, **t_k,
+                         "plain_ms": t_p["ms"],
+                         "plain_call_ms": t_p["call_ms"], "library_ms": None,
+                         **k5_bound(b, s, h, p, n, args[0].element_size())})
         del args
         torch.cuda.empty_cache()
     return rows, errors
@@ -1071,7 +1099,8 @@ def main() -> int:
     for lib in libs.values():
         for line in lib.log.splitlines():
             if ("registers" in line or "smem" in line or "Compiling" in line
-                    or (lib.name == "swa_attn" and "spill" in line)):
+                    or (lib.name in ("swa_attn", "ssd_scan")
+                        and "spill" in line)):
                 print(f"  ptxas {lib.name}: {line.strip()}")
     # K4 runs on the tensor cores, and its serve-path instantiations (head
     # dimension bucket 64, f32 and bf16) spill nothing
@@ -1090,6 +1119,22 @@ def main() -> int:
                             for u in d64.values()):
         build_problems.append(f"swa_attn's D <= 64 instantiations spill or "
                               f"are missing: {d64}")
+    # K5's chunk products run on the tensor cores too, and its serve-path
+    # instantiation (float32, N and P buckets 64) spills nothing
+    k5_lib = libs["ssd_scan"]
+    report["k5_hmma"] = hmma_count(k5_lib.path)
+    report["k5_ptxas"] = ptxas_usage(k5_lib.log)
+    print(f"  ssd_scan: {report['k5_hmma']} HMMA instructions "
+          f"(cuobjdump -sass)", flush=True)
+    if report["k5_hmma"] == 0:
+        build_problems.append("ssd_scan has no HMMA instruction")
+    n64 = {n: u for n, u in report["k5_ptxas"].items()
+           if "IfLi64ELi64EE" in n}
+    if len(n64) != 1 or any(u.get("spill_stores") != 0
+                            or u.get("spill_loads") != 0
+                            for u in n64.values()):
+        build_problems.append(f"ssd_scan's float32 N = P = 64 instantiation "
+                              f"spills or is missing: {n64}")
 
     # 3. kernels vs plain versions
     timings, errors = kernel_phase(device)
@@ -1129,9 +1174,10 @@ def main() -> int:
               f"{e['atol']:.0e}) {'ok' if e['ok'] else 'FAIL'}")
     for e in k5_errors:
         print(f"  check ssd_scan B={e['B']} S={e['S']} H={e['H']} P={e['P']} "
-              f"N={e['N']}: y {e['y_err']:.2e} state {e['state_err']:.2e} "
-              f"sequential {e.get('sequential_err', '-')} "
-              f"{'ok' if e['ok'] else 'FAIL'}")
+              f"N={e['N']} {e['dtype']:8s}: y {e['y_err']:.2e} state "
+              f"{e['state_err']:.2e} sequential "
+              f"{e.get('sequential_err', '-')} (rtol {e['rtol']:.0e} atol "
+              f"{e['atol']:.0e}) {'ok' if e['ok'] else 'FAIL'}")
     for name, rows in (("swa_attn", k4_timings), ("ssd_scan", k5_timings)):
         for r in rows:
             shape = " ".join(f"{k}={r[k]}" for k in
@@ -1235,7 +1281,7 @@ def main() -> int:
             "call_ms": t["call_ms"], "plain_call_ms": t["plain_call_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"] if lib else None,
-            **({"bound_detail": t["bound_detail"]} if lib else {})})
+            "bound_detail": t["bound_detail"]})
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - start_s
     out_dir = ROOT / "chiprun_out"

@@ -192,18 +192,25 @@ def test_cuda_swa_matches_plain_on_card(dtype_name):
 
 
 @pytest.mark.gpu
-def test_cuda_ssd_matches_plain_on_card():
+@pytest.mark.parametrize("dtype_name", ("float32", "bfloat16"))
+def test_cuda_ssd_matches_plain_on_card(dtype_name):
     _need_card()
     from repro_torch.kernels import ssd_scan as k5
+    dt = getattr(torch, dtype_name)
+    tol = (RTOL, ATOL) if dtype_name == "float32" else (BF16_TOL, BF16_TOL)
     for b, s, h, p, n in ((1, 17, 2, 8, 4), (1, 50, 3, 8, 16),
                           (2, 300, 4, 64, 64), (1, 200, 2, 64, 128)):
         args = [torch.from_numpy(a).cuda() for a in _ssd_inputs(b, s, h, p,
                                                                n)]
+        for i in (0, 3, 4):         # x, B and C; dt and a_log stay float32
+            args[i] = args[i].to(dt)
         before = k5.LAUNCHES["ssd_scan"]
         y, final = ops.ssd_scan(*args, 256)
         y_ref, final_ref = ref.ssd_scan(*args, 256)
         torch.cuda.synchronize()
         assert k5.LAUNCHES["ssd_scan"] == before + 1
-        _close(y.cpu(), y_ref.cpu())
-        _close(final.cpu(), final_ref.cpu())
-        _close(y.cpu(), ref.ssd_scan_sequential(*args).cpu())
+        assert y.dtype == dt
+        _close(y.float().cpu(), y_ref.float().cpu(), *tol)
+        _close(final.cpu(), final_ref.cpu(), *tol)
+        if dtype_name == "float32":
+            _close(y.cpu(), ref.ssd_scan_sequential(*args).cpu())
