@@ -16,8 +16,11 @@ and in order:
    times kernel, plain version and bound: K1 (logit bank) at the main
    path's shape and two wider ones, for every bank dtype and two
    temperatures; K2 (raw teachers) and K3 (pre-averaged rows) at their
-   paths' shape and two wider ones, K = 1 too, float32 and bfloat16
-   teachers, two temperatures; K4 (causal / sliding-window attention) at
+   paths' shape and wider ones (ImageNet's 1000 classes, zamba2's 32000
+   vocabulary over 1024 rows, one row on a cluster of 8), K = 1 too,
+   float32 and bfloat16 teachers, two temperatures, each shape's launch
+   plan printed, two launches of each kernel held to equal bits and every
+   instantiation to zero spills; K4 (causal / sliding-window attention) at
    the serve path's shape, gemma3's local width, D = 80, D = 128 with a
    window and two ragged shapes, float32 and bfloat16, beside
    ``scaled_dot_product_attention`` (timed only), after checking that its
@@ -86,9 +89,19 @@ BANK_DTYPES = ("float32", "bfloat16", "int8", "fp8_e4m3")
 
 # K2 (K, B, V): the on-the-fly path's 8 teachers x distill batch 64 x 3
 # classes; the roofline records' shape; a ragged shape over several V tiles;
-# one teacher.  K3 (B, V): the weighted-consensus rows of the same batches.
-K2_SHAPES = [(8, 64, 3), (8, 256, 64), (5, 37, 5003), (1, 64, 3)]
+# one teacher; eight teachers over ImageNet's 1000 classes; the JAX distill
+# step's 4 teachers over 1024 token rows at zamba2-1.2b's vocabulary (524 MB
+# of f32 teachers: L2 is cold by construction); one row on a cluster of 8
+# with ragged slices.  K3 (B, V): the weighted-consensus rows of the first
+# three batches.  Lane groups run V = 3, a cluster per row the large V with
+# few rows, one block per row V = 64 and (4, 1024, 32000)
+# (kernels/ensemble_kl.py plan); every mode is checked for equal bits over
+# two launches.
+K2_SHAPES = [(8, 64, 3), (8, 256, 64), (5, 37, 5003), (1, 64, 3),
+             (8, 64, 1000), (4, 1024, 32000), (3, 1, 5003)]
 K3_SHAPES = [(64, 3), (256, 64), (37, 5003)]
+K2_MODES = ("lanes", "cluster", "block")
+K2_KERNELS = 30   # instantiations in ensemble_kl.cu, each checked for spills
 TEACHER_DTYPES = ("float32", "bfloat16")
 # K2 / K3 against their plain versions: both take t / T in the teachers' type
 # and sum the same values, in another order (the kernel sums over K in
@@ -360,7 +373,8 @@ def k2_case(k, b, v, dtype_name, seed, device):
 
 
 def k2_phase(device):
-    """K2 and K3 vs their plain versions at every shape / dtype / T;
+    """K2 and K3 vs their plain versions at every shape / dtype / T, and
+    two launches of each kernel against each other (equal bits);
     timings at T=1."""
     import torch
     from repro_torch.kernels import ref
@@ -370,11 +384,12 @@ def k2_phase(device):
     rows, errors = [], []
     for (k, b, v, pre) in cases:
         name = "ensemble_kl_pre" if pre else "ensemble_kl"
+        mode = k2.card_plan(device, k, b, v).mode
         for dtype_name in TEACHER_DTYPES:
+            s, t = k2_case(k, b, v, dtype_name, seed=k + b + v,
+                           device=device)
+            t_in = t[0] if pre else t
             for temp in TEMPERATURES:
-                s, t = k2_case(k, b, v, dtype_name, seed=k + b + v,
-                               device=device)
-                t_in = t[0] if pre else t
                 plain = ref.ensemble_kl_pre if pre else ref.ensemble_kl
                 fused = k2.ensemble_kl_pre if pre else k2.ensemble_kl
                 s_k = s.clone().requires_grad_(True)
@@ -389,17 +404,25 @@ def k2_phase(device):
                 bwd_err = float((g_k - g_p).abs().max())
                 bwd_excess = float(((g_k - g_p).abs() - K2_GRAD_ATOL
                                     - K2_GRAD_RTOL * g_p.abs()).max())
+                # two launches of each kernel on the same inputs: equal bits
+                g1 = torch.ones((), device=device)
+                f1 = k2.kl_fwd(s, t_in, temp, pre)
+                f2 = k2.kl_fwd(s, t_in, temp, pre)
+                d1 = k2.kl_bwd(s, t_in, f1[1], f1[2], g1, temp, pre)
+                d2 = k2.kl_bwd(s, t_in, f1[1], f1[2], g1, temp, pre)
+                repeat = (all(torch.equal(x, y) for x, y in zip(f1, f2))
+                          and torch.equal(d1, d2))
                 ok = (fwd_err <= K2_FWD_ATOL + K2_FWD_RTOL * abs(want)
-                      and bwd_excess <= 0
+                      and bwd_excess <= 0 and repeat
                       and bool(torch.isfinite(g_k).all()))
                 errors.append({"kernel": name, "K": k, "B": b, "V": v,
                                "teachers": dtype_name, "T": temp,
-                               "loss": want, "fwd_err": fwd_err,
-                               "bwd_err": bwd_err, "ok": ok})
+                               "mode": mode, "loss": want,
+                               "fwd_err": fwd_err, "bwd_err": bwd_err,
+                               "repeat_equal": repeat, "ok": ok})
                 if temp != 1.0:
                     continue
-                kl, lse_t, lse_s = k2.kl_fwd(s, t_in, temp, pre)
-                g1 = torch.ones((), device=device)
+                kl, lse_t, lse_s = f1
                 fwd = lambda: k2.kl_fwd(s, t_in, temp, pre)
                 bwd = lambda: k2.kl_bwd(s, t_in, lse_t, lse_s, g1, temp, pre)
                 s_g = s.clone().requires_grad_(True)
@@ -418,7 +441,7 @@ def k2_phase(device):
                 plain_call_b = call_ms(plain_both) - plain_call_f
                 elem = t.element_size()
                 row = {"kernel": name, "K": k, "B": b, "V": v,
-                       "teachers": dtype_name,
+                       "teachers": dtype_name, "mode": mode,
                        "fwd_ms": ms_f, "bwd_ms": ms_b,
                        "plain_fwd_ms": plain_f, "plain_bwd_ms": plain_b,
                        "fwd_call_ms": call_f, "bwd_call_ms": call_b,
@@ -1110,6 +1133,20 @@ def main() -> int:
     print(f"  swa_attn: {report['k4_hmma']} HMMA instructions "
           f"(cuobjdump -sass)", flush=True)
     build_problems = []
+    # K2 / K3: every instantiation spills nothing: lane groups, cluster and
+    # block per row forward, and the backward at both index widths, each for
+    # 1, 4 and 8 teachers in flight and f32 and bf16 teachers (30)
+    report["k2_ptxas"] = ptxas_usage(libs["ensemble_kl"].log)
+    k2_spills = {n: u for n, u in report["k2_ptxas"].items()
+                 if u.get("spill_stores") != 0 or u.get("spill_loads") != 0}
+    spill_bytes = sum(u.get("spill_stores", 0) + u.get("spill_loads", 0)
+                      for u in report["k2_ptxas"].values())
+    print(f"  ensemble_kl: {len(report['k2_ptxas'])} kernels, registers "
+          f"{sorted(u.get('registers') for u in report['k2_ptxas'].values())}"
+          f", spill bytes {spill_bytes}", flush=True)
+    if len(report["k2_ptxas"]) != K2_KERNELS or k2_spills:
+        build_problems.append(f"ensemble_kl's {K2_KERNELS} kernels spill or "
+                              f"are missing: {report['k2_ptxas']}")
     if report["k4_hmma"] == 0:
         build_problems.append("swa_attn has no HMMA instruction")
     d64 = {n: u for n, u in report["k4_ptxas"].items()
@@ -1148,8 +1185,14 @@ def main() -> int:
     report["k2_errors"], report["k2_timings"] = k2_errors, k2_timings
     for e in k2_errors:
         print(f"  check {e['kernel']} K={e['K']} B={e['B']} V={e['V']} "
-              f"{e['teachers']:8s} T={e['T']}: fwd {e['fwd_err']:.2e} "
-              f"bwd {e['bwd_err']:.2e} {'ok' if e['ok'] else 'FAIL'}")
+              f"{e['teachers']:8s} T={e['T']} mode {e['mode']}: fwd "
+              f"{e['fwd_err']:.2e} bwd {e['bwd_err']:.2e} two launches "
+              f"{'equal' if e['repeat_equal'] else 'DIFFER'} "
+              f"{'ok' if e['ok'] else 'FAIL'}")
+    # each forward mode and the backward ran, and repeated bit for bit
+    missing = set(K2_MODES) - {e["mode"] for e in k2_errors}
+    if missing:
+        build_problems.append(f"K2 phase ran no shape in mode(s) {missing}")
     for r in timings + k2_timings:
         parts = []
         for k in ("fwd", "bwd"):
@@ -1158,9 +1201,10 @@ def main() -> int:
                 f"{r[f'{k}_call_ms'] * 1e3:.2f} us per call (plain "
                 f"{r[f'plain_{k}_ms'] * 1e3:.2f} / "
                 f"{r[f'plain_{k}_call_ms'] * 1e3:.2f}, bound "
-                f"{r[f'{k}_bound_ms'] * 1e3:.4f})")
+                f"{r[f'{k}_bound_ms'] * 1e3:.4f}, "
+                f"{100 * r[f'{k}_bound_ms'] / r[f'{k}_ms']:.1f}% of it)")
         what = (f"{r['kernel']} K={r['K']} B={r['B']} V={r['V']} "
-                f"{r['teachers']}" if "kernel" in r else
+                f"{r['teachers']} mode {r['mode']}" if "kernel" in r else
                 f"K1 B={r['B']} N={r['N']} V={r['V']} {r['bank']}")
         print(f"  time {what}: " + "; ".join(parts))
     k4_timings, k4_errors = k4_phase(device)

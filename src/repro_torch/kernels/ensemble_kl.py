@@ -15,10 +15,18 @@ These wrappers take CUDA tensors only; ``kernels/ops.py`` routes CPU
 tensors to the plain versions in ``kernels/ref.py``.  Every launch adds
 one to ``LAUNCHES[<kernel>]``, so a run can show it went through the
 kernels.
+
+:func:`plan` chooses each launch's shape on the host, in plain Python, so
+the CPU tests can check it: the forward's mode (lane groups at small V, a
+thread-block cluster per row at large V with few rows, one block per row
+otherwise), its lanes per row, cluster size, threads and grid, and the
+backward's flat grid over the ``B * V`` elements.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -34,15 +42,107 @@ TEACHER_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    # student, teachers, kl, lse_t, lse_s, K, B, V, T, kind, device, stream
-    "ensemble_kl_fwd": [_P] * 5 + [_I, _I, _I, _F, _I, _I, _P],
-    # student, teachers, lse_t, lse_s, g, ds, K, B, V, T, kind, device,
-    # stream
-    "ensemble_kl_bwd": [_P] * 6 + [_I, _I, _I, _F, _I, _I, _P],
+    # student, teachers, kl, lse_t, lse_s, K, B, V, T, kind, batch, mode,
+    # lanes, cluster, threads, grid, device, stream
+    "ensemble_kl_fwd": [_P] * 5 + [_I, _I, _I, _F] + [_I] * 8 + [_P],
+    # student, teachers, lse_t, lse_s, g, ds, K, B, V, T, kind, batch,
+    # threads, grid, device, stream
+    "ensemble_kl_bwd": [_P] * 6 + [_I, _I, _I, _F] + [_I] * 5 + [_P],
     # the same without K (it is 1)
-    "ensemble_kl_pre_fwd": [_P] * 5 + [_I, _I, _F, _I, _I, _P],
-    "ensemble_kl_pre_bwd": [_P] * 6 + [_I, _I, _F, _I, _I, _P],
+    "ensemble_kl_pre_fwd": [_P] * 5 + [_I, _I, _F] + [_I] * 8 + [_P],
+    "ensemble_kl_pre_bwd": [_P] * 6 + [_I, _I, _F] + [_I] * 5 + [_P],
 }
+
+# Streaming multiprocessors of an H100 SXM: the plan's default when it is
+# not given the card's own count.
+SMS = 132
+# The thresholds between the forward modes, from card times
+# (benchmarks/torch_k2_modes.py; PERF.md).  Lane groups win while a lane
+# owns one element; one block per row wins up to two elements a thread;
+# past that, rows too few to fill the SMs take a cluster of C blocks each,
+# the largest C that keeps B * C within CLUSTER_FILL blocks an SM.
+LANES_MAX_V = 32
+LANE_BLOCK_THREADS = 128      # threads of a lane-group block
+ROW_BLOCK_THREADS = 256       # most threads of a cluster or row block
+CLUSTER_SIZES = (2, 4, 8)     # portable thread-block cluster sizes
+CLUSTER_FILL = 2.5
+TEACHER_BATCHES = (1, 4, 8)   # teacher loads a lane keeps in flight
+BWD_THREADS = 256
+BWD_MAX_BLOCKS = 1 << 20      # past this the backward walks grid-stride
+# the C interface's mode argument
+MODES = {"lanes": 0, "cluster": 1, "block": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one ``(B, V)`` launch maps onto the card.
+
+    Forward: ``mode`` is ``lanes`` (``lanes`` threads per row, a power of
+    two up to 32; ``rows_per_block`` rows a block), ``cluster`` (a cluster
+    of ``cluster`` blocks per row, block r reducing the r-th slice of
+    ``ceil(V / cluster)`` elements) or ``block`` (one block per row).  In
+    the last two, ``lanes`` is the block's ``threads``.  Backward: a flat
+    grid of ``bwd_grid`` blocks of ``bwd_threads`` over the ``B * V``
+    elements.  Both load the K teachers of an element ``teacher_batch`` at
+    a time (the kernel is compiled for 1, 4 and 8)."""
+    teacher_batch: int
+    mode: str
+    lanes: int
+    rows_per_block: int
+    cluster: int
+    threads: int
+    grid: int
+    bwd_threads: int
+    bwd_grid: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round32(n: int) -> int:
+    return 32 * _cdiv(n, 32)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(k: int, b: int, v: int, sms: int = SMS) -> Plan:
+    """The launch plan for ``k`` teachers over ``b`` rows of ``v`` classes
+    on a card of ``sms`` streaming multiprocessors."""
+    if k < 1 or b < 1 or v < 1 or sms < 1:
+        raise ValueError(f"no plan for K={k}, B={b}, V={v} on {sms} SMs")
+    # the smallest batch that holds all K, else 8 at a time: a small K runs
+    # no dead loads, a large K keeps 8 in flight
+    batch = next((n for n in TEACHER_BATCHES if n >= k), TEACHER_BATCHES[-1])
+    bwd_threads = min(BWD_THREADS, _round32(b * v))
+    bwd_grid = min(_cdiv(b * v, bwd_threads), BWD_MAX_BLOCKS)
+    if v <= LANES_MAX_V:
+        lanes = min(32, 1 << (v - 1).bit_length())
+        threads = min(LANE_BLOCK_THREADS, _round32(b * lanes))
+        rows = threads // lanes
+        return Plan(batch, "lanes", lanes, rows, 1, threads, _cdiv(b, rows),
+                    bwd_threads, bwd_grid)
+    if b < sms and v > 2 * ROW_BLOCK_THREADS:
+        c = max((c for c in CLUSTER_SIZES if b * c <= CLUSTER_FILL * sms),
+                default=CLUSTER_SIZES[0])
+        threads = min(ROW_BLOCK_THREADS, _round32(_cdiv(v, c)))
+        return Plan(batch, "cluster", threads, 1, c, threads, b * c,
+                    bwd_threads, bwd_grid)
+    threads = min(ROW_BLOCK_THREADS, _round32(v))
+    return Plan(batch, "block", threads, 1, 1, threads, b, bwd_threads,
+                bwd_grid)
+
+
+_SMS: Dict[int, int] = {}
+
+
+def card_plan(device: torch.device, k: int, b: int, v: int) -> Plan:
+    """:func:`plan` for the CUDA card ``device``, with its SM count."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return plan(k, b, v, _SMS[index])
 
 
 def reset_launches() -> None:
@@ -109,17 +209,22 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def kl_fwd(student, teachers, temperature: float = 1.0, pre: bool = False):
+def kl_fwd(student, teachers, temperature: float = 1.0, pre: bool = False,
+           launch: Plan | None = None):
     """K2f (``pre=False``, teachers [K, B, V]) or K3f (``pre=True``, rows
-    [B, V]): per-row ``(kl, lse_t, lse_s)``, each float32 [B]."""
+    [B, V]): per-row ``(kl, lse_t, lse_s)``, each float32 [B].  ``launch``
+    overrides :func:`card_plan` (to time the modes against each other)."""
     k, b, v = _check(student, teachers, pre)
     kl, lse_t, lse_s = (torch.empty(b, device=student.device,
                                     dtype=torch.float32) for _ in range(3))
     name = "ensemble_kl_pre_fwd" if pre else "ensemble_kl_fwd"
     shape = (b, v) if pre else (k, b, v)
+    p = launch or card_plan(student.device, k, b, v)
     err = _fn(name)(student.data_ptr(), teachers.data_ptr(), kl.data_ptr(),
                     lse_t.data_ptr(), lse_s.data_ptr(), *shape,
                     float(temperature), TEACHER_KINDS[teachers.dtype],
+                    p.teacher_batch, MODES[p.mode], p.lanes, p.cluster,
+                    p.threads, p.grid,
                     student.device.index, _stream(student))
     _raise_on(err, name)
     LAUNCHES[name] += 1
@@ -141,11 +246,13 @@ def kl_bwd(student, teachers, lse_t, lse_s, g, temperature: float = 1.0,
     ds = torch.empty_like(student)
     name = "ensemble_kl_pre_bwd" if pre else "ensemble_kl_bwd"
     shape = (b, v) if pre else (k, b, v)
+    p = card_plan(student.device, k, b, v)
     err = _fn(name)(student.data_ptr(), teachers.data_ptr(),
                     lse_t.data_ptr(), lse_s.data_ptr(), g.data_ptr(),
                     ds.data_ptr(), *shape, float(temperature),
-                    TEACHER_KINDS[teachers.dtype], student.device.index,
-                    _stream(student))
+                    TEACHER_KINDS[teachers.dtype], p.teacher_batch,
+                    p.bwd_threads, p.bwd_grid,
+                    student.device.index, _stream(student))
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return ds

@@ -111,6 +111,12 @@ def test_cpu_tensors_take_the_plain_versions():
         k2.kl_fwd(s, t[0], 2.0, pre=True)
 
 
+# each forward mode of kernels/ensemble_kl.py:plan: lane groups, a cluster
+# of 8 (one of them ragged) and of 2 per row, one block per row
+MODE_SHAPES = ((8, 64, 3, 1.0), (5, 37, 5003, 2.5), (1, 7, 3000, 2.5),
+               (8, 100, 700, 1.0), (1, 7, 300, 2.5), (2, 160, 1000, 1.0))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype_name", DTYPES)
 def test_cuda_kernels_match_plain_on_card(dtype_name):
@@ -119,8 +125,9 @@ def test_cuda_kernels_match_plain_on_card(dtype_name):
     from repro_torch.kernels import ensemble_kl as k2
     gen = torch.Generator().manual_seed(0)
     dt = getattr(torch, dtype_name)
-    for k, b, v, temp in ((8, 64, 3, 1.0), (5, 37, 5003, 2.5),
-                          (1, 7, 300, 2.5)):
+    modes = {k2.plan(k, b, v).mode for k, b, v, _ in MODE_SHAPES}
+    assert modes == {"lanes", "cluster", "block"}
+    for k, b, v, temp in MODE_SHAPES:
         s = torch.randn(b, v, generator=gen) * 3
         t = (torch.randn(k, b, v, generator=gen) * 3).to(dt).cuda()
         for pre in (False, True):
@@ -141,3 +148,27 @@ def test_cuda_kernels_match_plain_on_card(dtype_name):
                    FWD_ATOL)
             _close(g_got.cpu().numpy(), g_want.cpu().numpy(), GRAD_RTOL,
                    GRAD_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype_name", DTYPES)
+def test_cuda_kernels_repeat_bit_for_bit(dtype_name):
+    """Every merge runs in a fixed order with no atomics: two launches on
+    the same inputs give the same bits, in each forward mode and in the
+    backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels import ensemble_kl as k2
+    gen = torch.Generator().manual_seed(1)
+    dt = getattr(torch, dtype_name)
+    for k, b, v, temp in MODE_SHAPES:
+        s = (torch.randn(b, v, generator=gen) * 3).cuda()
+        t = (torch.randn(k, b, v, generator=gen) * 3).to(dt).cuda()
+        g = torch.ones((), device="cuda")
+        first = k2.kl_fwd(s, t, temp)
+        second = k2.kl_fwd(s, t, temp)
+        for x, y in zip(first, second):
+            assert torch.equal(x, y), (k, b, v)
+        ds1 = k2.kl_bwd(s, t, first[1], first[2], g, temp)
+        ds2 = k2.kl_bwd(s, t, first[1], first[2], g, temp)
+        assert torch.equal(ds1, ds2), (k, b, v)
