@@ -18,7 +18,6 @@ version.
 """
 from __future__ import annotations
 
-import dataclasses
 import sys
 from pathlib import Path
 
@@ -32,29 +31,15 @@ CLUSTER_SHAPES = [(8, b, v) for b in (16, 64, 128) for v in (512, 1000, 5003)]
 RTOL, ATOL = 1e-5, 1e-6
 
 
-def _round32(n: int) -> int:
-    return 32 * -(-n // 32)
-
-
 def candidates(k2, k, b, v):
     """The plan's own choice, and (name, Plan) of every forward mode that
     can run (K, B, V)."""
     own = k2.plan(k, b, v)
-    out = []
-    lanes = min(32, 1 << (v - 1).bit_length())
-    threads = min(k2.LANE_BLOCK_THREADS, _round32(b * lanes))
-    rows = threads // lanes
-    out.append((f"lanes G={lanes}", dataclasses.replace(
-        own, mode="lanes", lanes=lanes,
-        rows_per_block=rows, cluster=1, threads=threads,
-        grid=-(-b // rows))))
-    for c in (1,) + k2.CLUSTER_SIZES:
-        threads = min(k2.ROW_BLOCK_THREADS, _round32(-(-v // c)))
-        out.append(("block" if c == 1 else f"cluster C={c}",
-                    dataclasses.replace(
-                        own, mode="block" if c == 1 else "cluster",
-                        lanes=threads, rows_per_block=1, cluster=c,
-                        threads=threads, grid=b * c)))
+    lanes = k2.plan_in_mode(k, b, v, "lanes")
+    out = [(f"lanes G={lanes.lanes}", lanes),
+           ("block", k2.plan_in_mode(k, b, v, "block"))]
+    out += [(f"cluster C={c}", k2.plan_in_mode(k, b, v, "cluster", c))
+            for c in k2.CLUSTER_SIZES]
     return own, out
 
 

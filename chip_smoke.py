@@ -14,10 +14,16 @@ and in order:
    register and shared-memory lines;
 3. holds each kernel against its plain PyTorch version on the card, and
    times kernel, plain version and bound: K1 (logit bank) at the main
-   path's shape and two wider ones, for every bank dtype and two
-   temperatures; K2 (raw teachers) and K3 (pre-averaged rows) at their
-   paths' shape and wider ones (ImageNet's 1000 classes, zamba2's 32000
-   vocabulary over 1024 rows, one row on a cluster of 8), K = 1 too,
+   path's shape and three wider ones (zamba2's 32000 vocabulary over 1024
+   rows the widest), for every bank dtype and two temperatures, each
+   shape's launch plan printed, two launches held to equal bits, every
+   instantiation to zero spills, each forward mode timed against the
+   others where the plan switches, the backward's grid capped at one wave
+   timed against the plan's full grid, and an index outside the bank shown
+   to poison exactly its row in every mode; K2 (raw teachers) and K3
+   (pre-averaged rows) at their paths' shape and wider ones (ImageNet's
+   1000 classes, zamba2's 32000 vocabulary over 1024 rows, one row on a
+   cluster of 8), K = 1 too,
    float32 and bfloat16 teachers, two temperatures, each shape's launch
    plan printed, two launches of each kernel held to equal bits and every
    instantiation to zero spills; K4 (causal / sliding-window attention) at
@@ -82,10 +88,34 @@ EXP_PER_S = 16 * 132 * 1.98e9
 
 # (B, N, V): the main path's distill batch over its pool of 3-class rows;
 # the repo's roofline records' shape (experiments/dryrun/distill_kl_*
-# __b256c64_*); a ragged shape spanning several 2048-wide V tiles
-SHAPES = [(64, 4000, 3), (256, 4096, 64), (37, 1000, 5003)]
+# __b256c64_*); a ragged shape spanning several 2048-wide V tiles; 1024
+# token rows at zamba2-1.2b's vocabulary, K2's widest shape (the bank's
+# gathered rows and the student 250 MB in f32: L2 is cold by
+# construction).  K1 runs the launch plan of K2/K3 at K = 1, with its own
+# cluster threshold (V > 4096): lane groups at V = 3, one block per row at
+# V = 64 and 32000, a cluster of 8 per row at (37, 5003).
+SHAPES = [(64, 4000, 3), (256, 4096, 64), (37, 1000, 5003),
+          (1024, 4096, 32000)]
 TEMPERATURES = (1.0, 2.5)
 BANK_DTYPES = ("float32", "bfloat16", "int8", "fp8_e4m3")
+K1_KERNELS = 20   # ensemble_kl_bank.cu's instantiations, each held to 0 spills
+# K1's forward modes, each forced through ``launch=`` and timed against the
+# others (float32 bank of K1_MODE_N rows, T = 1) where the plan switches:
+# V = 32 / 33 (lane groups / block); at B = 16, 64, 128, V = 512 / 513
+# (K2's switch to a cluster), V = 2000 and V = 4096 / 4097 (K1's) and
+# V = 5003, where K1 takes clusters of 8, 4, 2.
+K1_FWD_MODES = (("lanes", 1), ("block", 1), ("cluster", 2), ("cluster", 4),
+                ("cluster", 8))
+K1_MODE_SHAPES = [(64, 32), (64, 33)] + [
+    (b, v) for b in (16, 64, 128) for v in (512, 513, 2000, 4096, 4097, 5003)]
+K1_MODE_N = 4000
+# K1's flat backward, its grid capped at one wave (the wrapper's bwd_grid)
+# against the plan's grid of one element a thread, where they differ:
+# zamba2's vocabulary over 1024 and 64 rows
+K1_BWD_GRID_SHAPES = [(1024, 32000), (64, 32000)]
+# an index outside the bank, in each mode's own shape (B = 7: the lane
+# groups' last warp holds a row past B): rows 2 (index N) and 5 (index -1)
+K1_POISON_SHAPES = {"lanes": 3, "block": 300, "cluster": 5003}
 
 # K2 (K, B, V): the on-the-fly path's 8 teachers x distill batch 64 x 3
 # classes; the roofline records' shape; a ragged shape over several V tiles;
@@ -271,44 +301,54 @@ def kernel_bytes(b, v, bank, scales, idx, backward: bool) -> int:
 
 
 def kernel_phase(device):
-    """Kernel vs plain version at every shape / dtype / T; timings at T=1."""
+    """Kernel vs plain version at every shape / dtype / T, two launches of
+    each kernel against each other (equal bits); timings at T=1."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.ensemble_kl_bank import (bank_kl_bwd,
-                                                      bank_kl_fwd,
+                                                      bank_kl_fwd, card_plan,
                                                       ensemble_kl_bank)
     rows, errors = [], []
     for (b, n, v) in SHAPES:
+        mode = card_plan(device, b, v).mode
         for dtype_name in BANK_DTYPES:
+            s, bank, scales, idx = make_case(b, n, v, dtype_name, seed=b + v,
+                                             device=device)
+            row_scale = (torch.ones(b, device=device) if scales is None
+                         else scales[idx])
             for temp in TEMPERATURES:
-                s, bank, scales, idx = make_case(b, n, v, dtype_name,
-                                                 seed=b + v, device=device)
-                row_scale = (torch.ones(b, device=device) if scales is None
-                             else scales[idx])
                 s_k = s.clone().requires_grad_(True)
                 s_p = s.clone().requires_grad_(True)
                 loss_k = ensemble_kl_bank(s_k, bank, scales, idx, temp)
                 loss_p = ref.ensemble_kl_bank(s_p, bank, row_scale, idx, temp)
                 (g_k,) = torch.autograd.grad(loss_k, s_k)
                 (g_p,) = torch.autograd.grad(loss_p, s_p)
+                # two launches of each kernel on the same inputs: equal bits
+                g1 = torch.ones((), device=device)
+                f1 = bank_kl_fwd(s, bank, scales, idx, temp)
+                f2 = bank_kl_fwd(s, bank, scales, idx, temp)
+                d1 = bank_kl_bwd(s, bank, scales, idx, f1[1], f1[2], g1, temp)
+                d2 = bank_kl_bwd(s, bank, scales, idx, f1[1], f1[2], g1, temp)
                 torch.cuda.synchronize()
+                repeat = (all(torch.equal(x, y) for x, y in zip(f1, f2))
+                          and torch.equal(d1, d2))
                 fwd_err = abs(float(loss_k.detach()) - float(loss_p.detach()))
                 bwd_err = float((g_k - g_p).abs().max())
                 fwd_tol = FWD_ATOL + FWD_RTOL * abs(float(loss_p.detach()))
-                ok = (fwd_err <= fwd_tol and bwd_err <= BWD_ATOL
+                ok = (fwd_err <= fwd_tol and bwd_err <= BWD_ATOL and repeat
                       and bool(torch.isfinite(g_k).all()))
                 rec = {"B": b, "N": n, "V": v, "bank": dtype_name, "T": temp,
-                       "loss": float(loss_p.detach()), "fwd_err": fwd_err,
-                       "fwd_tol": fwd_tol, "bwd_err": bwd_err,
-                       "bwd_tol": BWD_ATOL, "ok": ok}
+                       "mode": mode, "loss": float(loss_p.detach()),
+                       "fwd_err": fwd_err, "fwd_tol": fwd_tol,
+                       "bwd_err": bwd_err, "bwd_tol": BWD_ATOL,
+                       "repeat_equal": repeat, "ok": ok}
                 errors.append(rec)
                 if temp != 1.0:
                     continue
                 # timings, T = 1: device time (CUDA graph replay) and the
                 # eager per-call time; the plain backward is autograd of the
                 # plain forward, timed as (forward + grad) - forward
-                kl, lse_t, lse_s = bank_kl_fwd(s, bank, scales, idx, temp)
-                g1 = torch.ones((), device=device)
+                kl, lse_t, lse_s = f1
                 fwd = lambda: bank_kl_fwd(s, bank, scales, idx, temp)
                 bwd = lambda: bank_kl_bwd(s, bank, scales, idx, lse_t, lse_s,
                                           g1, temp)
@@ -321,19 +361,26 @@ def kernel_phase(device):
                 def plain_both():
                     torch.autograd.grad(ref.ensemble_kl_bank(
                         s_g, bank, row_scale, idx, temp), s_g)
-                ms_f, ms_b = device_ms(fwd), device_ms(bwd)
-                plain_f = device_ms(plain_fwd)
-                plain_b = device_ms(plain_both) - plain_f
-                call_f, call_b = call_ms(fwd), call_ms(bwd)
-                plain_call_f = call_ms(plain_fwd)
-                plain_call_b = call_ms(plain_both) - plain_call_f
+
+                def measure(fn):
+                    """(device ms, per-call ms); the widest shape's
+                    launches take ~0.3 ms, so fewer repeats there."""
+                    if b * v < 10 ** 7:
+                        return device_ms(fn), call_ms(fn)
+                    t = timed(fn)
+                    return t["ms"], t["call_ms"]
+                (ms_f, call_f), (ms_b, call_b) = measure(fwd), measure(bwd)
+                plain_f, plain_call_f = measure(plain_fwd)
+                both, both_call = measure(plain_both)
+                plain_b = both - plain_f
+                plain_call_b = both_call - plain_call_f
                 byt_f = kernel_bytes(b, v, bank, scales, idx, False)
                 byt_b = kernel_bytes(b, v, bank, scales, idx, True)
                 # ~14 float ops per element forward (two scalings, max and
                 # rescale, three exp-weighted sums), ~6 backward
                 ops_f, ops_b = 14 * b * v, 6 * b * v
                 rows.append({
-                    "B": b, "N": n, "V": v, "bank": dtype_name,
+                    "B": b, "N": n, "V": v, "bank": dtype_name, "mode": mode,
                     "fwd_ms": ms_f, "bwd_ms": ms_b,
                     "plain_fwd_ms": plain_f, "plain_bwd_ms": plain_b,
                     "fwd_call_ms": call_f, "bwd_call_ms": call_b,
@@ -351,6 +398,107 @@ def kernel_phase(device):
                                      >= ops_b / FP32_FLOPS_PER_S
                                      else "operations")})
     return rows, errors
+
+
+def k1_mode_phase(device):
+    """K1's forward in every mode at the shapes where the plan switches:
+    each against the plain version, and its device time (float32 bank,
+    T = 1).  Returns one row per shape, ``{mode name: us}``, the plan's own
+    mode named."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ensemble_kl import plan_in_mode
+    from repro_torch.kernels.ensemble_kl_bank import bank_kl_fwd, card_plan
+    rows = []
+    for b, v in K1_MODE_SHAPES:
+        s, bank, scales, idx = make_case(b, K1_MODE_N, v, "float32",
+                                         seed=b + v, device=device)
+        ones = torch.ones(b, device=device)
+        want = float(ref.ensemble_kl_bank(s, bank, ones, idx))
+        own = card_plan(device, b, v)
+        row = {"B": b, "N": K1_MODE_N, "V": v, "us": {}, "ok": True}
+        for mode, c in K1_FWD_MODES:
+            p = plan_in_mode(1, b, v, mode, c)
+            name = (f"lanes G={p.lanes}" if mode == "lanes" else
+                    f"cluster C={c}" if mode == "cluster" else "block")
+            if (p.mode, p.cluster) == (own.mode, own.cluster):
+                row["plan"] = name
+            got = float(bank_kl_fwd(s, bank, scales, idx, launch=p)[0].sum()
+                        / b)
+            row["ok"] &= abs(got - want) <= FWD_ATOL + FWD_RTOL * abs(want)
+            row["us"][name] = device_ms(
+                lambda p=p: bank_kl_fwd(s, bank, scales, idx, launch=p)) * 1e3
+        rows.append(row)
+    return rows
+
+
+def k1_bwd_grid_phase(device):
+    """K1's backward on the capped grid (``bwd_grid``) and on the plan's
+    full grid, each against the plain gradient; device us (float32 bank,
+    T = 1)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ensemble_kl import card_sms
+    from repro_torch.kernels.ensemble_kl_bank import (bank_kl_bwd,
+                                                      bank_kl_fwd, bwd_grid,
+                                                      card_plan)
+    rows = []
+    for b, v in K1_BWD_GRID_SHAPES:
+        s, bank, scales, idx = make_case(b, K1_MODE_N, v, "float32",
+                                         seed=b + v, device=device)
+        s_p = s.clone().requires_grad_(True)
+        (want,) = torch.autograd.grad(ref.ensemble_kl_bank(
+            s_p, bank, torch.ones(b, device=device), idx), s_p)
+        _, lse_t, lse_s = bank_kl_fwd(s, bank, scales, idx)
+        g1 = torch.ones((), device=device)
+        p = card_plan(device, b, v)
+        row = {"B": b, "N": K1_MODE_N, "V": v, "us": {}, "ok": True}
+        for name, blocks in (("capped", bwd_grid(p, card_sms(device))),
+                             ("full", p.bwd_grid)):
+            got = bank_kl_bwd(s, bank, scales, idx, lse_t, lse_s, g1,
+                              blocks=blocks)
+            row["ok"] &= float((got - want).abs().max()) <= BWD_ATOL
+            row["us"][f"{name} {blocks} blocks"] = device_ms(
+                lambda: bank_kl_bwd(s, bank, scales, idx, lse_t, lse_s, g1,
+                                    blocks=blocks), reps=10, iters=5) * 1e3
+        rows.append(row)
+    return rows
+
+
+def k1_poison_phase(device):
+    """An index outside the bank, in each forward mode and bank dtype: rows
+    2 (index N) and 5 (index -1) of 7 come out NaN in kl, lse_t, lse_s and
+    all of ds, every other row with the bits of a run on valid indices, and
+    the launches return."""
+    import torch
+    from repro_torch.kernels.ensemble_kl_bank import (bank_kl_bwd,
+                                                      bank_kl_fwd, card_plan)
+    out = []
+    b, n, temp = 7, 50, 2.5
+    for mode, v in K1_POISON_SHAPES.items():
+        for dtype_name in BANK_DTYPES:
+            s, bank, scales, idx = make_case(b, n, v, dtype_name, seed=v,
+                                             device=device)
+            bad = idx.clone()
+            bad[2], bad[5] = n, -1
+            g1 = torch.ones((), device=device)
+            good = bank_kl_fwd(s, bank, scales, idx, temp)
+            got = bank_kl_fwd(s, bank, scales, bad, temp)
+            ds_good = bank_kl_bwd(s, bank, scales, idx, good[1], good[2], g1,
+                                  temp)
+            ds = bank_kl_bwd(s, bank, scales, bad, got[1], got[2], g1, temp)
+            torch.cuda.synchronize()
+            hit = torch.zeros(b, dtype=torch.bool, device=device)
+            hit[[2, 5]] = True
+            ok = (card_plan(device, b, v).mode == mode
+                  and all(torch.equal(torch.isnan(x), hit)
+                          and torch.equal(x[~hit], y[~hit])
+                          for x, y in zip(got, good))
+                  and bool(torch.isnan(ds[hit]).all())
+                  and torch.equal(ds[~hit], ds_good[~hit]))
+            out.append({"mode": mode, "B": b, "N": n, "V": v,
+                        "bank": dtype_name, "ok": ok})
+    return out
 
 
 def k2_bytes(k, b, v, elem, backward: bool) -> int:
@@ -1133,6 +1281,19 @@ def main() -> int:
     print(f"  swa_attn: {report['k4_hmma']} HMMA instructions "
           f"(cuobjdump -sass)", flush=True)
     build_problems = []
+    # K1: the lane-group, block and cluster forward and the backward at both
+    # index widths, for each of the four bank dtypes (20), spill nothing
+    report["k1_ptxas"] = ptxas_usage(libs["ensemble_kl_bank"].log)
+    k1_spills = {n: u for n, u in report["k1_ptxas"].items()
+                 if u.get("spill_stores") != 0 or u.get("spill_loads") != 0}
+    spill_bytes = sum(u.get("spill_stores", 0) + u.get("spill_loads", 0)
+                      for u in report["k1_ptxas"].values())
+    print(f"  ensemble_kl_bank: {len(report['k1_ptxas'])} kernels, registers "
+          f"{sorted(u.get('registers') for u in report['k1_ptxas'].values())}"
+          f", spill bytes {spill_bytes}", flush=True)
+    if len(report["k1_ptxas"]) != K1_KERNELS or k1_spills:
+        build_problems.append(f"ensemble_kl_bank's {K1_KERNELS} kernels spill "
+                              f"or are missing: {report['k1_ptxas']}")
     # K2 / K3: every instantiation spills nothing: lane groups, cluster and
     # block per row forward, and the backward at both index widths, each for
     # 1, 4 and 8 teachers in flight and f32 and bf16 teachers (30)
@@ -1178,8 +1339,30 @@ def main() -> int:
     report["kernel_errors"], report["kernel_timings"] = errors, timings
     for e in errors:
         print(f"  check K1 B={e['B']} N={e['N']} V={e['V']} {e['bank']:9s} "
-              f"T={e['T']}: fwd {e['fwd_err']:.2e} (tol {e['fwd_tol']:.1e}) "
-              f"bwd {e['bwd_err']:.2e} (tol {e['bwd_tol']:.1e}) "
+              f"T={e['T']} mode {e['mode']}: fwd {e['fwd_err']:.2e} (tol "
+              f"{e['fwd_tol']:.1e}) bwd {e['bwd_err']:.2e} (tol "
+              f"{e['bwd_tol']:.1e}) two launches "
+              f"{'equal' if e['repeat_equal'] else 'DIFFER'} "
+              f"{'ok' if e['ok'] else 'FAIL'}")
+    k1_modes = k1_mode_phase(device)
+    k1_grids = k1_bwd_grid_phase(device)
+    k1_poison = k1_poison_phase(device)
+    report.update(k1_modes=k1_modes, k1_bwd_grids=k1_grids,
+                  k1_poison=k1_poison)
+    for r in k1_modes:
+        print(f"  modes K1 B={r['B']} N={r['N']} V={r['V']} (f32, device us, "
+              f"plan *): " + "  ".join(
+                  f"{name}{'*' if name == r['plan'] else ''} {us:.2f}"
+                  for name, us in r["us"].items())
+              + ("" if r["ok"] else "  FAIL: a mode differs from plain"))
+    for r in k1_grids:
+        print(f"  backward grids K1 B={r['B']} N={r['N']} V={r['V']} (f32, "
+              f"device us): " + "  ".join(
+                  f"{name} {us:.2f}" for name, us in r["us"].items())
+              + ("" if r["ok"] else "  FAIL: a grid differs from plain"))
+    for e in k1_poison:
+        print(f"  poison K1 B={e['B']} N={e['N']} V={e['V']} {e['bank']:9s} "
+              f"mode {e['mode']}: rows 2, 5 NaN, the rest unchanged "
               f"{'ok' if e['ok'] else 'FAIL'}")
     k2_timings, k2_errors = k2_phase(device)
     report["k2_errors"], report["k2_timings"] = k2_errors, k2_timings
@@ -1205,7 +1388,8 @@ def main() -> int:
                 f"{100 * r[f'{k}_bound_ms'] / r[f'{k}_ms']:.1f}% of it)")
         what = (f"{r['kernel']} K={r['K']} B={r['B']} V={r['V']} "
                 f"{r['teachers']} mode {r['mode']}" if "kernel" in r else
-                f"K1 B={r['B']} N={r['N']} V={r['V']} {r['bank']}")
+                f"K1 B={r['B']} N={r['N']} V={r['V']} {r['bank']} mode "
+                f"{r['mode']}")
         print(f"  time {what}: " + "; ".join(parts))
     k4_timings, k4_errors = k4_phase(device)
     k5_timings, k5_errors = k5_phase(device)
@@ -1238,7 +1422,8 @@ def main() -> int:
                   f"{r.get('bound_detail', r['bound_by'])}", flush=True)
     problems = build_problems + [
         f"kernel check failed: {e}" for e in
-        errors + k2_errors + k4_errors + k5_errors if not e["ok"]]
+        errors + k1_modes + k1_grids + k1_poison + k2_errors + k4_errors
+        + k5_errors if not e["ok"]]
 
     # 4. the paths, each with its own launch counts
     paths = {}

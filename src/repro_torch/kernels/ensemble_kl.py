@@ -58,12 +58,15 @@ _ARGTYPES = {
 SMS = 132
 # The thresholds between the forward modes, from card times
 # (benchmarks/torch_k2_modes.py; PERF.md).  Lane groups win while a lane
-# owns one element; one block per row wins up to two elements a thread;
-# past that, rows too few to fill the SMs take a cluster of C blocks each,
-# the largest C that keeps B * C within CLUSTER_FILL blocks an SM.
+# owns one element; one block per row wins up to two elements a thread
+# (V <= CLUSTER_MIN_V); past that, rows too few to fill the SMs take a
+# cluster of C blocks each, the largest C that keeps B * C within
+# CLUSTER_FILL blocks an SM.  A caller whose elements cost less may pass
+# its own CLUSTER_MIN_V (K1, kernels/ensemble_kl_bank.py).
 LANES_MAX_V = 32
 LANE_BLOCK_THREADS = 128      # threads of a lane-group block
 ROW_BLOCK_THREADS = 256       # most threads of a cluster or row block
+CLUSTER_MIN_V = 2 * ROW_BLOCK_THREADS
 CLUSTER_SIZES = (2, 4, 8)     # portable thread-block cluster sizes
 CLUSTER_FILL = 2.5
 TEACHER_BATCHES = (1, 4, 8)   # teacher loads a lane keeps in flight
@@ -104,45 +107,67 @@ def _round32(n: int) -> int:
     return 32 * _cdiv(n, 32)
 
 
-@functools.lru_cache(maxsize=1024)
-def plan(k: int, b: int, v: int, sms: int = SMS) -> Plan:
-    """The launch plan for ``k`` teachers over ``b`` rows of ``v`` classes
-    on a card of ``sms`` streaming multiprocessors."""
-    if k < 1 or b < 1 or v < 1 or sms < 1:
-        raise ValueError(f"no plan for K={k}, B={b}, V={v} on {sms} SMs")
+def plan_in_mode(k: int, b: int, v: int, mode: str, cluster: int = 1
+                 ) -> Plan:
+    """The launch for ``k`` teachers over ``b`` rows of ``v`` classes in
+    the forward mode ``mode`` (``cluster``: that many blocks per row), as
+    :func:`plan` lays it out.  :func:`plan` picks the mode; the mode
+    timings and the card tests force each one through ``launch=``."""
+    if k < 1 or b < 1 or v < 1:
+        raise ValueError(f"no plan for K={k}, B={b}, V={v}")
+    if (mode, cluster) not in ({("lanes", 1), ("block", 1)}
+                               | {("cluster", c) for c in CLUSTER_SIZES}):
+        raise ValueError(f"no forward mode {mode!r} with cluster {cluster}")
     # the smallest batch that holds all K, else 8 at a time: a small K runs
     # no dead loads, a large K keeps 8 in flight
     batch = next((n for n in TEACHER_BATCHES if n >= k), TEACHER_BATCHES[-1])
     bwd_threads = min(BWD_THREADS, _round32(b * v))
     bwd_grid = min(_cdiv(b * v, bwd_threads), BWD_MAX_BLOCKS)
-    if v <= LANES_MAX_V:
+    if mode == "lanes":
         lanes = min(32, 1 << (v - 1).bit_length())
         threads = min(LANE_BLOCK_THREADS, _round32(b * lanes))
         rows = threads // lanes
         return Plan(batch, "lanes", lanes, rows, 1, threads, _cdiv(b, rows),
                     bwd_threads, bwd_grid)
-    if b < sms and v > 2 * ROW_BLOCK_THREADS:
+    threads = min(ROW_BLOCK_THREADS, _round32(_cdiv(v, cluster)))
+    return Plan(batch, mode, threads, 1, cluster, threads, b * cluster,
+                bwd_threads, bwd_grid)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(k: int, b: int, v: int, sms: int = SMS,
+         cluster_min_v: int = CLUSTER_MIN_V) -> Plan:
+    """The launch plan for ``k`` teachers over ``b`` rows of ``v`` classes
+    on a card of ``sms`` streaming multiprocessors; rows wider than
+    ``cluster_min_v`` may take a cluster."""
+    if k < 1 or b < 1 or v < 1 or sms < 1:
+        raise ValueError(f"no plan for K={k}, B={b}, V={v} on {sms} SMs")
+    if v <= LANES_MAX_V:
+        return plan_in_mode(k, b, v, "lanes")
+    if b < sms and v > cluster_min_v:
         c = max((c for c in CLUSTER_SIZES if b * c <= CLUSTER_FILL * sms),
                 default=CLUSTER_SIZES[0])
-        threads = min(ROW_BLOCK_THREADS, _round32(_cdiv(v, c)))
-        return Plan(batch, "cluster", threads, 1, c, threads, b * c,
-                    bwd_threads, bwd_grid)
-    threads = min(ROW_BLOCK_THREADS, _round32(v))
-    return Plan(batch, "block", threads, 1, 1, threads, b, bwd_threads,
-                bwd_grid)
+        return plan_in_mode(k, b, v, "cluster", c)
+    return plan_in_mode(k, b, v, "block")
 
 
 _SMS: Dict[int, int] = {}
 
 
-def card_plan(device: torch.device, k: int, b: int, v: int) -> Plan:
-    """:func:`plan` for the CUDA card ``device``, with its SM count."""
+def card_sms(device: torch.device) -> int:
+    """The streaming multiprocessors of the CUDA card ``device``."""
     index = torch.device(device).index
     index = torch.cuda.current_device() if index is None else index
     if index not in _SMS:
         _SMS[index] = torch.cuda.get_device_properties(
             index).multi_processor_count
-    return plan(k, b, v, _SMS[index])
+    return _SMS[index]
+
+
+def card_plan(device: torch.device, k: int, b: int, v: int,
+              cluster_min_v: int = CLUSTER_MIN_V) -> Plan:
+    """:func:`plan` for the CUDA card ``device``, with its SM count."""
+    return plan(k, b, v, card_sms(device), cluster_min_v)
 
 
 def reset_launches() -> None:

@@ -1,8 +1,10 @@
-"""The launch plan of the AVGLOGITS KL kernels (K2 / K3) and the order in
-which they merge, checked on the CPU (no card, no nvcc).
+"""The launch plan of the AVGLOGITS KL kernels (K2 / K3, and K1 on the
+logit bank, which runs the same plan at K = 1) and the order in which they
+merge, checked on the CPU (no card, no nvcc).
 
 ``repro_torch.kernels.ensemble_kl.plan`` picks each launch's shape on the
-host; the CUDA kernels (``kernels/csrc/ensemble_kl.cu``) index by it.  Here:
+host; the CUDA kernels (``kernels/csrc/ensemble_kl.cu``,
+``kernels/csrc/ensemble_kl_bank.cu``) index by it.  Here:
 
 * the index mapping of every mode, simulated in numpy from the plan, gives
   every (row, element) pair to exactly one lane of exactly one block, in
@@ -15,8 +17,18 @@ host; the CUDA kernels (``kernels/csrc/ensemble_kl.cu``) index by it.  Here:
   and the JAX package (``repro.kernels.ref``, and the Pallas kernel in
   interpret mode for bfloat16 teachers, whose quotient the JAX reference
   does not round) at K2's tolerances: forward rtol 1e-5 / atol 1e-6,
-  gradient rtol 1e-4 / atol 1e-7.
+  gradient rtol 1e-4 / atol 1e-7;
+* K1 (``ensemble_kl_bank.plan``: the same plan with K1's own cluster
+  threshold): the same ownership at its ``chip_smoke.py`` shapes (the
+  backward on its grid capped at one wave, also on a one-SM card so it
+  walks grid-stride), each shape's named mode, and the same model on gathered,
+  dequantized bank rows (``t = bank * (scale * 1/T)``, ``s = student *
+  1/T``) for every bank dtype, held against ``ref.ensemble_kl_bank`` and
+  the JAX package's ``ensemble_kl_bank`` (Pallas, interpret mode) and
+  ``repro.kernels.ref`` at K1's tolerances: forward 5e-6 + 2e-6 |loss|,
+  gradient 3e-7.
 """
+import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -26,6 +38,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels import ensemble_kl as k2
+from repro_torch.kernels import ensemble_kl_bank as k1
 
 FWD_RTOL, FWD_ATOL = 1e-5, 1e-6
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-7
@@ -380,3 +393,142 @@ def test_model_merges_empty_lanes_as_zero_weight():
               k2.Plan(1, "cluster", 32, 1, 8, 32, 8, 32, 1)):
         kl, lt, ls = _model_forward(s, t, p)
         assert lt[0] == t[0, 0] and ls[0] == s[0, 0] and kl[0] == 0.0
+
+
+# ---------------------------------------------------------------------------
+# K1: the logit-bank kernels run the same plan at K = 1
+# ---------------------------------------------------------------------------
+
+K1_FWD_ATOL, K1_FWD_RTOL = 5e-6, 2e-6
+K1_BWD_ATOL = 3e-7
+BANK_DTYPES = ("float32", "bfloat16", "int8", "fp8_e4m3")
+
+# (B, V): chip_smoke.py's K1 shapes, V = 1, B = 1, one row on a ragged
+# cluster of 8, lanes with a row slot past B, and the plan's switch points
+K1_PLAN_SHAPES = [(64, 3), (256, 64), (37, 5003), (1024, 32000), (1, 1),
+                  (1, 5003), (7, 3), (64, 33), (16, 513), (16, 4097),
+                  (128, 5003)]
+
+
+@pytest.mark.parametrize("sms", [k2.SMS, 1])
+@pytest.mark.parametrize("b,v", K1_PLAN_SHAPES)
+def test_k1_plan_owns_every_element_exactly_once(b, v, sms):
+    p = k1.plan(b, v, sms)
+    counts = _count_owners(lambda r: _forward_pairs(p, b, v, r), p.grid,
+                           b * v, max(1, 4_000_000 // (
+                               p.threads * max(1, -(-v // p.threads)))))
+    assert (counts == 1).all(), (p, np.bincount(counts))
+    # the backward on the wrapper's grid: at most one wave, grid-stride past
+    q = dataclasses.replace(p, bwd_grid=k1.bwd_grid(p, sms))
+    assert 1 <= q.bwd_grid <= k1.BWD_BLOCKS_PER_SM * sms
+    counts = _count_owners(lambda r: _backward_pairs(q, b * v, r),
+                           q.bwd_grid, b * v,
+                           max(1, 4_000_000 // q.bwd_threads))
+    assert (counts == 1).all(), q
+
+
+# the mode each chip_smoke.py K1 shape (B, N, V) is planned into, with its
+# lanes per row or cluster size
+K1_CHIP_SMOKE_MODES = {
+    (64, 4000, 3): ("lanes", 4), (256, 4096, 64): ("block", 1),
+    (37, 1000, 5003): ("cluster", 8), (1024, 4096, 32000): ("block", 1),
+}
+
+
+def test_k1_chip_smoke_shapes_get_their_modes():
+    cs = _chip_smoke()
+    assert set(cs.SHAPES) == set(K1_CHIP_SMOKE_MODES)
+    for (b, n, v), (mode, width) in K1_CHIP_SMOKE_MODES.items():
+        p = k1.plan(b, v)
+        assert p.mode == mode, (b, v, p)
+        assert (p.lanes if mode == "lanes" else p.cluster) == width
+    # the mode timings sit where the plan switches: V = 32 / 33, and at
+    # B = 16, 64, 128 K2's V = 512 / 513, V = 2000, and K1's V = 4096 / 4097
+    # and 5003 (clusters of 8, 4, 2)
+    want = {(64, 32): ("lanes", 1), (64, 33): ("block", 1)}
+    for b, c in ((16, 8), (64, 4), (128, 2)):
+        want.update({(b, v): ("block", 1) for v in (512, 513, 2000, 4096)})
+        want.update({(b, v): ("cluster", c) for v in (4097, 5003)})
+        assert k2.plan(1, b, 513).mode == "cluster"    # K2 switches at 513
+    assert set(cs.K1_MODE_SHAPES) == set(want)
+    for (b, v), (mode, c) in want.items():
+        p = k1.plan(b, v)
+        assert (p.mode, p.cluster) == (mode, c), (b, v, p)
+    assert {m for m, _ in cs.K1_FWD_MODES} == set(cs.K2_MODES)
+    for mode, v in cs.K1_POISON_SHAPES.items():
+        assert k1.plan(7, v).mode == mode
+    # the backward grids differ where chip_smoke.py times both
+    for b, v in cs.K1_BWD_GRID_SHAPES:
+        p = k1.plan(b, v)
+        assert k1.bwd_grid(p, k2.SMS) < p.bwd_grid
+
+
+def _bank_case(b, n, v, dtype_name):
+    """numpy student, the stored rows as float32 and in their storage dtype
+    (torch), scales (float32 [N] or None) and idx, from a seed."""
+    from repro_torch.core.logit_bank import bank_dtype, quantize_rows
+    rng = np.random.default_rng(11 * b + 5 * n + v)
+    student = (rng.normal(size=(b, v)) * 3).astype(np.float32)
+    bank32 = torch.from_numpy((rng.normal(size=(n, v)) * 3)
+                              .astype(np.float32))
+    idx = rng.integers(0, n, size=b).astype(np.int64)
+    if dtype_name in ("int8", "fp8_e4m3"):
+        rows, scales = quantize_rows(bank32, dtype_name)
+        scales = scales.numpy()
+    else:
+        rows, scales = bank32.to(bank_dtype(dtype_name)), None
+    return student, rows, rows.float().numpy(), scales, idx
+
+
+def _bank_inputs(student, stored, scales, idx, temp):
+    """The kernels' s = student * (1/T) and t = bank[idx] * (scale * (1/T)),
+    1/T rounded to float32 as the wrapper passes it."""
+    inv_t = np.float32(1.0 / temp)
+    s = (student * inv_t).astype(np.float32)
+    factor = (np.full(len(idx), inv_t, np.float32) if scales is None
+              else (scales[idx] * inv_t).astype(np.float32))
+    return s, (stored[idx] * factor[:, None]).astype(np.float32)
+
+
+# every forward mode of K1's plan: lane groups of 4 and 16, one block per
+# row of 7 warps and of 8 warps with 4 elements a thread, clusters of 8
+# (one ragged row alone) and of 4
+K1_MODEL_SHAPES = [(64, 4000, 3), (5, 40, 16), (3, 20, 200), (64, 200, 1000),
+                   (37, 1000, 5003), (1, 50, 5003), (64, 200, 5003)]
+
+
+@pytest.mark.parametrize("dtype_name", BANK_DTYPES)
+@pytest.mark.parametrize("temp", [1.0, 2.5])
+@pytest.mark.parametrize("b,n,v", K1_MODEL_SHAPES)
+def test_k1_merge_order_model_matches_plain_and_jax(b, n, v, temp,
+                                                    dtype_name):
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    from repro.kernels.ensemble_kl import ensemble_kl_bank as jkernel
+    p = k1.plan(b, v)
+    student, rows, stored, scales, idx = _bank_case(b, n, v, dtype_name)
+    s, t = _bank_inputs(student, stored, scales, idx, temp)
+    kl, lt, ls = _model_forward(s, t, p)
+    loss = float(np.float32(kl.sum(dtype=np.float32)) / np.float32(b)
+                 * np.float32(temp ** 2))
+    grad = _model_grad(s, t, lt, ls, temp, b)
+
+    row_scale = (np.ones(b, np.float32) if scales is None
+                 else scales[idx].astype(np.float32))
+    s_t = torch.from_numpy(student).requires_grad_(True)
+    want = ref.ensemble_kl_bank(s_t, rows, torch.from_numpy(row_scale),
+                                torch.from_numpy(idx), temp)
+    (g_want,) = torch.autograd.grad(want, s_t)
+    rows_j = jnp.asarray(stored).astype(
+        {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
+         "int8": jnp.int8, "fp8_e4m3": jnp.float8_e4m3fn}[dtype_name])
+    s_j, rs_j, idx_j = (jnp.asarray(student), jnp.asarray(row_scale),
+                        jnp.asarray(idx.astype(np.int32)))
+    jk = lambda x: jkernel(x, rows_j, rs_j, idx_j, temp, True)
+    jr = lambda x: jref.ensemble_kl_bank(x, rows_j, rs_j, idx_j, temp)
+    for w, gw in ((float(want.detach()), g_want.numpy()),
+                  (float(jk(s_j)), np.asarray(jax.grad(jk)(s_j))),
+                  (float(jr(s_j)), np.asarray(jax.grad(jr)(s_j)))):
+        assert abs(loss - w) <= K1_FWD_ATOL + K1_FWD_RTOL * abs(w)
+        assert np.abs(grad - gw).max() <= K1_BWD_ATOL
