@@ -23,7 +23,7 @@ and in order:
    to poison exactly its row in every mode; K2 (raw teachers) and K3
    (pre-averaged rows) at their paths' shape and wider ones (ImageNet's
    1000 classes, zamba2's 32000 vocabulary over 1024 rows, one row on a
-   cluster of 8), K = 1 too,
+   cluster of 8), path 5b's K = 6 of 8 teacher slots and K = 1 too,
    float32 and bfloat16 teachers, two temperatures, each shape's launch
    plan printed, two launches of each kernel held to equal bits and every
    instantiation to zero spills; K4 (causal / sliding-window attention) at
@@ -37,7 +37,7 @@ and in order:
    bfloat16, after checking that its library holds tensor-core (HMMA)
    instructions and that its float32 N = P = 64 instantiation (the serve
    path's) spills no registers;
-4. drives four paths on the card, with every launch count set to 0 just
+4. drives seven paths on the card, with every launch count set to 0 just
    before a path and read just after it.  Paths 1-3 go through
    ``Experiment(spec).run()`` at the quickstart's published widths, 3
    rounds each:
@@ -56,7 +56,24 @@ and in order:
    prompt, 32 tokens): K4 launches 5 and K5 33 times in the prefill and
    neither in decode; it profiles one prefill, checks forward against
    prefill + 2 forced decode steps at full depth on the card, and 10
-   layers at full width on the card against the CPU;
+   layers at full width on the card against the CPU.  Paths 5-6 go
+   through ``Experiment(spec).run()`` too, and compare every prototype
+   group with a CPU run at paths 1-2's bounds:
+   - path 5a, heterogeneous FedDF (the paper's Algorithm 3) on
+     ``examples/heterogeneous_fusion.py``'s spec at its published widths
+     (three mlp prototypes, 9 clients), 3 rounds: every fused group uses
+     the one bank over all groups' teachers, and K1 launches once per
+     distill step of every group (K2 and K3 never); a profiled card rerun
+     of round 1 must repeat it;
+   - path 5b, the same spec on the fly, 1 round: K2 launches once per
+     distill step of every group over the three nets' teachers, K1
+     never; then FedAvg within each group, 1 round, which launches no
+     kernel;
+   - path 6, the paper's baselines on the quickstart spec: ``fedavgm``
+     for 2 rounds, ``fedprox`` for 1 (no kernel), and FedDF with local
+     Adam for 1 (K1 once per distill step); ``fedavgm``'s server rule is
+     also held on its own, the CPU's against the card's on the card
+     run's uploads and momentum buffer of each round;
 5. prints one ``{"kernels": [...]}`` line, the card line, and as its last
    line ``{"ok": true, "device": {...}}``.
 
@@ -118,17 +135,18 @@ K1_BWD_GRID_SHAPES = [(1024, 32000), (64, 32000)]
 K1_POISON_SHAPES = {"lanes": 3, "block": 300, "cluster": 5003}
 
 # K2 (K, B, V): the on-the-fly path's 8 teachers x distill batch 64 x 3
-# classes; the roofline records' shape; a ragged shape over several V tiles;
-# one teacher; eight teachers over ImageNet's 1000 classes; the JAX distill
-# step's 4 teachers over 1024 token rows at zamba2-1.2b's vocabulary (524 MB
-# of f32 teachers: L2 is cold by construction); one row on a cluster of 8
-# with ragged slices.  K3 (B, V): the weighted-consensus rows of the first
-# three batches.  Lane groups run V = 3, a cluster per row the large V with
+# classes; path 5b's 6 teachers of three nets (2 of the 8-teacher load
+# template's slots left empty); the roofline records' shape; a ragged
+# shape over several V tiles; one teacher; eight teachers over ImageNet's
+# 1000 classes; the JAX distill step's 4 teachers over 1024 token rows at
+# zamba2-1.2b's vocabulary (524 MB of f32 teachers: L2 is cold by
+# construction); one row on a cluster of 8 with ragged slices.  K3 (B, V):
+# the weighted-consensus rows of the first three batches.  Lane groups run V = 3, a cluster per row the large V with
 # few rows, one block per row V = 64 and (4, 1024, 32000)
 # (kernels/ensemble_kl.py plan); every mode is checked for equal bits over
 # two launches.
-K2_SHAPES = [(8, 64, 3), (8, 256, 64), (5, 37, 5003), (1, 64, 3),
-             (8, 64, 1000), (4, 1024, 32000), (3, 1, 5003)]
+K2_SHAPES = [(8, 64, 3), (6, 64, 3), (8, 256, 64), (5, 37, 5003),
+             (1, 64, 3), (8, 64, 1000), (4, 1024, 32000), (3, 1, 5003)]
 K3_SHAPES = [(64, 3), (256, 64), (37, 5003)]
 K2_MODES = ("lanes", "cluster", "block")
 K2_KERNELS = 30   # instantiations in ensemble_kl.cu, each checked for spills
@@ -215,6 +233,17 @@ ROUND1_ACC_ATOL = 0.01
 # held to ten Adam steps' worth of movement (10 x lr) and the same accuracy
 # bound.
 ROUND2_PARAM_ATOL = 1e-2
+# Paths 5a / 5b: examples/heterogeneous_fusion.py's spec (Algorithm 3) at its
+# published widths, on the shared logit bank (K1) for HETERO_ROUNDS rounds and
+# on the fly (K2) for 1; path 6: the baselines on the quickstart spec.  Every
+# one is held card against CPU at paths 1-2's bounds, every group checked.
+HETERO_ROUNDS = 3
+# Path 6's fedavgm server rule on its own: the CPU's rule on the card run's
+# uploads and momentum buffer of each round, against the card's new globals
+# and buffer.  The rule is a weighted mean over the clients and two
+# elementwise updates of O(0.1 - 1) weights, so the two differ only by the
+# mean's float32 summation order, a few units in the last place.
+SERVER_RULE_ATOL = 1e-6
 
 
 def fail(msg: str) -> int:
@@ -1040,9 +1069,26 @@ def buffered_spec(rounds: int):
 
 
 def max_abs_diff(a, b) -> float:
+    """Largest absolute difference between two runs' globals, over every
+    prototype group's tree (``a`` and ``b`` are lists of trees)."""
     from repro_torch.common.pytree import tree_flatten
-    fa, fb = tree_flatten(a), tree_flatten(b)
-    return max(float((fa[k].cpu() - fb[k].cpu()).abs().max()) for k in fa)
+    out = 0.0
+    for ga, gb in zip(a, b, strict=True):
+        fa, fb = tree_flatten(ga), tree_flatten(gb)
+        out = max([out] + [float((fa[k].cpu() - fb[k].cpu()).abs().max())
+                           for k in fa])
+    return out
+
+
+def group_diffs(a, b) -> list:
+    """:func:`max_abs_diff` of two runs, one entry per prototype group."""
+    return [max_abs_diff([x], [y])
+            for x, y in zip(a.global_params, b.global_params, strict=True)]
+
+
+def group_logs(res):
+    """Every prototype group's round logs, in group order."""
+    return [r.logs for r in res.results]
 
 
 def device_time(prof, round_wall_s: float, kernels=("bank_kl",)) -> dict:
@@ -1086,6 +1132,12 @@ def all_launches() -> dict:
     return out
 
 
+LOG_KEYS = ("test_acc", "val_acc", "ensemble_acc", "pre_distill_acc",
+            "distill_steps", "bank", "bank_dtype", "bank_nbytes",
+            "teacher_forwards", "n_participants", "staleness_hist",
+            "buffer_fill", "n_straggling", "eff_participants")
+
+
 def run_path(spec):
     """One path's rounds on the card with every launch count set to 0 just
     before and read just after."""
@@ -1096,28 +1148,31 @@ def run_path(spec):
     res = Experiment(spec, device="cuda").run()
     wall = time.perf_counter() - t0
     launches = all_launches()
-    logs = res.result.logs
-    rounds = [{**{k: getattr(l, k) for k in
-                  ("round", "test_acc", "val_acc", "pre_distill_acc",
-                   "distill_steps", "bank", "bank_dtype", "bank_nbytes",
-                   "teacher_forwards", "n_participants", "staleness_hist",
-                   "buffer_fill", "n_straggling", "eff_participants")},
-               "phase_s": ph} for l, ph in zip(logs, res.phase_seconds)]
+    logs = group_logs(res)
+    rounds = [{"round": t + 1, "phase_s": ph,
+               "groups": [{k: getattr(g[t], k) for k in LOG_KEYS}
+                          for g in logs]}
+              for t, ph in enumerate(res.phase_seconds)]
     problems = []
-    if len(logs) != spec.rounds:
-        problems.append(f"ran {len(logs)} rounds, expected {spec.rounds}")
-    if not bool(tree_isfinite(res.global_params[0])):
-        problems.append("non-finite globals")
-    steps = sum(l.distill_steps for l in logs)
+    for g, (glogs, params) in enumerate(zip(logs, res.global_params)):
+        if len(glogs) != spec.rounds:
+            problems.append(f"group {g} ran {len(glogs)} rounds, expected "
+                            f"{spec.rounds}")
+        if not bool(tree_isfinite(params)):
+            problems.append(f"group {g}: non-finite globals")
+    steps = [sum(l.distill_steps for l in glogs) for glogs in logs]
     return res, {"wall_s": wall, "rounds": rounds, "launches": launches,
-                 "distill_steps": steps}, problems
+                 "distill_steps": sum(steps),
+                 "distill_steps_per_group": steps}, problems
 
 
 def card_vs_cpu(spec, rounds: int, profile_ref=None,
-                param_tol: float = ROUND1_PARAM_ATOL):
+                param_tol: float = ROUND1_PARAM_ATOL, gpu=None):
     """The first ``rounds`` rounds on the card and on the CPU (plain
-    versions) from the same seed; with ``profile_ref`` (the first run's
-    RunResult) the card's rerun is profiled and must repeat it."""
+    versions) from the same seed, every prototype group compared; with
+    ``profile_ref`` (the first run's RunResult) the card's rerun is
+    profiled and must repeat it.  ``gpu``: a card run of exactly these
+    rounds to compare instead of a rerun."""
     from repro_torch.api import Experiment
     short = dataclasses.replace(spec, rounds=rounds)
     busy = None
@@ -1129,24 +1184,31 @@ def card_vs_cpu(spec, rounds: int, profile_ref=None,
                                  ProfilerActivity.CUDA]) as prof:
             gpu = Experiment(short, device="cuda").run()
         busy = device_time(prof, sum(profile_ref.phase_seconds[0].values()))
-    else:
+    elif gpu is None:
         gpu = Experiment(short, device="cuda").run()
     cpu = Experiment(short, device="cpu").run()
     problems = []
-    if profile_ref is not None and \
-            gpu.result.logs != profile_ref.result.logs[:rounds]:
+    if profile_ref is not None and group_logs(gpu) != [
+            g[:rounds] for g in group_logs(profile_ref)]:
         problems.append("the first rounds differ between two runs on the "
                         "card")
-    d_param = max_abs_diff(gpu.global_params[0], cpu.global_params[0])
-    d_acc = max(abs(g.test_acc - c.test_acc) for g, c in
-                zip(gpu.result.logs, cpu.result.logs))
-    steps = [[l.distill_steps for l in r.result.logs] for r in (gpu, cpu)]
+    d_param = max_abs_diff(gpu.global_params, cpu.global_params)
+    acc = [[[l.test_acc for l in g] for g in group_logs(r)]
+           for r in (gpu, cpu)]
+    d_acc = max(abs(a - b) for ga, gb in zip(*acc, strict=True)
+                for a, b in zip(ga, gb, strict=True))
+    steps = [[[l.distill_steps for l in g] for g in group_logs(r)]
+             for r in (gpu, cpu)]
+    one = len(gpu.results) == 1     # paths 1-4 keep their flat lists
     check = {"rounds": rounds, "max_abs_param_diff": d_param,
              "param_tol": param_tol,
-             "test_acc_cuda": [l.test_acc for l in gpu.result.logs],
-             "test_acc_cpu": [l.test_acc for l in cpu.result.logs],
+             "test_acc_cuda": acc[0][0] if one else acc[0],
+             "test_acc_cpu": acc[1][0] if one else acc[1],
              "test_acc_diff": d_acc, "acc_tol": ROUND1_ACC_ATOL,
-             "distill_steps_cuda": steps[0], "distill_steps_cpu": steps[1]}
+             "distill_steps_cuda": steps[0][0] if one else steps[0],
+             "distill_steps_cpu": steps[1][0] if one else steps[1]}
+    if not one:
+        check["max_abs_param_diff_per_group"] = group_diffs(gpu, cpu)
     if d_param > param_tol or d_acc > ROUND1_ACC_ATOL or steps[0] != steps[1]:
         problems.append(f"card vs CPU: {check}")
     return check, busy, problems
@@ -1224,19 +1286,200 @@ def buffered_path():
     return report, problems + more1 + more
 
 
+def hetero_spec(rounds: int, bank: str = "auto", strategy: str = "feddf"):
+    """examples/heterogeneous_fusion.py's spec at its published widths:
+    blobs, 9 clients round-robin over three mlp prototypes, Dirichlet
+    alpha 1.0, C = 0.67 (6 active), E = 20, FedDF max 400 steps, patience
+    200, distill batch 64, an unlabeled pool of 4000, seed 1."""
+    from repro_torch.api import (CohortSpec, ExperimentSpec, FusionSpec,
+                                 ModelSpec, PartitionSpec, SourceSpec,
+                                 StrategySpec, TaskSpec)
+    return ExperimentSpec(
+        task=TaskSpec(name="blobs", n_samples=6000),
+        partition=PartitionSpec(n_clients=9, alpha=1.0),
+        cohort=CohortSpec(prototypes=[
+            ModelSpec("mlp", {"hidden": [32, 32], "name": "proto-small"}),
+            ModelSpec("mlp", {"hidden": [64, 64], "name": "proto-medium"}),
+            ModelSpec("mlp", {"hidden": [48, 48, 48],
+                              "name": "proto-deep"})]),
+        strategy=StrategySpec(name=strategy,
+                              fusion=FusionSpec(max_steps=400, patience=200,
+                                                eval_every=50, batch_size=64,
+                                                logit_bank=bank)),
+        source=(SourceSpec(name="unlabeled", params={"n": 4000})
+                if strategy == "feddf" else None),
+        rounds=rounds, client_fraction=0.67, local_epochs=20,
+        local_batch_size=32, local_lr=0.05, seed=1)
+
+
+def check_launches(launches, want: dict, what: str) -> list:
+    """Every kernel launched exactly ``want[name]`` times (0 where absent);
+    a wanted count of 0 (a path that distilled nothing) fails too."""
+    problems = [f"{what}: no distill step for {name}"
+                for name, n in want.items() if n == 0]
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            problems.append(f"{what}: {name} launched {n} times, expected "
+                            f"{want.get(name, 0)}")
+    return problems
+
+
+def fused_logs(res):
+    """The logs of every (group, round) whose group drew a client."""
+    return [l for g in group_logs(res) for l in g if l.n_participants]
+
+
+def hetero_bank_path():
+    """Path 5a: heterogeneous FedDF on the shared logit bank (K1)."""
+    spec = hetero_spec(HETERO_ROUNDS)
+    res, report, problems = run_path(spec)
+    steps = report["distill_steps"]
+    problems += check_launches(
+        report["launches"], {"ensemble_kl_bank_fwd": steps,
+                             "ensemble_kl_bank_bwd": steps}, "path 5a")
+    logs = fused_logs(res)
+    if not logs or any(l.bank != "bank" for l in logs):
+        problems.append(f"bank decisions {[l.bank for l in logs]}")
+    if any(l.ensemble_acc is None for g in group_logs(res) for l in g):
+        problems.append("a round without ensemble_acc")
+    check, busy, more = card_vs_cpu(spec, 1, profile_ref=res)
+    report.update(cpu_check=check, round1_device=busy)
+    return report, problems + more
+
+
+def hetero_fly_path():
+    """Path 5b: the same spec on the fly (K2 over the three nets'
+    concatenated teachers), 1 round; then FedAvg within each group, the
+    Fig. 4 baseline, which launches no kernel, 1 round."""
+    spec = hetero_spec(1, bank="off")
+    res, report, problems = run_path(spec)
+    steps = report["distill_steps"]
+    problems += check_launches(
+        report["launches"], {"ensemble_kl_fwd": steps,
+                             "ensemble_kl_bwd": steps}, "path 5b")
+    if any(l.bank != "on_the_fly" for l in fused_logs(res)):
+        problems.append(f"bank decisions "
+                        f"{[l.bank for l in fused_logs(res)]}")
+    check, _, more = card_vs_cpu(spec, 1, gpu=res)
+    report.update(cpu_check=check)
+    fed = hetero_spec(1, strategy="fedavg")
+    fres, frep, fprob = run_path(fed)
+    fprob += check_launches(frep["launches"], {}, "path 5b fedavg")
+    fcheck, _, fmore = card_vs_cpu(fed, 1, gpu=fres)
+    frep.update(cpu_check=fcheck)
+    report["fedavg"] = frep
+    return report, problems + more + [f"fedavg: {p}" for p in fprob + fmore]
+
+
+def baseline_specs():
+    """Path 6: the baselines on the quickstart spec: fedavgm for 2 rounds
+    (round 1 equals FedAvg), fedprox for 1, FedDF with local Adam for 1."""
+    from repro_torch.api import StrategySpec
+    q = quickstart_spec
+    return {
+        "fedavgm": dataclasses.replace(
+            q(2), strategy=StrategySpec(name="fedavgm"), source=None),
+        "fedprox": dataclasses.replace(
+            q(1), strategy=StrategySpec(name="fedprox"), source=None),
+        "local_adam": dataclasses.replace(q(1), local_optimizer="adam"),
+    }
+
+
+@contextlib.contextmanager
+def recording_aggregate(cls, calls: list):
+    """While open, every ``cls.aggregate`` call appends ``(strategy,
+    groups, state, ctx, result)`` to ``calls``."""
+    orig = cls.aggregate
+
+    def recording(self, groups, state, ctx):
+        out = orig(self, groups, state, ctx)
+        calls.append((self, groups, state, ctx, out))
+        return out
+    cls.aggregate = recording
+    try:
+        yield calls
+    finally:
+        cls.aggregate = orig
+
+
+def server_rule_check(calls) -> tuple:
+    """Each recorded card aggregation rerun on the CPU from the same
+    uploads and state: the largest difference of the new globals and of
+    the new state (the momentum buffer) per round, held to
+    SERVER_RULE_ATOL."""
+    from repro_torch.common.pytree import tree_to
+    cpu = lambda t: None if t is None else tree_to(t, "cpu")
+    rounds, problems = [], []
+    for t, (strat, groups, state, ctx, (new, bufs, _)) in enumerate(calls):
+        cpu_groups = [dataclasses.replace(g, prev_global=cpu(g.prev_global),
+                                          stack=cpu(g.stack))
+                      for g in groups]
+        want, want_bufs, _ = strat.aggregate(cpu_groups,
+                                             [cpu(b) for b in state], ctx)
+        d = {"round": t + 1, "globals": max_abs_diff(want, new),
+             "buffer": max_abs_diff([b for b in want_bufs if b is not None],
+                                    [b for b in bufs if b is not None])}
+        rounds.append(d)
+        if max(d["globals"], d["buffer"]) > SERVER_RULE_ATOL:
+            problems.append(f"server rule, card vs CPU on the same uploads: "
+                            f"{d} (atol {SERVER_RULE_ATOL})")
+    return {"rounds": rounds, "atol": SERVER_RULE_ATOL}, problems
+
+
+def baselines_path():
+    """Path 6: each baseline on the card against the CPU; fedavgm's
+    server rule also on its own."""
+    from repro_torch.core.strategies import FedAvgM
+    report, problems = {}, []
+    for name, spec in baseline_specs().items():
+        calls = []
+        with (recording_aggregate(FedAvgM, calls) if name == "fedavgm"
+              else contextlib.nullcontext()):
+            res, rep, probs = run_path(spec)
+        if name == "fedavgm":
+            rep["server_rule"], more = server_rule_check(calls)
+            if len(calls) != spec.rounds:
+                more.append(f"{len(calls)} fedavgm aggregations recorded "
+                            f"for {spec.rounds} rounds")
+            probs += more
+        steps = rep["distill_steps"]
+        want = ({"ensemble_kl_bank_fwd": steps,
+                 "ensemble_kl_bank_bwd": steps}
+                if name == "local_adam" else {})
+        probs += check_launches(rep["launches"], want, "launches")
+        if name == "local_adam" and any(l.bank != "bank" for l in
+                                        fused_logs(res)):
+            probs.append("local Adam FedDF did not use the bank")
+        check, _, more = card_vs_cpu(spec, spec.rounds, gpu=res)
+        rep.update(cpu_check=check)
+        report[name] = rep
+        problems += [f"{name}: {p}" for p in probs + more]
+    return report, problems
+
+
 def print_path(name, rep) -> None:
     for r in rep["rounds"]:
         ph = " ".join(f"{k}={v:.3f}s" for k, v in r["phase_s"].items())
-        pre = r["pre_distill_acc"]
-        print(f"  {name} round {r['round']}: test_acc={r['test_acc']:.4f} "
-              f"pre_distill={'-' if pre is None else f'{pre:.4f}'} "
-              f"distill_steps={r['distill_steps']} bank={r['bank']} "
-              f"teacher_forwards={r['teacher_forwards']} "
-              f"staleness={r['staleness_hist']} {ph}")
+        for g, l in enumerate(r["groups"]):
+            pre, ens = l["pre_distill_acc"], l["ensemble_acc"]
+            grp = f" group {g}" if len(r["groups"]) > 1 else ""
+            print(f"  {name} round {r['round']}{grp}: "
+                  f"test_acc={l['test_acc']:.4f} "
+                  f"pre_distill={'-' if pre is None else f'{pre:.4f}'} "
+                  f"ensemble={'-' if ens is None else f'{ens:.4f}'} "
+                  f"clients={l['n_participants']} "
+                  f"distill_steps={l['distill_steps']} bank={l['bank']} "
+                  f"teacher_forwards={l['teacher_forwards']} "
+                  f"staleness={l['staleness_hist']}")
+        print(f"  {name} round {r['round']}: wall "
+              f"{sum(r['phase_s'].values()):.3f} s: {ph}")
     used = {k: n for k, n in rep["launches"].items() if n}
     print(f"  {name}: wall {rep['wall_s']:.1f} s; launches {used} for "
           f"{rep['distill_steps']} distill steps; card vs CPU: "
           f"{rep['cpu_check']}", flush=True)
+    if "server_rule" in rep:
+        print(f"  {name}: server rule, card vs CPU on the same uploads: "
+              f"{rep['server_rule']}", flush=True)
 
 
 def main() -> int:
@@ -1436,6 +1679,23 @@ def main() -> int:
         paths[name] = rep
         problems += [f"{name}: {p}" for p in path_problems]
         print_path(name, rep)
+    for name, fn in (("path5a_hetero_bank", hetero_bank_path),
+                     ("path5b_hetero_fly", hetero_fly_path),
+                     ("path6_baselines", baselines_path)):
+        t0 = time.perf_counter()
+        rep, path_problems = fn()
+        rep["total_s"] = time.perf_counter() - t0
+        paths[name] = rep
+        problems += [f"{name}: {p}" for p in path_problems]
+        subs = ({name: rep} if name != "path6_baselines" else
+                {f"{name} {k}": v for k, v in rep.items() if k != "total_s"})
+        if "fedavg" in rep:
+            subs[f"{name} fedavg"] = rep["fedavg"]
+        for sub, r in subs.items():
+            print_path(sub, r)
+        print(f"  {name}: whole path {rep['total_s']:.1f} s", flush=True)
+    print(f"  path 5a round 1 on the card, from a profiler trace: "
+          f"{paths['path5a_hetero_bank']['round1_device']}")
     t0 = time.perf_counter()
     rep, path_problems = serve_path(device)
     rep["total_s"] = time.perf_counter() - t0

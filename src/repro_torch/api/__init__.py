@@ -9,6 +9,7 @@ from repro_torch.api.experiment import (Experiment, RunResult,
                                         resolve_device, to_fl_config)
 from repro_torch.api.registries import (TaskBundle, available_models,
                                         available_sources, available_tasks,
+                                        default_prototype_ladder,
                                         get_model, get_source, get_task,
                                         register_model, register_source,
                                         register_task)
@@ -27,6 +28,6 @@ __all__ = [
     "FaultSpec", "ObsSpec", "DistSpec", "TaskBundle", "register_task",
     "register_model", "register_source", "get_task", "get_model",
     "get_source", "available_tasks", "available_models",
-    "available_sources", "build_task_bundle", "build_splits",
+    "available_sources", "default_prototype_ladder", "build_task_bundle", "build_splits",
     "build_cohort", "build_source", "resolve_device", "to_fl_config",
 ]

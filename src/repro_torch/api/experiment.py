@@ -113,8 +113,10 @@ def to_fl_config(spec: ExperimentSpec) -> FLConfig:
         rounds=spec.rounds, client_fraction=spec.client_fraction,
         local_epochs=spec.local_epochs,
         local_batch_size=spec.local_batch_size, local_lr=spec.local_lr,
-        strategy=s.name, drop_worst=s.drop_worst, seed=spec.seed,
-        local_optimizer=spec.local_optimizer,
+        strategy=s.name, prox_mu=s.prox_mu,
+        server_momentum=s.server_momentum, drop_worst=s.drop_worst,
+        seed=spec.seed, local_optimizer=spec.local_optimizer,
+        local_adam_lr=spec.local_adam_lr,
         fusion=FusionConfig(**s.fusion.to_dict()),
         feddf_init_from=s.feddf_init_from,
         target_accuracy=spec.target_accuracy,
@@ -132,8 +134,11 @@ class Experiment:
 
     def run(self, *, init_globals: Optional[List[dict]] = None,
             index_stream=None, draw_stream=None) -> RunResult:
-        """Run every round.  ``init_globals`` (trees on any device),
-        ``index_stream`` (a pool source's distillation indices, see
+        """Run every round; a cohort of several prototypes runs the
+        paper's Algorithm 3, with one result, one global tree and one net
+        name per prototype group.  ``init_globals`` (one tree per group,
+        on any device), ``index_stream`` (a pool source's distillation
+        indices, shared by every group's fusion; see
         ``data/distill_sources.UnlabeledDataset``) and ``draw_stream`` (a
         generator or noise source's random draws) replace the run's own
         initialisation and distillation draws, e.g. with the JAX
@@ -143,6 +148,10 @@ class Experiment:
         train, val, test, parts = build_splits(spec, bundle)
         nets, client_proto = build_cohort(spec, bundle)
         source = build_source(spec, bundle, train, self.device)
+        if source is None and (index_stream is not None
+                               or draw_stream is not None):
+            raise ValueError("index_stream / draw_stream given, but the "
+                             "spec has no distillation source")
         if index_stream is not None:
             source.indices = index_stream
         if draw_stream is not None:
@@ -151,6 +160,7 @@ class Experiment:
             init_globals = [tree_to(g, self.device) for g in init_globals]
         engine = RoundEngine(nets, client_proto, train, parts, val, test,
                              to_fl_config(spec), source=source,
+                             heterogeneous=len(nets) > 1,
                              device=self.device)
 
         driver = make_driver(spec.driver.kind,

@@ -7,7 +7,8 @@ task(name)    ``fn(n_samples, seed, **params) -> TaskBundle``
 model(name)   ``fn(task: TaskBundle, **params) -> Net``
 source(name)  ``fn(task, train, seed, device, **params) -> DistillSource``
 
-Ported: task ``blobs``, model ``mlp``, sources ``unlabeled``,
+Ported: task ``blobs``, model ``mlp`` (and the ``blobs`` prototype
+ladder, :func:`default_prototype_ladder`), sources ``unlabeled``,
 ``in_domain``, ``generator`` and ``noise``.  The other names the JAX
 package registers raise ``NotImplementedError`` naming their ROADMAP.md
 item; unknown names raise ``ValueError``.
@@ -92,6 +93,25 @@ def _mlp_model(task: TaskBundle, hidden=(64, 64, 64), norm: str = "none",
                          f"kwargs {sorted(kw)})")
     return mlp(kw["in_dim"], kw["n_classes"], hidden=tuple(hidden),
                norm=norm, groups=groups, name=name)
+
+
+def default_prototype_ladder(task_name: str) -> List[dict]:
+    """The small/medium/large heterogeneous prototype ladder (paper Fig.
+    4's ResNet-20/32/ShuffleNetV2 analogue) as ModelSpec dicts, per task
+    family, as the JAX package defines it."""
+    if task_name == "blobs":
+        return [
+            {"name": "mlp", "params": {"hidden": [48, 48],
+                                       "name": "proto-s"}},
+            {"name": "mlp", "params": {"hidden": [64, 64, 64],
+                                       "name": "proto-m"}},
+            {"name": "mlp", "params": {"hidden": [96, 96],
+                                       "name": "proto-l"}},
+        ]
+    if task_name == "tokens":
+        raise NotImplementedError("the tokens prototype ladder waits for "
+                                  "ROADMAP.md queue 1 item 8")
+    raise ValueError(f"no default prototype ladder for task {task_name!r}")
 
 
 @register_source("unlabeled")

@@ -724,16 +724,15 @@ class ExperimentSpec:
 
         # axes the port does not run yet: each raises with its ROADMAP item
         pending = [
-            (len(self.cohort.prototypes) > 1, "heterogeneous cohorts", "9"),
+            (len(self.cohort.prototypes) > 1
+             and self.driver.kind == "buffered_async",
+             "buffered_async with several prototypes", "9e"),
             (self.bucket.kind != "none", "step-count bucketing", "9"),
             (self.strategy.drop_worst, "drop-worst", "9"),
-            (self.strategy.feddf_init_from != "average",
-             "feddf_init_from='previous'", "9"),
             (fusion.swag_samples > 0, "SWAG teachers", "9"),
             (fusion.batch_sizes is not None, "per-group distill batches",
              "9"),
             (self.privacy != PrivacySpec(), "DP / quantized uploads", "9"),
-            (self.local_optimizer != "sgd", "local Adam", "5"),
             (self.sharding.shard_clients, "client-axis sharding", "11"),
             (self.faults != FaultSpec(), "fault injection", "10"),
             (self.obs != ObsSpec(), "the flight recorder", "10"),

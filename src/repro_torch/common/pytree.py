@@ -73,6 +73,27 @@ def tree_stack(trees: Sequence[Pytree]) -> Pytree:
     return tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)
 
 
+def tree_zeros_like(tree: Pytree) -> Pytree:
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_add(a: Pytree, b: Pytree) -> Pytree:
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a: Pytree, b: Pytree) -> Pytree:
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(tree: Pytree, s) -> Pytree:
+    return tree_map(lambda x: x * s, tree)
+
+
+def tree_leading_dim(tree: Pytree) -> int:
+    """Size of the leading (client) axis of a stacked tree."""
+    return int(tree_leaves(tree)[0].shape[0])
+
+
 def tree_weighted_mean_stacked(stack: Pytree, weights) -> Pytree:
     """FedAvg aggregation over the leading (client) axis: one contraction
     per leaf with the weights normalized in float64, then cast to fp32."""

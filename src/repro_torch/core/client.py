@@ -7,8 +7,9 @@ batched forward/backward over the K clients (``torch.matmul`` broadcasts
 over the client axis; the summed per-client losses give every client
 exactly its own gradient).  Clients with fewer steps than the scan length
 are masked: padded steps are no-ops through ``torch.where`` on the step
-mask, so each client's trajectory equals its own sequential run.  The
-loop issues no host sync.
+mask, parameters and optimizer state alike (Adam's ``m`` and ``v``), so
+each client's trajectory equals its own sequential run
+(:func:`make_local_update`).  The loop issues no host sync.
 
 The numpy batch builders are verbatim copies of the JAX package's, so both
 packages train on bitwise-identical batches.  Quantized forwards, DP
@@ -33,6 +34,47 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     stacked [K, B, C] logits."""
     logp = F.log_softmax(logits.float(), dim=-1)
     return -torch.gather(logp, -1, labels[..., None])[..., 0].mean(dim=-1)
+
+
+def make_local_update(net: Net, opt: Optimizer, *, prox_mu: float = 0.0):
+    """One client's local training, step by step: the sequential reference
+    the batched update is held against.
+
+    Returns ``fn(params, xb [n,B,...], yb [n,B], anchor) -> params`` with
+    every tensor on one device.  ``anchor`` is the round's global model
+    (FedProx pulls towards it when ``prox_mu > 0``)."""
+
+    def run(params, xb, yb, anchor):
+        flat = {p: v.detach().clone() for p, v in
+                tree_flatten(params).items()}
+        trainable = net.trainable_mask(params)
+        names = [p for p in flat if trainable[p]]
+        anchors = tree_flatten(anchor)
+        state = opt.init([flat[p] for p in names])
+        for i in range(int(xb.shape[0])):
+            with torch.enable_grad():
+                leaves = {p: v.detach().requires_grad_(trainable[p])
+                          for p, v in flat.items()}
+                logits, stats = net.apply_with_stats(
+                    tree_unflatten(leaves), xb[i])
+                loss = softmax_xent(logits, yb[i])
+                if prox_mu > 0.0:
+                    sq = sum(((leaves[p] - anchors[p].detach()) ** 2).sum()
+                             for p in names)
+                    loss = loss + 0.5 * prox_mu * sq
+                grads = torch.autograd.grad(loss, [leaves[p] for p in names])
+            with torch.no_grad():
+                cur = [flat[p] for p in names]
+                deltas, state = opt.update(list(grads), state, cur, i)
+                for p, v in zip(names, apply_updates(cur, deltas)):
+                    flat[p] = v
+                stats = tree_flatten(stats)
+                for p in flat:
+                    if not trainable[p]:  # BN running stats from the forward
+                        flat[p] = stats[p].detach().to(flat[p].dtype)
+        return tree_unflatten(flat)
+
+    return run
 
 
 def make_batched_local_update(net: Net, opt: Optimizer, *,
@@ -243,6 +285,28 @@ def build_bucketed_batches(
             seeds=[seeds[i] for i in pos], n_steps=int(caps[b]))
         out.append((b, pos, xb, yb, mask))
     return out
+
+
+def stacked_logits_fn(net: Net):
+    """``fn(stacked params [K, ...], x [B, ...]) -> [K, B, C]`` in eval
+    mode: the stacked forward broadcasts over the client axis."""
+    def fn(stack, x):
+        with torch.no_grad():
+            return net.apply(stack, x, train=False)
+    return fn
+
+
+def evaluate_stacked(net: Net, stack, x: torch.Tensor, y: torch.Tensor,
+                     batch_size: int = 512) -> np.ndarray:
+    """Per-client top-1 accuracies [K] of a stacked tree, one stacked
+    forward per batch; the counts are read once."""
+    fn = stacked_logits_fn(net)
+    correct = None
+    for s in range(0, len(y), batch_size):
+        pred = fn(stack, x[s:s + batch_size]).argmax(dim=-1)     # [K, b]
+        hit = (pred == y[s:s + batch_size][None]).sum(dim=-1)
+        correct = hit if correct is None else correct + hit
+    return correct.cpu().numpy() / len(y)
 
 
 def evaluate(net: Net, params: dict, x: torch.Tensor, y: torch.Tensor,

@@ -18,10 +18,20 @@ A round decomposes into explicit phases that round *drivers*
 Every tensor of a run lives on the engine's ``device``; the numpy batches
 cross to it once per round and the eval sets once per run.
 ``population()`` is the buffered-async driver's seam (registry, traffic
-model and upload buffer over the engine's sampler).  Heterogeneous
-cohorts, step-count bucketing other than ``none``, drop-worst, quantized
-or DP uploads, local Adam, fault injection and meshes wait for their
-ROADMAP.md items and raise ``NotImplementedError``.
+model and upload buffer over the engine's sampler).
+
+Heterogeneous cohorts (``heterogeneous=True``, the paper's Algorithm 3)
+train each prototype group's clients in their own batched update, add
+the all-groups logits-averaging ensemble's accuracy to every group's log,
+and keep a group's previous global in a round that drew none of its
+clients.  The JAX package pads each group's client axis to a run-fixed
+size so that ``jit`` compiles once; the eager update here needs no fixed
+size, and the padded clients never reach aggregation there, so leaving
+them out changes no result.
+
+Step-count bucketing other than ``none``, drop-worst, quantized or DP
+uploads, fault injection and meshes wait for their ROADMAP.md items and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,11 +48,12 @@ from repro_torch.core.client import (assign_buckets, bucket_capacities,
                                      build_batched_batches, evaluate,
                                      make_batched_local_update,
                                      n_local_steps)
+from repro_torch.core.ensemble import ensemble_accuracy_stacked
 from repro_torch.core.nets import Net
 from repro_torch.core.strategies import GroupRound, RoundContext, get_strategy
 from repro_torch.data.distill_sources import DistillSource
 from repro_torch.data.synthetic import Dataset
-from repro_torch.optim.optimizers import sgd
+from repro_torch.optim.optimizers import Optimizer, adam, sgd
 from repro_torch.population.config import FaultConfig, PopulationConfig
 from repro_torch.population.scheduler import SamplerContext, make_sampler
 
@@ -67,9 +78,12 @@ class FLConfig:
     local_batch_size: int = 32
     local_lr: float = 0.1
     strategy: str = "fedavg"      # any name in the strategy registry
+    prox_mu: float = 0.01         # fedprox
+    server_momentum: float = 0.3  # beta for fedavgm
     drop_worst: bool = False
     seed: int = 0
-    local_optimizer: str = "sgd"  # sgd (adam: ROADMAP.md queue 1 item 5)
+    local_optimizer: str = "sgd"  # sgd | adam (Table 6 ablation)
+    local_adam_lr: float = 1e-3   # adam local lr (sgd uses local_lr)
     fusion: feddf_mod.FusionConfig = dataclasses.field(
         default_factory=feddf_mod.FusionConfig)
     feddf_init_from: str = "average"  # average | previous
@@ -161,6 +175,12 @@ class RoundBatches:
     weights: np.ndarray          # [K] local dataset sizes, in ks order
 
 
+def _make_opt(cfg: FLConfig) -> Optimizer:
+    if cfg.local_optimizer == "adam":
+        return adam(cfg.local_adam_lr)
+    return sgd(cfg.local_lr)
+
+
 def _pending(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
                               f"queue 1 item {item})")
@@ -179,14 +199,10 @@ class RoundEngine:
             raise ValueError(
                 f"bucketing.kind must be one of {BUCKET_KINDS}, got "
                 f"{cfg.bucketing.kind!r}")
-        if heterogeneous or len(nets) > 1:
-            _pending("heterogeneous cohorts", "9")
         if cfg.bucketing.kind != "none":
             _pending(f"bucketing kind {cfg.bucketing.kind!r}", "9")
         if cfg.drop_worst:
             _pending("drop-worst", "9")
-        if cfg.local_optimizer != "sgd":
-            _pending(f"local optimizer {cfg.local_optimizer!r}", "5")
         cfg.faults.validate()
         if cfg.faults.enabled:
             _pending("fault injection", "10")
@@ -198,6 +214,7 @@ class RoundEngine:
         self.test = test
         self.cfg = cfg
         self.source = source
+        self.heterogeneous = heterogeneous
         self.device = torch.device(device)
         self.strategy = get_strategy(cfg.strategy)
         self.n_clients = len(parts)
@@ -213,7 +230,7 @@ class RoundEngine:
             max([self.client_steps[k] for k in range(self.n_clients)
                  if self.client_proto[k] == p] or [1])
             for p in range(self.n_proto)]
-        self.batch_seed_mult = 100_003
+        self.batch_seed_mult = 99991 if heterogeneous else 100_003
         self._init_sampler()
         self.val_x = torch.as_tensor(val.x, device=self.device)
         self.val_y = torch.as_tensor(val.y, device=self.device)
@@ -221,7 +238,7 @@ class RoundEngine:
         self.test_y = torch.as_tensor(test.y, device=self.device)
         prox = self.strategy.local_prox_mu(cfg)
         self.updates = [
-            make_batched_local_update(self.nets[p], sgd(cfg.local_lr),
+            make_batched_local_update(self.nets[p], _make_opt(cfg),
                                       prox_mu=prox)
             for p in range(self.n_proto)]
 
@@ -264,10 +281,12 @@ class RoundEngine:
         return np.random.default_rng(self.cfg.seed)
 
     def init_globals(self) -> List[dict]:
-        """Drawn on the CPU from the run seed, then moved: the same init
+        """Drawn on the CPU from the run seed (prototype p of a
+        heterogeneous run from ``seed + p``), then moved: the same init
         whichever device the run uses."""
-        return [tree_to(self.nets[p].init(
-            torch.Generator().manual_seed(self.cfg.seed)), self.device)
+        seed = self.cfg.seed
+        return [tree_to(self.nets[p].init(torch.Generator().manual_seed(
+            seed + p if self.heterogeneous else seed)), self.device)
             for p in range(self.n_proto)]
 
     def init_state(self, globals_: List[dict]):
@@ -349,11 +368,22 @@ class RoundEngine:
         return groups
 
     def aggregate(self, t: int, groups: List[GroupRound], state):
-        ctx = RoundContext(cfg=self.cfg, round=t, heterogeneous=False,
+        """Strategy dispatch.  A heterogeneous round also scores the
+        logits-averaging ensemble of every non-empty group's uploads, and
+        each group's info carries it as ``ensemble_acc``."""
+        ens_acc = None
+        if self.heterogeneous:
+            ens_acc = ensemble_accuracy_stacked(
+                [(g.net, g.stack) for g in groups if g.stack is not None],
+                self.test_x, self.test_y)
+        ctx = RoundContext(cfg=self.cfg, round=t,
+                           heterogeneous=self.heterogeneous,
                            source=self.source, val_x=self.val_x,
                            val_y=self.val_y, test_x=self.test_x,
                            test_y=self.test_y)
         globals_, state, infos = self.strategy.aggregate(groups, state, ctx)
+        if ens_acc is not None:
+            infos = [{**info, "ensemble_acc": ens_acc} for info in infos]
         return globals_, state, infos
 
     def evaluate_round(self, t: int, globals_: List[dict],
@@ -367,6 +397,7 @@ class RoundEngine:
                             self.val_y)
             out.append(RoundLog(
                 round=t, test_acc=acc, val_acc=vacc,
+                ensemble_acc=infos[p].get("ensemble_acc"),
                 pre_distill_acc=infos[p].get("pre_distill_acc"),
                 distill_steps=infos[p].get("distill_steps", 0),
                 n_participants=len(groups[p].weights),

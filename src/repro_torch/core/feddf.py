@@ -26,19 +26,24 @@ draws are moved to the device once, and the validation accuracy (the
 early-stopping signal) is read once per chunk, as is the divergence
 guard's finiteness check when it is on.
 
-SWAG teachers and heterogeneous fusion wait for ROADMAP.md queue 1 item 9.
+Heterogeneous cohorts (Algorithm 3) fuse every prototype group's student
+against the ALL-groups teacher ensemble: one bank over every group's
+teachers serves all the students (K1), or without a bank every step runs
+the concatenated teachers (K2).  SWAG teachers and per-group distill
+batches wait for ROADMAP.md queue 1 item 9.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.common.pytree import (tree_flatten, tree_isfinite,
-                                       tree_map, tree_unflatten,
+                                       tree_leading_dim, tree_map,
+                                       tree_stack, tree_unflatten,
                                        tree_weighted_mean_stacked)
 from repro_torch.core.logit_bank import (TEACHER_FORWARDS, LogitBank,
                                          dequantize_rows, resolve_bank)
@@ -347,3 +352,111 @@ def feddf_fuse_stacked(
     tfn = make_teacher_logits_fn(net, teacher_stack)
     return distill(net, student, [tfn], source, fusion, val_x, val_y, seed,
                    teacher_weights=teacher_weights)
+
+
+def feddf_fuse_homogeneous(
+    net: Net,
+    client_params: List[dict],
+    client_weights: Sequence[float],
+    source: DistillSource,
+    fusion: FusionConfig,
+    val_x=None,
+    val_y=None,
+    seed: int = 0,
+    init_from: str = "average",
+    prev_global: Optional[dict] = None,
+) -> Tuple[dict, dict]:
+    """List-of-trees wrapper over :func:`feddf_fuse_stacked`.
+    ``init_from='previous'`` is the Table 5 ablation: the student starts
+    from last round's fused model instead of the weighted average."""
+    student = (None if init_from == "average" or prev_global is None
+               else prev_global)
+    return feddf_fuse_stacked(net, tree_stack(client_params), client_weights,
+                              source, fusion, val_x, val_y, seed,
+                              student=student)
+
+
+def feddf_fuse_heterogeneous_stacked(
+    prototypes: List[Tuple[Net, Optional[dict], Sequence[float]]],
+    source: DistillSource,
+    fusion: FusionConfig,
+    val_x=None,
+    val_y=None,
+    seed: int = 0,
+    importances: Optional[List[Optional[np.ndarray]]] = None,
+) -> Tuple[List[Optional[dict]], List[dict]]:
+    """Algorithm 3 on stacked per-group teacher trees: every group's
+    student distils against the ALL-groups teacher ensemble.
+
+    ``prototypes``: per group ``(net, stacked params [K_g, ...] or None,
+    data weights)``.  ``importances`` (one optional [K_g] array per group)
+    weights each teacher's vote in the shared consensus; groups without
+    one vote uniformly, and all-None keeps the uniform mean.  Returns
+    ``(fused params per group or None, info per group)``.
+
+    One logit bank is built over every group's teachers and shared by
+    all the students, so its break-even input is the students' total
+    expected steps.  After a refused bank every group distils on the fly
+    (``logit_bank`` forced to ``off``: the decision is not retried per
+    group).  The build is charged to the first fused group.  Group ``gi``
+    distils with seed ``seed + gi`` from its own weighted average."""
+    if fusion.batch_sizes is not None:
+        raise NotImplementedError("per-group distill batches (distill-axis "
+                                  "bucketing) wait for ROADMAP.md queue 1 "
+                                  "item 9")
+    teacher_fns = [make_teacher_logits_fn(net, stack)
+                   for net, stack, _ in prototypes if stack is not None]
+    teacher_weights = None
+    if importances is not None and any(i is not None for i in importances):
+        pieces = []
+        for (_, stack, _), imp in zip(prototypes, importances):
+            if stack is None:
+                continue
+            k_g = tree_leading_dim(stack)
+            pieces.append(np.ones(k_g, np.float64) if imp is None
+                          else np.asarray(imp, np.float64))
+        teacher_weights = normalize_teacher_weights(np.concatenate(pieces))
+    n_students = len(teacher_fns)
+    bank, reason = resolve_bank(
+        teacher_fns, source, fusion,
+        expected_steps=(expected_distill_steps(fusion, val_x is not None)
+                        * max(1, n_students)),
+        teacher_weights=teacher_weights)
+    decision = _bank_decision(reason)
+    if bank is None and fusion.logit_bank != "off":
+        fusion = dataclasses.replace(fusion, logit_bank="off")
+
+    fused, infos = [], []
+    build_attributed = bank is not None and bank.reused
+    for gi, (net, stack, weights) in enumerate(prototypes):
+        if stack is None:
+            fused.append(None)
+            infos.append({"skipped": True})
+            continue
+        student = tree_weighted_mean_stacked(stack, weights)  # Alg. 3 l. 11
+        p, info = distill(net, student, teacher_fns, source, fusion,
+                          val_x, val_y, seed + gi, bank=bank,
+                          teacher_weights=teacher_weights)
+        info["bank_decision"] = decision
+        if bank is not None and not build_attributed:
+            info = dict(info, bank_build_s=bank.build_time_s,
+                        teacher_batch_forwards=bank.n_teacher_batch_forwards)
+            build_attributed = True
+        fused.append(p)
+        infos.append(info)
+    return fused, infos
+
+
+def feddf_fuse_heterogeneous(
+    prototypes: List[Tuple[Net, List[dict], Sequence[float]]],
+    source: DistillSource,
+    fusion: FusionConfig,
+    val_x=None,
+    val_y=None,
+    seed: int = 0,
+) -> Tuple[List[Optional[dict]], List[dict]]:
+    """List-of-trees wrapper over :func:`feddf_fuse_heterogeneous_stacked`."""
+    stacked = [(net, tree_stack(plist) if plist else None, weights)
+               for net, plist, weights in prototypes]
+    return feddf_fuse_heterogeneous_stacked(stacked, source, fusion,
+                                            val_x, val_y, seed)

@@ -3,10 +3,12 @@
 The round engine trains all active clients into one stacked tree per
 prototype group and hands the stacks to a :class:`ServerStrategy`.
 
-Ported: ``fedavg`` (weighted parameter average) and homogeneous
-``feddf`` (FedAvg init + server-side ensemble distillation).  The other
-names the JAX package registers raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+Ported: ``fedavg`` (weighted parameter average), ``fedprox`` (FedAvg's
+rule; the proximal term lives in the local loss), ``fedavgm`` (server
+momentum) and ``feddf`` (FedAvg init + server-side ensemble
+distillation, homogeneous and heterogeneous: Algorithms 1 and 3).  The
+robust rules the JAX package registers raise ``NotImplementedError``
+naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -15,7 +17,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.common.pytree import Pytree, tree_weighted_mean_stacked
+from repro_torch.common.pytree import (Pytree, tree_add, tree_scale,
+                                       tree_sub, tree_weighted_mean_stacked,
+                                       tree_zeros_like)
 from repro_torch.core.client import evaluate
 from repro_torch.core.nets import Net
 
@@ -77,9 +81,7 @@ class ServerStrategy:
 
 _REGISTRY: Dict[str, Callable[[], ServerStrategy]] = {}
 # strategies of the JAX package that the port does not run yet
-_PENDING = {"fedprox": "ROADMAP.md queue 1 item 6",
-            "fedavgm": "ROADMAP.md queue 1 item 6",
-            "trimmed_mean": "ROADMAP.md queue 1 item 10",
+_PENDING = {"trimmed_mean": "ROADMAP.md queue 1 item 10",
             "coordinate_median": "ROADMAP.md queue 1 item 10"}
 
 
@@ -115,9 +117,55 @@ class FedAvg(ServerStrategy):
         return new, state, [{} for _ in groups]
 
 
+@register_strategy("fedprox")
+class FedProx(FedAvg):
+    """Identical server rule; the proximal term lives in the local loss."""
+
+    def local_prox_mu(self, cfg) -> float:
+        return cfg.prox_mu
+
+
+@register_strategy("fedavgm")
+class FedAvgM(ServerStrategy):
+    """dv = beta v + dx ; x = x - dv   (dx = x_old - avg), per group."""
+
+    def init_state(self, globals_):
+        return [None] * len(globals_)
+
+    def aggregate(self, groups, state, ctx):
+        beta = ctx.cfg.server_momentum
+        new, bufs = [], list(state)
+        for gi, g in enumerate(groups):
+            if g.stack is None:
+                new.append(g.prev_global)
+                continue
+            avg = tree_weighted_mean_stacked(g.stack,
+                                             g.effective_weights())
+            dx = tree_sub(g.prev_global, avg)
+            buf = tree_zeros_like(dx) if bufs[gi] is None else bufs[gi]
+            buf = tree_add(tree_scale(buf, beta), dx)
+            bufs[gi] = buf
+            new.append(tree_sub(g.prev_global, buf))
+        return new, bufs, [{} for _ in groups]
+
+
+def _fusion_info(info: dict) -> dict:
+    """A fusion's ``info`` -> the per-group keys ``evaluate_round`` reads."""
+    return {"distill_steps": info.get("steps", 0),
+            "teacher_forwards": info.get("teacher_batch_forwards", 0),
+            "logit_bank": info.get("logit_bank", False),
+            "bank": info.get("bank_decision", ""),
+            "bank_dtype": info.get("bank_dtype", ""),
+            "bank_nbytes": info.get("bank_nbytes", 0),
+            "teachers_filtered": 0,
+            "diverged": info.get("diverged", False)}
+
+
 @register_strategy("feddf")
 class FedDF(ServerStrategy):
-    """Ensemble distillation fusion (Algorithm 1), homogeneous cohorts."""
+    """Ensemble distillation fusion.  Homogeneous (Algorithm 1): one group,
+    its own stack as teachers.  Heterogeneous (Algorithm 3): every group
+    distils against the ALL-groups teacher ensemble."""
 
     needs_source = True
 
@@ -127,8 +175,16 @@ class FedDF(ServerStrategy):
         if ctx.source is None:
             raise ValueError("FedDF needs a distillation source")
         if ctx.heterogeneous:
-            raise NotImplementedError("heterogeneous FedDF (Algorithm 3) "
-                                      "waits for ROADMAP.md queue 1 item 9")
+            protos = [(g.net, g.stack, g.effective_weights())
+                      for g in groups]
+            fused, infos = feddf_mod.feddf_fuse_heterogeneous_stacked(
+                protos, ctx.source, cfg.fusion, ctx.val_x, ctx.val_y,
+                seed=cfg.seed + ctx.round,
+                importances=[g.importance for g in groups])
+            new = [g.prev_global if f is None else f
+                   for g, f in zip(groups, fused)]
+            return new, state, [{} if f is None else _fusion_info(info)
+                                for f, info in zip(fused, infos)]
         g = groups[0]
         if g.stack is None:
             return [g.prev_global], state, [{}]
@@ -141,13 +197,5 @@ class FedDF(ServerStrategy):
             g.net, g.stack, w_eff, ctx.source, cfg.fusion,
             ctx.val_x, ctx.val_y, seed=cfg.seed + ctx.round,
             student=student, teacher_weights=g.importance)
-        return [fused], state, [{
-            "distill_steps": info["steps"],
-            "pre_distill_acc": pre_acc,
-            "teacher_forwards": info.get("teacher_batch_forwards", 0),
-            "logit_bank": info.get("logit_bank", False),
-            "bank": info.get("bank_decision", ""),
-            "bank_dtype": info.get("bank_dtype", ""),
-            "bank_nbytes": info.get("bank_nbytes", 0),
-            "teachers_filtered": 0,
-            "diverged": info.get("diverged", False)}]
+        return [fused], state, [{**_fusion_info(info),
+                                 "pre_distill_acc": pre_acc}]

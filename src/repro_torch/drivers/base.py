@@ -6,7 +6,8 @@ engine.RoundEngine`; the engine owns the math.  ``sync`` and
 ``NotImplementedError`` naming their ROADMAP.md item.  Every driver keeps
 ``phase_seconds``: each round's wall seconds per phase, with the device
 synchronised at each phase end so that queued work is charged to the
-phase that issued it.
+phase that issued it.  Every driver keeps one log list per prototype
+group.
 """
 from __future__ import annotations
 

@@ -58,6 +58,10 @@ class BufferedAsyncDriver(Driver):
         super().__init__(staleness=staleness, prefetch=prefetch)
 
     def run(self, engine: RoundEngine, *, init_globals=None):
+        if engine.n_proto > 1:
+            raise NotImplementedError(
+                "buffered_async with several prototypes is not ported yet "
+                "(ROADMAP.md queue 1 item 9e)")
         globals_, state, logs, rng = self._setup(engine, init_globals)
         pop = engine.population()
         m = pop.buffer_size

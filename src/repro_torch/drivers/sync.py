@@ -7,7 +7,8 @@ Phase order per round t:
 
 Nothing overlaps; round t+1's client training starts from round t's
 fused globals.  ``phase_seconds`` keeps each round's wall seconds per
-phase.
+phase.  ``log_fn`` receives each group's ``RoundLog`` as the round ends
+(``(group, RoundLog)`` in a heterogeneous run).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ class SyncDriver(Driver):
                 f"{staleness} only applies to the async_pipelined driver")
         super().__init__(staleness=staleness, prefetch=prefetch)
 
-    def run(self, engine: RoundEngine, *, init_globals=None):
+    def run(self, engine: RoundEngine, *, init_globals=None, log_fn=None):
         globals_, state, logs, rng = self._setup(engine, init_globals)
         rounds_to_target = None
 
@@ -48,10 +49,17 @@ class SyncDriver(Driver):
                                engine.evaluate_round, t, globals_, groups,
                                infos)
             self.phase_seconds.append(phases)
+            stop = False
             for p, log in enumerate(round_logs):
                 logs[p].append(log)
+                if log_fn is not None:
+                    # a log_fn returning the literal True requests a stop
+                    ret = log_fn((p, log) if engine.heterogeneous else log)
+                    stop = stop or ret is True
             if engine.target_reached(round_logs):
                 rounds_to_target = t
+                break
+            if stop:
                 break
 
         return self._results(engine, logs, globals_, rounds_to_target)

@@ -48,6 +48,32 @@ def sgd(lr: Union[Schedule, float]) -> Optimizer:
     return Optimizer(init, update)
 
 
+class MomentumState(NamedTuple):
+    vel: Tensors
+
+
+def momentum_sgd(lr: Union[Schedule, float], beta: float = 0.9,
+                 nesterov: bool = False) -> Optimizer:
+    """Heavy-ball SGD as in the JAX package: ``v = beta v + g`` and the
+    delta ``-eta v`` (``-eta (beta v + g)`` with ``nesterov``)."""
+    sched = _schedule(lr)
+
+    def init(params):
+        return MomentumState([torch.zeros_like(p) for p in params])
+
+    def update(grads, state, params, step):
+        eta = sched(step)
+        vel = torch._foreach_mul(state.vel, beta)
+        torch._foreach_add_(vel, grads)
+        if nesterov:
+            ahead = torch._foreach_mul(vel, beta)
+            torch._foreach_add_(ahead, grads)
+            return torch._foreach_mul(ahead, -eta), MomentumState(vel)
+        return torch._foreach_mul(vel, -eta), MomentumState(vel)
+
+    return Optimizer(init, update)
+
+
 class AdamState(NamedTuple):
     mu: Tensors
     nu: Tensors

@@ -112,9 +112,12 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 # each forward mode of kernels/ensemble_kl.py:plan: lane groups, a cluster
-# of 8 (one of them ragged) and of 2 per row, one block per row
+# of 8 (one of them ragged) and of 2 per row, one block per row; lane
+# groups also with teacher slots left empty in the load template (K = 6
+# of 8, heterogeneous FedDF's three nets' teachers; K = 3 of 4, ragged B)
 MODE_SHAPES = ((8, 64, 3, 1.0), (5, 37, 5003, 2.5), (1, 7, 3000, 2.5),
-               (8, 100, 700, 1.0), (1, 7, 300, 2.5), (2, 160, 1000, 1.0))
+               (8, 100, 700, 1.0), (1, 7, 300, 2.5), (2, 160, 1000, 1.0),
+               (6, 64, 3, 1.0), (3, 37, 10, 2.5))
 
 
 @pytest.mark.gpu

@@ -178,10 +178,15 @@ def test_new_spec_json_round_trips_in_both_packages(change):
     ({"driver": {"kind": "async_pipelined", "staleness": 1,
                  "prefetch": 1}}, NotImplementedError),
     ({"faults": {"nan_rate": 0.1}}, NotImplementedError),
-    ({"cohort": {"prototypes": [{"name": "mlp", "params": {}}] * 2,
-                 "assignment": "round_robin"}}, NotImplementedError),
+    ({"strategy": {"name": "feddf", "drop_worst": True}},
+     NotImplementedError),
     ({"bucket": {"kind": "pow2", "max_buckets": 4}}, NotImplementedError),
-    ({"strategy": {"name": "fedavgm"}}, NotImplementedError),
+    ({"strategy": {"name": "trimmed_mean"}}, NotImplementedError),
+    ({"cohort": {"prototypes": [{"name": "mlp", "params": {}}] * 2,
+                 "assignment": "round_robin"},
+      "strategy": {"name": "feddf",
+                   "fusion": {"batch_sizes": [32, 64]}}},
+     NotImplementedError),
     ({"task": {"name": "nope", "n_samples": 10, "seed": None,
                "params": {}}}, ValueError),
 ])
