@@ -23,7 +23,8 @@ and in order:
    to poison exactly its row in every mode; K2 (raw teachers) and K3
    (pre-averaged rows) at their paths' shape and wider ones (ImageNet's
    1000 classes, zamba2's 32000 vocabulary over 1024 rows, one row on a
-   cluster of 8), path 5b's K = 6 of 8 teacher slots and K = 1 too,
+   cluster of 8), path 5b's K = 6 of 8 teacher slots, path 7e's K = 13
+   (the 8-teacher load template twice) and K = 1 too,
    float32 and bfloat16 teachers, two temperatures, each shape's launch
    plan printed, two launches of each kernel held to equal bits and every
    instantiation to zero spills; K4 (causal / sliding-window attention) at
@@ -37,7 +38,7 @@ and in order:
    bfloat16, after checking that its library holds tensor-core (HMMA)
    instructions and that its float32 N = P = 64 instantiation (the serve
    path's) spills no registers;
-4. drives seven paths on the card, with every launch count set to 0 just
+4. drives eight paths on the card, with every launch count set to 0 just
    before a path and read just after it.  Paths 1-3 go through
    ``Experiment(spec).run()`` at the quickstart's published widths, 3
    rounds each:
@@ -74,8 +75,24 @@ and in order:
      Adam for 1 (K1 once per distill step); ``fedavgm``'s server rule is
      also held on its own, the CPU's against the card's on the card
      run's uploads and momentum buffer of each round;
-5. prints one ``{"kernels": [...]}`` line, the card line, and as its last
-   line ``{"ok": true, "device": {...}}``.
+   - path 7, the paper's remaining ablations, 1 round each, each held
+     against the CPU with every discrete fact equal (distill steps,
+     drops, bank decision, teacher forwards): 7a drop-worst at Table 3's
+     instability settings (it must drop some uploads and keep some, its
+     drops printed; its fusion amplifies float32 rounding, so the whole
+     round's distance is reported beside the CPU's own spread under a
+     1-ulp nudge of the init, and on the card's own uploads the
+     aggregation's facts and accuracy are held against the CPU, K1
+     against its plain version at every distill step of a rerun of the
+     fusion, and the fusion's first 50 steps card against CPU within
+     1e-3), 7b 1-bit clients at
+     ``examples/lowbit_fl.py``'s spec (its uplink bytes printed), 7c DP
+     uploads, 7d SWAG teachers on the bank (K1 once per distill step over
+     8 + 5 teachers; a profiled card rerun must repeat it) and 7e on the
+     fly (K2 once per distill step at K = 13, K1 never);
+5. prints one ``{"kernels": [...]}`` line (each kernel's launches on its
+   path and, under ``path7_launches``, on each of path 7's sub-paths), the
+   card line, and as its last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the last line, when there is no CUDA device,
 when it does not find the port next to it, or when any phase fails.
@@ -91,6 +108,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 
@@ -136,7 +154,9 @@ K1_POISON_SHAPES = {"lanes": 3, "block": 300, "cluster": 5003}
 
 # K2 (K, B, V): the on-the-fly path's 8 teachers x distill batch 64 x 3
 # classes; path 5b's 6 teachers of three nets (2 of the 8-teacher load
-# template's slots left empty); the roofline records' shape; a ragged
+# template's slots left empty); path 7e's 8 uploads + 5 SWAG teachers (the
+# 8-teacher load template run twice, 3 live slots the second time); the
+# roofline records' shape; a ragged
 # shape over several V tiles; one teacher; eight teachers over ImageNet's
 # 1000 classes; the JAX distill step's 4 teachers over 1024 token rows at
 # zamba2-1.2b's vocabulary (524 MB of f32 teachers: L2 is cold by
@@ -145,8 +165,9 @@ K1_POISON_SHAPES = {"lanes": 3, "block": 300, "cluster": 5003}
 # few rows, one block per row V = 64 and (4, 1024, 32000)
 # (kernels/ensemble_kl.py plan); every mode is checked for equal bits over
 # two launches.
-K2_SHAPES = [(8, 64, 3), (6, 64, 3), (8, 256, 64), (5, 37, 5003),
-             (1, 64, 3), (8, 64, 1000), (4, 1024, 32000), (3, 1, 5003)]
+K2_SHAPES = [(8, 64, 3), (6, 64, 3), (13, 64, 3), (8, 256, 64),
+             (5, 37, 5003), (1, 64, 3), (8, 64, 1000), (4, 1024, 32000),
+             (3, 1, 5003)]
 K3_SHAPES = [(64, 3), (256, 64), (37, 5003)]
 K2_MODES = ("lanes", "cluster", "block")
 K2_KERNELS = 30   # instantiations in ensemble_kl.cu, each checked for spills
@@ -224,6 +245,10 @@ BUFFERED_CPU_ROUNDS = 2
 # move by at most one test example in a hundred.
 ROUND1_PARAM_ATOL = 1e-3
 ROUND1_ACC_ATOL = 0.01
+# path 7a: the fusion's first steps from the card's uploads, card against
+# CPU within ROUND1_PARAM_ATOL, before Adam amplifies float32 rounding
+# (chip_probe_ablations.py)
+FUSION_PREFIX_STEPS = 50
 # Path 3 after rounds 1-2.  Its second fusion distils on a trajectory where
 # a coordinate's gradient is near zero: Adam divides it by sqrt(v), so one
 # distill step with the kernels already moves that coordinate ~0.2 lr away
@@ -244,6 +269,15 @@ HETERO_ROUNDS = 3
 # elementwise updates of O(0.1 - 1) weights, so the two differ only by the
 # mean's float32 summation order, a few units in the last place.
 SERVER_RULE_ATOL = 1e-6
+# Path 7: the paper's remaining ablations, 1 round each on the card against
+# the same round on the CPU at paths 1-2's bounds, every discrete fact equal
+# (distill steps, drops, bank decision, teacher forwards): 7a drop-worst at
+# Table 3's instability settings, 7b 1-bit clients at Table 4's published
+# spec, 7c DP uploads (section 3), 7d / 7e SWAG teachers (Table 7) on the
+# bank (K1 over 8 + 5 teachers) and on the fly (K2 at K = 13).  The DP and
+# SWAG draws come from CPU generators, so the card and the CPU draw alike.
+ABLATION_ROUNDS = 1
+SWAG_SAMPLES, SWAG_SCALE = 5, 0.5
 
 
 def fail(msg: str) -> int:
@@ -1134,7 +1168,8 @@ def all_launches() -> dict:
 
 LOG_KEYS = ("test_acc", "val_acc", "ensemble_acc", "pre_distill_acc",
             "distill_steps", "bank", "bank_dtype", "bank_nbytes",
-            "teacher_forwards", "n_participants", "staleness_hist",
+            "teacher_forwards", "n_participants", "n_dropped",
+            "staleness_hist",
             "buffer_fill", "n_straggling", "eff_participants")
 
 
@@ -1167,12 +1202,13 @@ def run_path(spec):
 
 
 def card_vs_cpu(spec, rounds: int, profile_ref=None,
-                param_tol: float = ROUND1_PARAM_ATOL, gpu=None):
+                param_tol: Optional[float] = ROUND1_PARAM_ATOL, gpu=None):
     """The first ``rounds`` rounds on the card and on the CPU (plain
     versions) from the same seed, every prototype group compared; with
     ``profile_ref`` (the first run's RunResult) the card's rerun is
     profiled and must repeat it.  ``gpu``: a card run of exactly these
-    rounds to compare instead of a rerun."""
+    rounds to compare instead of a rerun.  ``param_tol=None`` reports the
+    globals' distance without holding it to a bound."""
     from repro_torch.api import Experiment
     short = dataclasses.replace(spec, rounds=rounds)
     busy = None
@@ -1199,6 +1235,10 @@ def card_vs_cpu(spec, rounds: int, profile_ref=None,
                 for a, b in zip(ga, gb, strict=True))
     steps = [[[l.distill_steps for l in g] for g in group_logs(r)]
              for r in (gpu, cpu)]
+    # the other discrete facts of every round: drops, bank decision and
+    # teacher forwards
+    facts = [[[(l.n_dropped, l.bank, l.teacher_forwards) for l in g]
+              for g in group_logs(r)] for r in (gpu, cpu)]
     one = len(gpu.results) == 1     # paths 1-4 keep their flat lists
     check = {"rounds": rounds, "max_abs_param_diff": d_param,
              "param_tol": param_tol,
@@ -1206,11 +1246,15 @@ def card_vs_cpu(spec, rounds: int, profile_ref=None,
              "test_acc_cpu": acc[1][0] if one else acc[1],
              "test_acc_diff": d_acc, "acc_tol": ROUND1_ACC_ATOL,
              "distill_steps_cuda": steps[0][0] if one else steps[0],
-             "distill_steps_cpu": steps[1][0] if one else steps[1]}
+             "distill_steps_cpu": steps[1][0] if one else steps[1],
+             "facts_equal": facts[0] == facts[1]}
     if not one:
         check["max_abs_param_diff_per_group"] = group_diffs(gpu, cpu)
-    if d_param > param_tol or d_acc > ROUND1_ACC_ATOL or steps[0] != steps[1]:
-        problems.append(f"card vs CPU: {check}")
+    if ((param_tol is not None and d_param > param_tol)
+            or d_acc > ROUND1_ACC_ATOL or steps[0] != steps[1]
+            or facts[0] != facts[1]):
+        problems.append(f"card vs CPU: {check}; (drops, bank, teacher "
+                        f"forwards) card {facts[0]} CPU {facts[1]}")
     return check, busy, problems
 
 
@@ -1457,6 +1501,342 @@ def baselines_path():
     return report, problems
 
 
+def ablation_specs() -> dict:
+    """Path 7's specs, 1 round each.  7a: the quickstart at Table 3's
+    instability settings (benchmarks/table3_dropworst.py: a norm-free mlp
+    [64, 64, 64, 64], alpha 0.3, local lr 0.2) with drop-worst; 7b:
+    examples/lowbit_fl.py's spec as published (blobs 5000, 10 clients,
+    alpha 1.0, mlp [64, 64], C 0.4, E 20, lr 0.1, an unlabeled pool of
+    3000, FedDF max 400, patience 200, seed 2) with binarized clients; 7c:
+    the quickstart with DP uploads at the JAX package's test values (clip
+    5.0, noise multiplier 0.01); 7d: the quickstart with Table 7's SWAG
+    row (5 samples at scale 0.5, benchmarks/table7_distill_optimizer.py)
+    on the bank; 7e: the same with the generator source, on the fly."""
+    from repro_torch.api import (CohortSpec, ExperimentSpec, FusionSpec,
+                                 ModelSpec, PartitionSpec, PrivacySpec,
+                                 SourceSpec, StrategySpec, TaskSpec)
+    q = quickstart_spec(ABLATION_ROUNDS)
+    swag = dataclasses.replace(q.strategy, fusion=dataclasses.replace(
+        q.strategy.fusion, swag_samples=SWAG_SAMPLES,
+        swag_scale=SWAG_SCALE))
+    return {
+        "7a_dropworst": dataclasses.replace(
+            q, cohort=CohortSpec(prototypes=[ModelSpec(
+                "mlp", {"hidden": [64, 64, 64, 64], "norm": "none"})]),
+            partition=dataclasses.replace(q.partition, alpha=0.3),
+            local_lr=0.2,
+            strategy=dataclasses.replace(q.strategy, drop_worst=True)),
+        "7b_lowbit": ExperimentSpec(
+            task=TaskSpec(name="blobs", n_samples=5000),
+            partition=PartitionSpec(n_clients=10, alpha=1.0),
+            cohort=CohortSpec(prototypes=[ModelSpec("mlp",
+                                                    {"hidden": [64, 64]})]),
+            strategy=StrategySpec(name="feddf", fusion=FusionSpec(
+                max_steps=400, patience=200, eval_every=50, batch_size=64)),
+            source=SourceSpec(name="unlabeled", params={"n": 3000}),
+            privacy=PrivacySpec(quantizer="binarize"),
+            rounds=ABLATION_ROUNDS, client_fraction=0.4, local_epochs=20,
+            local_batch_size=32, local_lr=0.1, seed=2),
+        "7c_dp": dataclasses.replace(
+            q, privacy=PrivacySpec(clip=5.0, noise_multiplier=0.01)),
+        "7d_swag_bank": dataclasses.replace(q, strategy=swag),
+        "7e_swag_fly": dataclasses.replace(
+            q, strategy=swag, source=SourceSpec(name="generator")),
+    }
+
+
+@contextlib.contextmanager
+def recording_engine_aggregate(calls: list):
+    """While open, every ``RoundEngine.aggregate`` call appends ``(t,
+    the groups as they came in, with their stacks copied, state, result,
+    the kept uploads' data weights per group)`` to ``calls`` (drop-worst
+    replaces a group's stack and weights)."""
+    import torch
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.core.engine import RoundEngine
+    orig = RoundEngine.aggregate
+
+    def recording(self, t, groups, state):
+        before = [dataclasses.replace(
+            g, stack=None if g.stack is None else tree_map(torch.clone,
+                                                           g.stack))
+            for g in groups]
+        out = orig(self, t, groups, state)
+        calls.append((t, before, state, out,
+                      [[float(w) for w in g.weights] for g in groups]))
+        return out
+    RoundEngine.aggregate = recording
+    try:
+        yield calls
+    finally:
+        RoundEngine.aggregate = orig
+
+
+@contextlib.contextmanager
+def checking_k1(rows: list):
+    """While open, every K1 call (the fused bank loss of a distill step)
+    also runs its plain version on the same inputs, and K1's gradient on
+    the student logits, caught by a hook in the step's backward, is held
+    against the plain version's: one row a call, ``[loss diff, its excess
+    over K1's forward tolerance, gradient diff, its excess over K1's
+    backward tolerance]`` (an excess <= 0 passes).  The plain version
+    launches no kernel, so the launch counts stay the path's own."""
+    import torch
+    from repro_torch.core import feddf
+    from repro_torch.kernels import ref
+    orig = feddf.ensemble_kl_loss_bank
+
+    def checking(s_logits, logits, scales, idx, temp):
+        loss = orig(s_logits, logits, scales, idx, temp)
+        with torch.enable_grad():
+            s_p = s_logits.detach().requires_grad_(True)
+            scale = (torch.ones(idx.shape, device=idx.device)
+                     if scales is None else scales[idx].float())
+            want = ref.ensemble_kl_bank(s_p, logits, scale, idx, temp)
+            (g_p,) = torch.autograd.grad(want, s_p)
+        want = float(want.detach())
+        d = abs(float(loss.detach()) - want)
+        row = [d, d - FWD_ATOL - FWD_RTOL * abs(want), None, None]
+        rows.append(row)
+
+        def hook(g):
+            dg = float((g - g_p).abs().max())
+            row[2:] = [dg, dg - BWD_ATOL]
+        s_logits.register_hook(hook)
+        return loss
+    feddf.ensemble_kl_loss_bank = checking
+    try:
+        yield rows
+    finally:
+        feddf.ensemble_kl_loss_bank = orig
+
+
+def k1_steps_summary(rows) -> dict:
+    return {"calls": len(rows),
+            "max_loss_diff": max(r[0] for r in rows),
+            "max_grad_diff": max(r[2] for r in rows if r[2] is not None),
+            "ok": bool(rows) and all(r[2] is not None and r[1] <= 0
+                                     and r[3] <= 0 for r in rows)}
+
+
+def engine_on(spec, device="cpu"):
+    """The round engine ``Experiment(spec, device=device)`` runs."""
+    from repro_torch.api import experiment as X
+    from repro_torch.core.engine import RoundEngine
+    bundle = X.build_task_bundle(spec)
+    train, val, test, parts = X.build_splits(spec, bundle)
+    nets, proto = X.build_cohort(spec, bundle)
+    return RoundEngine(nets, proto, train, parts, val, test,
+                       X.to_fl_config(spec),
+                       source=X.build_source(spec, bundle, train, device),
+                       heterogeneous=len(nets) > 1, device=device)
+
+
+@contextlib.contextmanager
+def recording_fusions(recs: list):
+    """While open, every ``feddf_fuse_stacked`` call appends its inputs,
+    its fused params and its info to ``recs``."""
+    from repro_torch.core import feddf
+    fuse = feddf.feddf_fuse_stacked
+
+    def recording(net, stack, weights, source, fusion, val_x=None,
+                  val_y=None, seed=0, **kw):
+        out = fuse(net, stack, weights, source, fusion, val_x, val_y, seed,
+                   **kw)
+        recs.append(dict(net=net, stack=stack, weights=weights,
+                         fusion=fusion, val_x=val_x, val_y=val_y, seed=seed,
+                         kw=kw, params=out[0], info=out[1]))
+        return out
+    feddf.feddf_fuse_stacked = recording
+    try:
+        yield recs
+    finally:
+        feddf.feddf_fuse_stacked = fuse
+
+
+def rerun_fusion(rec, spec, device, fused="auto", steps=None):
+    """A recorded fusion rerun on ``device`` from the same inputs (K1, or
+    its plain version with ``fused=False``); ``steps`` (not None) stops it
+    there without validation.  Returns ``(the fused params flat on the
+    CPU, info)``."""
+    from repro_torch.api import build_splits, build_task_bundle
+    from repro_torch.api.experiment import build_source
+    from repro_torch.common.pytree import tree_flatten, tree_to
+    from repro_torch.core import feddf
+    bundle = build_task_bundle(spec)
+    train = build_splits(spec, bundle)[0]
+    fusion = dataclasses.replace(rec["fusion"], use_fused_kernel=fused)
+    if steps is not None:
+        fusion = dataclasses.replace(fusion, max_steps=steps)
+    val = ((rec["val_x"].to(device), rec["val_y"].to(device))
+           if steps is None else (None, None))
+    kw = dict(rec["kw"])
+    if kw.get("student") is not None:
+        kw["student"] = tree_to(kw["student"], device)
+    p, info = feddf.feddf_fuse_stacked(
+        rec["net"], tree_to(rec["stack"], device), rec["weights"],
+        build_source(spec, bundle, train, device), fusion, *val,
+        rec["seed"], **kw)
+    return {k: v.cpu() for k, v in tree_flatten(p).items()}, info
+
+
+def flat_diff(a: dict, b: dict) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def same_uploads_check(spec, calls, fusions) -> tuple:
+    """Path 7a's aggregations held on the card run's own uploads.  Each
+    recorded aggregation (drop-worst, then FedDF on K1) rerun on the CPU
+    (plain versions): equal drops, kept uploads, distill steps and bank
+    decisions, the new globals' test accuracy within ROUND1_ACC_ATOL, the
+    globals' distance reported.  Each recorded fusion: rerun on the card
+    with K1 held against its plain version at every distill step, and its
+    first FUSION_PREFIX_STEPS steps on the card against the CPU within
+    ROUND1_PARAM_ATOL.  The whole fusion's distance is not bounded: 500
+    Adam steps amplify float32 rounding on these uploads until the card's
+    plain versions too part from the CPU by ~7e-3
+    (chip_probe_ablations.py)."""
+    from repro_torch.common.pytree import tree_flatten, tree_to
+    from repro_torch.core.client import evaluate
+    engine = engine_on(spec)
+    cpu = lambda t: None if t is None else tree_to(t, "cpu")
+    rounds, fused, problems = [], [], []
+    for t, groups, state, (new, _, infos), kept in calls:
+        cpu_groups = [dataclasses.replace(g, prev_global=cpu(g.prev_global),
+                                          stack=cpu(g.stack))
+                      for g in groups]
+        want, _, want_infos = engine.aggregate(t, cpu_groups, state)
+        acc = [[evaluate(net, cpu(g), engine.test_x, engine.test_y)
+                for net, g in zip(engine.nets, glob)] for glob in (new, want)]
+        keys = ("n_dropped", "distill_steps", "bank")
+        facts = [[[i.get(k) for k in keys] for i in inf]
+                 for inf in (infos, want_infos)]
+        d = {"round": t, "globals": max_abs_diff(want, new),
+             "test_acc_card": acc[0], "test_acc_cpu": acc[1],
+             "facts": list(keys), "card": facts[0], "cpu": facts[1],
+             "kept_card": kept,
+             "kept_cpu": [[float(w) for w in g.weights] for g in cpu_groups]}
+        rounds.append(d)
+        if (d["card"] != d["cpu"] or d["kept_card"] != d["kept_cpu"]
+                or max(abs(x - y) for x, y in zip(*acc)) > ROUND1_ACC_ATOL):
+            problems.append(f"aggregate, card vs CPU on the same uploads: "
+                            f"{d} (acc tol {ROUND1_ACC_ATOL})")
+    for rec in fusions:
+        rows = []
+        with checking_k1(rows):
+            again, info = rerun_fusion(rec, spec, "cuda")
+        k1 = k1_steps_summary(rows)
+        card, _ = rerun_fusion(rec, spec, "cuda", steps=FUSION_PREFIX_STEPS)
+        host, _ = rerun_fusion(rec, spec, "cpu", steps=FUSION_PREFIX_STEPS)
+        d = {"k1_every_step": k1, "steps": info["steps"],
+             "rerun_vs_recorded": flat_diff(
+                 again, {k: v.cpu() for k, v in
+                         tree_flatten(rec["params"]).items()}),
+             "prefix_steps": FUSION_PREFIX_STEPS,
+             "prefix_card_vs_cpu": flat_diff(card, host),
+             "prefix_atol": ROUND1_PARAM_ATOL}
+        fused.append(d)
+        if not k1["ok"] or k1["calls"] != info["steps"]:
+            problems.append(f"K1 against its plain version at every distill "
+                            f"step: {d}")
+        if d["prefix_card_vs_cpu"] > ROUND1_PARAM_ATOL:
+            problems.append(f"the fusion's first {FUSION_PREFIX_STEPS} "
+                            f"steps from the card's uploads, card vs CPU: "
+                            f"{d}")
+    return ({"rounds": rounds, "acc_tol": ROUND1_ACC_ATOL,
+             "fusions": fused}, problems)
+
+
+def cpu_self_spread(spec) -> float:
+    """How far the CPU's own run moves when its init moves by one unit in
+    the last place: the end-to-end spread no device can beat."""
+    import torch
+    from repro_torch.api import Experiment, build_cohort, build_task_bundle
+    from repro_torch.common.pytree import tree_map
+    net = build_cohort(spec, build_task_bundle(spec))[0][0]
+    init = net.init(torch.Generator().manual_seed(spec.seed))
+    nudged = tree_map(lambda x: torch.nextafter(
+        x, torch.full_like(x, float("inf"))), init)
+    runs = [Experiment(spec, device="cpu").run(init_globals=[i])
+            for i in (init, nudged)]
+    return max_abs_diff(runs[0].global_params, runs[1].global_params)
+
+
+def ablations_path():
+    """Path 7: each ablation's round on the card, its launches (K1 once per
+    distill step on 7a-7d, K2 once per distill step at K = 13 on 7e and no
+    K1 there), and card against CPU; 7d's round profiled for the busy
+    share."""
+    from repro_torch.core.logit_bank import DEFAULT_CHUNK
+    from repro_torch.core.quantize import comm_bytes
+    report, problems = {}, []
+    for name, spec in ablation_specs().items():
+        calls, fusions = [], []
+        dropworst = name == "7a_dropworst"
+        with contextlib.ExitStack() as recording:
+            if dropworst:
+                recording.enter_context(recording_engine_aggregate(calls))
+                recording.enter_context(recording_fusions(fusions))
+            res, rep, probs = run_path(spec)
+        steps = rep["distill_steps"]
+        fly = name == "7e_swag_fly"
+        kernel = "ensemble_kl" if fly else "ensemble_kl_bank"
+        probs += check_launches(rep["launches"], {f"{kernel}_fwd": steps,
+                                                  f"{kernel}_bwd": steps},
+                                "launches")
+        logs = fused_logs(res)
+        if not logs or any(l.bank != ("on_the_fly" if fly else "bank")
+                           for l in logs):
+            probs.append(f"bank decisions {[l.bank for l in logs]}")
+        rep["n_dropped"] = [l.n_dropped for l in res.result.logs]
+        if name.startswith("7d") or fly:
+            # 8 uploads + 5 SWAG teachers: on the fly every step runs all
+            # 13, the bank runs them once over the pool's chunks
+            chunks = -(-spec.source.params.get("n", 4000) // DEFAULT_CHUNK)
+            for l in logs:
+                k = l.n_participants + SWAG_SAMPLES
+                want = l.distill_steps * k if fly else chunks * k
+                if l.teacher_forwards != want:
+                    probs.append(f"{l.teacher_forwards} teacher forwards, "
+                                 f"expected {want} ({k} teachers)")
+        if name == "7b_lowbit":
+            p = res.global_params[0]
+            rep["comm_bytes"] = {"fp32": comm_bytes(p),
+                                 "1bit": comm_bytes(p, binarized=True)}
+        # Table 3's settings: the CPU alone moves 7a's round by far more
+        # than ROUND1_PARAM_ATOL when its init moves one ulp, and the
+        # fusion on these uploads parts card from CPU by ~1e-2 with the
+        # plain versions too (chip_probe_ablations.py).  So 7a's globals
+        # distance is reported beside the CPU's own spread; its steps,
+        # drops, bank, teacher forwards and accuracy are held as on every
+        # sub-path, and its aggregations on the card's own uploads by
+        # same_uploads_check
+        check, busy, more = (
+            card_vs_cpu(spec, 1, profile_ref=res) if name.startswith("7d")
+            else card_vs_cpu(spec, 1, gpu=res,
+                             param_tol=None if dropworst
+                             else ROUND1_PARAM_ATOL))
+        if dropworst:
+            check["cpu_self_spread"] = cpu_self_spread(spec)
+            rep["same_uploads"], held = same_uploads_check(spec, calls,
+                                                           fusions)
+            more += held
+            if len(calls) != spec.rounds or len(fusions) != spec.rounds:
+                more.append(f"{len(calls)} aggregations and {len(fusions)} "
+                            f"fusions recorded for {spec.rounds} rounds")
+            for l in res.result.logs:
+                # the filter must act: some uploads dropped, some kept
+                if not 0 < l.n_dropped < l.n_dropped + l.n_participants:
+                    more.append(f"round {l.round}: {l.n_dropped} dropped, "
+                                f"{l.n_participants} kept")
+        rep.update(cpu_check=check)
+        if busy is not None:
+            rep["round1_device"] = busy
+        report[name] = rep
+        problems += [f"{name}: {p}" for p in probs + more]
+    return report, problems
+
+
 def print_path(name, rep) -> None:
     for r in rep["rounds"]:
         ph = " ".join(f"{k}={v:.3f}s" for k, v in r["phase_s"].items())
@@ -1468,6 +1848,7 @@ def print_path(name, rep) -> None:
                   f"pre_distill={'-' if pre is None else f'{pre:.4f}'} "
                   f"ensemble={'-' if ens is None else f'{ens:.4f}'} "
                   f"clients={l['n_participants']} "
+                  f"dropped={l['n_dropped']} "
                   f"distill_steps={l['distill_steps']} bank={l['bank']} "
                   f"teacher_forwards={l['teacher_forwards']} "
                   f"staleness={l['staleness_hist']}")
@@ -1480,6 +1861,9 @@ def print_path(name, rep) -> None:
     if "server_rule" in rep:
         print(f"  {name}: server rule, card vs CPU on the same uploads: "
               f"{rep['server_rule']}", flush=True)
+    if "same_uploads" in rep:
+        print(f"  {name}: card vs CPU on the card's uploads: "
+              f"{rep['same_uploads']}", flush=True)
 
 
 def main() -> int:
@@ -1681,13 +2065,15 @@ def main() -> int:
         print_path(name, rep)
     for name, fn in (("path5a_hetero_bank", hetero_bank_path),
                      ("path5b_hetero_fly", hetero_fly_path),
-                     ("path6_baselines", baselines_path)):
+                     ("path6_baselines", baselines_path),
+                     ("path7_ablations", ablations_path)):
         t0 = time.perf_counter()
         rep, path_problems = fn()
         rep["total_s"] = time.perf_counter() - t0
         paths[name] = rep
         problems += [f"{name}: {p}" for p in path_problems]
-        subs = ({name: rep} if name != "path6_baselines" else
+        subs = ({name: rep} if name in ("path5a_hetero_bank",
+                                        "path5b_hetero_fly") else
                 {f"{name} {k}": v for k, v in rep.items() if k != "total_s"})
         if "fedavg" in rep:
             subs[f"{name} fedavg"] = rep["fedavg"]
@@ -1696,6 +2082,12 @@ def main() -> int:
         print(f"  {name}: whole path {rep['total_s']:.1f} s", flush=True)
     print(f"  path 5a round 1 on the card, from a profiler trace: "
           f"{paths['path5a_hetero_bank']['round1_device']}")
+    abl = paths["path7_ablations"]
+    print(f"  path 7a drops per round: {abl['7a_dropworst']['n_dropped']}; "
+          f"path 7b uplink bytes per client: "
+          f"{abl['7b_lowbit']['comm_bytes']}")
+    print(f"  path 7d round 1 on the card, from a profiler trace: "
+          f"{abl['7d_swag_bank']['round1_device']}", flush=True)
     t0 = time.perf_counter()
     rep, path_problems = serve_path(device)
     rep["total_s"] = time.perf_counter() - t0
@@ -1740,6 +2132,11 @@ def main() -> int:
          [(e["fwd_err"], e["bwd_err"]) for e in k2_errors
           if e["kernel"] == "ensemble_kl_pre"]),
     ]
+    def path7_launches(name):
+        """Each path 7 sub-path's launches of ``name``."""
+        return {sub[:2]: r["launches"].get(name, 0)
+                for sub, r in paths["path7_ablations"].items()
+                if sub != "total_s"}
     kernels = []
     for base, path, source, lines, t, errs in entries:
         for i, kind in enumerate(("fwd", "bwd")):
@@ -1748,6 +2145,7 @@ def main() -> int:
                 "name": name, "route": "cuda", "source": src + source,
                 "replaces": pallas + lines[i],
                 "launches": paths[path]["launches"][name],
+                "path7_launches": path7_launches(name),
                 "max_abs_err": max(e[i] for e in errs),
                 "ms": t[f"{kind}_ms"], "plain_ms": t[f"plain_{kind}_ms"],
                 "call_ms": t[f"{kind}_call_ms"],
@@ -1764,6 +2162,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src + name + ".cu",
             "replaces": line,
             "launches": paths["path4_serve"]["launches"][name],
+            "path7_launches": path7_launches(name),
             "max_abs_err": max(e["max_abs_err"] for e in errs
                                if e.get("dtype", "float32") == "float32"),
             "ms": t["ms"], "plain_ms": t["plain_ms"],

@@ -16,8 +16,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.api.registries import (TaskBundle, get_model, get_source,
-                                        get_task)
+from repro_torch.api.registries import (TaskBundle, get_model,
+                                        get_quantizer, get_source, get_task)
 from repro_torch.api.spec import ExperimentSpec
 from repro_torch.common.pytree import tree_to
 from repro_torch.core.engine import (BucketConfig, FLConfig, FLResult,
@@ -109,6 +109,8 @@ def build_source(spec: ExperimentSpec, bundle: TaskBundle, train: Dataset,
 def to_fl_config(spec: ExperimentSpec) -> FLConfig:
     """Compile the declarative spec into the engine-level config."""
     s = spec.strategy
+    quantize = (None if spec.privacy.quantizer is None
+                else get_quantizer(spec.privacy.quantizer))
     return FLConfig(
         rounds=spec.rounds, client_fraction=spec.client_fraction,
         local_epochs=spec.local_epochs,
@@ -116,10 +118,12 @@ def to_fl_config(spec: ExperimentSpec) -> FLConfig:
         strategy=s.name, prox_mu=s.prox_mu,
         server_momentum=s.server_momentum, drop_worst=s.drop_worst,
         seed=spec.seed, local_optimizer=spec.local_optimizer,
-        local_adam_lr=spec.local_adam_lr,
+        local_adam_lr=spec.local_adam_lr, quantize=quantize,
         fusion=FusionConfig(**s.fusion.to_dict()),
         feddf_init_from=s.feddf_init_from,
         target_accuracy=spec.target_accuracy,
+        dp_clip=spec.privacy.clip,
+        dp_noise_multiplier=spec.privacy.noise_multiplier,
         bucketing=BucketConfig(kind=spec.bucket.kind,
                                max_buckets=spec.bucket.max_buckets),
         population=spec.population_config())
@@ -133,16 +137,20 @@ class Experiment:
         self.spec = spec.validate()
 
     def run(self, *, init_globals: Optional[List[dict]] = None,
-            index_stream=None, draw_stream=None) -> RunResult:
+            index_stream=None, draw_stream=None, dp_noise_stream=None,
+            swag_draw_stream=None) -> RunResult:
         """Run every round; a cohort of several prototypes runs the
         paper's Algorithm 3, with one result, one global tree and one net
         name per prototype group.  ``init_globals`` (one tree per group,
         on any device), ``index_stream`` (a pool source's distillation
         indices, shared by every group's fusion; see
-        ``data/distill_sources.UnlabeledDataset``) and ``draw_stream`` (a
-        generator or noise source's random draws) replace the run's own
-        initialisation and distillation draws, e.g. with the JAX
-        package's."""
+        ``data/distill_sources.UnlabeledDataset``), ``draw_stream`` (a
+        generator or noise source's random draws), ``dp_noise_stream``
+        (the DP noise, ``core/privacy.NormalDraws``) and
+        ``swag_draw_stream`` (the SWAG samples' draws,
+        ``core/swag.SwagDraws``) replace the run's own initialisation and
+        draws, e.g. with the JAX package's.  A stream the spec has no use
+        for is refused."""
         spec = self.spec
         bundle = build_task_bundle(spec)
         train, val, test, parts = build_splits(spec, bundle)
@@ -152,6 +160,13 @@ class Experiment:
                                or draw_stream is not None):
             raise ValueError("index_stream / draw_stream given, but the "
                              "spec has no distillation source")
+        if dp_noise_stream is not None and spec.privacy.clip is None:
+            raise ValueError("dp_noise_stream given, but the spec has no "
+                             "DP uploads (privacy.clip is None)")
+        if swag_draw_stream is not None \
+                and spec.strategy.fusion.swag_samples <= 0:
+            raise ValueError("swag_draw_stream given, but the spec draws no "
+                             "SWAG teachers (fusion.swag_samples is 0)")
         if index_stream is not None:
             source.indices = index_stream
         if draw_stream is not None:
@@ -161,7 +176,8 @@ class Experiment:
         engine = RoundEngine(nets, client_proto, train, parts, val, test,
                              to_fl_config(spec), source=source,
                              heterogeneous=len(nets) > 1,
-                             device=self.device)
+                             device=self.device, dp_draws=dp_noise_stream,
+                             swag_draws=swag_draw_stream)
 
         driver = make_driver(spec.driver.kind,
                              staleness=spec.driver.staleness,

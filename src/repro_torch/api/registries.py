@@ -3,15 +3,17 @@
 Every axis a spec references by name resolves through one of these
 tables, as in the JAX package:
 
-task(name)    ``fn(n_samples, seed, **params) -> TaskBundle``
-model(name)   ``fn(task: TaskBundle, **params) -> Net``
-source(name)  ``fn(task, train, seed, device, **params) -> DistillSource``
+task(name)       ``fn(n_samples, seed, **params) -> TaskBundle``
+model(name)      ``fn(task: TaskBundle, **params) -> Net``
+source(name)     ``fn(task, train, seed, device, **params) -> DistillSource``
+quantizer(name)  ``fn(params, stacked=False) -> params``
 
 Ported: task ``blobs``, model ``mlp`` (and the ``blobs`` prototype
 ladder, :func:`default_prototype_ladder`), sources ``unlabeled``,
-``in_domain``, ``generator`` and ``noise``.  The other names the JAX
-package registers raise ``NotImplementedError`` naming their ROADMAP.md
-item; unknown names raise ``ValueError``.
+``in_domain``, ``generator`` and ``noise``, and quantizer ``binarize``
+(``core/quantize.py``).  The other names the JAX package registers raise
+``NotImplementedError`` naming their ROADMAP.md item; unknown names raise
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from repro_torch.core.nets import Net, mlp
+from repro_torch.core.quantize import binarize
 from repro_torch.data.distill_sources import (DistillSource,
                                               GeneratorSource,
                                               RandomNoiseSource,
@@ -70,7 +73,8 @@ register_model, get_model, available_models = _make_registry(
 register_source, get_source, available_sources = _make_registry(
     "source", {})
 register_quantizer, get_quantizer, available_quantizers = _make_registry(
-    "quantizer", {"binarize": "ROADMAP.md queue 1 item 9"})
+    "quantizer", {})
+register_quantizer("binarize")(binarize)
 
 
 @register_task("blobs")

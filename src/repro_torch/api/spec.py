@@ -728,11 +728,8 @@ class ExperimentSpec:
              and self.driver.kind == "buffered_async",
              "buffered_async with several prototypes", "9e"),
             (self.bucket.kind != "none", "step-count bucketing", "9"),
-            (self.strategy.drop_worst, "drop-worst", "9"),
-            (fusion.swag_samples > 0, "SWAG teachers", "9"),
             (fusion.batch_sizes is not None, "per-group distill batches",
              "9"),
-            (self.privacy != PrivacySpec(), "DP / quantized uploads", "9"),
             (self.sharding.shard_clients, "client-axis sharding", "11"),
             (self.faults != FaultSpec(), "fault injection", "10"),
             (self.obs != ObsSpec(), "the flight recorder", "10"),

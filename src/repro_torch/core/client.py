@@ -11,9 +11,16 @@ mask, parameters and optimizer state alike (Adam's ``m`` and ``v``), so
 each client's trajectory equals its own sequential run
 (:func:`make_local_update`).  The loop issues no host sync.
 
+Low-bit clients (Table 4) run their forwards through ``quantize`` inside
+the loss, on the full-precision master copy (the straight-through
+estimator, ``core/quantize.py``); the batched update calls it with
+``stacked=True``.  With ``dp_clip`` set, each client's upload is clipped
+and noised against the round's global model after its last step
+(``core/privacy.py``), its noise drawn on the host from its own seed.
+
 The numpy batch builders are verbatim copies of the JAX package's, so both
-packages train on bitwise-identical batches.  Quantized forwards, DP
-uploads and a device mesh wait for ROADMAP.md queue 1 items 9 and 11.
+packages train on bitwise-identical batches.  A device mesh waits for
+ROADMAP.md queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -25,6 +32,8 @@ import torch.nn.functional as F
 
 from repro_torch.common.pytree import tree_flatten, tree_unflatten
 from repro_torch.core.nets import Net
+from repro_torch.core.privacy import (NormalDraws, normal_draws,
+                                      privatize_update_stacked)
 from repro_torch.optim.optimizers import Optimizer, apply_updates
 
 
@@ -36,13 +45,15 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -torch.gather(logp, -1, labels[..., None])[..., 0].mean(dim=-1)
 
 
-def make_local_update(net: Net, opt: Optimizer, *, prox_mu: float = 0.0):
+def make_local_update(net: Net, opt: Optimizer, *, prox_mu: float = 0.0,
+                      quantize: Optional[Callable] = None):
     """One client's local training, step by step: the sequential reference
     the batched update is held against.
 
     Returns ``fn(params, xb [n,B,...], yb [n,B], anchor) -> params`` with
     every tensor on one device.  ``anchor`` is the round's global model
-    (FedProx pulls towards it when ``prox_mu > 0``)."""
+    (FedProx pulls towards it when ``prox_mu > 0``); ``quantize`` maps the
+    params the forward sees."""
 
     def run(params, xb, yb, anchor):
         flat = {p: v.detach().clone() for p, v in
@@ -55,8 +66,9 @@ def make_local_update(net: Net, opt: Optimizer, *, prox_mu: float = 0.0):
             with torch.enable_grad():
                 leaves = {p: v.detach().requires_grad_(trainable[p])
                           for p, v in flat.items()}
+                tree = tree_unflatten(leaves)
                 logits, stats = net.apply_with_stats(
-                    tree_unflatten(leaves), xb[i])
+                    tree if quantize is None else quantize(tree), xb[i])
                 loss = softmax_xent(logits, yb[i])
                 if prox_mu > 0.0:
                     sq = sum(((leaves[p] - anchors[p].detach()) ** 2).sum()
@@ -80,21 +92,23 @@ def make_local_update(net: Net, opt: Optimizer, *, prox_mu: float = 0.0):
 def make_batched_local_update(net: Net, opt: Optimizer, *,
                               prox_mu: float = 0.0,
                               quantize: Optional[Callable] = None,
-                              dp_clip: Optional[float] = None):
+                              dp_clip: Optional[float] = None,
+                              dp_noise_multiplier: float = 0.0,
+                              dp_draws: NormalDraws = normal_draws):
     """Vectorized local training for all K active clients of a round.
 
     Returns ``fn(params, xb [K,n,B,...], yb [K,n,B], anchor, step_mask
-    [K,n]) -> stacked params [K, ...]`` with every tensor on one device.
-    ``params`` / ``anchor`` are the round's (unstacked) global tree; FedProx
-    pulls each client towards ``anchor`` when ``prox_mu > 0``."""
-    if quantize is not None:
-        raise NotImplementedError("quantized client forwards wait for "
-                                  "ROADMAP.md queue 1 item 9")
-    if dp_clip is not None:
-        raise NotImplementedError("DP client uploads wait for ROADMAP.md "
-                                  "queue 1 item 9")
+    [K,n], dp_seeds=None) -> stacked params [K, ...]`` with every tensor
+    on one device.  ``params`` / ``anchor`` are the round's (unstacked)
+    global tree; FedProx pulls each client towards ``anchor`` when
+    ``prox_mu > 0``.  ``quantize(params, stacked=True)`` maps the params
+    every forward sees.  With ``dp_clip`` set, client ``k``'s upload is
+    privatized against ``anchor`` with noise drawn by ``dp_draws`` from
+    ``dp_seeds[k]``."""
 
-    def run(params, xb, yb, anchor, step_mask):
+    def run(params, xb, yb, anchor, step_mask, dp_seeds=None):
+        if dp_clip is not None and dp_seeds is None:
+            raise ValueError("DP uploads need one noise seed per client")
         k, n_steps = int(xb.shape[0]), int(xb.shape[1])
         flat = {p: v.detach().unsqueeze(0).expand(k, *v.shape).clone()
                 for p, v in tree_flatten(params).items()}
@@ -113,8 +127,10 @@ def make_batched_local_update(net: Net, opt: Optimizer, *,
             with torch.enable_grad():
                 leaves = {p: v.detach().requires_grad_(trainable[p])
                           for p, v in flat.items()}
+                tree = tree_unflatten(leaves)
                 logits, stats = net.apply_with_stats(
-                    tree_unflatten(leaves), x)
+                    tree if quantize is None
+                    else quantize(tree, stacked=True), x)
                 # per-client mean losses, summed: each client's gradient is
                 # exactly that of its own loss
                 loss = softmax_xent(logits, y).sum()
@@ -137,7 +153,14 @@ def make_batched_local_update(net: Net, opt: Optimizer, *,
                 state = type(state)(*([keep(valid, a, b) for a, b in
                                        zip(new, old)]
                                       for new, old in zip(new_state, state)))
-        return tree_unflatten(flat)
+        stack = tree_unflatten(flat)
+        if dp_clip is not None:
+            with torch.no_grad():
+                stack = privatize_update_stacked(
+                    anchor, stack, clip=dp_clip,
+                    noise_multiplier=dp_noise_multiplier, seeds=dp_seeds,
+                    draws=dp_draws)
+        return stack
 
     return run
 
@@ -310,11 +333,15 @@ def evaluate_stacked(net: Net, stack, x: torch.Tensor, y: torch.Tensor,
 
 
 def evaluate(net: Net, params: dict, x: torch.Tensor, y: torch.Tensor,
-             batch_size: int = 512) -> float:
-    """Top-1 accuracy in eval mode (BN uses running stats).  ``x`` and
-    ``y`` live on the params' device; the count is read once."""
+             batch_size: int = 512, quantize: Optional[Callable] = None
+             ) -> float:
+    """Top-1 accuracy in eval mode (BN uses running stats), of the
+    ``quantize``d params when given.  ``x`` and ``y`` live on the params'
+    device; the count is read once."""
     correct = torch.zeros((), dtype=torch.int64, device=x.device)
     with torch.no_grad():
+        if quantize is not None:
+            params = quantize(params)
         for s in range(0, len(y), batch_size):
             pred = net.apply(params, x[s:s + batch_size],
                              train=False).argmax(dim=-1)

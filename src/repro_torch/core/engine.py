@@ -11,9 +11,12 @@ A round decomposes into explicit phases that round *drivers*
   ``train_clients``        every group's clients in one batched local
                            update (``client.make_batched_local_update``)
                            on the engine's device;
-  ``aggregate``            dispatch of the stacks to the configured
+  ``aggregate``            drop-worst (Table 3) per prototype group, then
+                           dispatch of the stacks to the configured
                            :class:`ServerStrategy` -> new globals;
-  ``evaluate_round``       test/val accuracy per prototype -> ``RoundLog``.
+  ``evaluate_round``       test/val accuracy per prototype (of the
+                           quantized globals for low-bit clients) ->
+                           ``RoundLog``.
 
 Every tensor of a run lives on the engine's ``device``; the numpy batches
 cross to it once per round and the eval sets once per run.
@@ -29,14 +32,16 @@ size so that ``jit`` compiles once; the eager update here needs no fixed
 size, and the padded clients never reach aggregation there, so leaving
 them out changes no result.
 
-Step-count bucketing other than ``none``, drop-worst, quantized or DP
-uploads, fault injection and meshes wait for their ROADMAP.md items and
-raise ``NotImplementedError``.
+Low-bit clients (``quantize``) and DP uploads (``dp_clip``) run inside
+the batched client update; client ``k``'s DP noise in round ``t`` is
+drawn from the JAX package's integer ``seed * 7919 + t * 131 + k``.
+Step-count bucketing other than ``none``, fault injection and meshes wait
+for their ROADMAP.md items and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,8 +53,10 @@ from repro_torch.core.client import (assign_buckets, bucket_capacities,
                                      build_batched_batches, evaluate,
                                      make_batched_local_update,
                                      n_local_steps)
+from repro_torch.core.dropworst import drop_worst_stacked
 from repro_torch.core.ensemble import ensemble_accuracy_stacked
 from repro_torch.core.nets import Net
+from repro_torch.core.privacy import normal_draws
 from repro_torch.core.strategies import GroupRound, RoundContext, get_strategy
 from repro_torch.data.distill_sources import DistillSource
 from repro_torch.data.synthetic import Dataset
@@ -84,10 +91,14 @@ class FLConfig:
     seed: int = 0
     local_optimizer: str = "sgd"  # sgd | adam (Table 6 ablation)
     local_adam_lr: float = 1e-3   # adam local lr (sgd uses local_lr)
+    quantize: Optional[Callable] = None  # low-bit client forwards
     fusion: feddf_mod.FusionConfig = dataclasses.field(
         default_factory=feddf_mod.FusionConfig)
     feddf_init_from: str = "average"  # average | previous
     target_accuracy: Optional[float] = None
+    # client-level DP on uploads (paper §3; core/privacy.py)
+    dp_clip: Optional[float] = None
+    dp_noise_multiplier: float = 0.0
     bucketing: BucketConfig = dataclasses.field(default_factory=BucketConfig)
     # population / traffic / sampler axis; the defaults reproduce the
     # fixed-roster uniform draw bit for bit
@@ -173,6 +184,7 @@ class RoundBatches:
     yb: torch.Tensor             # [K, n_steps, B]
     step_mask: torch.Tensor      # [K, n_steps]
     weights: np.ndarray          # [K] local dataset sizes, in ks order
+    dp_seeds: Optional[List[int]] = None  # [K] DP noise seeds, in ks order
 
 
 def _make_opt(cfg: FLConfig) -> Optimizer:
@@ -194,15 +206,19 @@ class RoundEngine:
                  train: Dataset, parts: Sequence[np.ndarray], val: Dataset,
                  test: Dataset, cfg: FLConfig, *,
                  source: Optional[DistillSource] = None,
-                 heterogeneous: bool = False, device="cuda"):
+                 heterogeneous: bool = False, device="cuda",
+                 dp_draws: Optional[Callable] = None,
+                 swag_draws: Optional[Callable] = None):
+        """``dp_draws`` (``core/privacy.NormalDraws``) and ``swag_draws``
+        (``core/swag.SwagDraws``) replace the DP noise's and the SWAG
+        samples' CPU generators with a caller's draws, e.g. the JAX
+        package's."""
         if cfg.bucketing.kind not in BUCKET_KINDS:
             raise ValueError(
                 f"bucketing.kind must be one of {BUCKET_KINDS}, got "
                 f"{cfg.bucketing.kind!r}")
         if cfg.bucketing.kind != "none":
             _pending(f"bucketing kind {cfg.bucketing.kind!r}", "9")
-        if cfg.drop_worst:
-            _pending("drop-worst", "9")
         cfg.faults.validate()
         if cfg.faults.enabled:
             _pending("fault injection", "10")
@@ -214,6 +230,7 @@ class RoundEngine:
         self.test = test
         self.cfg = cfg
         self.source = source
+        self.swag_draws = swag_draws
         self.heterogeneous = heterogeneous
         self.device = torch.device(device)
         self.strategy = get_strategy(cfg.strategy)
@@ -238,8 +255,11 @@ class RoundEngine:
         self.test_y = torch.as_tensor(test.y, device=self.device)
         prox = self.strategy.local_prox_mu(cfg)
         self.updates = [
-            make_batched_local_update(self.nets[p], _make_opt(cfg),
-                                      prox_mu=prox)
+            make_batched_local_update(
+                self.nets[p], _make_opt(cfg), prox_mu=prox,
+                quantize=cfg.quantize, dp_clip=cfg.dp_clip,
+                dp_noise_multiplier=cfg.dp_noise_multiplier,
+                dp_draws=dp_draws or normal_draws)
             for p in range(self.n_proto)]
 
     def _init_sampler(self) -> None:
@@ -346,10 +366,12 @@ class RoundEngine:
                 cfg.local_batch_size, cfg.local_epochs, seeds,
                 n_steps=self.steps_cap[p])
             weights = np.array([float(len(self.parts[k])) for k in ks])
+            dp_seeds = ([cfg.seed * 7919 + t * 131 + k for k in ks]
+                        if cfg.dp_clip is not None else None)
             to = lambda a: torch.from_numpy(a).to(self.device)
             out.append(RoundBatches(ks=ks, xb=to(xb), yb=to(yb),
                                     step_mask=to(step_mask),
-                                    weights=weights))
+                                    weights=weights, dp_seeds=dp_seeds))
         return out
 
     def train_clients(self, t: int, globals_: List[dict],
@@ -362,15 +384,30 @@ class RoundEngine:
                                          np.zeros(0)))
                 continue
             stack = self.updates[p](globals_[p], rb.xb, rb.yb, globals_[p],
-                                    rb.step_mask)
+                                    rb.step_mask, rb.dp_seeds)
             groups.append(GroupRound(self.nets[p], globals_[p], stack,
                                      rb.weights))
         return groups
 
     def aggregate(self, t: int, groups: List[GroupRound], state):
-        """Strategy dispatch.  A heterogeneous round also scores the
-        logits-averaging ensemble of every non-empty group's uploads, and
-        each group's info carries it as ``ensemble_acc``."""
+        """Drop-worst, then strategy dispatch.  With ``drop_worst`` each
+        group's uploads at chance on the validation set leave its stack,
+        weights and importance (in place, as in the JAX package), and each
+        group's info carries ``n_dropped``.  A heterogeneous round also
+        scores the logits-averaging ensemble of every non-empty group's
+        uploads, and each group's info carries it as ``ensemble_acc``."""
+        dropped = [0] * self.n_proto
+        if self.cfg.drop_worst:
+            for p, g in enumerate(groups):
+                if g.stack is None:
+                    continue
+                g.stack, kept_w, kept_i = drop_worst_stacked(
+                    g.net, g.stack, g.weights, self.val_x, self.val_y,
+                    self.train.n_classes)
+                dropped[p] = len(g.weights) - len(kept_i)
+                g.weights = np.asarray(kept_w)
+                if g.importance is not None:
+                    g.importance = np.asarray(g.importance)[kept_i]
         ens_acc = None
         if self.heterogeneous:
             ens_acc = ensemble_accuracy_stacked(
@@ -380,8 +417,9 @@ class RoundEngine:
                            heterogeneous=self.heterogeneous,
                            source=self.source, val_x=self.val_x,
                            val_y=self.val_y, test_x=self.test_x,
-                           test_y=self.test_y)
+                           test_y=self.test_y, swag_draws=self.swag_draws)
         globals_, state, infos = self.strategy.aggregate(groups, state, ctx)
+        infos = [{**info, "n_dropped": d} for info, d in zip(infos, dropped)]
         if ens_acc is not None:
             infos = [{**info, "ensemble_acc": ens_acc} for info in infos]
         return globals_, state, infos
@@ -392,15 +430,16 @@ class RoundEngine:
         out = []
         for p in range(self.n_proto):
             acc = evaluate(self.nets[p], globals_[p], self.test_x,
-                           self.test_y)
+                           self.test_y, quantize=self.cfg.quantize)
             vacc = evaluate(self.nets[p], globals_[p], self.val_x,
-                            self.val_y)
+                            self.val_y, quantize=self.cfg.quantize)
             out.append(RoundLog(
                 round=t, test_acc=acc, val_acc=vacc,
                 ensemble_acc=infos[p].get("ensemble_acc"),
                 pre_distill_acc=infos[p].get("pre_distill_acc"),
                 distill_steps=infos[p].get("distill_steps", 0),
                 n_participants=len(groups[p].weights),
+                n_dropped=infos[p].get("n_dropped", 0),
                 teacher_forwards=infos[p].get("teacher_forwards", 0),
                 bank=infos[p].get("bank", ""),
                 bank_dtype=infos[p].get("bank_dtype", ""),

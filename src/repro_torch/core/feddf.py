@@ -29,8 +29,13 @@ guard's finiteness check when it is on.
 Heterogeneous cohorts (Algorithm 3) fuse every prototype group's student
 against the ALL-groups teacher ensemble: one bank over every group's
 teachers serves all the students (K1), or without a bank every step runs
-the concatenated teachers (K2).  SWAG teachers and per-group distill
-batches wait for ROADMAP.md queue 1 item 9.
+the concatenated teachers (K2).  Table 7's SWAG row appends
+``swag_samples`` models drawn from a diagonal Gaussian over the received
+models to a homogeneous fusion's teachers (``core/swag.py``), after the
+student is initialised from their average; the bank, or K2 on the fly,
+then averages over all of them.  As in the JAX package, the heterogeneous
+fusion takes no SWAG teachers.  Per-group distill batches wait for
+ROADMAP.md queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ from repro_torch.common.pytree import (tree_flatten, tree_isfinite,
 from repro_torch.core.logit_bank import (TEACHER_FORWARDS, LogitBank,
                                          dequantize_rows, resolve_bank)
 from repro_torch.core.nets import Net
+from repro_torch.core.swag import swag_teachers_stacked
 from repro_torch.data.distill_sources import DistillSource
 from repro_torch.kernels.ops import (ensemble_kl_loss, ensemble_kl_loss_bank,
                                      ensemble_kl_loss_pre, use_fused_kernel)
@@ -338,17 +344,26 @@ def feddf_fuse_stacked(
     seed: int = 0,
     student: Optional[dict] = None,
     teacher_weights=None,
+    swag_draws=None,
 ) -> Tuple[dict, dict]:
     """Algorithm 1 on an already-stacked [K, ...] teacher tree.
     ``student=None`` initialises from the weighted average (line 6).
     ``teacher_weights`` (per-teacher importance, e.g. the buffered-async
     ``(1+s)^-a`` staleness weights) biases the teacher consensus; None
-    keeps the paper's uniform AVGLOGITS."""
-    if fusion.swag_samples > 0:
-        raise NotImplementedError("SWAG teachers wait for ROADMAP.md queue "
-                                  "1 item 9")
+    keeps the paper's uniform AVGLOGITS.  With ``fusion.swag_samples``,
+    SWAG teachers drawn from the fusion seed (or by ``swag_draws``,
+    ``core/swag.SwagDraws``) join the received ones, each with the
+    received teachers' mean importance."""
     if student is None:
         student = tree_weighted_mean_stacked(teacher_stack, weights)
+    if fusion.swag_samples > 0:  # Table 7: the FedDistill / SWAG teachers
+        teacher_stack = swag_teachers_stacked(
+            teacher_stack, fusion.swag_samples, scale=fusion.swag_scale,
+            seed=seed, draws=swag_draws)
+        if teacher_weights is not None:
+            tw = np.asarray(teacher_weights, np.float64)
+            teacher_weights = np.concatenate(
+                [tw, np.full(fusion.swag_samples, tw.mean())])
     tfn = make_teacher_logits_fn(net, teacher_stack)
     return distill(net, student, [tfn], source, fusion, val_x, val_y, seed,
                    teacher_weights=teacher_weights)
@@ -365,6 +380,7 @@ def feddf_fuse_homogeneous(
     seed: int = 0,
     init_from: str = "average",
     prev_global: Optional[dict] = None,
+    swag_draws=None,
 ) -> Tuple[dict, dict]:
     """List-of-trees wrapper over :func:`feddf_fuse_stacked`.
     ``init_from='previous'`` is the Table 5 ablation: the student starts
@@ -373,7 +389,7 @@ def feddf_fuse_homogeneous(
                else prev_global)
     return feddf_fuse_stacked(net, tree_stack(client_params), client_weights,
                               source, fusion, val_x, val_y, seed,
-                              student=student)
+                              student=student, swag_draws=swag_draws)
 
 
 def feddf_fuse_heterogeneous_stacked(

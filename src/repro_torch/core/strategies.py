@@ -59,6 +59,7 @@ class RoundContext:
     val_y: Any = None
     test_x: Any = None
     test_y: Any = None
+    swag_draws: Any = None       # a caller's SWAG draws (core/swag.py)
 
 
 class ServerStrategy:
@@ -196,6 +197,7 @@ class FedDF(ServerStrategy):
         fused, info = feddf_mod.feddf_fuse_stacked(
             g.net, g.stack, w_eff, ctx.source, cfg.fusion,
             ctx.val_x, ctx.val_y, seed=cfg.seed + ctx.round,
-            student=student, teacher_weights=g.importance)
+            student=student, teacher_weights=g.importance,
+            swag_draws=ctx.swag_draws)
         return [fused], state, [{**_fusion_info(info),
                                  "pre_distill_acc": pre_acc}]

@@ -64,11 +64,3 @@ def test_evaluate_matches_jax():
     got = tclient.evaluate(tn, convert.to_torch(jp), torch.from_numpy(ds.x),
                            torch.from_numpy(ds.y))
     assert got == jclient.evaluate(jn, jp, ds.x, ds.y)
-
-
-def test_unported_client_options_raise():
-    tn = tnets.mlp(2, 3, (4,))
-    with pytest.raises(NotImplementedError):
-        tclient.make_batched_local_update(tn, tsgd(0.1), quantize=lambda p: p)
-    with pytest.raises(NotImplementedError):
-        tclient.make_batched_local_update(tn, tsgd(0.1), dp_clip=1.0)

@@ -151,6 +151,7 @@ def test_plan_stays_inside_the_kernels_limits(k, b, v):
 # K = 1), with its lanes per row or cluster size
 CHIP_SMOKE_MODES = {
     (8, 64, 3): ("lanes", 4), (6, 64, 3): ("lanes", 4),
+    (13, 64, 3): ("lanes", 4),
     (8, 256, 64): ("block", 1),
     (5, 37, 5003): ("cluster", 8), (1, 64, 3): ("lanes", 4),
     (8, 64, 1000): ("cluster", 4), (4, 1024, 32000): ("block", 1),

@@ -178,8 +178,7 @@ def test_new_spec_json_round_trips_in_both_packages(change):
     ({"driver": {"kind": "async_pipelined", "staleness": 1,
                  "prefetch": 1}}, NotImplementedError),
     ({"faults": {"nan_rate": 0.1}}, NotImplementedError),
-    ({"strategy": {"name": "feddf", "drop_worst": True}},
-     NotImplementedError),
+    ({"sharding": {"shard_clients": True}}, NotImplementedError),
     ({"bucket": {"kind": "pow2", "max_buckets": 4}}, NotImplementedError),
     ({"strategy": {"name": "trimmed_mean"}}, NotImplementedError),
     ({"cohort": {"prototypes": [{"name": "mlp", "params": {}}] * 2,
