@@ -14,8 +14,9 @@ and in order:
    register and shared-memory lines;
 3. holds each kernel against its plain PyTorch version on the card, and
    times kernel, plain version and bound: K1 (logit bank) at the main
-   path's shape and three wider ones (zamba2's 32000 vocabulary over 1024
-   rows the widest), for every bank dtype and two temperatures, each
+   path's shape, three wider ones (zamba2's 32000 vocabulary over 1024
+   rows the widest) and path 8's (distill batches of 32 and 48, the token
+   path's 4 classes), for every bank dtype and two temperatures, each
    shape's launch plan printed, two launches held to equal bits, every
    instantiation to zero spills, each forward mode timed against the
    others where the plan switches, the backward's grid capped at one wave
@@ -90,9 +91,23 @@ and in order:
      uploads, 7d SWAG teachers on the bank (K1 once per distill step over
      8 + 5 teachers; a profiled card rerun must repeat it) and 7e on the
      fly (K2 once per distill step at K = 13, K1 never);
+   - path 8, the port's last training axes, each held against the CPU
+     with every discrete fact equal: 8a buffered heterogeneous fusion
+     (path 5's spec on path 3's driver, 3 rounds: fresh rounds on K2,
+     round 1 at K = 6, stale rounds on K3; it must fuse a stale upload,
+     each group's staleness histograms printed), compared after round 1
+     and after rounds 1-2; 8b(i) step-count bucketing (``pow2``) on the
+     quickstart, 1 round on K1: its uploads against the unbucketed
+     round's on the card within 1e-5, its globals within 1e-3 with equal
+     distill steps, ``real_steps``, ``padded_slots`` and ``train_clients``
+     seconds printed bucketed and not; 8b(ii) distill batches of 32, 64
+     and 48 on path 5a's spec, 1 round: K1 at those B on one bank; 8c the
+     token path (``examples/train_e2e.py``'s spec, tiny_transformer), 2
+     rounds on K1 at (64, 4000, 4), a profiled card rerun of round 1;
 5. prints one ``{"kernels": [...]}`` line (each kernel's launches on its
-   path and, under ``path7_launches``, on each of path 7's sub-paths), the
-   card line, and as its last line ``{"ok": true, "device": {...}}``.
+   path and, under ``path7_launches`` and ``path8_launches``, on each of
+   paths 7's and 8's sub-paths), the card line, and as its last line
+   ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the last line, when there is no CUDA device,
 when it does not find the port next to it, or when any phase fails.
@@ -126,11 +141,13 @@ EXP_PER_S = 16 * 132 * 1.98e9
 # __b256c64_*); a ragged shape spanning several 2048-wide V tiles; 1024
 # token rows at zamba2-1.2b's vocabulary, K2's widest shape (the bank's
 # gathered rows and the student 250 MB in f32: L2 is cold by
-# construction).  K1 runs the launch plan of K2/K3 at K = 1, with its own
-# cluster threshold (V > 4096): lane groups at V = 3, one block per row at
-# V = 64 and 32000, a cluster of 8 per row at (37, 5003).
+# construction); path 8's distill batches of 32 and 48 over path 5a's pool
+# (8b(ii)) and the token path's 4 classes (8c).  K1 runs the launch plan of
+# K2/K3 at K = 1, with its own cluster threshold (V > 4096): lane groups at
+# V <= 32, one block per row at V = 64 and 32000, a cluster of 8 per row at
+# (37, 5003).
 SHAPES = [(64, 4000, 3), (256, 4096, 64), (37, 1000, 5003),
-          (1024, 4096, 32000)]
+          (1024, 4096, 32000), (32, 4000, 3), (48, 4000, 3), (64, 4000, 4)]
 TEMPERATURES = (1.0, 2.5)
 BANK_DTYPES = ("float32", "bfloat16", "int8", "fp8_e4m3")
 K1_KERNELS = 20   # ensemble_kl_bank.cu's instantiations, each held to 0 spills
@@ -153,8 +170,8 @@ K1_BWD_GRID_SHAPES = [(1024, 32000), (64, 32000)]
 K1_POISON_SHAPES = {"lanes": 3, "block": 300, "cluster": 5003}
 
 # K2 (K, B, V): the on-the-fly path's 8 teachers x distill batch 64 x 3
-# classes; path 5b's 6 teachers of three nets (2 of the 8-teacher load
-# template's slots left empty); path 7e's 8 uploads + 5 SWAG teachers (the
+# classes; path 5b's and path 8a's round-1 6 teachers of three nets (2 of
+# the 8-teacher load template's slots left empty); path 7e's 8 uploads + 5 SWAG teachers (the
 # 8-teacher load template run twice, 3 live slots the second time); the
 # roofline records' shape; a ragged
 # shape over several V tiles; one teacher; eight teachers over ImageNet's
@@ -278,6 +295,17 @@ SERVER_RULE_ATOL = 1e-6
 # SWAG draws come from CPU generators, so the card and the CPU draw alike.
 ABLATION_ROUNDS = 1
 SWAG_SAMPLES, SWAG_SCALE = 5, 0.5
+# Path 8: 8a buffered heterogeneous fusion (path 5's spec on path 3's
+# driver), 3 rounds, held against the CPU after round 1 and after rounds
+# 1-2 at ROUND1_PARAM_ATOL; 8b step-count bucketing on the quickstart (1
+# round: the uploads, bucketed against unbucketed on the card, are the same
+# per-client arithmetic over fewer clients, held to 1e-5) and one distill
+# batch per prototype on path 5a's spec (1 round); 8c the token path
+# (examples/train_e2e.py), 2 rounds, only the rounds cut (6 -> 2).
+BUFFERED_HETERO_ROUNDS = 3
+BUCKET_UPLOAD_ATOL = 1e-5
+DISTILL_BATCHES = (32, 64, 48)
+TOKENS_ROUNDS = 2
 
 
 def fail(msg: str) -> int:
@@ -1837,6 +1865,240 @@ def ablations_path():
     return report, problems
 
 
+def buffered_hetero_spec(rounds: int):
+    """Path 8a: path 5's spec (examples/heterogeneous_fusion.py) on the
+    buffered-async driver as path 3 runs it: staleness 1, the noise source,
+    a buffer of the 6 active clients' uploads, upload latency 1.0 with
+    jitter 0.2 (virtual seconds)."""
+    from repro_torch.api import (DriverSpec, PopulationSpec, SourceSpec,
+                                 TrafficSpec)
+    return dataclasses.replace(
+        hetero_spec(rounds), source=SourceSpec(name="noise"),
+        driver=DriverSpec(kind="buffered_async", staleness=1),
+        population=PopulationSpec(buffer_size=6, max_staleness=4,
+                                  traffic=TrafficSpec(latency=1.0,
+                                                      jitter=0.2)))
+
+
+def bucketed_spec(rounds: int):
+    """Path 8b(i): the quickstart (path 1) with power-of-two step
+    buckets."""
+    from repro_torch.api import BucketSpec
+    return dataclasses.replace(quickstart_spec(rounds),
+                               bucket=BucketSpec(kind="pow2", max_buckets=4))
+
+
+def distill_bucket_spec(rounds: int):
+    """Path 8b(ii): path 5a's spec with one distill batch per prototype,
+    bucketed by powers of two: capacities 32, 64 and 64."""
+    spec = hetero_spec(rounds)
+    fusion = dataclasses.replace(spec.strategy.fusion,
+                                 batch_sizes=list(DISTILL_BATCHES),
+                                 distill_bucket="pow2")
+    return dataclasses.replace(spec, strategy=dataclasses.replace(
+        spec.strategy, fusion=fusion))
+
+
+def tokens_spec(rounds: int):
+    """Path 8c: examples/train_e2e.py's FedDF spec at its published widths
+    (the paper's DistilBERT / AG News stand-in, Fig. 3): tokens 6000
+    (vocabulary 64, sequences of 16, 4 classes), 10 clients, alpha 1.0,
+    C = 1.0, E = 5, local Adam, tiny_transformer d_model 64 with 2
+    layers, an unlabeled token pool of 4000, FedDF max 400 steps, patience
+    200, batch 64, seed 3."""
+    from repro_torch.api import (CohortSpec, ExperimentSpec, FusionSpec,
+                                 ModelSpec, PartitionSpec, SourceSpec,
+                                 StrategySpec, TaskSpec)
+    return ExperimentSpec(
+        task=TaskSpec(name="tokens", n_samples=6000),
+        partition=PartitionSpec(n_clients=10, alpha=1.0),
+        cohort=CohortSpec(prototypes=[ModelSpec(
+            "tiny_transformer", {"d_model": 64, "n_layers": 2})]),
+        strategy=StrategySpec(name="feddf",
+                              fusion=FusionSpec(max_steps=400, patience=200,
+                                                eval_every=50,
+                                                batch_size=64)),
+        source=SourceSpec(name="unlabeled", params={"n": 4000}),
+        rounds=rounds, client_fraction=1.0, local_epochs=5,
+        local_batch_size=32, local_lr=0.05, local_optimizer="adam", seed=3)
+
+
+@contextlib.contextmanager
+def recording_k1_rows(rows: list):
+    """While open, every K1 call appends its student batch (the rows the
+    loss sees) to ``rows``; it launches nothing of its own."""
+    from repro_torch.core import feddf
+    orig = feddf.ensemble_kl_loss_bank
+
+    def recording(s_logits, logits, scales, idx, temp):
+        rows.append((int(s_logits.shape[0]), int(logits.shape[1])))
+        return orig(s_logits, logits, scales, idx, temp)
+    feddf.ensemble_kl_loss_bank = recording
+    try:
+        yield rows
+    finally:
+        feddf.ensemble_kl_loss_bank = orig
+
+
+def buffered_hetero_path():
+    """Path 8a: buffered heterogeneous fusion.  Rounds whose consumed
+    uploads are all fresh fuse on K2 over every group's teachers (round 1:
+    K = 6); a round with a stale upload fuses the weighted consensus on
+    K3.  At least one upload must fuse stale."""
+    spec = buffered_hetero_spec(BUFFERED_HETERO_ROUNDS)
+    res, report, problems = run_path(spec)
+    logs = group_logs(res)
+    k2 = k3 = 0
+    for t in range(spec.rounds):
+        steps = sum(g[t].distill_steps for g in logs)
+        if sum(logs[0][t].staleness_hist[1:]):
+            k3 += steps
+        else:
+            k2 += steps
+    problems += check_launches(
+        report["launches"], {"ensemble_kl_fwd": k2, "ensemble_kl_bwd": k2,
+                             "ensemble_kl_pre_fwd": k3,
+                             "ensemble_kl_pre_bwd": k3}, "path 8a")
+    m = spec.population.buffer_size
+    hists = [[l.staleness_hist for l in g] for g in logs]
+    report["staleness_hist_per_group"] = hists
+    for g in logs:
+        for l in g:
+            if (l.staleness_hist is None or sum(l.staleness_hist) != m
+                    or not 0 < l.eff_participants <= m):
+                problems.append(f"round {l.round}: telemetry "
+                                f"{l.staleness_hist} {l.eff_participants}")
+    if not any(sum(h[1:]) for g in hists for h in g):
+        problems.append("no upload fused stale")
+    if any(l.bank != "on_the_fly" for l in fused_logs(res)):
+        problems.append(f"bank decisions "
+                        f"{[l.bank for l in fused_logs(res)]}")
+    check1, _, more1 = card_vs_cpu(spec, 1)
+    check, _, more = card_vs_cpu(spec, BUFFERED_CPU_ROUNDS)
+    report.update(cpu_check=check, cpu_check_round1=check1)
+    return report, problems + more1 + more
+
+
+def train_clients_s(engine, active) -> tuple:
+    """One round's ``train_clients`` on ``engine`` from its init, timed to
+    the card's end; returns (groups, seconds, batches)."""
+    import torch
+    batches = engine.build_round_batches(1, active)
+    globals_ = engine.init_globals()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    groups = engine.train_clients(1, globals_, batches)
+    torch.cuda.synchronize()
+    return groups, time.perf_counter() - t0, batches
+
+
+def bucketing_path():
+    """Path 8b: (i) step-count bucketing on the quickstart, 1 round on K1:
+    its uploads against the unbucketed round's on the card (1e-5), its
+    globals against the unbucketed round's (1e-3, equal distill steps),
+    ``train_clients`` timed bucketed and not; (ii) one distill batch per
+    prototype on path 5a's spec (K1 at B = 32, 64 and 48 on one bank)."""
+    report, problems = {}, []
+    spec = bucketed_spec(1)
+    res, rep, probs = run_path(spec)
+    steps = rep["distill_steps"]
+    probs += check_launches(rep["launches"], {
+        "ensemble_kl_bank_fwd": steps, "ensemble_kl_bank_bwd": steps},
+        "launches")
+    if any(l.bank != "bank" for l in res.result.logs):
+        probs.append(f"bank decisions {[l.bank for l in res.result.logs]}")
+    plain = quickstart_spec(1)
+    from repro_torch.api import Experiment
+    unb = Experiment(plain, device="cuda").run()
+    d_glob = max_abs_diff(res.global_params, unb.global_params)
+    steps_b = [l.distill_steps for l in res.result.logs]
+    steps_u = [l.distill_steps for l in unb.result.logs]
+    # the uploads, engine by engine, on the same cohort; each timed twice
+    eb, eu = engine_on(spec, "cuda"), engine_on(plain, "cuda")
+    active = eb.sample_cohort(eb.make_rng())
+    times = {"unbucketed": [], "bucketed": []}
+    for _ in range(2):
+        gu, su, bu = train_clients_s(eu, active)
+        gb, sb, bb = train_clients_s(eb, active)
+        times["unbucketed"].append(su)
+        times["bucketed"].append(sb)
+    d_up = max_abs_diff([gb[0].stack], [gu[0].stack])
+    rb, ru = bb[0], bu[0]
+    buck = {"bucket_caps": eb.bucket_caps[0],
+            "buckets": [(b.cap_steps, b.k_real, b.cap_clients)
+                        for b in rb.buckets],
+            "real_steps": rb.real_steps,
+            "padded_slots": {"bucketed": rb.padded_slots,
+                             "unbucketed": ru.padded_slots},
+            "host_steps": {"bucketed": sum(b.cap_steps for b in rb.buckets),
+                           "unbucketed": sum(b.cap_steps
+                                             for b in ru.buckets)},
+            "train_clients_s": times,
+            "train_clients_phase_s": {
+                "bucketed": res.phase_seconds[0]["train_clients"],
+                "unbucketed": unb.phase_seconds[0]["train_clients"]},
+            "uploads_max_abs_diff": d_up, "uploads_tol": BUCKET_UPLOAD_ATOL,
+            "globals_max_abs_diff": d_glob, "globals_tol": ROUND1_PARAM_ATOL,
+            "distill_steps": {"bucketed": steps_b, "unbucketed": steps_u}}
+    if len(rb.buckets) < 2:
+        probs.append(f"the cohort fell into {len(rb.buckets)} bucket(s)")
+    if rb.real_steps != ru.real_steps:
+        probs.append(f"real steps {rb.real_steps} != {ru.real_steps}")
+    if d_up > BUCKET_UPLOAD_ATOL:
+        probs.append(f"uploads bucketed vs not {d_up:.3e}")
+    if d_glob > ROUND1_PARAM_ATOL or steps_b != steps_u:
+        probs.append(f"globals bucketed vs not {d_glob:.3e}, steps "
+                     f"{steps_b} vs {steps_u}")
+    check, _, more = card_vs_cpu(spec, 1, gpu=res)
+    rep.update(cpu_check=check, bucketing=buck)
+    report["8bi_step_buckets"] = rep
+    problems += [f"8b(i): {p}" for p in probs + more]
+
+    spec = distill_bucket_spec(1)
+    rows = []
+    with recording_k1_rows(rows):
+        res, rep, probs = run_path(spec)
+    steps = rep["distill_steps"]
+    probs += check_launches(rep["launches"], {
+        "ensemble_kl_bank_fwd": steps, "ensemble_kl_bank_bwd": steps},
+        "launches")
+    if not fused_logs(res) or any(l.bank != "bank" for l in fused_logs(res)):
+        probs.append(f"bank decisions {[l.bank for l in fused_logs(res)]}")
+    shapes = sorted(set(rows))
+    fused = [g for g, glogs in enumerate(group_logs(res))
+             if glogs[0].n_participants]
+    want = sorted({(DISTILL_BATCHES[g], 3) for g in fused})
+    if shapes != want:
+        probs.append(f"K1 saw (B, V) {shapes}, expected {want}")
+    check, _, more = card_vs_cpu(spec, 1, gpu=res)
+    rep.update(cpu_check=check, k1_shapes=shapes)
+    report["8bii_distill_buckets"] = rep
+    problems += [f"8b(ii): {p}" for p in probs + more]
+    return report, problems
+
+
+def tokens_path():
+    """Path 8c: the paper's token path, tiny_transformer on the tokens task
+    over the unlabeled token pool (K1 at B = 64, V = 4), 2 rounds; its
+    round 1 rerun profiled on the card and against the CPU."""
+    spec = tokens_spec(TOKENS_ROUNDS)
+    rows = []
+    with recording_k1_rows(rows):
+        res, report, problems = run_path(spec)
+    steps = report["distill_steps"]
+    problems += check_launches(report["launches"], {
+        "ensemble_kl_bank_fwd": steps, "ensemble_kl_bank_bwd": steps},
+        "path 8c")
+    if any(l.bank != "bank" for l in res.result.logs):
+        problems.append(f"bank decisions "
+                        f"{[l.bank for l in res.result.logs]}")
+    if sorted(set(rows)) != [(64, 4)]:
+        problems.append(f"K1 saw (B, V) {sorted(set(rows))}")
+    check, busy, more = card_vs_cpu(spec, 1, profile_ref=res)
+    report.update(cpu_check=check, round1_device=busy)
+    return report, problems + more
+
+
 def print_path(name, rep) -> None:
     for r in rep["rounds"]:
         ph = " ".join(f"{k}={v:.3f}s" for k, v in r["phase_s"].items())
@@ -2080,6 +2342,27 @@ def main() -> int:
         for sub, r in subs.items():
             print_path(sub, r)
         print(f"  {name}: whole path {rep['total_s']:.1f} s", flush=True)
+    for name, fn in (("path8a_buffered_hetero", buffered_hetero_path),
+                     ("path8b_bucketing", bucketing_path),
+                     ("path8c_tokens", tokens_path)):
+        t0 = time.perf_counter()
+        rep, path_problems = fn()
+        rep["total_s"] = time.perf_counter() - t0
+        paths[name] = rep
+        problems += [f"{name}: {p}" for p in path_problems]
+        subs = ({f"{name} {k}": v for k, v in rep.items() if k != "total_s"}
+                if name == "path8b_bucketing" else {name: rep})
+        for sub, r in subs.items():
+            print_path(sub, r)
+        print(f"  {name}: whole path {rep['total_s']:.1f} s", flush=True)
+    print(f"  path 8a staleness per group and round: "
+          f"{paths['path8a_buffered_hetero']['staleness_hist_per_group']}")
+    print(f"  path 8b(i) step buckets: "
+          f"{paths['path8b_bucketing']['8bi_step_buckets']['bucketing']}")
+    print(f"  path 8b(ii) K1 (B, V): "
+          f"{paths['path8b_bucketing']['8bii_distill_buckets']['k1_shapes']}")
+    print(f"  path 8c round 1 on the card, from a profiler trace: "
+          f"{paths['path8c_tokens']['round1_device']}", flush=True)
     print(f"  path 5a round 1 on the card, from a profiler trace: "
           f"{paths['path5a_hetero_bank']['round1_device']}")
     abl = paths["path7_ablations"]
@@ -2137,6 +2420,15 @@ def main() -> int:
         return {sub[:2]: r["launches"].get(name, 0)
                 for sub, r in paths["path7_ablations"].items()
                 if sub != "total_s"}
+
+    def path8_launches(name):
+        """Each path 8 sub-path's launches of ``name``."""
+        b = paths["path8b_bucketing"]
+        return {"8a": paths["path8a_buffered_hetero"]["launches"].get(name,
+                                                                        0),
+                "8bi": b["8bi_step_buckets"]["launches"].get(name, 0),
+                "8bii": b["8bii_distill_buckets"]["launches"].get(name, 0),
+                "8c": paths["path8c_tokens"]["launches"].get(name, 0)}
     kernels = []
     for base, path, source, lines, t, errs in entries:
         for i, kind in enumerate(("fwd", "bwd")):
@@ -2146,6 +2438,7 @@ def main() -> int:
                 "replaces": pallas + lines[i],
                 "launches": paths[path]["launches"][name],
                 "path7_launches": path7_launches(name),
+                "path8_launches": path8_launches(name),
                 "max_abs_err": max(e[i] for e in errs),
                 "ms": t[f"{kind}_ms"], "plain_ms": t[f"plain_{kind}_ms"],
                 "call_ms": t[f"{kind}_call_ms"],
@@ -2163,6 +2456,7 @@ def main() -> int:
             "replaces": line,
             "launches": paths["path4_serve"]["launches"][name],
             "path7_launches": path7_launches(name),
+            "path8_launches": path8_launches(name),
             "max_abs_err": max(e["max_abs_err"] for e in errs
                                if e.get("dtype", "float32") == "float32"),
             "ms": t["ms"], "plain_ms": t["plain_ms"],

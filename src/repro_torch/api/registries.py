@@ -8,12 +8,12 @@ model(name)      ``fn(task: TaskBundle, **params) -> Net``
 source(name)     ``fn(task, train, seed, device, **params) -> DistillSource``
 quantizer(name)  ``fn(params, stacked=False) -> params``
 
-Ported: task ``blobs``, model ``mlp`` (and the ``blobs`` prototype
-ladder, :func:`default_prototype_ladder`), sources ``unlabeled``,
-``in_domain``, ``generator`` and ``noise``, and quantizer ``binarize``
-(``core/quantize.py``).  The other names the JAX package registers raise
-``NotImplementedError`` naming their ROADMAP.md item; unknown names raise
-``ValueError``.
+Every name the JAX package registers is registered here too: tasks
+``blobs`` and ``tokens``, models ``mlp`` and ``tiny_transformer`` (and
+both task families' prototype ladders, :func:`default_prototype_ladder`),
+sources ``unlabeled``, ``in_domain``, ``generator`` and ``noise`` (token
+outputs for a token task), and quantizer ``binarize``
+(``core/quantize.py``).  Unknown names raise ``ValueError``.
 """
 from __future__ import annotations
 
@@ -22,13 +22,14 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.core.nets import Net, mlp
+from repro_torch.core.nets import Net, mlp, tiny_transformer
 from repro_torch.core.quantize import binarize
 from repro_torch.data.distill_sources import (DistillSource,
                                               GeneratorSource,
                                               RandomNoiseSource,
                                               UnlabeledDataset)
-from repro_torch.data.synthetic import Dataset, gaussian_mixture
+from repro_torch.data.synthetic import (Dataset, gaussian_mixture,
+                                        token_sequences)
 
 
 @dataclasses.dataclass
@@ -42,7 +43,7 @@ class TaskBundle:
     model_kwargs: Dict[str, Any]
 
 
-def _make_registry(kind: str, pending: Dict[str, str]):
+def _make_registry(kind: str):
     table: Dict[str, Callable] = {}
 
     def register(name: str):
@@ -52,9 +53,6 @@ def _make_registry(kind: str, pending: Dict[str, str]):
         return deco
 
     def get(name: str) -> Callable:
-        if name in pending and name not in table:
-            raise NotImplementedError(f"{kind} {name!r} is not ported yet "
-                                      f"({pending[name]})")
         if name not in table:
             raise ValueError(f"unknown {kind} {name!r}; registered: "
                              f"{sorted(table)}")
@@ -66,14 +64,11 @@ def _make_registry(kind: str, pending: Dict[str, str]):
     return register, get, available
 
 
-register_task, get_task, available_tasks = _make_registry(
-    "task", {"tokens": "ROADMAP.md queue 1 item 8"})
-register_model, get_model, available_models = _make_registry(
-    "model", {"tiny_transformer": "ROADMAP.md queue 1 item 4"})
-register_source, get_source, available_sources = _make_registry(
-    "source", {})
+register_task, get_task, available_tasks = _make_registry("task")
+register_model, get_model, available_models = _make_registry("model")
+register_source, get_source, available_sources = _make_registry("source")
 register_quantizer, get_quantizer, available_quantizers = _make_registry(
-    "quantizer", {})
+    "quantizer")
 register_quantizer("binarize")(binarize)
 
 
@@ -88,6 +83,18 @@ def _blobs_task(n_samples: int = 6000, seed: int = 0, n_classes: int = 3,
                       {"in_dim": dim, "n_classes": n_classes})
 
 
+@register_task("tokens")
+def _tokens_task(n_samples: int = 6000, seed: int = 0, n_classes: int = 4,
+                 vocab: int = 64, seq_len: int = 16,
+                 marker_rate: float = 0.3) -> TaskBundle:
+    """Synthetic token classification (the AG News stand-in)."""
+    ds = token_sequences(n_samples, n_classes=n_classes, vocab=vocab,
+                         seq_len=seq_len, marker_rate=marker_rate, seed=seed)
+    return TaskBundle(ds, (seq_len,), vocab,
+                      {"vocab": vocab, "n_classes": n_classes,
+                       "seq_len": seq_len})
+
+
 @register_model("mlp")
 def _mlp_model(task: TaskBundle, hidden=(64, 64, 64), norm: str = "none",
                groups: int = 8, name: Optional[str] = None) -> Net:
@@ -97,6 +104,19 @@ def _mlp_model(task: TaskBundle, hidden=(64, 64, 64), norm: str = "none",
                          f"kwargs {sorted(kw)})")
     return mlp(kw["in_dim"], kw["n_classes"], hidden=tuple(hidden),
                norm=norm, groups=groups, name=name)
+
+
+@register_model("tiny_transformer")
+def _tiny_transformer_model(task: TaskBundle, d_model: int = 64,
+                            n_layers: int = 2, n_heads: int = 4,
+                            name: Optional[str] = None) -> Net:
+    kw = task.model_kwargs
+    if "vocab" not in kw:
+        raise ValueError("model 'tiny_transformer' needs a token task (got "
+                         f"task kwargs {sorted(kw)})")
+    return tiny_transformer(kw["vocab"], kw["n_classes"], kw["seq_len"],
+                            d_model=d_model, n_layers=n_layers,
+                            n_heads=n_heads, name=name)
 
 
 def default_prototype_ladder(task_name: str) -> List[dict]:
@@ -113,8 +133,14 @@ def default_prototype_ladder(task_name: str) -> List[dict]:
                                        "name": "proto-l"}},
         ]
     if task_name == "tokens":
-        raise NotImplementedError("the tokens prototype ladder waits for "
-                                  "ROADMAP.md queue 1 item 8")
+        return [
+            {"name": "tiny_transformer", "params": {"d_model": 48,
+                                                    "n_layers": 1}},
+            {"name": "tiny_transformer", "params": {"d_model": 64,
+                                                    "n_layers": 2}},
+            {"name": "tiny_transformer", "params": {"d_model": 96,
+                                                    "n_layers": 2}},
+        ]
     raise ValueError(f"no default prototype ladder for task {task_name!r}")
 
 
@@ -122,13 +148,16 @@ def default_prototype_ladder(task_name: str) -> List[dict]:
 def _unlabeled_source(task: TaskBundle, train: Dataset, seed: int = 0,
                       device="cpu", n: int = 4000, low: float = -3.0,
                       high: float = 3.0) -> DistillSource:
-    """Out-of-domain unlabeled pool (a uniform square: a different
-    manifold from the task's blobs), held on ``device``."""
-    if task.vocab is not None:
-        raise NotImplementedError("token pools wait for ROADMAP.md queue 1 "
-                                  "item 8")
-    x = np.random.default_rng(seed + 7).uniform(
-        low, high, (n,) + tuple(task.distill_shape)).astype(np.float32)
+    """Out-of-domain unlabeled pool, held on ``device``: a uniform square
+    for dense tasks (a different manifold from the task's blobs), token
+    sequences from another seed for a token task."""
+    if task.vocab is None:
+        x = np.random.default_rng(seed + 7).uniform(
+            low, high, (n,) + tuple(task.distill_shape)).astype(np.float32)
+    else:
+        x = token_sequences(n, n_classes=task.model_kwargs["n_classes"],
+                            vocab=task.vocab, seq_len=task.distill_shape[0],
+                            seed=seed + 7).x
     return UnlabeledDataset(x, device=device)
 
 

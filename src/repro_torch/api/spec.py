@@ -724,12 +724,6 @@ class ExperimentSpec:
 
         # axes the port does not run yet: each raises with its ROADMAP item
         pending = [
-            (len(self.cohort.prototypes) > 1
-             and self.driver.kind == "buffered_async",
-             "buffered_async with several prototypes", "9e"),
-            (self.bucket.kind != "none", "step-count bucketing", "9"),
-            (fusion.batch_sizes is not None, "per-group distill batches",
-             "9"),
             (self.sharding.shard_clients, "client-axis sharding", "11"),
             (self.faults != FaultSpec(), "fault injection", "10"),
             (self.obs != ObsSpec(), "the flight recorder", "10"),

@@ -32,11 +32,22 @@ size so that ``jit`` compiles once; the eager update here needs no fixed
 size, and the padded clients never reach aggregation there, so leaving
 them out changes no result.
 
+Step-count bucketing (``BucketConfig`` ``pow2`` / ``quantile``,
+docs/bucketing.md) splits each group's clients over run-fixed scan
+capacities: each non-empty bucket is its own stack, padded only to its
+capacity, and ``train_clients`` runs the batched update once per bucket
+and rejoins the stacks in the group's client order.  The update is one
+host loop over the steps, so a round makes the SUM of its buckets'
+capacities in host steps (against the group maximum unbucketed); what
+bucketing saves is the masked lanes' work on the card.  ``padded_slots``
+counts the JAX package's padded layout (the run-fixed client cap times
+the scan length per bucket), so both packages report one number.
+
 Low-bit clients (``quantize``) and DP uploads (``dp_clip``) run inside
 the batched client update; client ``k``'s DP noise in round ``t`` is
 drawn from the JAX package's integer ``seed * 7919 + t * 131 + k``.
-Step-count bucketing other than ``none``, fault injection and meshes wait
-for their ROADMAP.md items and raise ``NotImplementedError``.
+Fault injection and meshes wait for their ROADMAP.md items and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -47,10 +58,10 @@ import numpy as np
 import torch
 
 from repro_torch.common.options import BUCKET_KINDS
-from repro_torch.common.pytree import tree_to
+from repro_torch.common.pytree import tree_cat, tree_take, tree_to
 from repro_torch.core import feddf as feddf_mod
 from repro_torch.core.client import (assign_buckets, bucket_capacities,
-                                     build_batched_batches, evaluate,
+                                     build_bucketed_batches, evaluate,
                                      make_batched_local_update,
                                      n_local_steps)
 from repro_torch.core.dropworst import drop_worst_stacked
@@ -67,8 +78,11 @@ from repro_torch.population.scheduler import SamplerContext, make_sampler
 
 @dataclasses.dataclass
 class BucketConfig:
-    """Step-count bucketing of the client axis; only ``none`` (pad every
-    client of a group to the group maximum) is ported."""
+    """Step-count bucketing of the client axis: ``none`` (pad every client
+    of a group to the group maximum), ``pow2`` (power-of-two scan
+    capacities) or ``quantile`` (capacities at step-count quantiles), at
+    most ``max_buckets`` per prototype.  Bucketing regroups the client
+    axis and changes no client's trajectory."""
 
     kind: str = "none"        # none | pow2 | quantile
     max_buckets: int = 4
@@ -175,16 +189,32 @@ class FLResult:
 
 
 @dataclasses.dataclass
+class BucketBatch:
+    """One (prototype, step bucket)'s round inputs, on the engine's
+    device: the bucket's clients padded to its scan capacity.  Unbucketed,
+    a group has exactly one, padded to the group maximum."""
+
+    pos: np.ndarray              # positions into RoundBatches.ks
+    xb: torch.Tensor             # [k_real, cap_steps, B, ...]
+    yb: torch.Tensor             # [k_real, cap_steps, B]
+    step_mask: torch.Tensor      # [k_real, cap_steps]
+    dp_seeds: Optional[List[int]]  # [k_real] DP noise seeds, in pos order
+    k_real: int                  # the bucket's clients this round
+    cap_clients: int             # its run-fixed client cap (JAX's padding)
+    cap_steps: int               # its run-fixed scan length
+
+
+@dataclasses.dataclass
 class RoundBatches:
-    """One prototype group's round inputs, on the engine's device: the
-    clients padded to the group's run-fixed scan length."""
+    """One prototype group's round inputs, split over the run-fixed step
+    buckets, with the JAX package's padding accounting."""
 
     ks: List[int]                # active client ids of this group
-    xb: torch.Tensor             # [K, n_steps, B, ...]
-    yb: torch.Tensor             # [K, n_steps, B]
-    step_mask: torch.Tensor      # [K, n_steps]
-    weights: np.ndarray          # [K] local dataset sizes, in ks order
-    dp_seeds: Optional[List[int]] = None  # [K] DP noise seeds, in ks order
+    buckets: List[BucketBatch]
+    k_real: int                  # the group's clients over all buckets
+    weights: np.ndarray          # [k_real] local dataset sizes, in ks order
+    real_steps: int              # unmasked client steps this group runs
+    padded_slots: int            # sum of cap_clients * cap_steps
 
 
 def _make_opt(cfg: FLConfig) -> Optimizer:
@@ -217,8 +247,6 @@ class RoundEngine:
             raise ValueError(
                 f"bucketing.kind must be one of {BUCKET_KINDS}, got "
                 f"{cfg.bucketing.kind!r}")
-        if cfg.bucketing.kind != "none":
-            _pending(f"bucketing kind {cfg.bucketing.kind!r}", "9")
         cfg.faults.validate()
         if cfg.faults.enabled:
             _pending("fault injection", "10")
@@ -243,10 +271,26 @@ class RoundEngine:
             n_local_steps(len(parts[k]), cfg.local_batch_size,
                           cfg.local_epochs)
             for k in range(self.n_clients)]
-        self.steps_cap = [
-            max([self.client_steps[k] for k in range(self.n_clients)
-                 if self.client_proto[k] == p] or [1])
-            for p in range(self.n_proto)]
+        proto_counts = [sum(1 for q in self.client_proto if q == p)
+                        for p in range(self.n_proto)]
+        self.k_cap = [min(self.n_active, c) if c else 1
+                      for c in proto_counts]
+        # per-prototype scan capacities and each bucket's client count: a
+        # pure function of the static per-client step counts
+        self.bucket_caps, self._bucket_counts = [], []
+        self._part_bucket = np.zeros(self.n_clients, np.int64)
+        for p in range(self.n_proto):
+            ks = [k for k in range(self.n_clients)
+                  if self.client_proto[k] == p]
+            steps_p = [self.client_steps[k] for k in ks]
+            caps = bucket_capacities(steps_p or [1], cfg.bucketing.kind,
+                                     cfg.bucketing.max_buckets)
+            which = assign_buckets(steps_p, caps) if ks else []
+            self.bucket_caps.append(caps)
+            self._bucket_counts.append(np.bincount(which,
+                                                   minlength=len(caps)))
+            if ks:
+                self._part_bucket[ks] = which
         self.batch_seed_mult = 99991 if heterogeneous else 100_003
         self._init_sampler()
         self.val_x = torch.as_tensor(val.x, device=self.device)
@@ -269,23 +313,12 @@ class RoundEngine:
         replace=False)`` bit for bit."""
         cfg = self.cfg
         cfg.population.validate()
-        proto_counts = [sum(1 for q in self.client_proto if q == p)
-                        for p in range(self.n_proto)]
-        k_cap = [min(self.n_active, c) if c else 1 for c in proto_counts]
         self.population_size = int(cfg.population.size or self.n_clients)
-        self._part_bucket = np.zeros(self.n_clients, np.int64)
-        sampler_caps = []
-        for p in range(self.n_proto):
-            ks = [k for k in range(self.n_clients)
-                  if self.client_proto[k] == p]
-            steps_p = [self.client_steps[k] for k in ks]
-            caps = bucket_capacities(steps_p or [1], cfg.bucketing.kind,
-                                     cfg.bucketing.max_buckets)
-            counts = np.bincount(assign_buckets(steps_p, caps)
-                                 if steps_p else [], minlength=len(caps))
-            if ks:
-                self._part_bucket[ks] = assign_buckets(steps_p, caps)
-            sampler_caps.append([min(k_cap[p], int(c)) or 1 for c in counts])
+        # the capacity_aware sampler's fill guide: the run-fixed client cap
+        # of every (prototype, bucket)
+        sampler_caps = [[self._bucket_client_cap(p, b)
+                         for b in range(len(self.bucket_caps[p]))]
+                        for p in range(self.n_proto)]
         pop_part = np.arange(self.population_size,
                              dtype=np.int64) % self.n_clients
         self.sampler = make_sampler(cfg.population.sampler).bind(
@@ -296,6 +329,12 @@ class RoundEngine:
                 bucket=self._part_bucket[pop_part],
                 bucket_client_caps=sampler_caps))
         self._population = None  # built lazily by population()
+
+    def _bucket_client_cap(self, p: int, b: int) -> int:
+        """Run-fixed client-axis size of (prototype p, bucket b), as the
+        JAX package pads it without a mesh: no round activates more of
+        the bucket's clients than exist, nor more than the cohort."""
+        return min(self.k_cap[p], int(self._bucket_counts[p][b])) or 1
 
     def make_rng(self) -> np.random.Generator:
         return np.random.default_rng(self.cfg.seed)
@@ -349,42 +388,66 @@ class RoundEngine:
 
     def build_round_batches(self, t: int, active: np.ndarray
                             ) -> List[Optional[RoundBatches]]:
+        """Numpy batches per prototype group and step bucket, moved to the
+        device: a pure function of ``(t, active)``."""
         cfg = self.cfg
         by_proto: List[List[int]] = [[] for _ in range(self.n_proto)]
         for k in active:
             by_proto[self.client_proto[k]].append(int(k))
+        to = lambda a: torch.from_numpy(a).to(self.device)
         out: List[Optional[RoundBatches]] = []
         for p in range(self.n_proto):
             ks = by_proto[p]
             if not ks:
                 out.append(None)
                 continue
+            caps = self.bucket_caps[p]
             seeds = [cfg.seed * self.batch_seed_mult + t * 131 + k
                      for k in ks]
-            xb, yb, step_mask = build_batched_batches(
-                self.train.x, self.train.y, [self.parts[k] for k in ks],
-                cfg.local_batch_size, cfg.local_epochs, seeds,
-                n_steps=self.steps_cap[p])
+            buckets: List[BucketBatch] = []
+            real_steps = padded_slots = 0
+            for b, pos, xb, yb, step_mask in build_bucketed_batches(
+                    self.train.x, self.train.y, [self.parts[k] for k in ks],
+                    cfg.local_batch_size, cfg.local_epochs, seeds, caps):
+                kb = [ks[i] for i in pos]
+                dp_seeds = ([cfg.seed * 7919 + t * 131 + k for k in kb]
+                            if cfg.dp_clip is not None else None)
+                cap_k = self._bucket_client_cap(p, b)
+                real_steps += int(step_mask.sum())
+                padded_slots += cap_k * int(caps[b])
+                buckets.append(BucketBatch(
+                    pos=np.asarray(pos), xb=to(xb), yb=to(yb),
+                    step_mask=to(step_mask), dp_seeds=dp_seeds,
+                    k_real=len(kb), cap_clients=cap_k,
+                    cap_steps=int(caps[b])))
             weights = np.array([float(len(self.parts[k])) for k in ks])
-            dp_seeds = ([cfg.seed * 7919 + t * 131 + k for k in ks]
-                        if cfg.dp_clip is not None else None)
-            to = lambda a: torch.from_numpy(a).to(self.device)
-            out.append(RoundBatches(ks=ks, xb=to(xb), yb=to(yb),
-                                    step_mask=to(step_mask),
-                                    weights=weights, dp_seeds=dp_seeds))
+            out.append(RoundBatches(ks=ks, buckets=buckets, k_real=len(ks),
+                                    weights=weights, real_steps=real_steps,
+                                    padded_slots=padded_slots))
         return out
 
     def train_clients(self, t: int, globals_: List[dict],
                       batches: List[Optional[RoundBatches]]
                       ) -> List[GroupRound]:
+        """Every group's batched local update from ``globals_``, once per
+        step bucket; the buckets' stacks are rejoined in the group's
+        client order, so aggregation sees the same inputs bucketed or
+        not."""
         groups: List[GroupRound] = []
         for p, rb in enumerate(batches):
             if rb is None:
                 groups.append(GroupRound(self.nets[p], globals_[p], None,
                                          np.zeros(0)))
                 continue
-            stack = self.updates[p](globals_[p], rb.xb, rb.yb, globals_[p],
-                                    rb.step_mask, rb.dp_seeds)
+            stack = tree_cat([
+                self.updates[p](globals_[p], bb.xb, bb.yb, globals_[p],
+                                bb.step_mask, bb.dp_seeds)
+                for bb in rb.buckets])
+            pos = np.concatenate([bb.pos for bb in rb.buckets])
+            if not np.array_equal(pos, np.arange(rb.k_real)):
+                inv = np.empty_like(pos)
+                inv[pos] = np.arange(len(pos))
+                stack = tree_take(stack, inv)
             groups.append(GroupRound(self.nets[p], globals_[p], stack,
                                      rb.weights))
         return groups

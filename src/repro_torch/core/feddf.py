@@ -34,8 +34,17 @@ the concatenated teachers (K2).  Table 7's SWAG row appends
 models to a homogeneous fusion's teachers (``core/swag.py``), after the
 student is initialised from their average; the bank, or K2 on the fly,
 then averages over all of them.  As in the JAX package, the heterogeneous
-fusion takes no SWAG teachers.  Per-group distill batches wait for
-ROADMAP.md queue 1 item 9.
+fusion takes no SWAG teachers.
+
+Distill-axis bucketing: ``fusion.batch_sizes`` gives each prototype group
+of a heterogeneous fusion its own distill batch, and ``distill_bucket``
+groups those sizes into run-fixed capacities (``core/client.
+bucket_capacities``).  ``distill`` pads a student's sampled batch from
+``batch_size`` up to ``batch_capacity`` (bank mode gathers pool row 0 for
+the padding, the other modes zero rows), and slices the student's and the
+teachers' logits back to ``batch_size`` before the loss, so the kernels
+always see the true batch.  As in the JAX package, the padded rows do
+enter a ``bn`` student's batch statistics.
 """
 from __future__ import annotations
 
@@ -50,6 +59,7 @@ from repro_torch.common.pytree import (tree_flatten, tree_isfinite,
                                        tree_leading_dim, tree_map,
                                        tree_stack, tree_unflatten,
                                        tree_weighted_mean_stacked)
+from repro_torch.core.client import assign_buckets, bucket_capacities
 from repro_torch.core.logit_bank import (TEACHER_FORWARDS, LogitBank,
                                          dequantize_rows, resolve_bank)
 from repro_torch.core.nets import Net
@@ -209,11 +219,14 @@ def distill(
     consensus.  With ``fusion.divergence_guard`` the params are checked
     for non-finite values after every chunk; on a hit the loop stops and
     returns the best-validation params (or, without validation, the
-    pre-distill student) with ``info["diverged"] = True``."""
-    if fusion.batch_capacity is not None or fusion.batch_sizes is not None:
-        raise NotImplementedError("distill-axis bucketing (heterogeneous "
-                                  "fusion) waits for ROADMAP.md queue 1 "
-                                  "item 9")
+    pre-distill student) with ``info["diverged"] = True``.
+    ``fusion.batch_capacity`` pads each sampled batch of ``batch_size``
+    rows up to that capacity; the padded rows are sliced off before the
+    loss."""
+    bsz = int(fusion.batch_size)
+    cap = int(fusion.batch_capacity or bsz)
+    if cap < bsz:
+        raise ValueError(f"batch_capacity {cap} < batch_size {bsz}")
     teacher_weights = normalize_teacher_weights(teacher_weights)
     decision = "bank" if bank is not None else "on_the_fly"
     built_here = False
@@ -252,6 +265,8 @@ def distill(
             return avg_logits_kl_pre(s_logits, t_avg, temp)
         with torch.no_grad():
             t_logits = torch.cat([f(x) for f in teacher_logit_fns], dim=0)
+        if cap > bsz:
+            t_logits = t_logits[:, :bsz]
         if not fused:
             return avg_logits_kl(s_logits, t_logits, temp, weights)
         if weights is None:
@@ -269,6 +284,8 @@ def distill(
                 leaves[p] = flat[p].detach().requires_grad_(True)
             s_logits = student_net.apply(tree_unflatten(leaves), x,
                                          train=True)
+            if cap > bsz:
+                s_logits = s_logits[:bsz]
             loss = loss_fn(s_logits, x, idx)
             grads = torch.autograd.grad(loss, [leaves[p] for p in names])
         with torch.no_grad():
@@ -282,17 +299,22 @@ def distill(
     history = []
     ee = fusion.eval_every
     if bank is not None:
-        stream = source.index_stream(seed, fusion.batch_size, ee)
+        stream = source.index_stream(seed, bsz, ee)
     else:
-        stream = source.input_stream(seed, fusion.batch_size, ee)
+        stream = source.input_stream(seed, bsz, ee)
     guard = bool(fusion.divergence_guard)
     diverged = False
     step = 0
     while step < fusion.max_steps:
         block = next(stream).to(device)
+        if cap > bsz:
+            # bank mode pads the gathered indices with row 0, the other
+            # modes the inputs with zero rows
+            block = torch.cat([block, block.new_zeros(
+                (ee, cap - bsz) + tuple(block.shape[2:]))], dim=1)
         for j in range(ee):
             if bank is not None:
-                step_fn(bank.pool[block[j]], block[j], step)
+                step_fn(bank.pool[block[j]], block[j, :bsz], step)
             else:
                 step_fn(block[j], None, step)
             step += 1
@@ -328,8 +350,9 @@ def distill(
             "teacher_batch_forwards": (
                 bank.n_teacher_batch_forwards if built_here
                 else (0 if bank is not None else step * n_teachers)),
-            "batch_capacity": int(fusion.batch_size),
-            "padded_rows_per_step": 0}
+            # rows computed but sliced off before the loss, per step
+            "batch_capacity": cap,
+            "padded_rows_per_step": cap - bsz}
     return best_params, info
 
 
@@ -415,11 +438,22 @@ def feddf_fuse_heterogeneous_stacked(
     expected steps.  After a refused bank every group distils on the fly
     (``logit_bank`` forced to ``off``: the decision is not retried per
     group).  The build is charged to the first fused group.  Group ``gi``
-    distils with seed ``seed + gi`` from its own weighted average."""
+    distils with seed ``seed + gi`` from its own weighted average.
+
+    ``fusion.batch_sizes`` (one per group) gives each group its own
+    distill batch, padded to its bucket's capacity
+    (``fusion.distill_bucket`` / ``distill_max_buckets``: ``none`` pads
+    every group to the largest size)."""
+    caps_of = None
     if fusion.batch_sizes is not None:
-        raise NotImplementedError("per-group distill batches (distill-axis "
-                                  "bucketing) wait for ROADMAP.md queue 1 "
-                                  "item 9")
+        if len(fusion.batch_sizes) != len(prototypes):
+            raise ValueError(
+                f"fusion.batch_sizes has {len(fusion.batch_sizes)} entries "
+                f"for {len(prototypes)} prototype groups")
+        bsizes = [int(b) for b in fusion.batch_sizes]
+        caps = bucket_capacities(bsizes, fusion.distill_bucket,
+                                 fusion.distill_max_buckets)
+        caps_of = [int(caps[w]) for w in assign_buckets(bsizes, caps)]
     teacher_fns = [make_teacher_logits_fn(net, stack)
                    for net, stack, _ in prototypes if stack is not None]
     teacher_weights = None
@@ -450,7 +484,12 @@ def feddf_fuse_heterogeneous_stacked(
             infos.append({"skipped": True})
             continue
         student = tree_weighted_mean_stacked(stack, weights)  # Alg. 3 l. 11
-        p, info = distill(net, student, teacher_fns, source, fusion,
+        fusion_g = fusion
+        if caps_of is not None:
+            fusion_g = dataclasses.replace(
+                fusion, batch_size=bsizes[gi], batch_capacity=caps_of[gi],
+                batch_sizes=None)
+        p, info = distill(net, student, teacher_fns, source, fusion_g,
                           val_x, val_y, seed + gi, bank=bank,
                           teacher_weights=teacher_weights)
         info["bank_decision"] = decision

@@ -1,4 +1,6 @@
-"""Client models: the paper-validation ``mlp`` (norm none / bn / gn).
+"""Client models: the paper-validation ``mlp`` (norm none / bn / gn) and
+``tiny_transformer``, the mean-pooled token classifier that stands in for
+DistilBERT (paper Fig. 3).
 
 Nets are plain functions on parameter trees with the JAX package's names
 and layouts (``dense_i.w`` is ``[din, dout]``, applied as ``x @ w + b``),
@@ -13,8 +15,11 @@ Every function also takes a *stacked* tree (a leading client axis K on
 every leaf) with inputs ``[K, B, ...]``, or with one shared ``[B, ...]``
 input that every client sees: the round engine trains K clients and the
 logit bank evaluates K teachers that way, in one batched program.
-
-``tiny_transformer`` waits for ROADMAP.md queue 1 item 4.
+For ``tiny_transformer`` the inputs are token ids, ``[B, S]`` or
+``[K, B, S]``: the embedding lookup is one gather over the K stacked
+tables, and every product carries the client axis.  Its attention is the JAX package's
+plain einsum + softmax (no Pallas kernel there), so here it is plain
+``torch.matmul`` too.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import math
 from typing import Callable, Dict, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -124,3 +130,81 @@ def mlp(in_dim: int, n_classes: int, hidden: Sequence[int] = (64, 64, 64),
 
     return Net(init=init, apply=apply, apply_with_stats=apply_with_stats,
                name=name or f"mlp-{norm}-{'x'.join(map(str, hidden))}")
+
+
+def tiny_transformer(vocab: int, n_classes: int, seq_len: int,
+                     d_model: int = 64, n_layers: int = 2, n_heads: int = 4,
+                     name: str | None = None) -> Net:
+    """Mean-pooled pre-norm transformer classifier (DistilBERT stand-in),
+    with the JAX package's tree: ``embed`` [vocab, d], ``pos`` [seq, d],
+    ``head`` and ``layer_l/{wqkv, wo, w1, w2, ln1, ln2}``."""
+    hd = d_model // n_heads
+
+    def init(gen: torch.Generator):
+        params = {
+            "embed": torch.randn(vocab, d_model, generator=gen) * 0.05,
+            "pos": torch.randn(seq_len, d_model, generator=gen) * 0.05,
+            "head": _dense_init(gen, d_model, n_classes),
+        }
+        s = 1.0 / math.sqrt(d_model)
+        for l in range(n_layers):
+            params[f"layer_{l}"] = {
+                "wqkv": torch.randn(d_model, 3 * d_model, generator=gen) * s,
+                "wo": torch.randn(d_model, d_model, generator=gen) * s,
+                "w1": torch.randn(d_model, 4 * d_model, generator=gen) * s,
+                "w2": torch.randn(4 * d_model, d_model, generator=gen)
+                * (1.0 / math.sqrt(4 * d_model)),
+                "ln1": torch.ones(d_model),
+                "ln2": torch.ones(d_model),
+            }
+        return params
+
+    def apply(params, x, train: bool = True):
+        stacked = params["embed"].dim() == 3
+        x = x.long()
+        # the lookup through F.embedding: its backward sums each token's
+        # rows in a fixed order (indexing's backward accumulates with
+        # atomics on the CPU, another sum order from run to run)
+        if stacked:
+            k = params["embed"].shape[0]
+            # client k's tokens index its own table, rows k*vocab onwards;
+            # a shared [B, S] input broadcasts over the clients
+            rows = torch.arange(k, device=x.device).reshape(k, 1, 1)
+            h = F.embedding(x + rows * vocab,
+                            params["embed"].reshape(k * vocab, d_model))
+            pos = params["pos"][:, None, :x.shape[-1]]       # [K, B, S, d]
+        else:
+            h = F.embedding(x, params["embed"])              # [B, S, d]
+            pos = params["pos"][None, :x.shape[-1]]
+        h = h + pos
+        lead = h.shape[:-2]                                  # [K,] B
+
+        def mm(a, w):
+            """``a @ w`` per client: [.., B, S, din] x [(K,) din, dout]."""
+            if not stacked:
+                return a @ w
+            return (a.reshape(k, -1, a.shape[-1]) @ w).reshape(
+                *a.shape[:-1], w.shape[-1])
+
+        def rms(w, a):
+            w = w[:, None, None] if stacked else w
+            return a * torch.rsqrt((a * a).mean(-1, keepdim=True) + 1e-6) * w
+
+        for l in range(n_layers):
+            p = params[f"layer_{l}"]
+            y = rms(p["ln1"], h)
+            q, kk, v = mm(y, p["wqkv"]).split(d_model, dim=-1)
+            heads = lambda a: a.reshape(*a.shape[:-1], n_heads, hd
+                                        ).transpose(-2, -3)   # [.., H, S, hd]
+            q, kk, v = heads(q), heads(kk), heads(v)
+            att = torch.softmax(q @ kk.transpose(-1, -2) / math.sqrt(hd),
+                                dim=-1)
+            y = (att @ v).transpose(-2, -3).reshape(*lead, -1, d_model)
+            h = h + mm(y, p["wo"])
+            y = rms(p["ln2"], h)
+            h = h + mm(F.gelu(mm(y, p["w1"]), approximate="tanh"), p["w2"])
+        return _dense(params["head"], h.mean(dim=-2), stacked)
+
+    return Net(init=init, apply=apply,
+               apply_with_stats=lambda p, x: (apply(p, x, True), p),
+               name=name or f"tinyT-{n_layers}L{d_model}d")

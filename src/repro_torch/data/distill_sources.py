@@ -21,7 +21,8 @@ way, one ``[chunk, batch_size, ...]`` block per chunk from a CPU
 ``torch.Generator``, moved once; :meth:`DistillSource.input_stream`
 yields the chunk's inputs on the device.  ``draws=`` replaces those random
 numbers with a caller's, through the same ``(seed, batch_size, chunk) ->
-iterator`` signature as ``UnlabeledDataset(indices=)``.
+iterator`` signature as ``UnlabeledDataset(indices=)``.  For a token task
+(``discrete_vocab``) both emit int64 token ids.
 """
 from __future__ import annotations
 
@@ -121,6 +122,10 @@ class _SyntheticSource(DistillSource):
     def _draw(self, generator: torch.Generator, shape) -> torch.Tensor:
         raise NotImplementedError
 
+    def _draw_dtype(self) -> torch.dtype:
+        """The dtype injected draws are read as."""
+        return torch.float32
+
     def _decode(self, draws: torch.Tensor) -> torch.Tensor:
         """[..., B, draw] random numbers on the device -> inputs."""
         raise NotImplementedError
@@ -135,7 +140,7 @@ class _SyntheticSource(DistillSource):
         blocks = (self._draw_stream(seed, batch_size, chunk)
                   if self.draws is None else
                   _injected(self.draws, seed, batch_size, chunk,
-                            torch.float32))
+                            self._draw_dtype()))
         for block in blocks:
             yield self._decode(block.to(self.device))
 
@@ -144,17 +149,12 @@ class _SyntheticSource(DistillSource):
             generator, (batch_size,) + self._draw_shape()).to(self.device))
 
 
-def _no_tokens(discrete_vocab: Optional[int]) -> None:
-    if discrete_vocab is not None:
-        raise NotImplementedError("token inputs from a synthetic source "
-                                  "wait for the tokens task, ROADMAP.md "
-                                  "queue 1 item 8")
-
-
 class GeneratorSource(_SyntheticSource):
     """Frozen generator: pseudo-data = decoder(noise), a frozen random MLP
     decoder whose outputs are matched to the data's first two moments (a
-    quality-degraded generator, the regime of the paper's Fig. 5).
+    quality-degraded generator, the regime of the paper's Fig. 5).  With
+    ``discrete_vocab`` the outputs become token ids,
+    ``clip(|out * vocab / 3|, 0, vocab - 1)`` truncated to integers.
 
     ``w1`` [latent_dim, hidden] and ``w2`` [hidden, prod(out_shape)]
     (numpy) replace the decoder weights, which are otherwise drawn from a
@@ -166,8 +166,8 @@ class GeneratorSource(_SyntheticSource):
                  w1: Optional[np.ndarray] = None,
                  w2: Optional[np.ndarray] = None,
                  draws: Optional[DrawStream] = None):
-        _no_tokens(discrete_vocab)
         self.out_shape = tuple(out_shape)
+        self.vocab = None if discrete_vocab is None else int(discrete_vocab)
         self.latent_dim, self.hidden = int(latent_dim), int(hidden)
         self.mean, self.std = float(mean), float(std)
         self.device = torch.device(device)
@@ -197,19 +197,24 @@ class GeneratorSource(_SyntheticSource):
         # the population std (ddof 0) over each batch, as jnp.std
         std = out.std(dim=(-2, -1), correction=0, keepdim=True)
         out = self.mean + self.std * out / (std + 1e-6)
-        return out.reshape(out.shape[:-1] + self.out_shape)
+        out = out.reshape(out.shape[:-1] + self.out_shape)
+        if self.vocab is not None:
+            out = torch.clamp(torch.abs(out * self.vocab / 3), 0,
+                              self.vocab - 1).to(torch.int64)
+        return out
 
 
 class RandomNoiseSource(_SyntheticSource):
     """Uniform random inputs on ``[low, high)``: the paper's 'dramatically
-    different manifold' control.  ``draws`` injects the samples
-    themselves (already on ``[low, high)``)."""
+    different manifold' control; with ``discrete_vocab``, token ids drawn
+    uniformly from ``[0, vocab)``.  ``draws`` injects the samples
+    themselves (already on ``[low, high)``, or token ids)."""
 
     def __init__(self, out_shape, low: float = -3.0, high: float = 3.0,
                  discrete_vocab: Optional[int] = None, device="cpu",
                  draws: Optional[DrawStream] = None):
-        _no_tokens(discrete_vocab)
         self.out_shape = tuple(out_shape)
+        self.vocab = None if discrete_vocab is None else int(discrete_vocab)
         self.low, self.high = float(low), float(high)
         self.device = torch.device(device)
         self.draws = draws
@@ -218,8 +223,13 @@ class RandomNoiseSource(_SyntheticSource):
         return self.out_shape
 
     def _draw(self, generator, shape):
+        if self.vocab is not None:
+            return torch.randint(0, self.vocab, shape, generator=generator)
         u = torch.rand(shape, generator=generator)
         return self.low + (self.high - self.low) * u
+
+    def _draw_dtype(self):
+        return torch.float32 if self.vocab is None else torch.int64
 
     def _decode(self, x):
         return x

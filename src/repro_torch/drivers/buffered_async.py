@@ -11,6 +11,14 @@ which FedDF turns into a weighted teacher consensus (kernel K3 on the
 on-the-fly path, a weighted logit bank otherwise).  Uploads older than
 ``max_staleness`` are discarded with telemetry.
 
+Several prototypes (Algorithm 3): the consumed uploads regroup by
+prototype into one ``GroupRound`` each.  A prototype with no consumed
+upload keeps its globals (``stack=None``), an all-fresh group keeps
+``importance=None``, and a group with stale uploads carries ``(1 + s)^-a``;
+the heterogeneous fusion turns those into teacher weights over every
+group's teachers (uniform for a group without importance).  The round's
+population telemetry is stamped on every group's log.
+
 Degenerate equality: with ``buffer_size == n_active``, zero latency, the
 uniform sampler and ``staleness=0``, every round is exactly one wave
 whose uploads all fuse fresh, and the trajectory is bit-identical to the
@@ -58,10 +66,6 @@ class BufferedAsyncDriver(Driver):
         super().__init__(staleness=staleness, prefetch=prefetch)
 
     def run(self, engine: RoundEngine, *, init_globals=None):
-        if engine.n_proto > 1:
-            raise NotImplementedError(
-                "buffered_async with several prototypes is not ported yet "
-                "(ROADMAP.md queue 1 item 9e)")
         globals_, state, logs, rng = self._setup(engine, init_globals)
         pop = engine.population()
         m = pop.buffer_size

@@ -71,18 +71,21 @@ def test_cohort_draw_and_round_batches_bitwise():
     _eq(je.train.x, te.train.x)
     for a, b in zip(je.parts, te.parts):
         _eq(a, b)
-    assert je.steps_cap == te.steps_cap
+    # one bucket per prototype, at the group's largest scan length
+    assert te.bucket_caps == je.bucket_caps == [[c] for c in je.steps_cap]
     jr, tr = je.make_rng(), te.make_rng()
     for t in range(1, 4):
         ja, ta = je.sample_cohort(jr), te.sample_cohort(tr)
         _eq(np.asarray(ja), np.asarray(ta))
         jb = je.build_round_batches(t, ja)[0]
         tb = te.build_round_batches(t, ta)[0]
-        assert jb.ks == tb.ks and len(jb.buckets) == 1
-        _eq(jb.buckets[0].xb, tb.xb.numpy())
-        _eq(jb.buckets[0].yb, tb.yb.numpy())
-        _eq(jb.buckets[0].step_mask, tb.step_mask.numpy())
+        assert jb.ks == tb.ks and len(jb.buckets) == len(tb.buckets) == 1
+        _eq(jb.buckets[0].xb, tb.buckets[0].xb.numpy())
+        _eq(jb.buckets[0].yb, tb.buckets[0].yb.numpy())
+        _eq(jb.buckets[0].step_mask, tb.buckets[0].step_mask.numpy())
         _eq(jb.weights, tb.weights)
+        assert (jb.real_steps, jb.padded_slots) == \
+            (tb.real_steps, tb.padded_slots)
 
 
 def test_build_batched_batches_bitwise():

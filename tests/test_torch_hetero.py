@@ -156,12 +156,34 @@ def test_refused_bank_is_not_retried_per_group(monkeypatch):
         assert not t["logit_bank"]
 
 
-def test_per_group_distill_batches_raise():
-    _, gt = _groups(False)
-    ft = tfeddf.FusionConfig(batch_sizes=(32, 32, 32))
-    pool = TSource(np.zeros((10, 2), np.float32))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tfeddf.feddf_fuse_heterogeneous_stacked(gt, pool, ft)
+def test_equal_per_group_distill_batches_match_jax():
+    """``fusion.batch_sizes`` with one size for every group: each group
+    distils at that size with no padding, as the fusion without per-group
+    sizes does, and as the JAX package does."""
+    gj, gt = _groups(False)
+    pool = np.random.default_rng(7).uniform(-3, 3, (300, 2)).astype(
+        np.float32)
+    val = gaussian_mixture(200, seed=8)
+    fj = jfeddf.FusionConfig(max_steps=40, patience=20, eval_every=20,
+                             batch_size=16, batch_sizes=(32, 32, 32))
+    ft = tfeddf.FusionConfig(**dataclasses.asdict(fj))
+    jp, jinfo = jfeddf.feddf_fuse_heterogeneous_stacked(
+        gj, JSource(pool), fj, jnp.asarray(val.x), val.y, seed=2)
+    tp, tinfo = tfeddf.feddf_fuse_heterogeneous_stacked(
+        gt, TSource(pool, indices=jax_index_stream(300)), ft,
+        torch.from_numpy(val.x), torch.from_numpy(val.y), seed=2)
+    plain, _ = tfeddf.feddf_fuse_heterogeneous_stacked(
+        gt, TSource(pool, indices=jax_index_stream(300)),
+        dataclasses.replace(ft, batch_size=32, batch_sizes=None),
+        torch.from_numpy(val.x), torch.from_numpy(val.y), seed=2)
+    for gi in range(3):
+        assert tinfo[gi]["batch_capacity"] == jinfo[gi]["batch_capacity"] \
+            == 32
+        assert tinfo[gi]["padded_rows_per_step"] == 0
+        assert tinfo[gi]["steps"] == jinfo[gi]["steps"]
+        assert_tree_close(tp[gi], jp[gi], FUSE_ATOL)
+        for k, v in tree_flatten(tp[gi]).items():
+            assert torch.equal(v, tree_flatten(plain[gi])[k]), k
 
 
 def test_ensemble_accuracy_stacked_matches_jax():
@@ -274,19 +296,22 @@ def test_run_federated_heterogeneous_matches_jax():
 
 
 def test_default_prototype_ladder_matches_jax():
-    assert treg.default_prototype_ladder("blobs") == \
-        jreg.default_prototype_ladder("blobs")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        treg.default_prototype_ladder("tokens")
+    for task in ("blobs", "tokens"):
+        assert treg.default_prototype_ladder(task) == \
+            jreg.default_prototype_ladder(task)
     with pytest.raises(ValueError):
         treg.default_prototype_ladder("nope")
 
 
-def test_buffered_async_with_several_prototypes_raises():
-    d = hetero_spec(tapi).to_dict()
+def test_buffered_async_with_several_prototypes_validates():
+    """The spec validates in both packages and round-trips equal; the run
+    itself is held against JAX in ``test_torch_buffered_hetero.py``."""
+    d = hetero_spec(japi).to_dict()
     d["driver"] = {"kind": "buffered_async", "staleness": 0, "prefetch": 1}
-    with pytest.raises(NotImplementedError, match="item 9e"):
-        tapi.ExperimentSpec.from_dict(d).validate()
+    jspec = japi.ExperimentSpec.from_dict(d).validate()
+    tspec = tapi.ExperimentSpec.from_json(jspec.to_json())
+    assert tspec.validate() is tspec
+    assert tspec.to_json() == jspec.to_json()
 
 
 def test_list_wrappers_match_jax():

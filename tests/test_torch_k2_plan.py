@@ -434,6 +434,8 @@ def test_k1_plan_owns_every_element_exactly_once(b, v, sms):
 K1_CHIP_SMOKE_MODES = {
     (64, 4000, 3): ("lanes", 4), (256, 4096, 64): ("block", 1),
     (37, 1000, 5003): ("cluster", 8), (1024, 4096, 32000): ("block", 1),
+    (32, 4000, 3): ("lanes", 4), (48, 4000, 3): ("lanes", 4),
+    (64, 4000, 4): ("lanes", 4),
 }
 
 

@@ -237,3 +237,35 @@ def test_cuda_kernel_poisons_out_of_range_rows_on_card(mode, v, dtype_name):
         assert torch.equal(x[~poisoned], y[~poisoned])
     assert bool(torch.isnan(ds[poisoned]).all())
     assert torch.equal(ds[~poisoned], ds_good[~poisoned])
+
+
+def check_k1_on_card(b, n, v, dtype_name, temps=(1.0, 2.5)):
+    """K1 through ``ops`` against its plain version on the card at one
+    shape, each launch counted once; two launches of each kernel equal bit
+    for bit.  Shared by the shapes later paths give K1."""
+    from repro_torch.kernels import ensemble_kl_bank as k1
+    gen = torch.Generator().manual_seed(b + v)
+    s, rows, scales, idx = _card_case(b, n, v, dtype_name, gen)
+    row_scale = (torch.ones(b, device="cuda") if scales is None
+                 else scales[idx])
+    for temp in temps:
+        s_p = s.clone().requires_grad_(True)
+        s_k = s.clone().requires_grad_(True)
+        want = ref.ensemble_kl_bank(s_p, rows, row_scale, idx, temp)
+        before = dict(k1.LAUNCHES)
+        got = ops.ensemble_kl_loss_bank(s_k, rows, scales, idx, temp)
+        (g_want,) = torch.autograd.grad(want, s_p)
+        (g_got,) = torch.autograd.grad(got, s_k)
+        torch.cuda.synchronize()
+        for name in ("ensemble_kl_bank_fwd", "ensemble_kl_bank_bwd"):
+            assert k1.LAUNCHES[name] == before[name] + 1
+        got, want = float(got.detach()), float(want.detach())
+        assert abs(got - want) <= FWD_ATOL + FWD_RTOL * abs(want)
+        assert float((g_got - g_want).abs().max()) <= BWD_ATOL
+        g1 = torch.ones((), device="cuda")
+        f1 = k1.bank_kl_fwd(s, rows, scales, idx, temp)
+        f2 = k1.bank_kl_fwd(s, rows, scales, idx, temp)
+        assert all(torch.equal(x, y) for x, y in zip(f1, f2))
+        assert torch.equal(
+            k1.bank_kl_bwd(s, rows, scales, idx, f1[1], f1[2], g1, temp),
+            k1.bank_kl_bwd(s, rows, scales, idx, f1[1], f1[2], g1, temp))

@@ -163,6 +163,18 @@ def test_generator_quickstart_matches_jax_round_by_round(monkeypatch):
                                 "latency": 1.0, "jitter": 0.2,
                                 "straggler_frac": 0.1,
                                 "straggler_mult": 4.0, "dropout": 0.05}}},
+    {"bucket": {"kind": "pow2", "max_buckets": 4}},
+    {"bucket": {"kind": "quantile", "max_buckets": 2}},
+    {"cohort": {"prototypes": [{"name": "mlp", "params": {}}] * 2,
+                "assignment": "round_robin"},
+     "strategy": {"name": "feddf",
+                  "fusion": {"batch_sizes": [32, 64],
+                             "distill_bucket": "pow2"}}},
+    {"task": {"name": "tokens", "n_samples": 600, "seed": None,
+              "params": {"vocab": 32}},
+     "cohort": {"prototypes": [{"name": "tiny_transformer",
+                                "params": {"d_model": 32}}],
+                "assignment": "round_robin"}},
 ])
 def test_new_spec_json_round_trips_in_both_packages(change):
     d = tiny_spec(japi).to_dict()
@@ -179,13 +191,7 @@ def test_new_spec_json_round_trips_in_both_packages(change):
                  "prefetch": 1}}, NotImplementedError),
     ({"faults": {"nan_rate": 0.1}}, NotImplementedError),
     ({"sharding": {"shard_clients": True}}, NotImplementedError),
-    ({"bucket": {"kind": "pow2", "max_buckets": 4}}, NotImplementedError),
     ({"strategy": {"name": "trimmed_mean"}}, NotImplementedError),
-    ({"cohort": {"prototypes": [{"name": "mlp", "params": {}}] * 2,
-                 "assignment": "round_robin"},
-      "strategy": {"name": "feddf",
-                   "fusion": {"batch_sizes": [32, 64]}}},
-     NotImplementedError),
     ({"task": {"name": "nope", "n_samples": 10, "seed": None,
                "params": {}}}, ValueError),
 ])

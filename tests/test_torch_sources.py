@@ -93,11 +93,22 @@ def test_own_draws_are_seeded_device_independent_and_in_range():
     assert g.sample(gen, 7).shape == (7, 2)
 
 
-def test_token_outputs_and_bad_weights_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tsrc.GeneratorSource((4,), discrete_vocab=10)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tsrc.RandomNoiseSource((4,), discrete_vocab=10)
+def test_token_outputs_match_jax_and_bad_weights_raise():
+    """With ``discrete_vocab`` both sources emit token ids, equal to JAX's
+    from its draws (the whole token path: ``test_torch_tokens.py``)."""
+    jg = jsrc.GeneratorSource((4,), latent_dim=8, hidden=16, seed=1,
+                              discrete_vocab=10)
+    tg = tsrc.GeneratorSource((4,), latent_dim=8, hidden=16,
+                              discrete_vocab=10, w1=np.asarray(jg._w1),
+                              w2=np.asarray(jg._w2),
+                              draws=jax_sample_stream(jg))
+    np.testing.assert_array_equal(next(tg.input_stream(2, 6, 3)).numpy(),
+                                  jax_inputs(jg, 2, 6, 3))
+    jn = jsrc.RandomNoiseSource((4,), discrete_vocab=10)
+    tn = tsrc.RandomNoiseSource((4,), discrete_vocab=10,
+                                draws=jax_sample_stream(jn))
+    np.testing.assert_array_equal(next(tn.input_stream(2, 6, 3)).numpy(),
+                                  jax_inputs(jn, 2, 6, 3))
     with pytest.raises(ValueError, match="decoder weights"):
         tsrc.GeneratorSource((2,), latent_dim=4, hidden=8,
                              w1=np.zeros((4, 9), np.float32))
