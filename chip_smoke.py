@@ -39,7 +39,7 @@ and in order:
    bfloat16, after checking that its library holds tensor-core (HMMA)
    instructions and that its float32 N = P = 64 instantiation (the serve
    path's) spills no registers;
-4. drives eight paths on the card, with every launch count set to 0 just
+4. drives nine paths on the card, with every launch count set to 0 just
    before a path and read just after it.  Paths 1-3 go through
    ``Experiment(spec).run()`` at the quickstart's published widths, 3
    rounds each:
@@ -104,10 +104,26 @@ and in order:
      and 48 on path 5a's spec, 1 round: K1 at those B on one bank; 8c the
      token path (``examples/train_e2e.py``'s spec, tiny_transformer), 2
      rounds on K1 at (64, 4000, 4), a profiled card rerun of round 1;
+   - path 9, fault injection, robust fusion and resume on the quickstart
+     under docs/robustness.md's fault mix: 9a the defended FedDF on the
+     bank (K1), 2 rounds, its fault decisions, kept teachers, distill
+     steps and bank decisions equal card vs CPU and the screen's and
+     teacher filter's smallest |z - sigma| printed; 9b undefended, a NaN
+     upload in the bank, K1 on non-finite rows, the divergence guard's
+     chunk and the rollback equal card vs CPU; 9c ``trimmed_mean`` and
+     ``coordinate_median``, no kernel, globals within 1e-5; 9d path 3's
+     buffered driver with a quorum (K2 then K3); 9e path 1's spec stopped
+     by an observer at round 3 and resumed from its round-2 snapshot on
+     the card, against an uninterrupted run (cohorts, steps, accuracy
+     equal, globals within 1e-6, bit equality printed);
+   and, in step 3, K1 (every bank dtype) and K2 / K3 in each launch mode
+   on rows holding a NaN, a +Inf and a -Inf teacher logit: non-finite
+   exactly where the plain versions are, within tolerance elsewhere, two
+   launches equal bit for bit;
 5. prints one ``{"kernels": [...]}`` line (each kernel's launches on its
-   path and, under ``path7_launches`` and ``path8_launches``, on each of
-   paths 7's and 8's sub-paths), the card line, and as its last line
-   ``{"ok": true, "device": {...}}``.
+   path and, under ``path7_launches``, ``path8_launches`` and
+   ``path9_launches``, on each of paths 7's, 8's and 9's sub-paths), the
+   card line, and as its last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the last line, when there is no CUDA device,
 when it does not find the port next to it, or when any phase fails.
@@ -306,6 +322,38 @@ BUFFERED_HETERO_ROUNDS = 3
 BUCKET_UPLOAD_ATOL = 1e-5
 DISTILL_BATCHES = (32, 64, 48)
 TOKENS_ROUNDS = 2
+# Path 9: fault injection, robust fusion and checkpoint/resume on the
+# quickstart spec at its published widths, only the rounds cut.  The fault
+# mix is docs/robustness.md's and benchmarks/robustness_bench.py's CHAOS
+# (20% sign-flipping byzantine clients at scale 10, 5% NaN / +-Inf
+# uploads) plus the payload's transport kinds (5% crashed, 1% bit-flipped
+# uploads), 2 retries and a 0.6 quorum.  9a: the defended FedDF on the
+# bank, 2 rounds; 9b: undefended (no screen, no teacher filter) at a NaN
+# rate of 0.25, so that a non-finite upload reaches the bank in round 1,
+# 1 round; 9c: trimmed_mean and coordinate_median, screen off, 1 round
+# each, held card against CPU at 1e-5 (no distillation: only local SGD's
+# float32 order); 9d: path 3's buffered driver under the mix, 3 rounds,
+# compared over rounds 1-2 at path 3's bound; 9e: path 1's spec stopped by
+# an observer at round 3, resumed from the round-2 snapshot, against an
+# uninterrupted run at 1e-6.
+CHAOS = dict(byzantine_frac=0.2, byzantine_scale=10.0,
+             byzantine_mode="sign_flip", nan_rate=0.05, crash_rate=0.05,
+             bitflip_rate=0.01, retries=2, quorum=0.6)
+DEFENDED_ROUNDS = 2
+UNDEFENDED_NAN_RATE = 0.25
+ROBUST_PARAM_ATOL = 1e-5
+RESUME_ROUNDS = 3
+RESUME_PARAM_ATOL = 1e-6
+# Kernels on non-finite teacher rows: B = 7 rows of which row 1 holds a
+# NaN, row 3 a +Inf and row 5 a -Inf teacher logit (in K2 / K3, in teacher
+# r % K), at one V per launch mode: lane groups (3), a block per row (300)
+# and a cluster per row (5003), for K1 (every bank dtype) and K2 / K3 (3
+# teachers, f32 and bf16).  The kernel's per-row loss and gradient must be
+# non-finite exactly where the plain version's are, within the kernel
+# tolerances elsewhere, and two launches equal bit for bit.
+NONFINITE_ROWS = {1: float("nan"), 3: float("inf"), 5: float("-inf")}
+NONFINITE_B, NONFINITE_K = 7, 3
+NONFINITE_V = {"lanes": 3, "block": 300, "cluster": 5003}
 
 
 def fail(msg: str) -> int:
@@ -1198,7 +1246,9 @@ LOG_KEYS = ("test_acc", "val_acc", "ensemble_acc", "pre_distill_acc",
             "distill_steps", "bank", "bank_dtype", "bank_nbytes",
             "teacher_forwards", "n_participants", "n_dropped",
             "staleness_hist",
-            "buffer_fill", "n_straggling", "eff_participants")
+            "buffer_fill", "n_straggling", "eff_participants",
+            "n_corrupted", "n_quarantined", "n_retries",
+            "n_teachers_filtered", "fused", "rolled_back")
 
 
 def run_path(spec):
@@ -1263,9 +1313,12 @@ def card_vs_cpu(spec, rounds: int, profile_ref=None,
                 for a, b in zip(ga, gb, strict=True))
     steps = [[[l.distill_steps for l in g] for g in group_logs(r)]
              for r in (gpu, cpu)]
-    # the other discrete facts of every round: drops, bank decision and
-    # teacher forwards
-    facts = [[[(l.n_dropped, l.bank, l.teacher_forwards) for l in g]
+    # the other discrete facts of every round: drops, bank decision,
+    # teacher forwards and the fault decisions (corrupted, quarantined,
+    # retried, filtered, fused, rolled back)
+    facts = [[[(l.n_dropped, l.bank, l.teacher_forwards, l.n_corrupted,
+                l.n_quarantined, l.n_retries, l.n_teachers_filtered,
+                l.fused, l.rolled_back) for l in g]
               for g in group_logs(r)] for r in (gpu, cpu)]
     one = len(gpu.results) == 1     # paths 1-4 keep their flat lists
     check = {"rounds": rounds, "max_abs_param_diff": d_param,
@@ -1282,7 +1335,9 @@ def card_vs_cpu(spec, rounds: int, profile_ref=None,
             or d_acc > ROUND1_ACC_ATOL or steps[0] != steps[1]
             or facts[0] != facts[1]):
         problems.append(f"card vs CPU: {check}; (drops, bank, teacher "
-                        f"forwards) card {facts[0]} CPU {facts[1]}")
+                        f"forwards, corrupted, quarantined, retries, "
+                        f"filtered, fused, rolled back) card {facts[0]} "
+                        f"CPU {facts[1]}")
     return check, busy, problems
 
 
@@ -2099,6 +2154,454 @@ def tokens_path():
     return report, problems + more
 
 
+def poison_rows(t, rows_dim: int):
+    """NONFINITE_ROWS into ``t`` in place: row r's element r % V (of
+    teacher r % K when ``rows_dim`` is 1)."""
+    for r, val in NONFINITE_ROWS.items():
+        sub = t.select(rows_dim, r) if rows_dim == 0 else \
+            t[r % t.shape[0], r]
+        sub[r % t.shape[-1]] = val
+    return t
+
+
+def plain_kl_rows(s, teachers, temp):
+    """Per-row KL(softmax(mean_k t_k / T) || softmax(s / T)) as the plain
+    versions compute it (kernels/ref.py), before the batch mean: the
+    kernels' per-row ``kl`` output, in T-scaled units."""
+    import torch
+    from repro_torch.kernels import ref
+    logp_t = torch.log_softmax(ref._mean_teacher(teachers, temp), -1)
+    logp_s = torch.log_softmax(s.float() / temp, -1)
+    return (logp_t.exp() * (logp_t - logp_s)).sum(-1)
+
+
+def rows_check(got, want, rtol: float, atol: float) -> tuple:
+    """(non-finite in exactly the same places, max |got - want| over the
+    finite places, that max within atol + rtol |want|)."""
+    import torch
+    fin = torch.isfinite(want)
+    same = torch.equal(torch.isfinite(got), fin)
+    d = (got[fin].float() - want[fin].float()).abs()
+    err = float(d.max()) if d.numel() else 0.0
+    ok = bool((d <= atol + rtol * want[fin].float().abs()).all())
+    return same, err, ok
+
+
+def bits_equal(a, b) -> bool:
+    """Equal bits, NaN included (``torch.equal`` calls NaN != NaN)."""
+    import torch
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def nonfinite_phase(device):
+    """K1 (every bank dtype) and K2 / K3 (f32 and bf16 teachers) in each
+    launch mode on rows holding a NaN, a +Inf and a -Inf teacher logit:
+    the per-row loss and the gradient against the plain versions', two
+    launches against each other."""
+    import torch
+    from repro_torch.core.logit_bank import bank_dtype, quantize_rows
+    from repro_torch.kernels import ensemble_kl as k2
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ensemble_kl_bank import (bank_kl_bwd,
+                                                      bank_kl_fwd, card_plan)
+    b, temp = NONFINITE_B, 2.5
+    gen = torch.Generator().manual_seed(7)
+    g1 = torch.ones((), device=device)
+    out = []
+
+    def record(kernel, mode, plan_mode, v, kind, f1, f2, d1, d2, want,
+               g_want, fwd_tol, bwd_tol):
+        fin_f, fwd_err, fwd_ok = rows_check(f1[0], want, *fwd_tol)
+        fin_b, bwd_err, bwd_ok = rows_check(d1, g_want, *bwd_tol)
+        repeat = (all(bits_equal(x, y) for x, y in zip(f1, f2))
+                  and bits_equal(d1, d2))
+        bad = lambda x: sorted(set(torch.nonzero(~torch.isfinite(x))[:, 0]
+                                   .tolist()))
+        out.append({
+            "kernel": kernel, "mode": plan_mode, "B": b, "V": v,
+            "dtype": kind, "nonfinite_rows": bad(f1[0]),
+            "plain_nonfinite_rows": bad(want),
+            "grad_nonfinite_rows": bad(d1),
+            "plain_grad_nonfinite_rows": bad(g_want),
+            "fwd_err": fwd_err, "bwd_err": bwd_err, "repeat_equal": repeat,
+            "ok": (plan_mode == mode and fin_f and fin_b and fwd_ok
+                   and bwd_ok and repeat)})
+
+    for mode, v in NONFINITE_V.items():
+        s = torch.randn(b, v, generator=gen).to(device)
+        for dtype_name in BANK_DTYPES:
+            bank32 = poison_rows(torch.randn(b, v, generator=gen) * 3, 0)
+            idx = torch.randperm(b, generator=gen)
+            if dtype_name in ("int8", "fp8_e4m3"):
+                rows, scales = quantize_rows(bank32, dtype_name)
+            else:
+                rows, scales = bank32.to(bank_dtype(dtype_name)), None
+            row_scale = (torch.ones(b) if scales is None else scales[idx])
+            rows, idx = rows.to(device), idx.to(device)
+            row_scale = row_scale.to(device)
+            scales = None if scales is None else scales.to(device)
+            f1 = bank_kl_fwd(s, rows, scales, idx, temp)
+            f2 = bank_kl_fwd(s, rows, scales, idx, temp)
+            d1 = bank_kl_bwd(s, rows, scales, idx, f1[1], f1[2], g1, temp)
+            d2 = bank_kl_bwd(s, rows, scales, idx, f1[1], f1[2], g1, temp)
+            want = plain_kl_rows(
+                s, (rows[idx].float() * row_scale[:, None])[None], temp)
+            sp = s.clone().requires_grad_(True)
+            (g_want,) = torch.autograd.grad(ref.ensemble_kl_bank(
+                sp, rows, row_scale, idx, temp), sp)
+            torch.cuda.synchronize()
+            record("ensemble_kl_bank", mode, card_plan(device, b, v).mode,
+                   v, dtype_name, f1, f2, d1, d2, want, g_want,
+                   (FWD_RTOL, FWD_ATOL), (0.0, BWD_ATOL))
+        for tdt in TEACHER_DTYPES:
+            for pre in (False, True):
+                shape = (b, v) if pre else (NONFINITE_K, b, v)
+                t = poison_rows(torch.randn(shape, generator=gen) * 3,
+                                0 if pre else 1)
+                t = t.to(getattr(torch, tdt)).to(device)
+                f1 = k2.kl_fwd(s, t, temp, pre)
+                f2 = k2.kl_fwd(s, t, temp, pre)
+                d1 = k2.kl_bwd(s, t, f1[1], f1[2], g1, temp, pre)
+                d2 = k2.kl_bwd(s, t, f1[1], f1[2], g1, temp, pre)
+                want = plain_kl_rows(s, t[None] if pre else t, temp)
+                plain = ref.ensemble_kl_pre if pre else ref.ensemble_kl
+                sp = s.clone().requires_grad_(True)
+                (g_want,) = torch.autograd.grad(plain(sp, t, temp), sp)
+                torch.cuda.synchronize()
+                k = 1 if pre else NONFINITE_K
+                record("ensemble_kl_pre" if pre else "ensemble_kl", mode,
+                       k2.card_plan(device, k, b, v).mode, v, tdt, f1, f2,
+                       d1, d2, want, g_want, (K2_FWD_RTOL, K2_FWD_ATOL),
+                       (K2_GRAD_RTOL, K2_GRAD_ATOL))
+    return out
+
+
+def fault_spec(rounds: int, **faults):
+    """Path 9: the quickstart under the CHAOS mix (``faults`` overrides)."""
+    from repro_torch.api import FaultSpec
+    return dataclasses.replace(quickstart_spec(rounds),
+                               faults=FaultSpec(**{**CHAOS, **faults}))
+
+
+def _filter_margin(net, stack, probe_x, sigma) -> Optional[float]:
+    """The teacher filter's smallest |z - sigma| over its finite teachers
+    (core/feddf.filter_teacher_stack's statistics, recomputed)."""
+    import numpy as np
+    import torch
+    with torch.no_grad():
+        logits = net.apply(stack, probe_x, train=False)
+    logits = logits.float().cpu().numpy().astype(np.float64)
+    finite = np.isfinite(logits).all(axis=(1, 2))
+    if not finite.any():
+        return None
+    med = np.median(logits[finite], axis=0)
+    dist = np.mean(np.abs(logits[finite] - med), axis=(1, 2))
+    center = float(np.median(dist))
+    mad = float(np.median(np.abs(dist - center)))
+    z = np.abs(dist - center) / (1.4826 * mad + 0.05 * abs(center) + 1e-12)
+    return float(np.min(np.abs(z - sigma)))
+
+
+@contextlib.contextmanager
+def recording_defenses(rec: dict):
+    """While open: the sync screen's and the teacher filter's smallest
+    margins |z - sigma| per call, the filter's kept teachers, and every
+    upload's fault kinds at its first attempt, into ``rec``."""
+    import numpy as np
+    from repro_torch.core import feddf
+    from repro_torch.population import faults as F
+    for key in ("screen_margin", "screen_z", "filter_margin", "kept",
+                "kinds"):
+        rec.setdefault(key, [])
+    orig = (F.outlier_mask, feddf.filter_teacher_stack,
+            F.FaultModel.corrupt)
+
+    def mask(norms, sigma):
+        n = np.asarray(norms, np.float64)
+        fin = n[np.isfinite(n)]
+        if fin.size:
+            med = float(np.median(fin))
+            mad = float(np.median(np.abs(fin - med)))
+            z = F.robust_z(fin, med, mad)
+            near = int(np.argmin(np.abs(z - sigma)))
+            rec["screen_margin"].append(float(abs(z[near] - sigma)))
+            # the z nearest sigma, and the z of the largest delta norm
+            # (a byzantine upload's, when one is in the cohort)
+            rec["screen_z"].append((float(z[near]), float(z[np.argmax(fin)])))
+        return orig[0](norms, sigma)
+
+    def filt(net, stack, probe_x, sigma=6.0):
+        kept, n_drop = orig[1](net, stack, probe_x, sigma)
+        rec["filter_margin"].append(_filter_margin(net, stack, probe_x,
+                                                   sigma))
+        rec["kept"].append([int(i) for i in kept])
+        return kept, n_drop
+
+    def corrupt(self, wave, client, leaves, base, attempt=0):
+        out, kinds = orig[2](self, wave, client, leaves, base, attempt)
+        if attempt == 0 and kinds:
+            rec["kinds"].append((int(wave), int(client), list(kinds)))
+        return out, kinds
+    F.outlier_mask, feddf.filter_teacher_stack = mask, filt
+    F.FaultModel.corrupt = corrupt
+    try:
+        yield rec
+    finally:
+        F.outlier_mask, feddf.filter_teacher_stack, F.FaultModel.corrupt = \
+            orig
+
+
+@contextlib.contextmanager
+def recording_banks(banks: list):
+    """While open, each new logit bank K1 is called on appends ``(rows,
+    non-finite rows)`` to ``banks`` (one host read per bank)."""
+    import torch
+    from repro_torch.core import feddf
+    orig = feddf.ensemble_kl_loss_bank
+    seen = set()
+
+    def recording(s_logits, logits, scales, idx, temp):
+        if id(logits) not in seen:
+            seen.add(id(logits))
+            rows = logits.float()
+            if scales is not None:
+                rows = rows * scales[:, None]
+            banks.append((int(logits.shape[0]), int(
+                (~torch.isfinite(rows)).any(dim=1).sum())))
+        return orig(s_logits, logits, scales, idx, temp)
+    feddf.ensemble_kl_loss_bank = recording
+    try:
+        yield banks
+    finally:
+        feddf.ensemble_kl_loss_bank = orig
+
+
+@contextlib.contextmanager
+def recording_cohorts(cohorts: list):
+    """While open, every cohort draw appends its clients to ``cohorts``."""
+    from repro_torch.core.engine import RoundEngine
+    orig = RoundEngine.sample_cohort
+
+    def recording(self, rng):
+        out = orig(self, rng)
+        cohorts.append([int(c) for c in out])
+        return out
+    RoundEngine.sample_cohort = recording
+    try:
+        yield cohorts
+    finally:
+        RoundEngine.sample_cohort = orig
+
+
+def fault_facts(res) -> list:
+    """Each round's fault decisions."""
+    return [(l.round, l.n_corrupted, l.n_quarantined, l.n_retries,
+             l.n_teachers_filtered, l.fused, l.rolled_back)
+            for l in res.result.logs]
+
+
+def defended_path():
+    """9a: the defended FedDF on the bank (K1) under the mix: upload
+    screen, retries, quarantine and the teacher filter, card against
+    CPU."""
+    spec = fault_spec(DEFENDED_ROUNDS)
+    card, cpu = {}, {}
+    with recording_defenses(card):
+        res, report, problems = run_path(spec)
+    with recording_defenses(cpu):
+        check, _, more = card_vs_cpu(spec, spec.rounds, gpu=res)
+    logs, steps = res.result.logs, report["distill_steps"]
+    problems += more + check_launches(
+        report["launches"], {"ensemble_kl_bank_fwd": steps,
+                             "ensemble_kl_bank_bwd": steps}, "launches")
+    if any(l.bank != "bank" for l in logs if l.fused):
+        problems.append(f"bank decisions {[l.bank for l in logs]}")
+    if not sum(l.n_corrupted for l in logs) or not card["screen_margin"]:
+        problems.append("the mix corrupted no upload, or no screen ran")
+    for key in ("kept", "kinds"):
+        if card[key] != cpu[key]:
+            problems.append(f"{key} card {card[key]} CPU {cpu[key]}")
+    report.update(cpu_check=check, faults=fault_facts(res),
+                  kinds=card["kinds"], kept=card["kept"],
+                  screen_z_cuda=card["screen_z"],
+                  screen_margin_cuda=card["screen_margin"],
+                  screen_margin_cpu=cpu["screen_margin"],
+                  filter_margin_cuda=card["filter_margin"],
+                  filter_margin_cpu=cpu["filter_margin"])
+    return report, problems
+
+
+def undefended_path():
+    """9b: no screen, no teacher filter, NaN rate 0.25: a non-finite
+    upload reaches the bank in round 1, K1 runs on non-finite rows, the
+    fusion's divergence guard stops it after its first chunk and
+    ``guard_globals`` rolls the round back, card as CPU."""
+    spec = fault_spec(1, nan_rate=UNDEFENDED_NAN_RATE, screen="off",
+                      teacher_filter="off")
+    rec, banks = {}, []
+    with recording_defenses(rec), recording_banks(banks):
+        res, report, problems = run_path(spec)
+    check, _, more = card_vs_cpu(spec, 1, gpu=res)
+    log, launches = res.result.logs[0], report["launches"]
+    problems += more
+    if not any("nan" in kinds for _, _, kinds in rec["kinds"]):
+        problems.append(f"no NaN / Inf upload fired: {rec['kinds']}")
+    if not any(bad for _, bad in banks) or \
+            launches["ensemble_kl_bank_fwd"] == 0:
+        problems.append(f"K1 ran on no bank with non-finite rows: banks "
+                        f"{banks}, launches {launches}")
+    if not log.rolled_back:
+        problems.append("the round was not rolled back")
+    report.update(cpu_check=check, faults=fault_facts(res),
+                  kinds=rec["kinds"], banks_rows_nonfinite=banks,
+                  guard_chunk_steps=log.distill_steps)
+    return report, problems
+
+
+def robust_rule_check(calls) -> dict:
+    """Each recorded card aggregation rerun on the CPU on the same
+    uploads: the largest difference of the new globals."""
+    from repro_torch.common.pytree import tree_to
+    cpu = lambda t: None if t is None else tree_to(t, "cpu")
+    diffs = []
+    for strat, groups, state, ctx, (new, _, _) in calls:
+        want, _, _ = strat.aggregate(
+            [dataclasses.replace(g, prev_global=cpu(g.prev_global),
+                                 stack=cpu(g.stack)) for g in groups],
+            state, ctx)
+        diffs.append(max_abs_diff(want, new))
+    return {"globals": diffs, "atol": ROBUST_PARAM_ATOL}
+
+
+def robust_rules_path():
+    """9c: trimmed_mean (trim_frac 0.2) and coordinate_median under the
+    mix with the screen off, 1 round each: no kernel."""
+    from repro_torch.api import StrategySpec
+    from repro_torch.core.strategies import CoordinateMedian, TrimmedMean
+    report, problems = {}, []
+    for name, cls in (("trimmed_mean", TrimmedMean),
+                      ("coordinate_median", CoordinateMedian)):
+        spec = dataclasses.replace(
+            fault_spec(1, screen="off"), source=None,
+            strategy=StrategySpec(name=name, trim_frac=0.2))
+        calls = []
+        with recording_aggregate(cls, calls):
+            res, rep, probs = run_path(spec)
+        probs += check_launches(rep["launches"], {}, "launches")
+        rep["rule_alone"] = robust_rule_check(calls)
+        if len(calls) != 1 or max(rep["rule_alone"]["globals"]) > \
+                ROBUST_PARAM_ATOL:
+            probs.append(f"the rule alone, card vs CPU: {rep['rule_alone']}")
+        check, _, more = card_vs_cpu(spec, 1, gpu=res,
+                                     param_tol=ROBUST_PARAM_ATOL)
+        rep.update(cpu_check=check, faults=fault_facts(res))
+        report[name] = rep
+        problems += [f"{name}: {p}" for p in probs + more]
+    return report, problems
+
+
+def buffered_faults_path():
+    """9d: path 3's buffered driver under the mix, with the quorum:
+    NormScreen on each upload, K2 in the fresh round, K3 in the stale
+    ones, and a partial fuse or a skipped round where the mix forces
+    one."""
+    from repro_torch.api import FaultSpec
+    spec = dataclasses.replace(buffered_spec(MAIN_ROUNDS),
+                               faults=FaultSpec(**CHAOS))
+    res, report, problems = run_path(spec)
+    logs, launches = res.result.logs, report["launches"]
+    steps = report["distill_steps"]
+    k2_k3 = launches["ensemble_kl_fwd"] + launches["ensemble_kl_pre_fwd"]
+    if (k2_k3 != steps or launches["ensemble_kl_fwd"] == 0
+            or launches["ensemble_kl_pre_fwd"] == 0):
+        problems.append(f"K2 {launches['ensemble_kl_fwd']} + K3 "
+                        f"{launches['ensemble_kl_pre_fwd']} launches for "
+                        f"{steps} distill steps")
+    for fwd, bwd in (("ensemble_kl_fwd", "ensemble_kl_bwd"),
+                     ("ensemble_kl_pre_fwd", "ensemble_kl_pre_bwd")):
+        if launches[fwd] != launches[bwd]:
+            problems.append(f"{fwd} {launches[fwd]} != {bwd} "
+                            f"{launches[bwd]}")
+    if not sum(l.n_corrupted for l in logs):
+        problems.append("the mix corrupted no upload")
+    check, _, more = card_vs_cpu(spec, BUFFERED_CPU_ROUNDS,
+                                 param_tol=ROUND2_PARAM_ATOL)
+    m = spec.population.buffer_size
+    report.update(cpu_check=check, faults=fault_facts(res),
+                  partial_fuses=[l.round for l in logs if l.fused
+                                 and sum(l.staleness_hist or [m]) < m],
+                  skipped_rounds=[l.round for l in logs if not l.fused])
+    return report, problems + more
+
+
+class _StopAtRound(Exception):
+    pass
+
+
+def resume_path():
+    """9e: path 1's spec with round snapshots, interrupted by an observer
+    that raises at round 3, resumed on the card from the round-2 snapshot,
+    against an uninterrupted run: cohorts, distill steps and accuracy
+    equal, globals within RESUME_PARAM_ATOL (and whether bit for bit)."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.api import Experiment
+    from repro_torch.common.pytree import tree_flatten
+    spec = quickstart_spec(RESUME_ROUNDS)
+    base_cohorts, cut_cohorts, res_cohorts = [], [], []
+    with recording_cohorts(base_cohorts):
+        base = Experiment(spec, device="cuda").run()
+
+    def bomb(event):
+        if event.round == RESUME_ROUNDS:
+            raise _StopAtRound
+
+    problems = []
+    with tempfile.TemporaryDirectory() as d:
+        reset_all_launches()
+        t0 = time.perf_counter()
+        with recording_cohorts(cut_cohorts):
+            try:
+                Experiment(spec, device="cuda").run(observers=[bomb],
+                                                    checkpoint_dir=d)
+                problems.append("the observer did not interrupt the run")
+            except _StopAtRound:
+                pass
+        snapshots = sorted(os.listdir(os.path.join(d, "rounds")))
+        with recording_cohorts(res_cohorts):
+            resumed = Experiment.resume(d, device="cuda")
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+    a, b = tree_flatten(resumed.global_params[0]), tree_flatten(
+        base.global_params[0])
+    bit_equal = all(torch.equal(a[k], b[k]) for k in a)
+    steps = [[l.distill_steps for l in r.result.logs]
+             for r in (resumed, base)]
+    acc = [[l.test_acc for l in r.result.logs] for r in (resumed, base)]
+    check = {"snapshots": snapshots, "cohorts_equal":
+             res_cohorts == base_cohorts, "distill_steps": steps,
+             "test_acc": acc,
+             "max_abs_param_diff": max_abs_diff(resumed.global_params,
+                                                base.global_params),
+             "param_tol": RESUME_PARAM_ATOL, "bit_equal": bit_equal,
+             "logs_equal": resumed.result.logs == base.result.logs}
+    if (not check["cohorts_equal"] or steps[0] != steps[1]
+            or acc[0] != acc[1]
+            or check["max_abs_param_diff"] > RESUME_PARAM_ATOL
+            or snapshots[-1] != f"{RESUME_ROUNDS - 1:05d}"):
+        problems.append(f"resume against uninterrupted: {check}")
+    resumed_steps = resumed.result.logs[-1].distill_steps
+    problems += check_launches(
+        launches, {"ensemble_kl_bank_fwd": sum(steps[1]) + resumed_steps,
+                   "ensemble_kl_bank_bwd": sum(steps[1]) + resumed_steps},
+        "launches (interrupted run + resume)")
+    return {"wall_s": wall, "rounds": [], "launches": launches,
+            "distill_steps": sum(steps[1]) + resumed_steps,
+            "cpu_check": check}, problems
+
+
 def print_path(name, rep) -> None:
     for r in rep["rounds"]:
         ph = " ".join(f"{k}={v:.3f}s" for k, v in r["phase_s"].items())
@@ -2113,7 +2616,13 @@ def print_path(name, rep) -> None:
                   f"dropped={l['n_dropped']} "
                   f"distill_steps={l['distill_steps']} bank={l['bank']} "
                   f"teacher_forwards={l['teacher_forwards']} "
-                  f"staleness={l['staleness_hist']}")
+                  f"staleness={l['staleness_hist']}" + (
+                      f" faults=(corrupted {l['n_corrupted']}, quarantined "
+                      f"{l['n_quarantined']}, retries {l['n_retries']}, "
+                      f"filtered {l['n_teachers_filtered']}, fused "
+                      f"{l['fused']}, rolled back {l['rolled_back']})"
+                      if l["n_corrupted"] or l["n_quarantined"]
+                      or not l["fused"] or l["rolled_back"] else ""))
         print(f"  {name} round {r['round']}: wall "
               f"{sum(r['phase_s'].values()):.3f} s: {ph}")
     used = {k: n for k, n in rep["launches"].items() if n}
@@ -2280,6 +2789,17 @@ def main() -> int:
                 f"K1 B={r['B']} N={r['N']} V={r['V']} {r['bank']} mode "
                 f"{r['mode']}")
         print(f"  time {what}: " + "; ".join(parts))
+    nonfinite = nonfinite_phase(device)
+    report["nonfinite_rows"] = nonfinite
+    for e in nonfinite:
+        print(f"  non-finite rows {e['kernel']} B={e['B']} V={e['V']} "
+              f"{e['dtype']:9s} mode {e['mode']}: loss non-finite in rows "
+              f"{e['nonfinite_rows']} (plain {e['plain_nonfinite_rows']}), "
+              f"gradient in rows {e['grad_nonfinite_rows']} (plain "
+              f"{e['plain_grad_nonfinite_rows']}); elsewhere fwd "
+              f"{e['fwd_err']:.2e} bwd {e['bwd_err']:.2e}; two launches "
+              f"{'equal' if e['repeat_equal'] else 'DIFFER'} "
+              f"{'ok' if e['ok'] else 'FAIL'}")
     k4_timings, k4_errors = k4_phase(device)
     k5_timings, k5_errors = k5_phase(device)
     report.update(k4_errors=k4_errors, k4_timings=k4_timings,
@@ -2311,8 +2831,8 @@ def main() -> int:
                   f"{r.get('bound_detail', r['bound_by'])}", flush=True)
     problems = build_problems + [
         f"kernel check failed: {e}" for e in
-        errors + k1_modes + k1_grids + k1_poison + k2_errors + k4_errors
-        + k5_errors if not e["ok"]]
+        errors + k1_modes + k1_grids + k1_poison + k2_errors + nonfinite
+        + k4_errors + k5_errors if not e["ok"]]
 
     # 4. the paths, each with its own launch counts
     paths = {}
@@ -2355,6 +2875,42 @@ def main() -> int:
         for sub, r in subs.items():
             print_path(sub, r)
         print(f"  {name}: whole path {rep['total_s']:.1f} s", flush=True)
+    for name, fn in (("path9a_defended", defended_path),
+                     ("path9b_undefended", undefended_path),
+                     ("path9c_robust_rules", robust_rules_path),
+                     ("path9d_buffered_faults", buffered_faults_path),
+                     ("path9e_resume", resume_path)):
+        t0 = time.perf_counter()
+        rep, path_problems = fn()
+        rep["total_s"] = time.perf_counter() - t0
+        paths[name] = rep
+        problems += [f"{name}: {p}" for p in path_problems]
+        subs = ({f"{name} {k}": v for k, v in rep.items() if k != "total_s"}
+                if name == "path9c_robust_rules" else {name: rep})
+        for sub, r in subs.items():
+            print_path(sub, r)
+        print(f"  {name}: whole path {rep['total_s']:.1f} s", flush=True)
+    print(f"  path 9a fault kinds (wave, client, kinds): "
+          f"{paths['path9a_defended']['kinds']}; kept teachers "
+          f"{paths['path9a_defended']['kept']}")
+    print(f"  path 9a screen per call, (z nearest sigma, z of the largest "
+          f"delta norm): {paths['path9a_defended']['screen_z_cuda']}")
+    for what in ("screen", "filter"):
+        print(f"  path 9a smallest |z - sigma| of the {what} per call: card "
+              f"{paths['path9a_defended'][f'{what}_margin_cuda']} CPU "
+              f"{paths['path9a_defended'][f'{what}_margin_cpu']}")
+    print(f"  path 9b fault kinds {paths['path9b_undefended']['kinds']}; banks "
+          f"(rows, non-finite rows) {paths['path9b_undefended']['banks_rows_nonfinite']}"
+          f"; guard stopped the fusion after "
+          f"{paths['path9b_undefended']['guard_chunk_steps']} steps")
+    for name in ("trimmed_mean", "coordinate_median"):
+        print(f"  path 9c {name} rule alone, card vs CPU on the card's "
+              f"uploads: {paths['path9c_robust_rules'][name]['rule_alone']}")
+    print(f"  path 9d faults per round {paths['path9d_buffered_faults']['faults']}"
+          f"; partial fuses {paths['path9d_buffered_faults']['partial_fuses']}, "
+          f"skipped rounds {paths['path9d_buffered_faults']['skipped_rounds']}")
+    print(f"  path 9e resumed bit for bit: "
+          f"{paths['path9e_resume']['cpu_check']['bit_equal']}", flush=True)
     print(f"  path 8a staleness per group and round: "
           f"{paths['path8a_buffered_hetero']['staleness_hist_per_group']}")
     print(f"  path 8b(i) step buckets: "
@@ -2421,6 +2977,17 @@ def main() -> int:
                 for sub, r in paths["path7_ablations"].items()
                 if sub != "total_s"}
 
+    def path9_launches(name):
+        """Each path 9 sub-path's launches of ``name``."""
+        c = paths["path9c_robust_rules"]
+        return {"9a": paths["path9a_defended"]["launches"].get(name, 0),
+                "9b": paths["path9b_undefended"]["launches"].get(name, 0),
+                "9c": sum(c[k]["launches"].get(name, 0)
+                          for k in ("trimmed_mean", "coordinate_median")),
+                "9d": paths["path9d_buffered_faults"]["launches"].get(
+                    name, 0),
+                "9e": paths["path9e_resume"]["launches"].get(name, 0)}
+
     def path8_launches(name):
         """Each path 8 sub-path's launches of ``name``."""
         b = paths["path8b_bucketing"]
@@ -2439,6 +3006,7 @@ def main() -> int:
                 "launches": paths[path]["launches"][name],
                 "path7_launches": path7_launches(name),
                 "path8_launches": path8_launches(name),
+                "path9_launches": path9_launches(name),
                 "max_abs_err": max(e[i] for e in errs),
                 "ms": t[f"{kind}_ms"], "plain_ms": t[f"plain_{kind}_ms"],
                 "call_ms": t[f"{kind}_call_ms"],
@@ -2457,6 +3025,7 @@ def main() -> int:
             "launches": paths["path4_serve"]["launches"][name],
             "path7_launches": path7_launches(name),
             "path8_launches": path8_launches(name),
+            "path9_launches": path9_launches(name),
             "max_abs_err": max(e["max_abs_err"] for e in errs
                                if e.get("dtype", "float32") == "float32"),
             "ms": t["ms"], "plain_ms": t["plain_ms"],

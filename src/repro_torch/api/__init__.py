@@ -3,7 +3,7 @@
     from repro_torch.api import Experiment, ExperimentSpec
     result = Experiment(spec).run()            # on the card
 """
-from repro_torch.api.experiment import (Experiment, RunResult,
+from repro_torch.api.experiment import (Experiment, RoundEvent, RunResult,
                                         build_cohort, build_source,
                                         build_splits, build_task_bundle,
                                         resolve_device, to_fl_config)
@@ -23,7 +23,7 @@ from repro_torch.api.spec import (BucketSpec, CohortSpec, DistSpec,
                                   TaskSpec, TrafficSpec)
 
 __all__ = [
-    "Experiment", "RunResult", "ExperimentSpec", "TaskSpec",
+    "Experiment", "RoundEvent", "RunResult", "ExperimentSpec", "TaskSpec",
     "PartitionSpec", "CohortSpec", "ModelSpec", "SourceSpec",
     "StrategySpec", "FusionSpec", "PrivacySpec", "ShardingSpec",
     "DriverSpec", "BucketSpec", "PopulationSpec", "TrafficSpec",

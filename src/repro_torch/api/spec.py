@@ -356,7 +356,7 @@ class FaultSpec:
 
     Injection knobs are per-upload probabilities; draws are
     counter-based on ``(seed, domain, wave, client, attempt)``
-    (``repro.population.faults``) so a fault trace is a pure function of
+    (``repro_torch.population.faults``) so a fault trace is a pure function of
     the spec — resumed runs never replay or shift it.  ``byzantine_frac``
     marks a persistent (static-domain) subset of clients adversarial,
     like traffic stragglers.
@@ -722,10 +722,19 @@ class ExperimentSpec:
                 f"local_optimizer must be 'sgd' or 'adam', got "
                 f"{self.local_optimizer!r}")
 
+        # fault knobs share their ranges and messages with the
+        # engine-level mirror: one validator, no drift between the layers
+        from repro_torch.population.config import FaultConfig
+        FaultConfig(**self.faults.to_dict()).validate()
+        if not 0.0 <= self.strategy.trim_frac < 0.5:
+            raise ValueError(
+                f"strategy.trim_frac must be in [0, 0.5) (trimming half "
+                f"or more from each end leaves nothing), got "
+                f"{self.strategy.trim_frac}")
+
         # axes the port does not run yet: each raises with its ROADMAP item
         pending = [
             (self.sharding.shard_clients, "client-axis sharding", "11"),
-            (self.faults != FaultSpec(), "fault injection", "10"),
             (self.obs != ObsSpec(), "the flight recorder", "10"),
         ]
         for hit, what, item in pending:

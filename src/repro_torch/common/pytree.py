@@ -68,6 +68,55 @@ def tree_leaves(tree: Pytree) -> list:
     return list(tree_flatten(tree).values())
 
 
+def _walk_jax_order(tree: Pytree, prefix: str = ""):
+    """``(path, leaf)`` pairs in ``jax.tree.flatten``'s order: dict keys
+    sorted, tuples and lists by index; paths as :func:`tree_flatten`'s."""
+    if isinstance(tree, dict):
+        items = ((k, tree[k]) for k in sorted(tree))
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        yield prefix, tree
+        return
+    for k, v in items:
+        yield from _walk_jax_order(v, f"{prefix}/{k}" if prefix else str(k))
+
+
+def tree_leaves_jax(tree: Pytree) -> list:
+    """The leaves in the JAX package's order.  Everything that indexes a
+    flat payload (the fault model's crash cut, bit-flip and poison
+    targets; the checkpoint's ``leaf_{i}`` keys) walks this order, so a
+    draw hits the same tensor in both packages."""
+    return [leaf for _, leaf in _walk_jax_order(tree)]
+
+
+def tree_paths_jax(tree: Pytree) -> list:
+    """The leaf paths (``"a/b"``) in the JAX package's order."""
+    return [path for path, _ in _walk_jax_order(tree)]
+
+
+def tree_unflatten_jax(like: Pytree, leaves: Sequence) -> Pytree:
+    """``like``'s structure (its own key order kept) with ``leaves``, given
+    in the JAX package's order, in place of its leaves."""
+    paths = tree_paths_jax(like)
+    if len(paths) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves for a tree of "
+                         f"{len(paths)}")
+    by_path = dict(zip(paths, leaves))
+
+    def build(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: build(v, f"{prefix}/{k}" if prefix else str(k))
+                    for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            out = [build(v, f"{prefix}/{i}" if prefix else str(i))
+                   for i, v in enumerate(tree)]
+            return type(tree)(*out) if hasattr(tree, "_fields") \
+                else type(tree)(out)
+        return by_path[prefix]
+    return build(like, "")
+
+
 def tree_stack(trees: Sequence[Pytree]) -> Pytree:
     """Stack homogeneous trees along a new leading (client) axis."""
     return tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)
@@ -104,6 +153,64 @@ def tree_weighted_mean_stacked(stack: Pytree, weights) -> Pytree:
         wt = torch.as_tensor(w, device=x.device)
         return torch.tensordot(wt, x.float(), dims=([0], [0])).to(x.dtype)
     return tree_map(mean, stack)
+
+
+def _weights_f32(weights) -> np.ndarray:
+    w = np.asarray(weights, dtype=np.float64)
+    return (w / w.sum()).astype(np.float32)
+
+
+def _sorted_clients(x: torch.Tensor, w: np.ndarray):
+    """A leaf's client values sorted per coordinate, NaN last and ties in
+    client order (``jnp.argsort``), with each rank's client weight."""
+    k = x.shape[0]
+    flat = x.float().reshape(k, -1)
+    order = torch.argsort(flat, dim=0, stable=True)
+    wt = torch.as_tensor(w, device=x.device)
+    return torch.take_along_dim(flat, order, dim=0), wt[order]
+
+
+def tree_trimmed_mean_stacked(stack: Pytree, weights, trim: int) -> Pytree:
+    """Per-coordinate trimmed weighted mean over the leading (client) axis:
+    the ``trim`` smallest and ``trim`` largest client values of every
+    coordinate are discarded, the rest averaged with their renormalized
+    weights.  ``trim == 0`` is :func:`tree_weighted_mean_stacked` bit for
+    bit.  Trimmed slots are zeroed by selection, not by a zero weight, so
+    a non-finite value in the trim region (NaN sorts last) stays out."""
+    if trim == 0:
+        return tree_weighted_mean_stacked(stack, weights)
+    k = tree_leading_dim(stack)
+    if 2 * trim >= k:
+        raise ValueError(f"trim={trim} needs K >= {2 * trim + 1} uploads, "
+                         f"got K={k}")
+    w = _weights_f32(weights)
+
+    def leaf(x):
+        vals, wts = _sorted_clients(x, w)
+        keep = torch.zeros((k, 1), dtype=torch.float32, device=x.device)
+        keep[trim:k - trim] = 1.0
+        kept_w = wts * keep
+        kept = torch.where(keep > 0, vals, torch.zeros_like(vals))
+        out = (kept * kept_w).sum(dim=0) / kept_w.sum(dim=0)
+        return out.reshape(x.shape[1:]).to(x.dtype)
+    return tree_map(leaf, stack)
+
+
+def tree_coordinate_median_stacked(stack: Pytree, weights) -> Pytree:
+    """Per-coordinate weighted median over the leading (client) axis: the
+    smallest client value whose cumulative sorted-order weight reaches
+    half the total."""
+    w = _weights_f32(weights)
+
+    def leaf(x):
+        vals, wts = _sorted_clients(x, w)
+        cum = torch.cumsum(wts, dim=0)
+        # the first rank whose cumulative weight crosses 0.5 (argmax of
+        # the boolean, as jnp.argmax: 0 where none does)
+        idx = torch.argmax((cum >= 0.5).to(torch.int8), dim=0)
+        med = torch.take_along_dim(vals, idx[None, :], dim=0)[0]
+        return med.reshape(x.shape[1:]).to(x.dtype)
+    return tree_map(leaf, stack)
 
 
 def tree_isfinite(tree: Pytree) -> torch.Tensor:

@@ -46,19 +46,29 @@ the scan length per bucket), so both packages report one number.
 Low-bit clients (``quantize``) and DP uploads (``dp_clip``) run inside
 the batched client update; client ``k``'s DP noise in round ``t`` is
 drawn from the JAX package's integer ``seed * 7919 + t * 131 + k``.
-Fault injection and meshes wait for their ROADMAP.md items and raise
-``NotImplementedError``.
+
+Fault injection (docs/robustness.md): with an enabled ``FaultConfig``,
+``fault_pipeline`` takes the trained stacks to host numpy (the JAX
+package's leaf order), corrupts, screens and retries them there with the
+counter-based ``population/faults.FaultModel``, and rebuilds a stack on
+the device only when a fault touched it; ``quorum_met`` decides whether
+the round fuses, and ``guard_globals`` rolls non-finite fused globals
+back.  A run with faults disabled copies nothing and is bit for bit the
+fault-free run.  Meshes wait for ROADMAP.md queue 1 item 11.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.common.options import BUCKET_KINDS
-from repro_torch.common.pytree import tree_cat, tree_take, tree_to
+from repro_torch.common.pytree import (tree_cat, tree_isfinite,
+                                       tree_leaves_jax, tree_take, tree_to,
+                                       tree_unflatten_jax)
 from repro_torch.core import feddf as feddf_mod
 from repro_torch.core.client import (assign_buckets, bucket_capacities,
                                      build_bucketed_batches, evaluate,
@@ -100,6 +110,7 @@ class FLConfig:
     local_lr: float = 0.1
     strategy: str = "fedavg"      # any name in the strategy registry
     prox_mu: float = 0.01         # fedprox
+    trim_frac: float = 0.2        # trimmed_mean: per-end trim fraction
     server_momentum: float = 0.3  # beta for fedavgm
     drop_worst: bool = False
     seed: int = 0
@@ -118,7 +129,7 @@ class FLConfig:
     # fixed-roster uniform draw bit for bit
     population: PopulationConfig = dataclasses.field(
         default_factory=PopulationConfig)
-    # fault injection (not ported: an enabled config raises)
+    # fault injection + robust-fusion defenses (docs/robustness.md)
     faults: FaultConfig = dataclasses.field(default_factory=FaultConfig)
 
 
@@ -223,11 +234,6 @@ def _make_opt(cfg: FLConfig) -> Optimizer:
     return sgd(cfg.local_lr)
 
 
-def _pending(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                              f"queue 1 item {item})")
-
-
 class RoundEngine:
     """The per-round phases plus the run-wide state (batched client
     updates, fixed scan lengths, device-resident eval sets)."""
@@ -238,18 +244,18 @@ class RoundEngine:
                  source: Optional[DistillSource] = None,
                  heterogeneous: bool = False, device="cuda",
                  dp_draws: Optional[Callable] = None,
-                 swag_draws: Optional[Callable] = None):
-        """``dp_draws`` (``core/privacy.NormalDraws``) and ``swag_draws``
-        (``core/swag.SwagDraws``) replace the DP noise's and the SWAG
-        samples' CPU generators with a caller's draws, e.g. the JAX
-        package's."""
+                 swag_draws: Optional[Callable] = None,
+                 filter_probe: Optional[Callable] = None):
+        """``dp_draws`` (``core/privacy.NormalDraws``), ``swag_draws``
+        (``core/swag.SwagDraws``) and ``filter_probe`` (the teacher
+        filter's probe batch, ``core/strategies.FilterProbe``) replace the
+        DP noise's, the SWAG samples' and the probe's CPU generators with
+        a caller's draws, e.g. the JAX package's."""
         if cfg.bucketing.kind not in BUCKET_KINDS:
             raise ValueError(
                 f"bucketing.kind must be one of {BUCKET_KINDS}, got "
                 f"{cfg.bucketing.kind!r}")
         cfg.faults.validate()
-        if cfg.faults.enabled:
-            _pending("fault injection", "10")
         self.nets = nets
         self.client_proto = list(client_proto)
         self.train = train
@@ -259,6 +265,7 @@ class RoundEngine:
         self.cfg = cfg
         self.source = source
         self.swag_draws = swag_draws
+        self.filter_probe = filter_probe
         self.heterogeneous = heterogeneous
         self.device = torch.device(device)
         self.strategy = get_strategy(cfg.strategy)
@@ -329,6 +336,7 @@ class RoundEngine:
                 bucket=self._part_bucket[pop_part],
                 bucket_client_caps=sampler_caps))
         self._population = None  # built lazily by population()
+        self._fault_model = None  # built lazily by fault_model()
 
     def _bucket_client_cap(self, p: int, b: int) -> int:
         """Run-fixed client-axis size of (prototype p, bucket b), as the
@@ -379,12 +387,145 @@ class RoundEngine:
                 faults=self.cfg.faults)
         return self._population
 
+    def fault_model(self):
+        """The lazily-built counter-based :class:`FaultModel` (None when
+        no fault class is enabled: the fault-free path)."""
+        if self._fault_model is None and self.cfg.faults.enabled:
+            from repro_torch.population.faults import FaultModel
+            self._fault_model = FaultModel(
+                self.cfg.faults, self.cfg.seed, self.population_size)
+        return self._fault_model
+
+    def fault_pipeline(self, t: int, groups: List[GroupRound],
+                       batches: List[Optional[RoundBatches]]):
+        """Inject, screen and retry on the trained group stacks: the sync
+        driver's fault seam (docs/robustness.md).
+
+        Corruption is keyed on ``(seed, wave=t, client, attempt)`` so the
+        fault trace never replays across resumes; a retry redraws the
+        transport faults on the client's clean params (training is
+        deterministic), while byzantine clients stay corrupted on every
+        attempt and end up quarantined.  Screening (finite-ness + robust-z
+        of the delta norm within the cohort) mutates the groups in place,
+        dropping quarantined rows.  Returns a stats dict, or None when
+        faults are disabled (the stacks are then untouched).  The uploads
+        cross to host numpy once; a group's stack goes back to the device
+        only when a fault or the screen touched it.
+        """
+        faults = self.cfg.faults
+        fm = self.fault_model()
+        if fm is None:
+            return None
+        from repro_torch.population.faults import (delta_norm, leaves_finite,
+                                                   outlier_mask, robust_z)
+        stats = {"corrupted": 0, "quarantined": 0, "retries": 0,
+                 "dispatched": 0, "kept": 0}
+        for p, (g, rb) in enumerate(zip(groups, batches)):
+            if g.stack is None or rb is None:
+                continue
+            ids = rb.ks
+            flat = tree_leaves_jax(g.stack)
+            host = [l.detach().cpu().numpy() for l in flat]
+            base = [l.detach().cpu().numpy()
+                    for l in tree_leaves_jax(g.prev_global)]
+            k = len(ids)
+            stats["dispatched"] += k
+            clean = [[h[i] for h in host] for i in range(k)]
+            rows, touched = [], False
+            for i, c in enumerate(ids):
+                row, kinds = fm.corrupt(t, c, clean[i], base, attempt=0)
+                rows.append(row)
+                if kinds:
+                    stats["corrupted"] += 1
+                    touched = True
+            keep = np.ones(k, np.bool_)
+            if faults.screen_active:
+                # Pass 1, transport retries: resolve non-finite uploads
+                # BEFORE the norm screen, otherwise a burst of NaN drops
+                # can gut the cohort and hand the finite median to a
+                # byzantine minority.
+                next_attempt = np.ones(k, np.int64)
+                for i in range(k):
+                    while (not leaves_finite(rows[i])
+                           and next_attempt[i] <= faults.retries):
+                        stats["retries"] += 1
+                        row, _ = fm.corrupt(t, ids[i], clean[i], base,
+                                            attempt=int(next_attempt[i]))
+                        next_attempt[i] += 1
+                        if leaves_finite(row):
+                            rows[i] = row
+                # Pass 2, the adversarial screen over the finite cohort.
+                norms = np.array([
+                    delta_norm(r, base) if leaves_finite(r) else np.nan
+                    for r in rows])
+                bad = outlier_mask(norms, faults.norm_sigma)
+                ok_norms = norms[~bad]
+                med = (float(np.median(ok_norms)) if ok_norms.size else 0.0)
+                mad = (float(np.median(np.abs(ok_norms - med)))
+                       if ok_norms.size else 0.0)
+                for i in np.flatnonzero(bad):
+                    accepted = False
+                    for attempt in range(int(next_attempt[i]),
+                                         faults.retries + 1):
+                        stats["retries"] += 1
+                        row, _ = fm.corrupt(t, ids[i], clean[i], base,
+                                            attempt=attempt)
+                        if not leaves_finite(row):
+                            continue
+                        nrm = delta_norm(row, base)
+                        if (ok_norms.size and float(robust_z(
+                                np.asarray([nrm]), med, mad)[0])
+                                > faults.norm_sigma):
+                            continue
+                        rows[i] = row
+                        accepted = True
+                        break
+                    if not accepted:
+                        keep[i] = False
+                        stats["quarantined"] += 1
+                        self.sampler.penalize([int(ids[i])], 0.5)
+                touched = touched or not keep.all()
+            stats["kept"] += int(keep.sum())
+            if not touched:
+                continue
+            kept_i = np.flatnonzero(keep)
+            if kept_i.size:
+                g.stack = tree_unflatten_jax(g.stack, [
+                    torch.from_numpy(np.stack([rows[i][li] for i in kept_i],
+                                              axis=0)).to(l.device)
+                    for li, l in enumerate(flat)])
+            else:
+                g.stack = None
+            g.weights = np.asarray(g.weights)[kept_i]
+            if g.importance is not None:
+                g.importance = np.asarray(g.importance)[kept_i]
+        return stats
+
+    def quorum_met(self, stats) -> bool:
+        """Did enough uploads survive screening to fuse this round?"""
+        q = self.cfg.faults.quorum
+        if q is None or stats is None or stats["dispatched"] == 0:
+            return True
+        return stats["kept"] >= math.ceil(q * stats["dispatched"] - 1e-9)
+
     def guard_globals(self, globals_: List[dict], last_good: List[dict]
                       ) -> Tuple[List[dict], List[bool]]:
-        """Divergence rollback of non-finite fused globals, which the JAX
-        package gates on fault injection.  The engine refuses an enabled
-        ``FaultConfig``, so here it is the identity."""
-        return globals_, [False] * len(globals_)
+        """Divergence rollback: any group whose fused globals hold a
+        non-finite value is restored to its last-good params.  Gated on
+        faults being enabled, so fault-free runs never pay the device
+        reduction and its host read; returns ``(globals, rolled_back per
+        group)``."""
+        rolled = [False] * len(globals_)
+        if not self.cfg.faults.enabled:
+            return globals_, rolled
+        out = []
+        for p, (gp, lg) in enumerate(zip(globals_, last_good)):
+            if bool(tree_isfinite(gp)):
+                out.append(gp)
+            else:
+                out.append(lg)
+                rolled[p] = True
+        return out, rolled
 
     def build_round_batches(self, t: int, active: np.ndarray
                             ) -> List[Optional[RoundBatches]]:
@@ -480,7 +621,8 @@ class RoundEngine:
                            heterogeneous=self.heterogeneous,
                            source=self.source, val_x=self.val_x,
                            val_y=self.val_y, test_x=self.test_x,
-                           test_y=self.test_y, swag_draws=self.swag_draws)
+                           test_y=self.test_y, swag_draws=self.swag_draws,
+                           filter_probe=self.filter_probe)
         globals_, state, infos = self.strategy.aggregate(groups, state, ctx)
         infos = [{**info, "n_dropped": d} for info, d in zip(infos, dropped)]
         if ens_acc is not None:
@@ -507,6 +649,7 @@ class RoundEngine:
                 bank=infos[p].get("bank", ""),
                 bank_dtype=infos[p].get("bank_dtype", ""),
                 bank_nbytes=infos[p].get("bank_nbytes", 0),
+                n_teachers_filtered=infos[p].get("teachers_filtered", 0),
                 rolled_back=bool(infos[p].get("diverged", False))))
         return out
 

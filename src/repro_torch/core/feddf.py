@@ -356,6 +356,46 @@ def distill(
     return best_params, info
 
 
+def filter_teacher_stack(net: Net, stack, probe_x,
+                         sigma: float = 6.0) -> Tuple[np.ndarray, int]:
+    """Teacher-consensus filter (docs/robustness.md): which teachers of a
+    stacked [K, ...] ensemble may vote?
+
+    Each teacher's logits on one probe batch are compared against the
+    element-wise median over finite teachers; a teacher is dropped when
+    its logits are non-finite anywhere, or when its mean absolute
+    deviation from the median robust-z-scores beyond ``sigma`` among its
+    peers.  Runs before the logit-bank rows are built, so a poisoned
+    teacher never reaches the distillation targets.  The probe forward
+    runs batched over the stack on the stack's device; the median, MAD
+    and robust z run in float64 on the host, as in the JAX package.
+
+    Returns ``(kept_indices, n_dropped)``; ``kept_indices`` may be empty
+    when every teacher is non-finite (callers then skip fusion).
+    """
+    with torch.no_grad():
+        logits = net.apply(stack, probe_x, train=False)        # [K, B, C]
+    logits = logits.float().cpu().numpy().astype(np.float64)
+    k = logits.shape[0]
+    finite = np.isfinite(logits).all(axis=(1, 2))
+    if not finite.any():
+        return np.empty(0, np.int64), k
+    med = np.median(logits[finite], axis=0)           # [B, C]
+    dist = np.full(k, np.inf)
+    dist[finite] = np.mean(np.abs(logits[finite] - med), axis=(1, 2))
+    fd = dist[finite]
+    center = float(np.median(fd))
+    mad = float(np.median(np.abs(fd - center)))
+    # the upload screen's robust-z floor: a collapsed MAD must not flag
+    # honest teachers over sub-percent logit jitter
+    denom = 1.4826 * mad + 0.05 * abs(center) + 1e-12
+    ok = finite & (np.abs(dist - center) / denom <= sigma)
+    if not ok.any():  # degenerate: keep the single most central teacher
+        ok[int(np.argmin(dist))] = True
+    kept = np.flatnonzero(ok)
+    return kept.astype(np.int64), int(k - kept.size)
+
+
 def feddf_fuse_stacked(
     net: Net,
     teacher_stack,

@@ -8,15 +8,52 @@ engine.RoundEngine`; the engine owns the math.  ``sync`` and
 synchronised at each phase end so that queued work is charged to the
 phase that issued it.  Every driver keeps one log list per prototype
 group.
+
+Resume (``api/experiment.Experiment.resume``): ``run`` takes the
+checkpointed ``init_globals`` / ``init_state`` / ``init_logs`` and
+``start_round = <last completed round> + 1``; the sync driver replays the
+completed rounds' cohort draws, the buffered one restores its population
+snapshot and the cohort rng's exact state (``wrap_state``).
+``round_end_hook(t, globals_, state, logs, rounds_to_target)`` fires
+after every completed round, in round order: the checkpoint seam.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.engine import FLResult, RoundEngine, RoundLog
+
+# the strategy state's default: ``engine.init_state`` (None is a state)
+_UNSET = object()
+
+# marker key of a wrapped checkpoint state; a plain dict, so
+# checkpoint/io.save_obj round-trips it without special cases
+_STATE_KEY = "__async_pipeline__"
+
+
+def wrap_state(strategy_state, prev_globals, *, population):
+    """The buffered-async driver's checkpoint state, in the JAX
+    package's format: the strategy state, the globals, and
+    ``population``: the manager snapshot (registry, pending uploads,
+    screen) and the cohort rng's bit-generator state."""
+    return {_STATE_KEY: True, "strategy_state": strategy_state,
+            "prev_globals": prev_globals, "population": population}
+
+
+def _to_device(obj, device):
+    """Arrays of a checkpointed state (numpy, or CPU tensors) -> tensors
+    on ``device``, through dicts, lists and tuples."""
+    if isinstance(obj, (np.ndarray, np.generic, torch.Tensor)):
+        return torch.as_tensor(obj).to(device)
+    if isinstance(obj, dict):
+        return {k: _to_device(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_device(v, device) for v in obj)
+    return obj
 
 _PENDING = {"async_pipelined": "ROADMAP.md queue 1 item 10",
             "distributed": "ROADMAP.md queue 1 item 10",
@@ -38,17 +75,52 @@ class Driver:
         self.prefetch = prefetch
         self.phase_seconds: List[Dict[str, float]] = []
 
-    def run(self, engine: RoundEngine, *,
-            init_globals: Optional[List[dict]] = None
+    def run(self, engine: RoundEngine, *, log_fn: Optional[Callable] = None,
+            init_globals: Optional[List[dict]] = None, init_state=_UNSET,
+            start_round: int = 1,
+            init_logs: Optional[List[List[RoundLog]]] = None,
+            round_end_hook: Optional[Callable] = None
             ) -> Tuple[List[FLResult], List[dict], Optional[int]]:
         raise NotImplementedError
 
-    def _setup(self, engine: RoundEngine, init_globals):
+    def _setup(self, engine: RoundEngine, init_globals, init_state=_UNSET,
+               init_logs=None, start_round: int = 1):
+        """Initial globals / state / logs, and the cohort rng with the
+        completed rounds' draws replayed (identical resume trajectories).
+        A checkpointed state's arrays move onto the engine's device; a
+        buffered-async snapshot is kept for the driver to restore."""
         globals_ = (list(init_globals) if init_globals is not None
                     else engine.init_globals())
-        state = engine.init_state(globals_)
-        logs: List[List[RoundLog]] = [[] for _ in range(engine.n_proto)]
-        return globals_, state, logs, engine.make_rng()
+        state = (engine.init_state(globals_) if init_state is _UNSET
+                 else init_state)
+        self._resume_population = None
+        if isinstance(state, dict) and state.get(_STATE_KEY):
+            self._resume_population = state.get("population")
+            state = state["strategy_state"]
+        if init_state is not _UNSET:
+            state = _to_device(state, engine.device)
+        logs: List[List[RoundLog]] = (
+            [list(l) for l in init_logs] if init_logs is not None
+            else [[] for _ in range(engine.n_proto)])
+        rng = engine.make_rng()
+        for _ in range(start_round - 1):
+            engine.sample_cohort(rng)
+        return globals_, state, logs, rng
+
+    @staticmethod
+    def _emit_round(engine: RoundEngine, round_logs: List[RoundLog],
+                    logs: List[List[RoundLog]], log_fn) -> Tuple[bool, bool]:
+        """Append the round's logs and notify ``log_fn`` per group
+        (``(group, RoundLog)`` in a heterogeneous run).  Returns
+        ``(target_reached, stop_requested)``: a log_fn returning the
+        literal ``True`` requests a stop after this round."""
+        stop_requested = False
+        for p, log in enumerate(round_logs):
+            logs[p].append(log)
+            if log_fn is not None:
+                ret = log_fn((p, log) if engine.heterogeneous else log)
+                stop_requested = stop_requested or ret is True
+        return engine.target_reached(round_logs), stop_requested
 
     @staticmethod
     def _timed(engine: RoundEngine, phases: Dict[str, float], name: str,

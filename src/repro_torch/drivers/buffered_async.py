@@ -38,8 +38,25 @@ Staleness knob (bounded <= 1; upload-level staleness is governed by
 
 ``phase_seconds`` records per round: ``fill`` (wave dispatch and client
 training), ``join_fusion`` (the wait for the fusion) and
-``evaluate_round``.  Quorum semantics, checkpoints and resume wait for
-fault injection and checkpointing (ROADMAP.md queue 1 items 10 and 8).
+``evaluate_round``.
+
+Quorum semantics (docs/robustness.md): with ``FaultSpec.quorum`` set, a
+round whose wave dispatch cannot buffer ``M`` usable uploads (screening
+quarantined too many, or the population ran out of dispatchable clients)
+fuses PARTIALLY when at least ``ceil(quorum * M)`` usable uploads are
+buffered, and otherwise SKIPS fusion for the round: the globals carry
+over, the round is still evaluated, logged (``RoundLog.fused=False``) and
+checkpointed.  ``quorum=None`` keeps the strict behaviour: a fill
+shortfall raises.
+
+Checkpoint/resume: the ``round_end_hook`` state is wrapped
+(``drivers.base.wrap_state``) with the full population snapshot: the
+registry arrays, virtual clock, fault counters, the screen's window,
+pending uploads (trained params included) and the cohort rng's
+bit-generator state.  Waves per round depend on traffic, so the rng
+cannot be replayed by round count as the sync driver does; restoring its
+exact state makes a resumed run's wave schedule, and so its trajectory,
+the uninterrupted run's.
 """
 from __future__ import annotations
 
@@ -52,7 +69,8 @@ import torch
 from repro_torch.common.pytree import tree_cat
 from repro_torch.core.engine import RoundEngine
 from repro_torch.core.strategies import GroupRound
-from repro_torch.drivers.base import Driver, register_driver
+from repro_torch.drivers.base import (_UNSET, Driver, _to_device,
+                                      register_driver, wrap_state)
 
 
 @register_driver("buffered_async")
@@ -65,13 +83,27 @@ class BufferedAsyncDriver(Driver):
                 f"governed by PopulationSpec.max_staleness instead")
         super().__init__(staleness=staleness, prefetch=prefetch)
 
-    def run(self, engine: RoundEngine, *, init_globals=None):
-        globals_, state, logs, rng = self._setup(engine, init_globals)
+    def run(self, engine: RoundEngine, *, log_fn=None, init_globals=None,
+            init_state=_UNSET, start_round=1, init_logs=None,
+            round_end_hook=None):
+        globals_, state, logs, rng = self._setup(
+            engine, init_globals, init_state, init_logs, start_round)
         pop = engine.population()
+        if self._resume_population is not None:
+            manager = dict(self._resume_population["manager"])
+            manager["pending"] = [
+                {**up, "params": _to_device(up["params"], engine.device)}
+                for up in manager["pending"]]
+            pop.load_state(manager)
+            # waves per round vary with traffic, so the cohort rng is
+            # restored by exact state, not replayed by round count
+            rng.bit_generator.state = _plain(
+                self._resume_population["rng"])
         m = pop.buffer_size
         a = float(engine.cfg.population.staleness_exponent)
+        quorum = engine.cfg.faults.quorum
         rounds_to_target = None
-        fused = 0                    # completed fusions (= base version)
+        fused = start_round - 1      # completed fusions (= base version)
         grad_mode = torch.is_grad_enabled()
 
         agg_ex = ThreadPoolExecutor(max_workers=1)
@@ -85,58 +117,112 @@ class BufferedAsyncDriver(Driver):
             with torch.set_grad_enabled(grad_mode):
                 return (groups,) + engine.aggregate(t, groups, st)
 
-        def fill(t: int) -> None:
-            """Dispatch waves until M usable uploads are buffered."""
+        def fill(t: int) -> bool:
+            """Dispatch waves until M usable uploads are buffered.  Returns
+            False on a shortfall when a quorum is configured (the caller
+            then fuses partially or skips the round); without a quorum a
+            shortfall raises."""
             max_waves = 64 + 16 * (-(-m // max(1, pop.n_active)))
             waves = 0
             while pop.usable_pending(t) < m:
                 if waves >= max_waves:
+                    if quorum is not None:
+                        return False
                     raise RuntimeError(
                         f"round {t}: {waves} waves did not buffer "
                         f"{m} usable uploads; lower traffic.dropout / "
                         f"buffer_size or raise max_staleness")
                 waves += 1
-                w, cohort = pop.next_wave(rng)
+                try:
+                    w, cohort = pop.next_wave(rng)
+                except RuntimeError:
+                    if quorum is not None:  # population exhausted
+                        return False
+                    raise
                 parts = pop.registry.partition[np.asarray(cohort)]
                 batches = engine.build_round_batches(w, parts)
                 groups = engine.train_clients(w, globals_, batches)
                 pop.push_wave(w, cohort, groups, base_version=fused)
+            return True
+
+        def close_round(t, round_logs):
+            """Log round t, then checkpoint it with the population
+            snapshot; True when the run stops after it."""
+            nonlocal rounds_to_target
+            self.phase_seconds.append(phases[t])
+            reached, stop = self._emit_round(engine, round_logs, logs,
+                                             log_fn)
+            if reached:
+                rounds_to_target = t
+            if round_end_hook is not None:
+                round_end_hook(t, globals_, wrap_state(
+                    state, globals_,
+                    population={"manager": pop.state_dict(),
+                                "rng": rng.bit_generator.state}),
+                    logs, rounds_to_target)
+            return rounds_to_target is not None or stop
 
         def finish():
-            nonlocal globals_, state, fused, rounds_to_target
-            ph = phases[agg_round]
+            """Join the pending fusion, guard, evaluate, close the round."""
+            nonlocal globals_, state, fused
+            t, ph = agg_round, phases[agg_round]
             groups, globals_, state, infos = self._timed(
                 engine, ph, "join_fusion", agg_fut.result)
-            globals_, _ = engine.guard_globals(
+            globals_, rolled = engine.guard_globals(
                 globals_, [g.prev_global for g in groups])
             round_logs = self._timed(engine, ph, "evaluate_round",
-                                     engine.evaluate_round, agg_round,
-                                     globals_, groups, infos)
+                                     engine.evaluate_round, t, globals_,
+                                     groups, infos)
             self._stamp(round_logs, agg_tele)
             for p, log in enumerate(round_logs):
-                logs[p].append(log)
-            self.phase_seconds.append(ph)
-            fused = agg_round
-            if engine.target_reached(round_logs):
-                rounds_to_target = agg_round
-            return rounds_to_target is not None
+                log.rolled_back = bool(log.rolled_back or rolled[p])
+            fused = t
+            return close_round(t, round_logs)
+
+        def skip_round(t):
+            """Quorum shortfall: evaluate the carried globals without
+            fusing, stamp ``fused=False`` and the fault telemetry, close
+            the round (checkpointed as usual)."""
+            groups = [GroupRound(engine.nets[p], globals_[p], None,
+                                 np.zeros(0))
+                      for p in range(engine.n_proto)]
+            round_logs = self._timed(
+                engine, phases[t], "evaluate_round", engine.evaluate_round,
+                t, globals_, groups, [{} for _ in range(engine.n_proto)])
+            fc = pop.fault_counters(reset=True)
+            for log in round_logs:
+                log.fused = False
+                log.n_corrupted = fc["n_corrupted"]
+                log.n_quarantined = fc["n_quarantined"]
+                log.n_retries = fc["n_retries"]
+            return close_round(t, round_logs)
 
         try:
             stopped = False
-            for t in range(1, engine.cfg.rounds + 1):
+            for t in range(start_round, engine.cfg.rounds + 1):
                 phases[t] = {}
                 if self.staleness == 0 and agg_fut is not None:
                     stopped = finish()  # sync-gated: fuse before new waves
                     agg_fut = None
                     if stopped:
                         break
-                self._timed(engine, phases[t], "fill", fill, t)
+                filled = self._timed(engine, phases[t], "fill", fill, t)
                 if agg_fut is not None:  # staleness=1: overlap fill/fuse
                     stopped = finish()
                     agg_fut = None
                     if stopped:
                         break
-                uploads, tele = pop.pop(t, m)
+                m_t = m
+                if not filled:  # quorum semantics: partial fuse or skip
+                    need = max(1, int(np.ceil(quorum * m - 1e-9)))
+                    usable = pop.usable_pending(t)
+                    if usable < need:
+                        stopped = skip_round(t)
+                        if stopped:
+                            break
+                        continue
+                    m_t = usable
+                uploads, tele = pop.pop(t, m_t)
                 groups = self._build_groups(engine, globals_,
                                             pop.regroup(uploads), a)
                 agg_fut = agg_ex.submit(aggregate_task, t, groups, state)
@@ -169,7 +255,7 @@ class BufferedAsyncDriver(Driver):
 
     @staticmethod
     def _stamp(round_logs, tele) -> None:
-        """Population telemetry onto the round's logs."""
+        """Population and fault telemetry onto the round's logs."""
         for log in round_logs:
             log.staleness_hist = list(tele["staleness_hist"])
             log.buffer_fill = int(tele["buffer_fill"])
@@ -177,3 +263,18 @@ class BufferedAsyncDriver(Driver):
             log.n_dropped_uploads = int(tele["n_dropped_uploads"])
             log.n_stale_dropped = int(tele["n_stale_dropped"])
             log.eff_participants = float(tele["eff_participants"])
+            log.n_corrupted = int(tele.get("n_corrupted", 0))
+            log.n_quarantined = int(tele.get("n_quarantined", 0))
+            log.n_retries = int(tele.get("n_retries", 0))
+
+
+def _plain(rng_state):
+    """Bit-generator state with checkpoint-roundtripped numpy scalars
+    coerced back to builtin ints (numpy requires exact types here)."""
+    if isinstance(rng_state, dict):
+        return {k: _plain(v) for k, v in rng_state.items()}
+    if isinstance(rng_state, np.ndarray):
+        return rng_state
+    if isinstance(rng_state, np.integer):
+        return int(rng_state)
+    return rng_state

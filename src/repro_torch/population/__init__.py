@@ -8,6 +8,6 @@ host-side numpy code copied from the JAX package.
 - :mod:`repro_torch.population.manager`   — upload buffer + virtual clock
   backing the ``buffered_async`` driver
 
-Fault injection (``population/faults.py``) waits for ROADMAP.md queue 1
-item 10.
+- :mod:`repro_torch.population.faults`    — counter-based fault
+  injection and the upload norm screen (docs/robustness.md)
 """

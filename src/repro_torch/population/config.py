@@ -54,9 +54,8 @@ class FaultConfig:
     """Fault injection + defense knobs (mirrors spec-layer ``FaultSpec``).
 
     Injection rates are per-upload probabilities drawn counter-based by
-    the JAX package's fault model, which is not ported yet: an enabled
-    ``FaultConfig`` raises in the round engine (ROADMAP.md queue 1 item
-    10).  Byzantine clients are a persistent (static-domain) subset like traffic stragglers.  Defenses
+    ``population/faults.FaultModel``.  Byzantine clients are a persistent
+    (static-domain) subset like traffic stragglers.  Defenses
     default to ``"auto"``: active iff any injection rate is positive, so
     fault-free configs stay bit-identical to historic trajectories.
     """

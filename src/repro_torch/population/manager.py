@@ -10,13 +10,17 @@ The buffer is a min-heap ordered by ``(ready, seq)``: FedBuff-style
 aggregation pops the M earliest-ready uploads; anything staler than
 ``max_staleness`` rounds at pop time is dropped (with telemetry) rather
 than fused.  ``state_dict`` / ``load_state`` capture the whole manager
-state (registry arrays, clock, wave / sequence counters and the pending
-heap, client params included); checkpointing and resume wait for
-ROADMAP.md queue 1 item 8.
+state (registry arrays, clock, wave / sequence counters, the fault
+counters, the ``NormScreen``'s rolling window and the pending heap,
+client params included); it rides in the buffered-async driver's round
+checkpoint (``api/experiment.py``), so a resumed run replays the exact
+same schedule.  Pending params come back from a checkpoint as numpy
+arrays; the driver moves them onto its device.
 
 A copy of the JAX package's manager with its pytree operations on the
-port's trees.  Fault injection and upload screening wait for ROADMAP.md
-queue 1 item 10: an enabled ``FaultConfig`` raises.
+port's trees.  With an enabled ``FaultConfig`` every upload crosses to
+host numpy (in the JAX package's leaf order) for injection and
+screening, and only an upload a fault touched is rebuilt on the device.
 """
 from __future__ import annotations
 
@@ -26,7 +30,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.common.pytree import tree_check_like, tree_map, tree_take
+import torch
+
+from repro_torch.common.pytree import (tree_check_like, tree_leaves_jax,
+                                       tree_map, tree_take,
+                                       tree_unflatten_jax)
 from repro_torch.population.config import FaultConfig, PopulationConfig
 from repro_torch.population.registry import ClientRegistry
 from repro_torch.population.scheduler import CohortSampler
@@ -106,9 +114,17 @@ class PopulationManager:
         # telemetry accumulated between pops
         self._dropped_since = 0
         self._stale_since = 0
-        if faults is not None and faults.enabled:
-            raise NotImplementedError("fault injection is not ported yet "
-                                      "(ROADMAP.md queue 1 item 10)")
+        # fault injection + screening (docs/robustness.md); both stay None
+        # for fault-free configs so push_wave is the fault-free path
+        self.faults = faults if faults is not None and faults.enabled \
+            else None
+        self.fault_model = None
+        self.screen = None
+        if self.faults is not None:
+            from repro_torch.population.faults import FaultModel, NormScreen
+            self.fault_model = FaultModel(self.faults, seed, self.size)
+            if self.faults.screen_active:
+                self.screen = NormScreen(sigma=self.faults.norm_sigma)
         self._corrupted_since = 0
         self._quarantined_since = 0
         self._retries_since = 0
@@ -157,6 +173,48 @@ class PopulationManager:
             self._upload_spec[p] = ref
         tree_check_like(params, ref, what=f"proto {p} upload")
 
+    def _inject_and_screen(self, wave: int, c: int, p: int, g, params):
+        """Fault seam for one upload: corrupt, screen, retry.
+
+        Returns ``(params, attempt, backoff_delay)`` for an accepted
+        upload, or ``None`` when every attempt was rejected (the client is
+        quarantined).  Counter-based draws keyed on (wave, client,
+        attempt) mean a resumed trace corrupts identically and a retry
+        redraws only the transport faults; byzantine clients fail every
+        attempt and sink in the sampler.
+        """
+        from repro_torch.population.faults import delta_norm, leaves_finite
+        flat = tree_leaves_jax(params)
+        clean = [l[0].detach().cpu().numpy() for l in flat]
+        base = [l.detach().cpu().numpy()
+                for l in tree_leaves_jax(g.prev_global)]
+        faults = self.faults
+        for attempt in range(faults.retries + 1):
+            if attempt > 0:
+                self._retries_since += 1
+            row, kinds = self.fault_model.corrupt(wave, c, clean, base,
+                                                  attempt=attempt)
+            if attempt == 0 and kinds:
+                self._corrupted_since += 1
+            if self.screen is not None:
+                if not leaves_finite(row):
+                    continue
+                ok, _ = self.screen.check(p, delta_norm(row, base))
+                if not ok:
+                    continue
+            if kinds:
+                params = tree_unflatten_jax(params, [
+                    torch.from_numpy(np.ascontiguousarray(r[None])).to(
+                        l.device) for r, l in zip(row, flat)])
+            # exponential backoff: attempt k re-arrives backoff^k virtual
+            # seconds later than the clean upload would have
+            delay = (faults.backoff ** attempt) - 1.0 if attempt else 0.0
+            return params, attempt, delay
+        self.registry.record_quarantine([c])
+        self.sampler.penalize([c], float(self.registry.priority[c]))
+        self._quarantined_since += 1
+        return None
+
     def push_wave(self, wave: int, cohort: np.ndarray, groups,
                   base_version: int) -> int:
         """Split trained group stacks into per-client buffered uploads.
@@ -164,7 +222,10 @@ class PopulationManager:
         ``groups[p].stack`` rows are in cohort order filtered by
         prototype (the engine's ``ks`` order), so a per-proto cursor
         recovers each client's row.  Each upload is structure-validated
-        against its prototype.  Returns the number of uploads buffered.
+        against its prototype, then (when faults are configured) run
+        through the inject/screen/retry seam: rejected uploads quarantine
+        their client instead of entering the buffer.  Returns the number
+        of uploads buffered.
         """
         latency, dropped = self.traffic.upload_draws(wave, cohort)
         cursor = [0] * len(groups)
@@ -182,6 +243,11 @@ class PopulationManager:
             params = tree_take(g.stack, np.asarray([row]))
             self._check_upload(p, g, params)
             attempt, delay = 0, 0.0
+            if self.fault_model is not None:
+                res = self._inject_and_screen(wave, c, p, g, params)
+                if res is None:
+                    continue
+                params, attempt, delay = res
             self.seq += 1
             up = Upload(client=c, part=int(self.registry.partition[c]),
                         proto=p, wave=wave, base_version=int(base_version),
@@ -249,8 +315,8 @@ class PopulationManager:
         return out, tele
 
     def fault_counters(self, reset: bool = False) -> Dict[str, int]:
-        """Fault telemetry accumulated since the last reset (all zero
-        until fault injection is ported)."""
+        """Fault telemetry accumulated since the last reset (fed into
+        ``RoundLog`` by the buffered-async driver)."""
         d = {"n_corrupted": self._corrupted_since,
              "n_quarantined": self._quarantined_since,
              "n_retries": self._retries_since}
@@ -289,6 +355,8 @@ class PopulationManager:
                         for _, _, up in sorted(self._heap,
                                                key=lambda e: e[:2])],
         }
+        if self.screen is not None:
+            d["screen"] = self.screen.state_dict()
         return d
 
     def load_state(self, d: Dict[str, Any]) -> None:
@@ -298,10 +366,12 @@ class PopulationManager:
         self.seq = int(d["seq"])
         self._dropped_since = int(d["dropped_since"])
         self._stale_since = int(d["stale_since"])
-        # fault counters: absent from older snapshots
+        # fault counters / screen state: absent from older snapshots
         self._corrupted_since = int(d.get("corrupted_since", 0))
         self._quarantined_since = int(d.get("quarantined_since", 0))
         self._retries_since = int(d.get("retries_since", 0))
+        if self.screen is not None and "screen" in d:
+            self.screen.load_state(d["screen"])
         self._heap = []
         for entry in d["pending"]:
             up = Upload.from_dict(entry)

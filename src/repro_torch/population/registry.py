@@ -9,7 +9,8 @@ devices can share one data shard, which is how a fixed benchmark dataset
 serves an arbitrarily large simulated population.
 
 The registry is mutable run state; ``state_dict`` is a flat dict of
-arrays (checkpointing it waits for ROADMAP.md queue 1 item 8).
+arrays, checkpointed with the buffered-async driver's population
+snapshot (``api/experiment.py``).
 """
 from __future__ import annotations
 

@@ -141,7 +141,8 @@ def test_buffered_spec_validation():
              ValueError),
             ({"population": {"max_staleness": 0}}, ValueError),
             ({"population": {"traffic": {"dropout": 1.0}}}, ValueError),
-            ({"faults": {"nan_rate": 0.1}}, NotImplementedError)):
+            ({"faults": {"quorum": 0.5, "byzantine_mode": "nope"}},
+             ValueError)):
         d = ok.to_dict()
         for key, sub in change.items():
             d[key] = {**d[key], **sub}

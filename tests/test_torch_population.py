@@ -167,10 +167,10 @@ def test_manager_rejects_bad_uploads_and_faults():
     w, c = b.next_wave(np.random.default_rng(1))
     with pytest.raises(ValueError, match="shape"):
         b.push_wave(w, c, [bad], 0)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="nan_rate"):
         tman.PopulationManager(
             tcfg.PopulationConfig(), seed=0, n_partitions=2,
             partition_sizes=[1, 1], client_steps=[1, 1],
             client_proto=[0, 0], client_bucket=[0, 0], n_active=1,
             sampler=tsch.make_sampler("uniform"),
-            faults=tcfg.FaultConfig(nan_rate=0.1))
+            faults=tcfg.FaultConfig(nan_rate=1.5))
