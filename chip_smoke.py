@@ -39,7 +39,7 @@ and in order:
    bfloat16, after checking that its library holds tensor-core (HMMA)
    instructions and that its float32 N = P = 64 instantiation (the serve
    path's) spills no registers;
-4. drives nine paths on the card, with every launch count set to 0 just
+4. drives ten paths on the card, with every launch count set to 0 just
    before a path and read just after it.  Paths 1-3 go through
    ``Experiment(spec).run()`` at the quickstart's published widths, 3
    rounds each:
@@ -116,14 +116,31 @@ and in order:
      by an observer at round 3 and resumed from its round-2 snapshot on
      the card, against an uninterrupted run (cohorts, steps, accuracy
      equal, globals within 1e-6, bit equality printed);
+   - path 10, the runtime around the round engine on the quickstart
+     spec: 10a ``async_pipelined`` at staleness 0 against ``sync`` bit
+     for bit (K1); 10b staleness 1 on the bank (K1) and 2 on the
+     generator source (K2), 3 rounds each, against the CPU over rounds
+     1-2, with each round's overlap share (1 - join_fusion / wall) from
+     the flight recorder's spans, and 10b(i) rerun with the profiler
+     over round 2's fusion beside round 3's training: K1 on a stream of
+     its own, the device time K1 overlaps the training and the busy
+     share, the two card runs bit for bit; 10c the ``distributed``
+     driver over 2 loopback pods and 10d over 2 tcp subprocess pods on
+     the card (their start-up seconds printed), fp32 uploads, 2 rounds,
+     bit for bit against 10a's sync run; 10e int8 uploads under the
+     chaos mix (5% corrupted frames, quorum 0.5, pod 1 killed in round
+     1), every wire decision card against CPU over rounds 1-2; 10f a
+     fusion-pod restart replaying 10c's wire log, bit for bit; 10g 10a's
+     run with the flight recorder armed, bit for bit, every engine phase
+     spanned in every round;
    and, in step 3, K1 (every bank dtype) and K2 / K3 in each launch mode
    on rows holding a NaN, a +Inf and a -Inf teacher logit: non-finite
    exactly where the plain versions are, within tolerance elsewhere, two
    launches equal bit for bit;
 5. prints one ``{"kernels": [...]}`` line (each kernel's launches on its
-   path and, under ``path7_launches``, ``path8_launches`` and
-   ``path9_launches``, on each of paths 7's, 8's and 9's sub-paths), the
-   card line, and as its last line ``{"ok": true, "device": {...}}``.
+   path and, under ``path7_launches`` to ``path10_launches``, on each of
+   paths 7's to 10's sub-paths), the card line, and as its last line
+   ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the last line, when there is no CUDA device,
 when it does not find the port next to it, or when any phase fails.
@@ -134,6 +151,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -355,6 +373,35 @@ NONFINITE_ROWS = {1: float("nan"), 3: float("inf"), 5: float("-inf")}
 NONFINITE_B, NONFINITE_K = 7, 3
 NONFINITE_V = {"lanes": 3, "block": 300, "cluster": 5003}
 
+# Path 10: the runtime around the round engine on the quickstart spec at its
+# published widths, only the rounds cut.  10a the pipelined driver at
+# staleness 0, 3 rounds, against a sync run bit for bit (a miss is a
+# cross-stream race); 10b staleness 1 on the bank (K1) and staleness 2 on
+# the generator source (K2), 3 rounds each (cut from 4 to hold path 10
+# near its time), held against the CPU over rounds 1-2 at path 3's bounds
+# (1e-3 after round 1, 1e-2 after round 2: Adam amplifies float32
+# rounding from round to round, to 1.5e-2 - 5e-2 after round 4 with equal
+# accuracy and steps), and (i)'s round 2 under the profiler; 10c the
+# distributed driver over loopback pods, fp32 uploads, bit for bit against
+# 10a's sync run; 10d the same over tcp with 2 subprocess pods on the card;
+# 10e loopback with int8 uploads and docs/distributed.md's chaos mix (5%
+# corrupted frames, quorum 0.5, pod 1 killed in round 1), 3 rounds, its
+# wire decisions and steps equal card vs CPU over rounds 1-2 (the
+# corruption draws are keyed by (wave, pod, attempt)), its globals at path
+# 3's bounds; 10f 10c's run interrupted after round 2's uploads and resumed
+# from its wire log, bit for bit; 10g 10a's run with the flight recorder
+# armed, bit for bit.  10c, 10d and 10f run 2 rounds (10c cut from 3).
+PIPE_ROUNDS = 3
+STALE_ROUNDS = 3
+DIST_ROUNDS = 2
+CPU_ROUNDS = 2
+# 10e: heartbeats every 1 s, so the killed pod's clients re-route once it
+# has been silent for 3 s, and the upload deadline of the spec's default
+# (30 s), far above a pod's two requests in a row on a loaded CPU (each
+# 2.5-5 s), so that no deadline fires and the retries do not depend on
+# time.
+CHAOS_WIRE = dict(transport_corrupt=0.05, quorum=0.5)
+CHAOS_HEARTBEAT_S, CHAOS_DEADLINE_S = 1.0, 30.0
 
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
@@ -1251,6 +1298,14 @@ LOG_KEYS = ("test_acc", "val_acc", "ensemble_acc", "pre_distill_acc",
             "n_teachers_filtered", "fused", "rolled_back")
 
 
+def round_rows(logs, phase_seconds) -> list:
+    """Per round: its phase seconds and every group's log fields."""
+    return [{"round": t + 1, "phase_s": ph,
+             "groups": [{k: getattr(g[t], k) for k in LOG_KEYS}
+                        for g in logs]}
+            for t, ph in enumerate(phase_seconds)]
+
+
 def run_path(spec):
     """One path's rounds on the card with every launch count set to 0 just
     before and read just after."""
@@ -1262,10 +1317,7 @@ def run_path(spec):
     wall = time.perf_counter() - t0
     launches = all_launches()
     logs = group_logs(res)
-    rounds = [{"round": t + 1, "phase_s": ph,
-               "groups": [{k: getattr(g[t], k) for k in LOG_KEYS}
-                          for g in logs]}
-              for t, ph in enumerate(res.phase_seconds)]
+    rounds = round_rows(logs, res.phase_seconds)
     problems = []
     for g, (glogs, params) in enumerate(zip(logs, res.global_params)):
         if len(glogs) != spec.rounds:
@@ -2544,7 +2596,6 @@ def resume_path():
     that raises at round 3, resumed on the card from the round-2 snapshot,
     against an uninterrupted run: cohorts, distill steps and accuracy
     equal, globals within RESUME_PARAM_ATOL (and whether bit for bit)."""
-    import os
     import tempfile
     import torch
     from repro_torch.api import Experiment
@@ -2602,6 +2653,607 @@ def resume_path():
             "cpu_check": check}, problems
 
 
+# ---------------------------------------------------------------------------
+# path 10: the pipelined and distributed drivers and the flight recorder
+# ---------------------------------------------------------------------------
+
+WIRE_KEYS = ("wire_bytes_up", "wire_bytes_down", "n_wire_retries",
+             "n_crc_failures", "n_deadline_misses", "n_wire_lost",
+             "n_pods_alive")
+
+
+def pipelined_spec(spec, staleness: int):
+    from repro_torch.api import DriverSpec
+    return dataclasses.replace(spec, driver=DriverSpec(
+        kind="async_pipelined", staleness=staleness))
+
+
+def dist_spec(spec, **dist):
+    from repro_torch.api import DistSpec, DriverSpec
+    return dataclasses.replace(spec, driver=DriverSpec(kind="distributed"),
+                               dist=DistSpec(**dist))
+
+
+def driver_run(spec, device="cuda", configure=None) -> dict:
+    """What ``Experiment(spec).run()`` does (``build_engine`` and the
+    spec's driver), called directly so that the path keeps each round's
+    globals (cloned in the round-end hook) and the driver itself;
+    ``configure(engine)`` sets engine-level knobs the spec does not carry
+    (the chaos hook)."""
+    from repro_torch.api import build_engine
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.drivers import make_driver
+    t0 = time.perf_counter()
+    engine = build_engine(spec, device)
+    if configure is not None:
+        configure(engine)
+    drv = make_driver(spec.driver.kind, staleness=spec.driver.staleness,
+                      prefetch=spec.driver.prefetch)
+    per_round = []
+
+    def hook(t, globals_, state, logs, rounds_to_target):
+        per_round.append([tree_map(lambda x: x.detach().clone(), g)
+                          for g in globals_])
+    results, globals_, _ = drv.run(engine, round_end_hook=hook)
+    return {"logs": [r.logs for r in results], "globals": globals_,
+            "per_round": per_round, "driver": drv,
+            "wall_s": time.perf_counter() - t0}
+
+
+def logs_no_wire(logs):
+    """Round logs as dicts without the wire telemetry, which only the
+    distributed driver sets."""
+    return [{k: v for k, v in dataclasses.asdict(l).items()
+             if k not in WIRE_KEYS} for l in logs]
+
+
+def trees_bit_equal(a, b) -> bool:
+    import torch
+    from repro_torch.common.pytree import tree_flatten
+    for ga, gb in zip(a, b, strict=True):
+        fa, fb = tree_flatten(ga), tree_flatten(gb)
+        if list(fa) != list(fb) or not all(
+                torch.equal(fa[k].cpu(), fb[k].cpu()) for k in fa):
+            return False
+    return True
+
+
+def same_run(logs_a, globals_a, logs_b, globals_b) -> dict:
+    """Two runs' round logs (every group; wire telemetry aside) and final
+    globals: equal, and bit for bit."""
+    return {"logs_equal": [logs_no_wire(g) for g in logs_a]
+            == [logs_no_wire(g) for g in logs_b],
+            "globals_bit_equal": trees_bit_equal(globals_a, globals_b),
+            "max_abs_param_diff": max_abs_diff(globals_a, globals_b)}
+
+
+def against_sync(logs, globals_, sync) -> dict:
+    """A run of the first ``n`` rounds (``logs`` per group, final globals)
+    against the same rounds of 10a's sync run (``driver_run``'s result,
+    which keeps every round's globals)."""
+    n = len(logs[0])
+    ref = sync["per_round"][n - 1]
+    return {"rounds": n,
+            "logs_equal": [logs_no_wire(g) for g in logs]
+            == [logs_no_wire(g[:n]) for g in sync["logs"]],
+            "globals_bit_equal": trees_bit_equal(globals_, ref),
+            "max_abs_param_diff": max_abs_diff(globals_, ref)}
+
+
+def k_launches(kernel: str, steps: int) -> dict:
+    """``check_launches``'s want: ``kernel``'s forward and backward once per
+    distill step, every other kernel never."""
+    return {f"{kernel}_fwd": steps, f"{kernel}_bwd": steps}
+
+
+def round_walls(spans) -> list:
+    """Per round of a pipelined run, from the flight recorder's spans:
+    the round's host wall (the end of its ``evaluate_round`` minus the end
+    of the previous round's, the first from the run's first span), the
+    driver thread's ``join_fusion`` wait, and the overlap share 1 -
+    join_fusion / wall."""
+    ends = {s["round"]: s["t1"] for s in spans
+            if s["name"] == "evaluate_round"}
+    joins = {s["round"]: s["dur_s"] for s in spans
+             if s["name"] == "join_fusion"}
+    prev = min(s["t0"] for s in spans)
+    rows = []
+    for t in sorted(ends):
+        wall = ends[t] - prev
+        prev = ends[t]
+        rows.append({"round": t, "wall_s": wall,
+                     "join_fusion_s": joins.get(t, 0.0),
+                     "overlap_share": 1.0 - joins.get(t, 0.0) / wall})
+    return rows
+
+
+def _union(intervals) -> list:
+    out = []
+    for lo, hi in sorted(intervals):
+        if out and lo <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return out
+
+
+def _measure(intervals) -> float:
+    return sum(hi - lo for lo, hi in intervals)
+
+
+def _intersect(a, b) -> list:
+    out, i, j = [], 0, 0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        if lo < hi:
+            out.append([lo, hi])
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return out
+
+
+def stream_overlap(trace_path: str) -> dict:
+    """From a profiler trace (Chrome JSON) of a staleness-1 run that holds
+    one round's fusion and the next round's client training, over the
+    device window of the training (from its ``train_clients`` span's start
+    to the end of the last kernel launched inside it, matched by
+    correlation id): the streams the training kernels and the K1 kernels
+    in the window ran on, the device time in which a K1 kernel overlaps a
+    training kernel, and the card's busy share.  The fusion's own
+    ``aggregate`` span, where the profiler records the worker thread,
+    names every stream the fusion launched on."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    ann = sorted((e for e in events if e.get("cat") == "user_annotation"),
+                 key=lambda e: e["ts"])
+    trains = [e for e in ann if e["name"] == "train_clients"]
+    aggs = [e for e in ann if e["name"] == "aggregate"]
+    if not trains:
+        return {"error": "no train_clients span in the trace"}
+
+    def launched_in(a):
+        lo, hi = a["ts"], a["ts"] + a["dur"]
+        out = []
+        for k in kernels:
+            ln = launches.get(k["args"].get("correlation"))
+            if (ln is not None and ln["tid"] == a["tid"]
+                    and lo <= ln["ts"] <= hi):
+                out.append(k)
+        return out
+
+    def spans(ks):
+        return [[k["ts"], k["ts"] + k["dur"]] for k in ks]
+
+    train_k = launched_in(trains[0])
+    if not train_k:
+        return {"error": "no kernel launched inside train_clients"}
+    lo = trains[0]["ts"]
+    hi = max(b for _, b in spans(train_k))
+    inside = [k for k in kernels
+              if k["ts"] < hi and k["ts"] + k["dur"] > lo]
+    k1 = [k for k in inside if "bank_kl" in k["name"]]
+    k1_u, train_u = _union(spans(k1)), _union(spans(train_k))
+    busy = _measure(_union([[max(a, lo), min(b, hi)]
+                            for a, b in spans(inside)]))
+    out = {"window_s": (hi - lo) * 1e-6, "train_kernels": len(train_k),
+           "k1_launches_in_window": len(k1),
+           "train_streams": sorted({k["args"].get("stream")
+                                    for k in train_k}),
+           "k1_streams": sorted({k["args"].get("stream") for k in k1}),
+           "train_device_s": _measure(train_u) * 1e-6,
+           "k1_device_s": _measure(k1_u) * 1e-6,
+           "k1_overlapping_train_s": _measure(_intersect(k1_u, train_u))
+           * 1e-6,
+           "busy_share": busy / (hi - lo)}
+    if aggs:
+        fusion_k = launched_in(aggs[0])
+        out.update(fusion_kernels=len(fusion_k), fusion_streams=sorted(
+            {k["args"].get("stream") for k in fusion_k}))
+    return out
+
+
+def pipelined_sync_path():
+    """10a: the pipelined driver at staleness 0 against a sync run of the
+    same spec, bit for bit (globals, logs, steps); K1 once per distill
+    step.  Returns the sync run (10c's and 10d's reference) and the
+    pipelined one (10g's) too."""
+    spec = quickstart_spec(PIPE_ROUNDS)
+    sync = driver_run(spec)
+    res, report, problems = run_path(pipelined_spec(spec, 0))
+    eq = same_run(group_logs(res), res.global_params, sync["logs"],
+                  sync["globals"])
+    report.update(cpu_check=eq, sync_wall_s=sync["wall_s"],
+                  sync_phase_s=sync["driver"].phase_seconds)
+    if not (eq["logs_equal"] and eq["globals_bit_equal"]):
+        problems.append(f"staleness 0 against sync: {eq}")
+    problems += check_launches(
+        report["launches"],
+        k_launches("ensemble_kl_bank", report["distill_steps"]), "10a")
+    return report, problems, sync, res
+
+
+def stale_path(spec, staleness: int, kernel: str):
+    """10b: one staleness run on the card with the flight recorder armed
+    (per-round walls and overlap from its spans), held against the CPU's
+    rounds 1-2 (:func:`held_rounds`).  Returns the card run too."""
+    from repro_torch.obs import trace
+    pspec = pipelined_spec(spec, staleness)
+    reset_all_launches()
+    rec = trace.arm()
+    try:
+        gpu = driver_run(pspec)
+    finally:
+        trace.disarm()
+    launches = all_launches()
+    cpu = driver_run(dataclasses.replace(pspec, rounds=CPU_ROUNDS), "cpu")
+    logs = gpu["logs"]
+    steps = sum(l.distill_steps for l in logs[0])
+    check, problems = held_rounds(gpu, cpu)
+    problems += check_launches(launches, k_launches(kernel, steps),
+                               f"staleness {staleness}")
+    return {"wall_s": gpu["wall_s"], "cpu_wall_s": cpu["wall_s"],
+            "launches": launches, "distill_steps": steps,
+            "rounds": round_rows(logs, gpu["driver"].phase_seconds),
+            "overlap": round_walls(rec.spans), "cpu_check": check}, \
+        problems, gpu
+
+
+def held_rounds(gpu, cpu) -> tuple:
+    """A card run against the CPU's run of its first ``CPU_ROUNDS`` rounds
+    (``driver_run`` results): accuracy and the discrete facts equal in
+    each, the globals within ROUND1_PARAM_ATOL after round 1 and
+    ROUND2_PARAM_ATOL after round 2."""
+    n = CPU_ROUNDS
+    diffs = [max_abs_diff(a, b) for a, b in zip(gpu["per_round"][:n],
+                                                cpu["per_round"],
+                                                strict=True)]
+    acc = [[l.test_acc for l in r["logs"][0][:n]] for r in (gpu, cpu)]
+    d_acc = max(abs(a - b) for a, b in zip(*acc, strict=True))
+    facts = [[(l.distill_steps, l.n_participants, l.bank,
+               l.teacher_forwards, l.n_crc_failures, l.n_wire_retries,
+               l.n_wire_lost, l.fused) for l in r["logs"][0][:n]]
+             for r in (gpu, cpu)]
+    check = {"rounds": n, "max_abs_param_diff_per_round": diffs,
+             "param_tol_rounds_1_2": [ROUND1_PARAM_ATOL, ROUND2_PARAM_ATOL],
+             "test_acc_cuda": acc[0], "test_acc_cpu": acc[1],
+             "test_acc_diff": d_acc, "facts_equal": facts[0] == facts[1],
+             "facts_cuda": facts[0], "facts_cpu": facts[1]}
+    problems = []
+    if (diffs[0] > ROUND1_PARAM_ATOL or diffs[1] > ROUND2_PARAM_ATOL
+            or d_acc > ROUND1_ACC_ATOL or facts[0] != facts[1]):
+        problems.append(f"card vs CPU: {check}; (steps, clients, bank, "
+                        f"teacher forwards, crc failures, retries, lost, "
+                        f"fused) card {facts[0]} CPU {facts[1]}")
+    return check, problems
+
+
+def stale_profile_path(ref):
+    """10b(i) once more on the card, the flight recorder armed with its
+    profiler from round 1's end to round 2's (round 2's fusion beside
+    round 3's client training), then stopped: its rounds 1-2 must equal
+    ``ref``'s (10b(i)'s run) bit for bit, and K1 must run on a stream of
+    its own."""
+    import tempfile
+    from repro_torch.api import Experiment
+    from repro_torch.obs import trace
+
+    with tempfile.TemporaryDirectory() as d:
+        def window(event):
+            if event.round == 1:
+                trace.arm(profile_dir=d)
+            elif event.round == 2:
+                trace.disarm()
+                event.request_stop()
+        spec = pipelined_spec(quickstart_spec(STALE_ROUNDS), 1)
+        reset_all_launches()
+        t0 = time.perf_counter()
+        try:
+            res = Experiment(spec, device="cuda").run(observers=[window])
+        finally:
+            trace.disarm()
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+        prof = stream_overlap(os.path.join(d, "trace.json"))
+    problems = []
+    if "error" in prof:
+        problems.append(f"profile: {prof['error']}")
+    elif (not prof["k1_streams"]
+          or set(prof["k1_streams"]) & set(prof["train_streams"])
+          or set(prof.get("fusion_streams", [])) & set(
+              prof["train_streams"])):
+        problems.append(f"K1 did not run beside the training on a stream "
+                        f"of its own: {prof}")
+    eq = {"logs_equal": logs_no_wire(res.result.logs)
+          == logs_no_wire(ref["logs"][0][:2]),
+          "globals_bit_equal": trees_bit_equal(res.global_params,
+                                               ref["per_round"][1])}
+    if not all(eq.values()):
+        problems.append(f"two card runs differ over rounds 1-2: {eq}")
+    steps = sum(l.distill_steps for l in res.result.logs)
+    problems += check_launches(launches,
+                               k_launches("ensemble_kl_bank", steps),
+                               "profiled rerun")
+    return {"wall_s": wall, "rounds": round_rows(group_logs(res),
+                                                 res.phase_seconds),
+            "launches": launches, "distill_steps": steps, "cpu_check": eq,
+            "profile": prof}, problems
+
+
+def staleness_path():
+    """10b(i) staleness 1 on the bank (K1), 10b(ii) staleness 2 on the
+    generator source (K2), and (i) again with its round 2 profiled."""
+    out, problems = {}, []
+    for key, spec, staleness, kernel in (
+            ("10b_i", quickstart_spec(STALE_ROUNDS), 1, "ensemble_kl_bank"),
+            ("10b_ii", generator_spec(STALE_ROUNDS), 2, "ensemble_kl")):
+        out[key], more, run = stale_path(spec, staleness, kernel)
+        problems += [f"{key}: {p}" for p in more]
+        if key == "10b_i":
+            ref = run
+    out["10b_profile"], more = stale_profile_path(ref)
+    problems += [f"10b profile: {p}" for p in more]
+    return out, problems
+
+
+def dist_loopback_path(sync):
+    """10c: the distributed driver over 2 loopback pods, fp32 uploads, bit
+    for bit against 10a's sync run."""
+    spec = dist_spec(quickstart_spec(DIST_ROUNDS), n_pods=2)
+    res, report, problems = run_path(spec)
+    eq = against_sync(group_logs(res), res.global_params, sync)
+    report.update(cpu_check=eq, dist=res.summary()["dist"])
+    if not (eq["logs_equal"] and eq["globals_bit_equal"]):
+        problems.append(f"loopback against sync: {eq}")
+    problems += check_launches(
+        report["launches"],
+        k_launches("ensemble_kl_bank", report["distill_steps"]), "10c")
+    return report, problems, res
+
+
+def dist_tcp_path(sync):
+    """10d: 2 tcp pods, subprocesses on the card, against the first rounds
+    of 10a's sync run bit for bit; the pods' start-up seconds."""
+    spec = dist_spec(quickstart_spec(DIST_ROUNDS), transport="tcp",
+                     n_pods=2, upload_deadline_s=300.0)
+    reset_all_launches()
+    run = driver_run(spec)
+    launches = all_launches()
+    logs = run["logs"]
+    eq = against_sync(logs, run["globals"], sync)
+    steps = sum(l.distill_steps for l in logs[0])
+    problems = check_launches(launches,
+                              k_launches("ensemble_kl_bank", steps), "10d")
+    if not (eq["logs_equal"] and eq["globals_bit_equal"]):
+        problems.append(f"tcp against sync: {eq}")
+    return {"wall_s": run["wall_s"], "launches": launches,
+            "distill_steps": steps, "cpu_check": eq,
+            "pod_startup_s": run["driver"].pod_startup_s,
+            "rounds": round_rows(logs, run["driver"].phase_seconds)}, problems
+
+
+def dist_chaos_path(fp32_bytes_up: int):
+    """10e: int8 uploads under the chaos mix (corrupted frames, a quorum,
+    pod 1 killed in round 1), 3 rounds on the card and the first 2 on the
+    CPU (:func:`held_rounds`: every wire decision equal, the re-routes
+    too); the int8 uplink bytes of rounds 1-2 against 10c's fp32 ones
+    (``fp32_bytes_up``)."""
+    from repro_torch.api import FaultSpec
+    from repro_torch.obs import trace
+    spec = dataclasses.replace(
+        dist_spec(quickstart_spec(PIPE_ROUNDS), wire_codec="int8",
+                  n_pods=2, heartbeat_s=CHAOS_HEARTBEAT_S,
+                  upload_deadline_s=CHAOS_DEADLINE_S),
+        faults=FaultSpec(**CHAOS_WIRE))
+
+    def kill_pod_1(engine):
+        engine.cfg.dist.kill_pod, engine.cfg.dist.kill_after_round = 1, 1
+
+    runs = {}
+    for dev, rounds in (("cuda", spec.rounds), ("cpu", CPU_ROUNDS)):
+        reset_all_launches()
+        rec = trace.arm()
+        try:
+            runs[dev] = driver_run(dataclasses.replace(spec, rounds=rounds),
+                                   dev, configure=kill_pod_1)
+        finally:
+            trace.disarm()
+        runs[dev]["launches"] = all_launches()
+        runs[dev]["rerouted"] = [s["rerouted"] for s in rec.spans
+                                 if s["name"] == "wire_collect"]
+
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    check, problems = held_rounds(gpu, cpu)
+    rerouted = [r["rerouted"][:CPU_ROUNDS] for r in (gpu, cpu)]
+    if rerouted[0] != rerouted[1] or not any(rerouted[0]):
+        problems.append(f"re-routed clients per round, card {rerouted[0]} "
+                        f"CPU {rerouted[1]}: the killed pod's clients must "
+                        f"re-route alike")
+    up = sum(l.wire_bytes_up for l in gpu["logs"][0][:CPU_ROUNDS])
+    check.update(
+        rerouted=rerouted,
+        deadline_misses=[[l.n_deadline_misses for l in r["logs"][0]]
+                         for r in (gpu, cpu)],
+        pods_alive=[[l.n_pods_alive for l in r["logs"][0]]
+                    for r in (gpu, cpu)],
+        bytes_up_int8=up, bytes_up_fp32=fp32_bytes_up,
+        uplink_reduction=fp32_bytes_up / up if up else None)
+    steps = sum(l.distill_steps for l in gpu["logs"][0])
+    problems += check_launches(gpu["launches"],
+                               k_launches("ensemble_kl_bank", steps), "10e")
+    return {"wall_s": gpu["wall_s"], "cpu_wall_s": cpu["wall_s"],
+            "launches": gpu["launches"], "distill_steps": steps,
+            "cpu_check": check,
+            "rounds": round_rows(gpu["logs"],
+                                 gpu["driver"].phase_seconds)}, problems
+
+
+def dist_restart_path(ref):
+    """10f: 10c's run with a wire log, interrupted by an observer after
+    round 2's uploads were logged (before its snapshot), resumed from the
+    round-1 snapshot: round 2 re-sends no upload, and the run equals 10c's
+    bit for bit."""
+    import tempfile
+    from repro_torch.api import Experiment
+    from repro_torch.obs.metrics import REGISTRY
+
+    def bomb(event):
+        if event.round == 2:
+            raise _StopAtRound
+
+    problems = []
+    replayed = REGISTRY.counter("dist.wirelog_replayed")
+    with tempfile.TemporaryDirectory() as d:
+        spec = dist_spec(quickstart_spec(DIST_ROUNDS), n_pods=2,
+                         wire_log=os.path.join(d, "wire.log"))
+        ck = os.path.join(d, "run")
+        reset_all_launches()
+        t0 = time.perf_counter()
+        try:
+            Experiment(spec, device="cuda").run(observers=[bomb],
+                                                checkpoint_dir=ck)
+            problems.append("the observer did not interrupt the run")
+        except _StopAtRound:
+            pass
+        replayed.reset()
+        resumed = Experiment.resume(ck, device="cuda")
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+    logs = resumed.result.logs
+    eq = same_run(group_logs(resumed), resumed.global_params,
+                  group_logs(ref), ref.global_params)
+    eq.update(replayed=replayed.count,
+              bytes_up=[l.wire_bytes_up for l in logs])
+    if not (eq["logs_equal"] and eq["globals_bit_equal"]
+            and logs[0].wire_bytes_up > 0 and logs[1].wire_bytes_up == 0
+            and replayed.count > 0):
+        problems.append(f"restart from the wire log: {eq}")
+    steps = ref.result.logs
+    want = steps[0].distill_steps + 2 * steps[1].distill_steps
+    problems += check_launches(launches, k_launches("ensemble_kl_bank", want),
+                               "10f (interrupted run + resume)")
+    return {"wall_s": wall, "launches": launches, "distill_steps": want,
+            "cpu_check": eq, "rounds": []}, problems
+
+
+def armed_path(ref):
+    """10g: 10a's pipelined run with the flight recorder armed (spans to a
+    JSONL file, metrics to a directory): bit for bit the disarmed run,
+    every engine phase spanned in every round, and the registry's teacher
+    forwards equal to the round logs'."""
+    import tempfile
+    from repro_torch.api import ObsSpec
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.obs.trace import load_spans
+    forwards = REGISTRY.counter("core.logit_bank.teacher_forwards")
+    with tempfile.TemporaryDirectory() as d:
+        spec = dataclasses.replace(
+            pipelined_spec(quickstart_spec(PIPE_ROUNDS), 0),
+            obs=ObsSpec(trace=True, trace_path=os.path.join(d, "s.jsonl"),
+                        metrics_dir=os.path.join(d, "m")))
+        forwards.reset()
+        res, report, problems = run_path(spec)
+        spans = load_spans(os.path.join(d, "s.jsonl"))
+        with open(os.path.join(d, "m", "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+    eq = same_run(group_logs(res), res.global_params, group_logs(ref),
+                  ref.global_params)
+    logs = res.result.logs
+    missing = [(name, t) for t in range(1, PIPE_ROUNDS + 1)
+               for name in ("join_batches", "build_round_batches",
+                            "train_clients", "aggregate", "join_fusion",
+                            "evaluate_round")
+               if not any(s["name"] == name and s.get("round") == t
+                          for s in spans)]
+    # sample_cohort and bank_build carry no round: one of each per round
+    counts = {name: sum(s["name"] == name for s in spans)
+              for name in ("sample_cohort", "bank_build")}
+    eq.update(n_spans=len(spans), missing_spans=missing,
+              unstamped_spans=counts,
+              teacher_forwards_registry=forwards.count,
+              teacher_forwards_logs=sum(l.teacher_forwards for l in logs),
+              metrics_rounds=[m["round"] for m in metrics])
+    report.update(cpu_check=eq, phase_totals=res.obs["phase_totals_s"],
+                  idle_gap_s=res.obs["idle_gap_s"])
+    if (not (eq["logs_equal"] and eq["globals_bit_equal"]) or missing
+            or set(counts.values()) != {PIPE_ROUNDS}
+            or forwards.count != eq["teacher_forwards_logs"]
+            or eq["metrics_rounds"] != list(range(1, PIPE_ROUNDS + 1))):
+        problems.append(f"armed against disarmed: {eq}")
+    problems += check_launches(
+        report["launches"],
+        k_launches("ensemble_kl_bank", report["distill_steps"]), "10g")
+    return report, problems
+
+
+def runtime_path():
+    """Path 10's sub-paths in order, each with its own launch counts."""
+    out, problems = {}, []
+    t0 = time.perf_counter()
+    out["10a"], more, sync, pipe = pipelined_sync_path()
+    problems += [f"10a: {p}" for p in more]
+    sub, more = staleness_path()
+    out.update(sub)
+    problems += more
+    out["10c"], more, loop = dist_loopback_path(sync)
+    problems += [f"10c: {p}" for p in more]
+    out["10d"], more = dist_tcp_path(sync)
+    problems += [f"10d: {p}" for p in more]
+    out["10e"], more = dist_chaos_path(out["10c"]["dist"]["bytes_up"])
+    problems += [f"10e: {p}" for p in more]
+    out["10f"], more = dist_restart_path(loop)
+    problems += [f"10f: {p}" for p in more]
+    out["10g"], more = armed_path(pipe)
+    problems += [f"10g: {p}" for p in more]
+    out["total_s"] = time.perf_counter() - t0
+    return out, problems
+
+def print_runtime(rep) -> None:
+    """Path 10's own lines: walls, overlap, the profile, the wire."""
+    a = rep["10a"]
+    print(f"  path 10a pipelined (staleness 0) against sync: "
+          f"{a['cpu_check']}; walls {a['wall_s']:.2f} s against "
+          f"{a['sync_wall_s']:.2f} s ({PIPE_ROUNDS} rounds, engine built)")
+    sync_round = sum(sum(ph.values()) for ph in a["sync_phase_s"]) / len(
+        a["sync_phase_s"])
+    for key in ("10b_i", "10b_ii"):
+        rows = rep[key]["overlap"]
+        for r in rows:
+            print(f"  path {key} round {r['round']}: wall "
+                  f"{r['wall_s']:.3f} s, join_fusion "
+                  f"{r['join_fusion_s']:.3f} s, overlap share "
+                  f"{r['overlap_share']:.3f}")
+        mean = sum(r["wall_s"] for r in rows) / len(rows)
+        print(f"  path {key}: {mean:.3f} s a round against sync's "
+              f"{sync_round:.3f} s (10a): x{mean / sync_round:.2f}; card "
+              f"vs CPU {rep[key]['cpu_check']}")
+    print(f"  path 10b(i) round 2 under the profiler: "
+          f"{rep['10b_profile']['profile']}")
+    print(f"  path 10c wire: {rep['10c']['dist']}")
+    d = rep["10d"]
+    print(f"  path 10d tcp pods' start-up {d['pod_startup_s']:.2f} s; "
+          f"round walls " + ", ".join(
+              f"{sum(r['phase_s'].values()):.3f} s" for r in d["rounds"]))
+    e = rep["10e"]["cpu_check"]
+    print(f"  path 10e rounds 1-2 (steps, clients, bank, teacher forwards, "
+          f"crc failures, retries, lost, fused): card {e['facts_cuda']} CPU "
+          f"{e['facts_cpu']}; re-routed (card, CPU) {e['rerouted']}; "
+          f"deadline misses {e['deadline_misses']}, pods alive "
+          f"{e['pods_alive']} (card, CPU); globals card vs CPU per round "
+          f"{e['max_abs_param_diff_per_round']}; int8 uplink of rounds 1-2 "
+          f"{e['bytes_up_int8']} B against fp32 {e['bytes_up_fp32']} B: "
+          f"x{e['uplink_reduction']:.2f}")
+    print(f"  path 10f restart: {rep['10f']['cpu_check']}")
+    g = rep["10g"]
+    print(f"  path 10g phase totals (s): {g['phase_totals']}; idle gap "
+          f"{g['idle_gap_s']:.3f} s", flush=True)
+
+
 def print_path(name, rep) -> None:
     for r in rep["rounds"]:
         ph = " ".join(f"{k}={v:.3f}s" for k, v in r["phase_s"].items())
@@ -2623,8 +3275,11 @@ def print_path(name, rep) -> None:
                       f"{l['fused']}, rolled back {l['rolled_back']})"
                       if l["n_corrupted"] or l["n_quarantined"]
                       or not l["fused"] or l["rolled_back"] else ""))
-        print(f"  {name} round {r['round']}: wall "
-              f"{sum(r['phase_s'].values()):.3f} s: {ph}")
+        # a pipelined round's aggregate overlaps the driver thread's
+        # phases, of which the round's wall is the sum
+        wall = sum(v for k, v in r["phase_s"].items()
+                   if k != "aggregate" or "join_fusion" not in r["phase_s"])
+        print(f"  {name} round {r['round']}: wall {wall:.3f} s: {ph}")
     used = {k: n for k, n in rep["launches"].items() if n}
     print(f"  {name}: wall {rep['wall_s']:.1f} s; launches {used} for "
           f"{rep['distill_steps']} distill steps; card vs CPU: "
@@ -2890,6 +3545,15 @@ def main() -> int:
         for sub, r in subs.items():
             print_path(sub, r)
         print(f"  {name}: whole path {rep['total_s']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    rep, path_problems = runtime_path()
+    paths["path10_runtime"] = rep
+    problems += [f"path10_runtime: {p}" for p in path_problems]
+    for sub, r in rep.items():
+        if sub != "total_s":
+            print_path(f"path10 {sub}", r)
+    print_runtime(rep)
+    print(f"  path10_runtime: whole path {rep['total_s']:.1f} s", flush=True)
     print(f"  path 9a fault kinds (wave, client, kinds): "
           f"{paths['path9a_defended']['kinds']}; kept teachers "
           f"{paths['path9a_defended']['kept']}")
@@ -2988,6 +3652,12 @@ def main() -> int:
                     name, 0),
                 "9e": paths["path9e_resume"]["launches"].get(name, 0)}
 
+    def path10_launches(name):
+        """Each path 10 sub-path's launches of ``name``."""
+        return {sub: r["launches"].get(name, 0)
+                for sub, r in paths["path10_runtime"].items()
+                if sub != "total_s"}
+
     def path8_launches(name):
         """Each path 8 sub-path's launches of ``name``."""
         b = paths["path8b_bucketing"]
@@ -3007,6 +3677,7 @@ def main() -> int:
                 "path7_launches": path7_launches(name),
                 "path8_launches": path8_launches(name),
                 "path9_launches": path9_launches(name),
+                "path10_launches": path10_launches(name),
                 "max_abs_err": max(e[i] for e in errs),
                 "ms": t[f"{kind}_ms"], "plain_ms": t[f"plain_{kind}_ms"],
                 "call_ms": t[f"{kind}_call_ms"],
@@ -3026,6 +3697,7 @@ def main() -> int:
             "path7_launches": path7_launches(name),
             "path8_launches": path8_launches(name),
             "path9_launches": path9_launches(name),
+            "path10_launches": path10_launches(name),
             "max_abs_err": max(e["max_abs_err"] for e in errs
                                if e.get("dtype", "float32") == "float32"),
             "ms": t["ms"], "plain_ms": t["plain_ms"],

@@ -4,9 +4,10 @@
     result = Experiment(spec).run()            # on the card
 """
 from repro_torch.api.experiment import (Experiment, RoundEvent, RunResult,
-                                        build_cohort, build_source,
-                                        build_splits, build_task_bundle,
-                                        resolve_device, to_fl_config)
+                                        build_cohort, build_engine,
+                                        build_source, build_splits,
+                                        build_task_bundle, resolve_device,
+                                        to_fl_config)
 from repro_torch.api.registries import (TaskBundle, available_models,
                                         available_quantizers,
                                         available_sources, available_tasks,
@@ -32,5 +33,6 @@ __all__ = [
     "get_model", "get_source", "get_quantizer", "available_tasks",
     "available_models", "available_sources", "available_quantizers",
     "default_prototype_ladder", "build_task_bundle", "build_splits",
-    "build_cohort", "build_source", "resolve_device", "to_fl_config",
+    "build_cohort", "build_source", "build_engine", "resolve_device",
+    "to_fl_config",
 ]

@@ -19,6 +19,19 @@ everything from the spec, reloads the newest complete snapshot and
 continues.  The sync driver replays the cohort draws of the completed
 rounds and the buffered one restores its population snapshot, so the
 resumed trajectory is the uninterrupted one.
+
+Flight recorder (``spec.obs``, docs/observability.md): an enabled
+``ObsSpec`` arms ``repro_torch.obs.trace`` for the run (spans in memory,
+streamed to ``trace_path``; a ``torch.profiler`` trace into
+``profile_dir`` with ``profile``) and streams per-round metric records to
+``metrics_dir/metrics.jsonl`` and ``.csv``; the recorder's summary lands
+in ``RunResult.obs`` and ``summary()["obs"]``.  A recorder armed by the
+caller is read the same way.  An armed run computes what a disarmed one
+does, bit for bit.
+
+:func:`build_engine` compiles a spec to its :class:`RoundEngine`; a tcp
+client pod (``python -m repro_torch.dist.pods``) rebuilds the fusion pod's
+engine with it.
 """
 from __future__ import annotations
 
@@ -42,8 +55,11 @@ from repro_torch.core.feddf import FusionConfig
 from repro_torch.core.nets import Net
 from repro_torch.data.partition import dirichlet_partition
 from repro_torch.data.synthetic import Dataset, train_val_test_split
+from repro_torch.dist.config import DistConfig
 from repro_torch.drivers import make_driver
 from repro_torch.drivers.base import _UNSET
+from repro_torch.obs import trace as _trace
+from repro_torch.obs.metrics import CSVSink, JSONLSink, MetricsObserver
 from repro_torch.population.config import FaultConfig
 
 
@@ -71,8 +87,9 @@ Observer = Callable[[RoundEvent], None]
 
 @dataclasses.dataclass
 class RunResult:
-    """One :class:`FLResult` per prototype group, plus where it ran and
-    each round's wall seconds per engine phase (rounds this call ran)."""
+    """One :class:`FLResult` per prototype group, plus where it ran, each
+    round's wall seconds per engine phase (rounds this call ran), and the
+    flight recorder's summary when the run was traced."""
 
     spec: ExperimentSpec
     results: List[FLResult]
@@ -82,6 +99,7 @@ class RunResult:
     device: str = "cuda"
     phase_seconds: List[Dict[str, float]] = dataclasses.field(
         default_factory=list)
+    obs: Optional[dict] = None
 
     @property
     def heterogeneous(self) -> bool:
@@ -156,10 +174,27 @@ class RunResult:
                 "rounds_skipped": skipped,
                 "rollbacks": rollbacks}
 
+    @staticmethod
+    def _dist_summary(logs) -> Optional[dict]:
+        """Wire telemetry (docs/distributed.md), or None for runs that
+        never touched the wire (every other driver)."""
+        bytes_up = sum(int(l.wire_bytes_up) for l in logs)
+        bytes_down = sum(int(l.wire_bytes_down) for l in logs)
+        if not (bytes_up or bytes_down):
+            return None
+        return {"bytes_up": bytes_up, "bytes_down": bytes_down,
+                "wire_retries": sum(int(l.n_wire_retries) for l in logs),
+                "crc_failures": sum(int(l.n_crc_failures) for l in logs),
+                "deadline_misses": sum(int(l.n_deadline_misses)
+                                       for l in logs),
+                "wire_lost": sum(int(l.n_wire_lost) for l in logs),
+                "min_pods_alive": min(int(l.n_pods_alive) for l in logs)}
+
     def summary(self) -> dict:
         """The JAX package's summary shapes: a buffered-async run adds a
-        ``population`` section and a run where a fault fired a ``faults``
-        section."""
+        ``population`` section, a run where a fault fired a ``faults``
+        section, a distributed run a ``dist`` section and a traced run an
+        ``obs`` section."""
         if not self.heterogeneous:
             r = self.results[0]
             out = {"final": r.final_acc, "best": r.best_acc,
@@ -176,10 +211,17 @@ class RunResult:
             pop = self._population_summary(self.results[0].logs)
             faults = self._fault_summary(
                 [l for r in self.results for l in r.logs])
+        # wire telemetry is per round (every group's log of a round
+        # carries the same counters), so one group's logs hold it
+        dist = self._dist_summary(self.results[0].logs)
         if pop is not None:
             out["population"] = pop
         if faults is not None:
             out["faults"] = faults
+        if dist is not None:
+            out["dist"] = dist
+        if self.obs is not None:
+            out["obs"] = self.obs
         return out
 
 
@@ -238,13 +280,22 @@ def to_fl_config(spec: ExperimentSpec) -> FLConfig:
     # fault-free fusions keep the guard-free path
     fusion = FusionConfig(**s.fusion.to_dict(),
                           divergence_guard=faults.enabled)
+    # tcp client pods rebuild their engine from the serialized spec, so
+    # the fusion pod carries it into the config it hands the driver
+    dist = DistConfig(
+        transport=spec.dist.transport, wire_codec=spec.dist.wire_codec,
+        n_pods=spec.dist.n_pods, heartbeat_s=spec.dist.heartbeat_s,
+        upload_deadline_s=spec.dist.upload_deadline_s,
+        verify_crc=spec.dist.verify_crc, wire_log=spec.dist.wire_log,
+        spec_json=(spec.to_json() if spec.dist.transport == "tcp"
+                   else None))
     return FLConfig(
         rounds=spec.rounds, client_fraction=spec.client_fraction,
         local_epochs=spec.local_epochs,
         local_batch_size=spec.local_batch_size, local_lr=spec.local_lr,
         strategy=s.name, prox_mu=s.prox_mu,
         server_momentum=s.server_momentum, drop_worst=s.drop_worst,
-        trim_frac=s.trim_frac, faults=faults,
+        trim_frac=s.trim_frac, faults=faults, dist=dist,
         seed=spec.seed, local_optimizer=spec.local_optimizer,
         local_adam_lr=spec.local_adam_lr, quantize=quantize,
         fusion=fusion,
@@ -255,6 +306,36 @@ def to_fl_config(spec: ExperimentSpec) -> FLConfig:
         bucketing=BucketConfig(kind=spec.bucket.kind,
                                max_buckets=spec.bucket.max_buckets),
         population=spec.population_config())
+
+
+def build_engine(spec: ExperimentSpec, device="cuda", *, index_stream=None,
+                 draw_stream=None, dp_draws=None, swag_draws=None,
+                 filter_probe=None) -> RoundEngine:
+    """Compile a spec all the way to a :class:`RoundEngine` on ``device``
+    (``"cuda"`` raises without a card).  The spec is the single source of
+    truth: a tcp client pod that rebuilds the engine from it derives the
+    fusion pod's data splits, prototypes and client updates.  The
+    keyword streams replace the run's own draws (:meth:`Experiment.
+    run`)."""
+    device = resolve_device(device)
+    spec = spec.validate()
+    bundle = build_task_bundle(spec)
+    train, val, test, parts = build_splits(spec, bundle)
+    nets, client_proto = build_cohort(spec, bundle)
+    source = build_source(spec, bundle, train, device)
+    if source is None and (index_stream is not None
+                           or draw_stream is not None):
+        raise ValueError("index_stream / draw_stream given, but the spec "
+                         "has no distillation source")
+    if index_stream is not None:
+        source.indices = index_stream
+    if draw_stream is not None:
+        source.draws = draw_stream
+    return RoundEngine(nets, client_proto, train, parts, val, test,
+                       to_fl_config(spec), source=source,
+                       heterogeneous=len(nets) > 1, device=device,
+                       dp_draws=dp_draws, swag_draws=swag_draws,
+                       filter_probe=filter_probe)
 
 
 # ---------------------------------------------------------------------------
@@ -281,28 +362,29 @@ _KEEP_ROUND_DIRS = 2  # latest + one fallback against partial writes
 def _save_round(checkpoint_dir: str, t: int, globals_: List[dict], state,
                 logs: List[List[RoundLog]],
                 rounds_to_target: Optional[int]) -> None:
-    rd = _round_dir(checkpoint_dir, t)
-    os.makedirs(rd, exist_ok=True)
-    for g, params in enumerate(globals_):
-        ckpt.save(os.path.join(rd, f"global_{g}"), params)
-    ckpt.save_obj(os.path.join(rd, "state"), state)
-    # logs.json is written LAST and atomically: its presence marks the
-    # snapshot complete, so a crash mid-checkpoint leaves a directory the
-    # loader recognises as partial and skips
-    tmp = os.path.join(rd, "logs.json.tmp")
-    with open(tmp, "w") as f:
-        json.dump({"round": t, "rounds_to_target": rounds_to_target,
-                   "logs": [[dataclasses.asdict(l) for l in group]
-                            for group in logs]},
-                  f, default=_jsonable)
-    os.replace(tmp, os.path.join(rd, "logs.json"))
-    # resume reads only the newest snapshot (it holds the whole log
-    # history), so superseded round directories are pruned
-    rounds_dir = os.path.join(checkpoint_dir, "rounds")
-    stale = sorted(e for e in os.listdir(rounds_dir)
-                   if e.isdigit())[:-_KEEP_ROUND_DIRS]
-    for e in stale:
-        shutil.rmtree(os.path.join(rounds_dir, e), ignore_errors=True)
+    with _trace.span("checkpoint_write", round=int(t)):
+        rd = _round_dir(checkpoint_dir, t)
+        os.makedirs(rd, exist_ok=True)
+        for g, params in enumerate(globals_):
+            ckpt.save(os.path.join(rd, f"global_{g}"), params)
+        ckpt.save_obj(os.path.join(rd, "state"), state)
+        # logs.json is written LAST and atomically: its presence marks the
+        # snapshot complete, so a crash mid-checkpoint leaves a directory the
+        # loader recognises as partial and skips
+        tmp = os.path.join(rd, "logs.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump({"round": t, "rounds_to_target": rounds_to_target,
+                       "logs": [[dataclasses.asdict(l) for l in group]
+                                for group in logs]},
+                      f, default=_jsonable)
+        os.replace(tmp, os.path.join(rd, "logs.json"))
+        # resume reads only the newest snapshot (it holds the whole log
+        # history), so superseded round directories are pruned
+        rounds_dir = os.path.join(checkpoint_dir, "rounds")
+        stale = sorted(e for e in os.listdir(rounds_dir)
+                       if e.isdigit())[:-_KEEP_ROUND_DIRS]
+        for e in stale:
+            shutil.rmtree(os.path.join(rounds_dir, e), ignore_errors=True)
 
 
 def _load_latest_round(checkpoint_dir: str, nets: List[Net], device
@@ -406,22 +488,15 @@ class Experiment:
              draw_stream=None, dp_noise_stream=None, swag_draw_stream=None,
              filter_probe=None) -> RunResult:
         spec = self.spec
-        bundle = build_task_bundle(spec)
-        train, val, test, parts = build_splits(spec, bundle)
-        nets, client_proto = build_cohort(spec, bundle)
-        source = build_source(spec, bundle, train, self.device)
-        heterogeneous = len(nets) > 1
-        if source is None and (index_stream is not None
-                               or draw_stream is not None):
-            raise ValueError("index_stream / draw_stream given, but the "
-                             "spec has no distillation source")
-        if index_stream is not None:
-            source.indices = index_stream
-        if draw_stream is not None:
-            source.draws = draw_stream
+        engine = build_engine(spec, self.device, index_stream=index_stream,
+                              draw_stream=draw_stream,
+                              dp_draws=dp_noise_stream,
+                              swag_draws=swag_draw_stream,
+                              filter_probe=filter_probe)
+        nets, cfg = engine.nets, engine.cfg
+        heterogeneous = engine.heterogeneous
         if init_globals is not None:
             init_globals = [tree_to(g, self.device) for g in init_globals]
-        cfg = to_fl_config(spec)
 
         init_state, init_logs, start_round = _UNSET, None, 1
         if resume:
@@ -460,20 +535,39 @@ class Experiment:
                     _save_round(checkpoint_dir, t, globals_, state, logs,
                                 rounds_to_target)
 
-        engine = RoundEngine(nets, client_proto, train, parts, val, test,
-                             cfg, source=source, heterogeneous=heterogeneous,
-                             device=self.device, dp_draws=dp_noise_stream,
-                             swag_draws=swag_draw_stream,
-                             filter_probe=filter_probe)
         driver = make_driver(spec.driver.kind,
                              staleness=spec.driver.staleness,
                              prefetch=spec.driver.prefetch)
-        results, globals_, rounds_to_target = driver.run(
-            engine, log_fn=log_fn, init_globals=init_globals,
-            init_state=init_state, start_round=start_round,
-            init_logs=init_logs, round_end_hook=round_end_hook)
+        # the flight recorder: armed per spec.obs, or a recorder the
+        # caller armed is read; a disarmed run takes none of these paths
+        armed_here = spec.obs.enabled
+        metrics_obs = None
+        if armed_here:
+            _trace.arm(path=spec.obs.trace_path,
+                       profile_dir=(spec.obs.profile_dir
+                                    if spec.obs.profile else None))
+            if spec.obs.metrics_dir:
+                metrics_obs = MetricsObserver([
+                    JSONLSink(os.path.join(spec.obs.metrics_dir,
+                                           "metrics.jsonl")),
+                    CSVSink(os.path.join(spec.obs.metrics_dir,
+                                         "metrics.csv"))])
+                observers = list(observers) + [metrics_obs]
+        try:
+            results, globals_, rounds_to_target = driver.run(
+                engine, log_fn=log_fn, init_globals=init_globals,
+                init_state=init_state, start_round=start_round,
+                init_logs=init_logs, round_end_hook=round_end_hook)
+            rec = _trace.recorder()
+            obs_summary = rec.summary() if rec is not None else None
+        finally:
+            if metrics_obs is not None:
+                metrics_obs.close()
+            if armed_here:
+                _trace.disarm()
         return RunResult(spec=spec, results=results, global_params=globals_,
                          rounds_to_target=rounds_to_target,
                          net_names=[n.name for n in nets],
                          device=str(self.device),
-                         phase_seconds=list(driver.phase_seconds))
+                         phase_seconds=list(driver.phase_seconds),
+                         obs=obs_summary)

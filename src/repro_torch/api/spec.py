@@ -440,10 +440,12 @@ class ObsSpec:
     the same path continues the stream).  ``metrics_dir`` streams one
     per-round metrics record (registry counter deltas + accuracy +
     device watermark) to ``<dir>/metrics.jsonl`` and ``.csv``.
-    ``profile`` additionally wraps the run in
-    ``jax.profiler.start_trace(profile_dir)`` with a
-    ``TraceAnnotation`` per span, putting the span taxonomy on XLA
-    timelines; it requires ``profile_dir``."""
+    ``profile`` additionally runs the JAX package's
+    ``jax.profiler.start_trace(profile_dir)`` with a ``TraceAnnotation``
+    per span, and the port's ``torch.profiler.profile`` with a
+    ``record_function`` per span (a Chrome trace written to
+    ``profile_dir/trace.json``), putting the span taxonomy on the
+    profiler's timeline; it requires ``profile_dir``."""
 
     trace: bool = False
     trace_path: Optional[str] = None
@@ -732,14 +734,14 @@ class ExperimentSpec:
                 f"or more from each end leaves nothing), got "
                 f"{self.strategy.trim_frac}")
 
-        # axes the port does not run yet: each raises with its ROADMAP item
-        pending = [
-            (self.sharding.shard_clients, "client-axis sharding", "11"),
-            (self.obs != ObsSpec(), "the flight recorder", "10"),
-        ]
-        for hit, what, item in pending:
-            if hit:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP.md queue 1 item "
-                    f"{item})")
+        if self.obs.profile and not self.obs.profile_dir:
+            raise ValueError(
+                "obs.profile=True needs obs.profile_dir (where the "
+                "torch.profiler trace is written)")
+
+        # an axis the port does not run yet raises with its ROADMAP item
+        if self.sharding.shard_clients:
+            raise NotImplementedError(
+                "client-axis sharding is not ported yet (ROADMAP.md queue "
+                "1 item 11)")
         return self

@@ -24,9 +24,8 @@ ARRIVAL_KINDS = ("always", "bernoulli")
 SCREEN_MODES = ("auto", "on", "off")
 BYZANTINE_MODES = ("sign_flip", "scale")
 
-# transports, wire codecs and cohort samplers of the runtime layers the
-# port does not run yet (ROADMAP.md queue 1 item 10); kept so a spec that
-# names them parses and validates the same way in both packages
+# transports and wire codecs of the distributed runtime (``dist/``), and
+# the cohort samplers of the population layer
 TRANSPORT_KINDS = ("loopback", "tcp")
 WIRE_CODECS = ("fp32", "binarize", "int8")
 SAMPLER_KINDS = ("uniform", "capacity_aware", "prioritized")

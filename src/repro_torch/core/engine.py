@@ -27,10 +27,11 @@ Heterogeneous cohorts (``heterogeneous=True``, the paper's Algorithm 3)
 train each prototype group's clients in their own batched update, add
 the all-groups logits-averaging ensemble's accuracy to every group's log,
 and keep a group's previous global in a round that drew none of its
-clients.  The JAX package pads each group's client axis to a run-fixed
-size so that ``jit`` compiles once; the eager update here needs no fixed
-size, and the padded clients never reach aggregation there, so leaving
-them out changes no result.
+clients.  Each step bucket's client axis is zero-padded to a run-fixed
+size, as the JAX package pads it for ``jit``: here it keeps a client's
+products at one shape whichever clients share its bucket (the card's
+batched GEMMs pick their algorithm by shape), so an upload does not
+depend on the grouping.  The padded clients never reach aggregation.
 
 Step-count bucketing (``BucketConfig`` ``pow2`` / ``quantile``,
 docs/bucketing.md) splits each group's clients over run-fixed scan
@@ -55,10 +56,14 @@ the device only when a fault touched it; ``quorum_met`` decides whether
 the round fuses, and ``guard_globals`` rolls non-finite fused globals
 back.  A run with faults disabled copies nothing and is bit for bit the
 fault-free run.  Meshes wait for ROADMAP.md queue 1 item 11.
+
+While the flight recorder is armed (``repro_torch.obs.trace``), every
+phase runs inside a span of its name, stamped with its round.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -67,8 +72,8 @@ import torch
 
 from repro_torch.common.options import BUCKET_KINDS
 from repro_torch.common.pytree import (tree_cat, tree_isfinite,
-                                       tree_leaves_jax, tree_take, tree_to,
-                                       tree_unflatten_jax)
+                                       tree_leaves_jax, tree_map, tree_take,
+                                       tree_to, tree_unflatten_jax)
 from repro_torch.core import feddf as feddf_mod
 from repro_torch.core.client import (assign_buckets, bucket_capacities,
                                      build_bucketed_batches, evaluate,
@@ -81,9 +86,28 @@ from repro_torch.core.privacy import normal_draws
 from repro_torch.core.strategies import GroupRound, RoundContext, get_strategy
 from repro_torch.data.distill_sources import DistillSource
 from repro_torch.data.synthetic import Dataset
+from repro_torch.dist.config import DistConfig
+from repro_torch.obs import trace as _trace
+from repro_torch.obs.metrics import REGISTRY
 from repro_torch.optim.optimizers import Optimizer, adam, sgd
 from repro_torch.population.config import FaultConfig, PopulationConfig
 from repro_torch.population.scheduler import SamplerContext, make_sampler
+
+
+def _spanned(name: str):
+    """Wrap a phase method in a flight-recorder span stamped with the
+    driver's step index as ``round=``: the round for the sync, pipelined
+    and distributed drivers, the wave number when buffered_async trains
+    inside a fill wave.  Free while disarmed."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(self, t, *args, **kwargs):
+            if _trace.recorder() is None:
+                return fn(self, t, *args, **kwargs)
+            with _trace.span(name, round=int(t)):
+                return fn(self, t, *args, **kwargs)
+        return wrapped
+    return deco
 
 
 @dataclasses.dataclass
@@ -131,6 +155,9 @@ class FLConfig:
         default_factory=PopulationConfig)
     # fault injection + robust-fusion defenses (docs/robustness.md)
     faults: FaultConfig = dataclasses.field(default_factory=FaultConfig)
+    # the distributed driver's pods, transport and wire codec
+    # (docs/distributed.md); read by that driver only
+    dist: DistConfig = dataclasses.field(default_factory=DistConfig)
 
 
 @dataclasses.dataclass
@@ -365,10 +392,11 @@ class RoundEngine:
         """Draw the round's active clients through the cohort sampler.
         With a registered population larger than the partition roster,
         sampled ids map onto data partitions round-robin."""
-        active = self.sampler.sample(rng, self.n_active)
-        if self.population_size != self.n_clients:
-            active = np.asarray(active) % self.n_clients
-        return active
+        with _trace.span("sample_cohort"):
+            active = self.sampler.sample(rng, self.n_active)
+            if self.population_size != self.n_clients:
+                active = np.asarray(active) % self.n_clients
+            return active
 
     def population(self):
         """The lazily-built :class:`PopulationManager` (buffered-async
@@ -396,8 +424,22 @@ class RoundEngine:
                 self.cfg.faults, self.cfg.seed, self.population_size)
         return self._fault_model
 
-    def fault_pipeline(self, t: int, groups: List[GroupRound],
-                       batches: List[Optional[RoundBatches]]):
+    def fault_pipeline(self, t: int, groups: List[GroupRound], batches):
+        """:meth:`_fault_pipeline_body` in a ``fault_pipeline`` span that
+        carries the screen's outcome; the same counts feed the
+        ``core.faults.*`` registry counters."""
+        with _trace.span("fault_pipeline", round=int(t)) as sp:
+            stats = self._fault_pipeline_body(t, groups, batches)
+            if stats is not None:
+                sp.annotate(corrupted=stats["corrupted"],
+                            quarantined=stats["quarantined"],
+                            retries=stats["retries"])
+                for k in ("corrupted", "quarantined", "retries"):
+                    REGISTRY.counter(f"core.faults.{k}").add(stats[k])
+            return stats
+
+    def _fault_pipeline_body(self, t: int, groups: List[GroupRound],
+                             batches):
         """Inject, screen and retry on the trained group stacks: the sync
         driver's fault seam (docs/robustness.md).
 
@@ -407,7 +449,9 @@ class RoundEngine:
         deterministic), while byzantine clients stay corrupted on every
         attempt and end up quarantined.  Screening (finite-ness + robust-z
         of the delta norm within the cohort) mutates the groups in place,
-        dropping quarantined rows.  Returns a stats dict, or None when
+        dropping quarantined rows.  ``batches`` holds each group's
+        ``RoundBatches``, or its client ids as a list (the distributed
+        driver's assembled uploads).  Returns a stats dict, or None when
         faults are disabled (the stacks are then untouched).  The uploads
         cross to host numpy once; a group's stack goes back to the device
         only when a fault or the screen touched it.
@@ -423,7 +467,7 @@ class RoundEngine:
         for p, (g, rb) in enumerate(zip(groups, batches)):
             if g.stack is None or rb is None:
                 continue
-            ids = rb.ks
+            ids = rb.ks if isinstance(rb, RoundBatches) else list(rb)
             flat = tree_leaves_jax(g.stack)
             host = [l.detach().cpu().numpy() for l in flat]
             base = [l.detach().cpu().numpy()
@@ -527,6 +571,7 @@ class RoundEngine:
                 rolled[p] = True
         return out, rolled
 
+    @_spanned("build_round_batches")
     def build_round_batches(self, t: int, active: np.ndarray
                             ) -> List[Optional[RoundBatches]]:
         """Numpy batches per prototype group and step bucket, moved to the
@@ -567,6 +612,7 @@ class RoundEngine:
                                     padded_slots=padded_slots))
         return out
 
+    @_spanned("train_clients")
     def train_clients(self, t: int, globals_: List[dict],
                       batches: List[Optional[RoundBatches]]
                       ) -> List[GroupRound]:
@@ -580,10 +626,8 @@ class RoundEngine:
                 groups.append(GroupRound(self.nets[p], globals_[p], None,
                                          np.zeros(0)))
                 continue
-            stack = tree_cat([
-                self.updates[p](globals_[p], bb.xb, bb.yb, globals_[p],
-                                bb.step_mask, bb.dp_seeds)
-                for bb in rb.buckets])
+            stack = tree_cat([self._train_bucket(p, globals_[p], bb)
+                              for bb in rb.buckets])
             pos = np.concatenate([bb.pos for bb in rb.buckets])
             if not np.array_equal(pos, np.arange(rb.k_real)):
                 inv = np.empty_like(pos)
@@ -593,6 +637,27 @@ class RoundEngine:
                                      rb.weights))
         return groups
 
+    def _train_bucket(self, p: int, global_: dict, bb: BucketBatch):
+        """One bucket's batched update, its client axis zero-padded to the
+        run-fixed ``cap_clients`` as the JAX package pads it.  The padded
+        clients take no step and are cut from the stack.  A fixed client
+        axis runs every product of a client at one shape whichever
+        clients share its bucket, so its upload does not depend on the
+        grouping: a distributed pod training a shard of the cohort uploads
+        what the full cohort's update computes, bit for bit."""
+        xb, yb, mask, seeds = bb.xb, bb.yb, bb.step_mask, bb.dp_seeds
+        pad = bb.cap_clients - bb.k_real
+        if pad > 0:
+            def pad0(a):
+                return torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
+            xb, yb, mask = pad0(xb), pad0(yb), pad0(mask)
+            seeds = None if seeds is None else list(seeds) + [0] * pad
+        stack = self.updates[p](global_, xb, yb, global_, mask, seeds)
+        if pad > 0:
+            stack = tree_map(lambda x: x[:bb.k_real], stack)
+        return stack
+
+    @_spanned("aggregate")
     def aggregate(self, t: int, groups: List[GroupRound], state):
         """Drop-worst, then strategy dispatch.  With ``drop_worst`` each
         group's uploads at chance on the validation set leave its stack,
@@ -629,6 +694,7 @@ class RoundEngine:
             infos = [{**info, "ensemble_acc": ens_acc} for info in infos]
         return globals_, state, infos
 
+    @_spanned("evaluate_round")
     def evaluate_round(self, t: int, globals_: List[dict],
                        groups: List[GroupRound], infos: List[dict]
                        ) -> List[RoundLog]:

@@ -28,6 +28,8 @@ import torch
 
 from repro_torch.common.options import (BANK_DTYPES, LOGIT_BANK_MODES,
                                         QUANTIZED_BANK_DTYPES)
+from repro_torch.obs import trace as _trace
+from repro_torch.obs.metrics import REGISTRY
 
 DEFAULT_CHUNK = 512
 
@@ -40,24 +42,10 @@ _STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
             "int8": torch.int8, "fp8_e4m3": torch.float8_e4m3fn}
 
 
-class Counter:
-    """A plain process-wide work counter (``add`` / ``reset`` /
-    ``count``)."""
-
-    def __init__(self):
-        self.count = 0
-
-    def add(self, n: int) -> None:
-        self.count += int(n)
-
-    def reset(self) -> None:
-        self.count = 0
-
-
 # Teacher *batch* forwards (one teacher, one batch of rows), from bank
 # builds and on-the-fly distillation chunks alike: the evidence that the
 # bank removes the K x steps redundancy.
-TEACHER_FORWARDS = Counter()
+TEACHER_FORWARDS = REGISTRY.counter("core.logit_bank.teacher_forwards")
 
 
 @dataclasses.dataclass
@@ -214,6 +202,9 @@ def resolve_bank(teacher_logit_fns: Sequence[Callable], source, fusion, *,
     if (mode == "auto" and expected_steps is not None
             and expected_steps * fusion.batch_size < len(pool)):
         return None, "skipped_small_run"
-    return build_logit_bank(teacher_logit_fns, pool,
-                            dtype=fusion.bank_dtype,
-                            teacher_weights=teacher_weights), "built"
+    with _trace.span("bank_build", pool_n=len(pool),
+                     n_teachers=len(teacher_logit_fns)):
+        bank = build_logit_bank(teacher_logit_fns, pool,
+                                dtype=fusion.bank_dtype,
+                                teacher_weights=teacher_weights)
+    return bank, "built"

@@ -1,11 +1,24 @@
-"""Round drivers: schedulers over the RoundEngine phases.  Ported: ``sync``
-(the serial reference loop) and ``buffered_async`` (FedBuff-style waves
-over a registered population)."""
+"""Round drivers: schedulers over the RoundEngine phases.
+
+    sync             the serial reference loop
+    async_pipelined  up to S rounds of client training overlapped with the
+                     oldest round's fusion, which runs on its own CUDA
+                     stream (S = 0 keeps sync semantics)
+    buffered_async   FedBuff-style waves over a registered population
+    distributed      a fusion pod and client pods behind the versioned
+                     wire protocol (``repro_torch.dist``; loopback or tcp)
+
+``multihost`` waits for ROADMAP.md queue 1 item 11.
+"""
 from repro_torch.drivers.base import (Driver, available_drivers, get_driver,
-                                      make_driver, register_driver)
+                                      make_driver, register_driver,
+                                      unwrap_state, wrap_state)
+from repro_torch.drivers.async_pipelined import AsyncPipelinedDriver
 from repro_torch.drivers.buffered_async import BufferedAsyncDriver
 from repro_torch.drivers.sync import SyncDriver
+from repro_torch.dist.driver import DistributedDriver
 
-__all__ = ["BufferedAsyncDriver", "Driver", "SyncDriver",
-           "available_drivers", "get_driver", "make_driver",
-           "register_driver"]
+__all__ = ["AsyncPipelinedDriver", "BufferedAsyncDriver",
+           "DistributedDriver", "Driver", "SyncDriver", "available_drivers",
+           "get_driver", "make_driver", "register_driver", "unwrap_state",
+           "wrap_state"]

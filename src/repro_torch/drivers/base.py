@@ -1,19 +1,23 @@
 """Round-driver protocol + registry.
 
 A :class:`Driver` owns the round loop over a :class:`~repro_torch.core.
-engine.RoundEngine`; the engine owns the math.  ``sync`` and
-``buffered_async`` are ported; the JAX package's other drivers raise
-``NotImplementedError`` naming their ROADMAP.md item.  Every driver keeps
-``phase_seconds``: each round's wall seconds per phase, with the device
-synchronised at each phase end so that queued work is charged to the
-phase that issued it.  Every driver keeps one log list per prototype
-group.
+engine.RoundEngine`; the engine owns the math.  ``sync``,
+``async_pipelined``, ``buffered_async`` and ``distributed`` are ported;
+``multihost`` raises ``NotImplementedError`` naming its ROADMAP.md item.
+Every driver keeps ``phase_seconds``: each round's wall seconds per
+phase, with the issuing thread's current CUDA stream synchronised at each
+phase end, so that queued work is charged to the phase that issued it and
+a phase never waits for work another thread queued on another stream
+(the pipelined driver's fusion).  Every driver keeps one log list per
+prototype group, and stamps its name on the flight recorder's spans.
 
 Resume (``api/experiment.Experiment.resume``): ``run`` takes the
 checkpointed ``init_globals`` / ``init_state`` / ``init_logs`` and
-``start_round = <last completed round> + 1``; the sync driver replays the
-completed rounds' cohort draws, the buffered one restores its population
-snapshot and the cohort rng's exact state (``wrap_state``).
+``start_round = <last completed round> + 1``; the sync, pipelined and
+distributed drivers replay the completed rounds' cohort draws, the
+pipelined one retrains its in-flight rounds from the bases the
+checkpoint carries, and the buffered one restores its population snapshot
+and the cohort rng's exact state (``wrap_state``).
 ``round_end_hook(t, globals_, state, logs, rounds_to_target)`` fires
 after every completed round, in round order: the checkpoint seam.
 """
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import FLResult, RoundEngine, RoundLog
+from repro_torch.obs import trace as _trace
 
 # the strategy state's default: ``engine.init_state`` (None is a state)
 _UNSET = object()
@@ -35,13 +40,31 @@ _UNSET = object()
 _STATE_KEY = "__async_pipeline__"
 
 
-def wrap_state(strategy_state, prev_globals, *, population):
-    """The buffered-async driver's checkpoint state, in the JAX
-    package's format: the strategy state, the globals, and
+def wrap_state(strategy_state, prev_globals, *, base_ring=None,
+               population=None):
+    """A checkpoint state carrying more than the strategy's, in the JAX
+    package's format.  The pipelined driver (staleness S >= 1) stores the
+    training bases of its in-flight rounds: ``prev_globals`` is the next
+    round's base, and ``base_ring`` (S > 1 only) the ordered bases of
+    every unjoined round.  The buffered-async driver stores
     ``population``: the manager snapshot (registry, pending uploads,
     screen) and the cohort rng's bit-generator state."""
-    return {_STATE_KEY: True, "strategy_state": strategy_state,
-            "prev_globals": prev_globals, "population": population}
+    d = {_STATE_KEY: True, "strategy_state": strategy_state,
+         "prev_globals": prev_globals}
+    if base_ring is not None:
+        d["base_ring"] = list(base_ring)
+    if population is not None:
+        d["population"] = population
+    return d
+
+
+def unwrap_state(state):
+    """``(strategy_state, prev_globals or None)`` from a possibly wrapped
+    checkpoint state; a sync resume of a pipelined checkpoint just drops
+    the stale base."""
+    if isinstance(state, dict) and state.get(_STATE_KEY):
+        return state["strategy_state"], state.get("prev_globals")
+    return state, None
 
 
 def _to_device(obj, device):
@@ -55,9 +78,7 @@ def _to_device(obj, device):
         return type(obj)(_to_device(v, device) for v in obj)
     return obj
 
-_PENDING = {"async_pipelined": "ROADMAP.md queue 1 item 10",
-            "distributed": "ROADMAP.md queue 1 item 10",
-            "multihost": "ROADMAP.md queue 1 item 11"}
+_PENDING = {"multihost": "ROADMAP.md queue 1 item 11"}
 
 
 class Driver:
@@ -87,16 +108,21 @@ class Driver:
                init_logs=None, start_round: int = 1):
         """Initial globals / state / logs, and the cohort rng with the
         completed rounds' draws replayed (identical resume trajectories).
-        A checkpointed state's arrays move onto the engine's device; a
-        buffered-async snapshot is kept for the driver to restore."""
+        A checkpointed state's arrays move onto the engine's device; the
+        pipelined driver's stale bases and a buffered-async snapshot are
+        kept for the driver to restore."""
+        _trace.set_context(driver=self.kind)
         globals_ = (list(init_globals) if init_globals is not None
                     else engine.init_globals())
         state = (engine.init_state(globals_) if init_state is _UNSET
                  else init_state)
-        self._resume_population = None
+        self._resume_population = self._resume_base_ring = None
         if isinstance(state, dict) and state.get(_STATE_KEY):
             self._resume_population = state.get("population")
-            state = state["strategy_state"]
+            self._resume_base_ring = _to_device(state.get("base_ring"),
+                                                engine.device)
+        state, prev_base = unwrap_state(state)
+        self._resume_prev_base = _to_device(prev_base, engine.device)
         if init_state is not _UNSET:
             state = _to_device(state, engine.device)
         logs: List[List[RoundLog]] = (
@@ -125,11 +151,13 @@ class Driver:
     @staticmethod
     def _timed(engine: RoundEngine, phases: Dict[str, float], name: str,
                fn, *args):
-        """``fn(*args)``, its wall seconds added to ``phases[name]``."""
+        """``fn(*args)``, its wall seconds added to ``phases[name]``; on
+        the card, up to the end of the work it queued on the calling
+        thread's current stream."""
         t0 = time.perf_counter()
         out = fn(*args)
         if engine.device.type == "cuda":
-            torch.cuda.synchronize(engine.device)
+            torch.cuda.current_stream(engine.device).synchronize()
         phases[name] = phases.get(name, 0.0) + time.perf_counter() - t0
         return out
 

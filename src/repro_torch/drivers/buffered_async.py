@@ -71,6 +71,7 @@ from repro_torch.core.engine import RoundEngine
 from repro_torch.core.strategies import GroupRound
 from repro_torch.drivers.base import (_UNSET, Driver, _to_device,
                                       register_driver, wrap_state)
+from repro_torch.obs.trace import span
 
 
 @register_driver("buffered_async")
@@ -139,10 +140,13 @@ class BufferedAsyncDriver(Driver):
                     if quorum is not None:  # population exhausted
                         return False
                     raise
-                parts = pop.registry.partition[np.asarray(cohort)]
-                batches = engine.build_round_batches(w, parts)
-                groups = engine.train_clients(w, globals_, batches)
-                pop.push_wave(w, cohort, groups, base_version=fused)
+                # wave spans nest under the round's fill span; the engine
+                # phases inside carry round=w (the wave number)
+                with span("wave", round=t, wave=w):
+                    parts = pop.registry.partition[np.asarray(cohort)]
+                    batches = engine.build_round_batches(w, parts)
+                    groups = engine.train_clients(w, globals_, batches)
+                    pop.push_wave(w, cohort, groups, base_version=fused)
             return True
 
         def close_round(t, round_logs):
@@ -166,8 +170,9 @@ class BufferedAsyncDriver(Driver):
             """Join the pending fusion, guard, evaluate, close the round."""
             nonlocal globals_, state, fused
             t, ph = agg_round, phases[agg_round]
-            groups, globals_, state, infos = self._timed(
-                engine, ph, "join_fusion", agg_fut.result)
+            with span("join_fusion", round=t):
+                groups, globals_, state, infos = self._timed(
+                    engine, ph, "join_fusion", agg_fut.result)
             globals_, rolled = engine.guard_globals(
                 globals_, [g.prev_global for g in groups])
             round_logs = self._timed(engine, ph, "evaluate_round",
@@ -206,7 +211,8 @@ class BufferedAsyncDriver(Driver):
                     agg_fut = None
                     if stopped:
                         break
-                filled = self._timed(engine, phases[t], "fill", fill, t)
+                with span("fill", round=t):
+                    filled = self._timed(engine, phases[t], "fill", fill, t)
                 if agg_fut is not None:  # staleness=1: overlap fill/fuse
                     stopped = finish()
                     agg_fut = None

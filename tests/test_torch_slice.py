@@ -187,10 +187,10 @@ def test_new_spec_json_round_trips_in_both_packages(change):
 
 
 @pytest.mark.parametrize("change,exc", [
-    ({"driver": {"kind": "async_pipelined", "staleness": 1,
+    ({"driver": {"kind": "multihost", "staleness": 0,
                  "prefetch": 1}}, NotImplementedError),
     ({"obs": {"trace": True, "trace_path": None, "metrics_dir": None,
-              "profile": False, "profile_dir": None}}, NotImplementedError),
+              "profile": True, "profile_dir": None}}, ValueError),
     ({"sharding": {"shard_clients": True}}, NotImplementedError),
     ({"faults": {"nan_rate": 1.5}}, ValueError),
     ({"task": {"name": "nope", "n_samples": 10, "seed": None,
