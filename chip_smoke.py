@@ -30,18 +30,21 @@ and in order:
    plan printed, two launches of each kernel held to equal bits and every
    instantiation to zero spills; K4 (causal / sliding-window attention) at
    the serve path's shape, gemma3's local width, D = 80, D = 128 with a
-   window and two ragged shapes, float32 and bfloat16, beside
-   ``scaled_dot_product_attention`` (timed only), after checking that its
-   library holds tensor-core (HMMA) instructions and that its serve-path
-   instantiations spill no registers; K5 (Mamba2 SSD scan, y and final
+   window, two ragged shapes and, with key / value heads grouped under the
+   query heads, D = 256 without a window over 4096 keys, path 12's qwen3-8b
+   and gemma3-4b layers and a ragged grouped shape, float32 and bfloat16,
+   beside ``scaled_dot_product_attention`` (timed only), after checking
+   that its library holds tensor-core (HMMA) instructions and that its
+   serve-path instantiations spill no registers; K5 (Mamba2 SSD scan, y
+   and final
    state) at the serve path's shape, mamba2-2.7b's width and two ragged
    shapes in float32, and at the serve path's shape and one ragged shape in
    bfloat16, after checking that its library holds tensor-core (HMMA)
    instructions and that its float32 N = P = 64 instantiation (the serve
    path's) spills no registers;
-4. drives ten paths on the card, with every launch count set to 0 just
+4. drives twelve paths on the card, with every launch count set to 0 just
    before a path and read just after it.  Paths 1-3 go through
-   ``Experiment(spec).run()`` at the quickstart's published widths, 3
+   ``Experiment(spec).run()`` at the quickstart's published widths, 2
    rounds each:
    - path 1, the FedDF quickstart (``unlabeled`` pool, logit bank): every
      round uses the bank and K1 launches once per distill step;
@@ -63,7 +66,7 @@ and in order:
    group with a CPU run at paths 1-2's bounds:
    - path 5a, heterogeneous FedDF (the paper's Algorithm 3) on
      ``examples/heterogeneous_fusion.py``'s spec at its published widths
-     (three mlp prototypes, 9 clients), 3 rounds: every fused group uses
+     (three mlp prototypes, 9 clients), 2 rounds: every fused group uses
      the one bank over all groups' teachers, and K1 launches once per
      distill step of every group (K2 and K3 never); a profiled card rerun
      of round 1 must repeat it;
@@ -93,7 +96,7 @@ and in order:
      fly (K2 once per distill step at K = 13, K1 never);
    - path 8, the port's last training axes, each held against the CPU
      with every discrete fact equal: 8a buffered heterogeneous fusion
-     (path 5's spec on path 3's driver, 3 rounds: fresh rounds on K2,
+     (path 5's spec on path 3's driver, 2 rounds: fresh rounds on K2,
      round 1 at K = 6, stale rounds on K3; it must fuse a stale upload,
      each group's staleness histograms printed), compared after round 1
      and after rounds 1-2; 8b(i) step-count bucketing (``pow2``) on the
@@ -102,8 +105,8 @@ and in order:
      distill steps, ``real_steps``, ``padded_slots`` and ``train_clients``
      seconds printed bucketed and not; 8b(ii) distill batches of 32, 64
      and 48 on path 5a's spec, 1 round: K1 at those B on one bank; 8c the
-     token path (``examples/train_e2e.py``'s spec, tiny_transformer), 2
-     rounds on K1 at (64, 4000, 4), a profiled card rerun of round 1;
+     token path (``examples/train_e2e.py``'s spec, tiny_transformer), 1
+     round on K1 at (64, 4000, 4), a profiled card rerun of it;
    - path 9, fault injection, robust fusion and resume on the quickstart
      under docs/robustness.md's fault mix: 9a the defended FedDF on the
      bank (K1), 2 rounds, its fault decisions, kept teachers, distill
@@ -133,13 +136,33 @@ and in order:
      fusion-pod restart replaying 10c's wire log, bit for bit; 10g 10a's
      run with the flight recorder armed, bit for bit, every engine phase
      spanned in every round;
+   - path 11, the train CLI and the persistent logit bank: 11a
+     ``python -m repro_torch.launch.train`` in subprocesses on the
+     quickstart's flags, 2 rounds with ``--dump-config`` (its
+     ``spec.json`` equal to the same flags compiled here), then side by
+     side a ``--config`` replay and a ``--resume`` of the run stopped after
+     round 1, each with the first run's per-round log, and K1 once per
+     distill step of each from the launch counts the CLI prints; 11b one
+     card round's uploads fused twice through ``feddf_fuse_stacked`` (the
+     quickstart) and through the heterogeneous fuse (path 5a's spec): the
+     second fuse ``bank_reused`` with no teacher forward and no build time,
+     its globals equal to the first's bit for bit, K1 once per distill step
+     both times, and the cache empty once the uploads are freed;
+   - path 12, after path 4: the grouped-query decoders qwen3-8b and then
+     gemma3-4b served at full width and depth at path 4's batch, prompt
+     and tokens (random fp32 weights drawn on the card from seed 0): K4
+     36 and 34 times per prefill and none in decode, a profiled prefill,
+     forward against prefill + 2 forced decode steps at full depth (batch
+     1; gemma3's prompt outgrows its 1024 window, so its local caches roll
+     and decode on the ring) and 2 layers at full width card against CPU,
+     both within 1e-3 of the largest logit;
    and, in step 3, K1 (every bank dtype) and K2 / K3 in each launch mode
    on rows holding a NaN, a +Inf and a -Inf teacher logit: non-finite
    exactly where the plain versions are, within tolerance elsewhere, two
    launches equal bit for bit;
 5. prints one ``{"kernels": [...]}`` line (each kernel's launches on its
-   path and, under ``path7_launches`` to ``path10_launches``, on each of
-   paths 7's to 10's sub-paths), the card line, and as its last line
+   path and, under ``path7_launches`` to ``path12_launches``, on each of
+   paths 7's to 12's sub-paths), the card line, and as its last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the last line, when there is no CUDA device,
@@ -243,16 +266,25 @@ K2_GRAD_RTOL, K2_GRAD_ATOL = 1e-4, 1e-7
 FWD_ATOL, FWD_RTOL = 5e-6, 2e-6
 BWD_ATOL = 3e-7
 
-# K4 (B, H, S, D, window): the serve path's shared attention block
+# K4 (B, H, H_kv, S, D, window): the serve path's shared attention block
 # (zamba2-1.2b: 32 heads x 64, prompt 2000, causal; first: it feeds the
 # kernels line); gemma3's local-layer width with equal heads (D 256, window
 # 1024); D = 80 (zero-padded in the kernel's 128 bucket) and D = 128 with
-# a window; two ragged cases of tests/test_kernels.py.  Against the plain
-# version, the JAX package's tolerances (tests/test_kernels.py): rtol 1e-4
-# / atol 1e-5 in float32, 3e-2 in bfloat16.
-K4_SHAPES = [(4, 32, 2000, 64, None), (1, 8, 4096, 256, 1024),
-             (1, 4, 300, 80, None), (2, 8, 1000, 128, 256),
-             (1, 2, 100, 8, 24), (2, 4, 128, 32, 32)]
+# a window; two ragged cases of tests/test_kernels.py; then the
+# grouped-query shapes of path 12: D = 256 with no window over 4096 keys
+# (each tile's P.V goes straight into the running O there), qwen3-8b's
+# layers (32 query over 8 key heads, D 128), gemma3-4b's local and global
+# layers (8 over 4, D 256, window 1024 or none) at path 12's batch and
+# prompt, and a ragged grouped shape (3 query heads a key head, D 80).
+# Against the plain version, the JAX package's tolerances
+# (tests/test_kernels.py): rtol 1e-4 / atol 1e-5 in float32, 3e-2 in
+# bfloat16.
+K4_SHAPES = [(4, 32, 32, 2000, 64, None), (1, 8, 8, 4096, 256, 1024),
+             (1, 4, 4, 300, 80, None), (2, 8, 8, 1000, 128, 256),
+             (1, 2, 2, 100, 8, 24), (2, 4, 4, 128, 32, 32),
+             (1, 8, 8, 4096, 256, None), (4, 32, 8, 2000, 128, None),
+             (4, 8, 4, 2000, 256, 1024), (4, 8, 4, 2000, 256, None),
+             (1, 6, 2, 300, 80, None)]
 K4_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (3e-2, 3e-2)}
 # K5 (B, S, H, P, N): the serve path's Mamba2 layers (zamba2-1.2b, prompt
 # 2000; first: it feeds the kernels line); mamba2-2.7b's width; two ragged
@@ -281,10 +313,12 @@ PREFILL_RTOL, PREFILL_ATOL, DECODE_ATOL = 2e-3, 2e-4, 2e-3
 CPU_LAYERS, CPU_PROMPT, CPU_STEPS, CPU_REL_ATOL = 10, 300, 4, 1e-3
 
 # The quickstart main path (examples/quickstart.py at its published widths),
-# and each later path, 3 rounds each.
-MAIN_ROUNDS = 3
-# Path 3 is compared with the CPU after round 1 and after rounds 1-2: round 2
-# is the first with stale uploads (the weighted consensus).
+# and paths 2, 3 and 9d, 2 rounds each (cut from 3 to keep the script inside
+# its time limit).
+MAIN_ROUNDS = 2
+# Path 3 is compared with the CPU after round 1 and after rounds 1-2 (the
+# main run itself): round 2 is the first with stale uploads (the weighted
+# consensus).
 BUFFERED_CPU_ROUNDS = 2
 # The first rounds on the card against the same rounds on the CPU (plain
 # versions), from the same seed, batches and index or draw stream.  The two differ only by float32
@@ -310,10 +344,11 @@ FUSION_PREFIX_STEPS = 50
 # bound.
 ROUND2_PARAM_ATOL = 1e-2
 # Paths 5a / 5b: examples/heterogeneous_fusion.py's spec (Algorithm 3) at its
-# published widths, on the shared logit bank (K1) for HETERO_ROUNDS rounds and
-# on the fly (K2) for 1; path 6: the baselines on the quickstart spec.  Every
-# one is held card against CPU at paths 1-2's bounds, every group checked.
-HETERO_ROUNDS = 3
+# published widths, on the shared logit bank (K1) for HETERO_ROUNDS rounds
+# (cut from 6 to 3, then to 2) and on the fly (K2) for 1; path 6: the
+# baselines on the quickstart spec.  Every one is held card against CPU at
+# paths 1-2's bounds, every group checked.
+HETERO_ROUNDS = 2
 # Path 6's fedavgm server rule on its own: the CPU's rule on the card run's
 # uploads and momentum buffer of each round, against the card's new globals
 # and buffer.  The rule is a weighted mean over the clients and two
@@ -330,16 +365,17 @@ SERVER_RULE_ATOL = 1e-6
 ABLATION_ROUNDS = 1
 SWAG_SAMPLES, SWAG_SCALE = 5, 0.5
 # Path 8: 8a buffered heterogeneous fusion (path 5's spec on path 3's
-# driver), 3 rounds, held against the CPU after round 1 and after rounds
-# 1-2 at ROUND1_PARAM_ATOL; 8b step-count bucketing on the quickstart (1
-# round: the uploads, bucketed against unbucketed on the card, are the same
-# per-client arithmetic over fewer clients, held to 1e-5) and one distill
-# batch per prototype on path 5a's spec (1 round); 8c the token path
-# (examples/train_e2e.py), 2 rounds, only the rounds cut (6 -> 2).
-BUFFERED_HETERO_ROUNDS = 3
+# driver), 2 rounds (cut from 3), held against the CPU after round 1 and
+# after rounds 1-2 (the main run itself) at ROUND1_PARAM_ATOL; 8b
+# step-count bucketing on the quickstart (1 round: the uploads, bucketed
+# against unbucketed on the card, are the same per-client arithmetic over
+# fewer clients, held to 1e-5) and one distill batch per prototype on path
+# 5a's spec (1 round); 8c the token path (examples/train_e2e.py), 1 round,
+# only the rounds cut (6 -> 2 -> 1).
+BUFFERED_HETERO_ROUNDS = 2
 BUCKET_UPLOAD_ATOL = 1e-5
 DISTILL_BATCHES = (32, 64, 48)
-TOKENS_ROUNDS = 2
+TOKENS_ROUNDS = 1
 # Path 9: fault injection, robust fusion and checkpoint/resume on the
 # quickstart spec at its published widths, only the rounds cut.  The fault
 # mix is docs/robustness.md's and benchmarks/robustness_bench.py's CHAOS
@@ -350,7 +386,7 @@ TOKENS_ROUNDS = 2
 # rate of 0.25, so that a non-finite upload reaches the bank in round 1,
 # 1 round; 9c: trimmed_mean and coordinate_median, screen off, 1 round
 # each, held card against CPU at 1e-5 (no distillation: only local SGD's
-# float32 order); 9d: path 3's buffered driver under the mix, 3 rounds,
+# float32 order); 9d: path 3's buffered driver under the mix, 2 rounds,
 # compared over rounds 1-2 at path 3's bound; 9e: path 1's spec stopped by
 # an observer at round 3, resumed from the round-2 snapshot, against an
 # uninterrupted run at 1e-6.
@@ -375,7 +411,7 @@ NONFINITE_V = {"lanes": 3, "block": 300, "cluster": 5003}
 
 # Path 10: the runtime around the round engine on the quickstart spec at its
 # published widths, only the rounds cut.  10a the pipelined driver at
-# staleness 0, 3 rounds, against a sync run bit for bit (a miss is a
+# staleness 0, 2 rounds, against a sync run bit for bit (a miss is a
 # cross-stream race); 10b staleness 1 on the bank (K1) and staleness 2 on
 # the generator source (K2), 3 rounds each (cut from 4 to hold path 10
 # near its time), held against the CPU over rounds 1-2 at path 3's bounds
@@ -385,13 +421,14 @@ NONFINITE_V = {"lanes": 3, "block": 300, "cluster": 5003}
 # distributed driver over loopback pods, fp32 uploads, bit for bit against
 # 10a's sync run; 10d the same over tcp with 2 subprocess pods on the card;
 # 10e loopback with int8 uploads and docs/distributed.md's chaos mix (5%
-# corrupted frames, quorum 0.5, pod 1 killed in round 1), 3 rounds, its
+# corrupted frames, quorum 0.5, pod 1 killed in round 1), 2 rounds, its
 # wire decisions and steps equal card vs CPU over rounds 1-2 (the
 # corruption draws are keyed by (wave, pod, attempt)), its globals at path
 # 3's bounds; 10f 10c's run interrupted after round 2's uploads and resumed
 # from its wire log, bit for bit; 10g 10a's run with the flight recorder
-# armed, bit for bit.  10c, 10d and 10f run 2 rounds (10c cut from 3).
-PIPE_ROUNDS = 3
+# armed, bit for bit.  10a, 10c-10g run 2 rounds (10a, 10e, 10g cut from
+# 3, 10c from 3).
+PIPE_ROUNDS = 2
 STALE_ROUNDS = 3
 DIST_ROUNDS = 2
 CPU_ROUNDS = 2
@@ -402,6 +439,25 @@ CPU_ROUNDS = 2
 # time.
 CHAOS_WIRE = dict(transport_corrupt=0.05, quorum=0.5)
 CHAOS_HEARTBEAT_S, CHAOS_DEADLINE_S = 1.0, 30.0
+# Path 11a: the train CLI (``python -m repro_torch.launch.train``) in
+# subprocesses on the card, each with its own time limit, on the
+# quickstart's flags for CLI_ROUNDS rounds; its replay from the dumped
+# spec and its resume from the round-1 snapshot run side by side.
+CLI_ROUNDS, CLI_TIMEOUT_S = 2, 300
+CLI_FLAGS = ("--strategy", "feddf", "--clients", "20", "-C", "0.4",
+             "--alpha", "0.1", "--local-epochs", "20", "--n-samples",
+             "6000", "--distill-steps", "500", "--seed", "0")
+# Path 12: the grouped-query decoders served at full width and depth
+# (random fp32 weights drawn on the card from seed 0) at path 4's batch,
+# prompt and generated tokens, K4 launches per prefill (qwen3-8b: 36
+# global layers; gemma3-4b: 29 local + 5 global); forward against prefill
+# + 2 forced decode steps at full depth at batch 1 (gemma3's [B, S, V]
+# logits at V = 262144), and GQA_CPU_LAYERS layers at full width card
+# against CPU on a GQA_CPU_PROMPT-token prompt and GQA_CPU_STEPS forced
+# steps, both within 1e-3 of the largest logit.
+GQA_SERVE = (("qwen3-8b", 36), ("gemma3-4b", 34))
+GQA_CHECK_BATCH, GQA_CPU_LAYERS, GQA_CPU_PROMPT, GQA_CPU_STEPS = 1, 2, 256, 2
+GQA_REL_ATOL = 1e-3
 
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
@@ -811,15 +867,16 @@ def bound(byt: float, ops: float) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def k4_bound(b, h, s, d, window, elem) -> dict:
-    """The tensor-core bound: q, k, v read and o written once; 4 D flops
-    (q.k and p.v) and one exponential for every (query, key) pair the mask
-    lets through.  float32 runs three TF32 passes on the tensor cores,
-    bfloat16 one bf16 pass.  The bound is the largest of the three times,
-    ``bound_detail`` names it."""
+def k4_bound(b, h, s, d, window, elem, h_kv=None) -> dict:
+    """The tensor-core bound: q, k, v read and o written once (k and v at
+    their ``h_kv`` heads); 4 D flops (q.k and p.v) and one exponential for
+    every (query, key) pair the mask lets through.  float32 runs three TF32
+    passes on the tensor cores, bfloat16 one bf16 pass.  The bound is the
+    largest of the three times, ``bound_detail`` names it."""
+    h_kv = h if h_kv is None else h_kv
     w = s if window is None else window
     pairs = b * h * sum(min(i + 1, w) for i in range(s))
-    byt, ops = 4 * b * h * s * d * elem, 4 * d * pairs
+    byt, ops = 2 * b * (h + h_kv) * s * d * elem, 4 * d * pairs
     times = {"bytes": byt / HBM_BYTES_PER_S,
              "tensor cores": (3 * ops / TF32_FLOPS_PER_S if elem == 4
                               else ops / BF16_FLOPS_PER_S),
@@ -898,14 +955,13 @@ def k4_phase(device):
     timings of kernel, plain version and the library call
     (scaled_dot_product_attention, timed only) at each shape."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.swa_attn import swa_attn
     rows, errors = [], []
-    for (b, h, s, d, w) in K4_SHAPES:
+    for (b, h, h_kv, s, d, w) in K4_SHAPES:
         gen = torch.Generator().manual_seed(b + h + s + d)
-        qkv32 = [torch.randn(b, h, s, d, generator=gen).to(device)
-                 for _ in range(3)]
+        qkv32 = [torch.randn(b, n, s, d, generator=gen).to(device)
+                 for n in (h, h_kv, h_kv)]
         for dtype_name, (rtol, atol) in K4_TOL.items():
             q, k, v = (t.to(getattr(torch, dtype_name)) for t in qkv32)
             got = swa_attn(q, k, v, w)
@@ -914,34 +970,50 @@ def k4_phase(device):
             err, over = excess(got, want, rtol, atol)
             ok = over <= 0 and got.dtype == q.dtype and bool(
                 torch.isfinite(got.float()).all())
-            errors.append({"B": b, "H": h, "S": s, "D": d, "window": w,
-                           "dtype": dtype_name, "max_abs_err": err,
+            errors.append({"B": b, "H": h, "H_kv": h_kv, "S": s, "D": d,
+                           "window": w, "dtype": dtype_name,
+                           "max_abs_err": err, "excess": over,
                            "rtol": rtol, "atol": atol, "ok": ok})
             del got, want
             if s < 1000 and dtype_name != "float32":
                 continue
-            if w is None:
-                lib = lambda: F.scaled_dot_product_attention(q, k, v,
-                                                             is_causal=True)
-            else:
-                i = torch.arange(s, device=device)
-                mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :]
-                                                     < w)
-                lib = lambda: F.scaled_dot_product_attention(q, k, v,
-                                                             attn_mask=mask)
             with torch.no_grad():
                 t_k = timed(lambda: swa_attn(q, k, v, w))
                 t_p = timed(lambda: ref.swa_attn(q, k, v, w))
-                t_l = timed(lib)
-            rows.append({"B": b, "H": h, "S": s, "D": d, "window": w,
-                         "dtype": dtype_name, **t_k,
+                t_l = timed(k4_library(q, k, v, w))
+            rows.append({"B": b, "H": h, "H_kv": h_kv, "S": s, "D": d,
+                         "window": w, "dtype": dtype_name, **t_k,
                          "plain_ms": t_p["ms"], "plain_call_ms":
                          t_p["call_ms"], "library_ms": t_l["ms"],
                          "library_call_ms": t_l["call_ms"],
-                         **k4_bound(b, h, s, d, w, q.element_size())})
+                         **k4_bound(b, h, s, d, w, q.element_size(), h_kv)})
         del qkv32, q, k, v
         torch.cuda.empty_cache()
     return rows, errors
+
+
+def k4_library(q, k, v, w):
+    """One ``scaled_dot_product_attention`` call computing K4's function
+    (timed only, never used by the port): causal or windowed through a
+    mask, grouped heads by ``enable_gqa`` or, on a torch without it, by
+    key / value heads repeated beforehand (outside the timed call)."""
+    import torch
+    import torch.nn.functional as F
+    s = q.shape[2]
+    kw = {"is_causal": True}
+    if w is not None:
+        i = torch.arange(s, device=q.device)
+        kw = {"attn_mask": (i[None, :] <= i[:, None])
+              & (i[:, None] - i[None, :] < w)}
+    if k.shape[1] != q.shape[1]:
+        try:
+            F.scaled_dot_product_attention(q[:, :, :1], k[:, :, :1],
+                                           v[:, :, :1], enable_gqa=True)
+            kw["enable_gqa"] = True
+        except TypeError:
+            rep = q.shape[1] // k.shape[1]
+            k, v = (t.repeat_interleave(rep, dim=1) for t in (k, v))
+    return lambda: F.scaled_dot_product_attention(q, k, v, **kw)
 
 
 def k5_inputs(b, s, h, p, n, device):
@@ -1460,7 +1532,7 @@ def buffered_path():
                             f"{l.staleness_hist} {l.eff_participants}")
     check1, _, more1 = card_vs_cpu(spec, 1)
     check, _, more = card_vs_cpu(spec, BUFFERED_CPU_ROUNDS,
-                                 param_tol=ROUND2_PARAM_ATOL)
+                                 param_tol=ROUND2_PARAM_ATOL, gpu=res)
     report.update(cpu_check=check, cpu_check_round1=check1)
     return report, problems + more1 + more
 
@@ -2081,7 +2153,7 @@ def buffered_hetero_path():
         problems.append(f"bank decisions "
                         f"{[l.bank for l in fused_logs(res)]}")
     check1, _, more1 = card_vs_cpu(spec, 1)
-    check, _, more = card_vs_cpu(spec, BUFFERED_CPU_ROUNDS)
+    check, _, more = card_vs_cpu(spec, BUFFERED_CPU_ROUNDS, gpu=res)
     report.update(cpu_check=check, cpu_check_round1=check1)
     return report, problems + more1 + more
 
@@ -2186,7 +2258,7 @@ def bucketing_path():
 
 def tokens_path():
     """Path 8c: the paper's token path, tiny_transformer on the tokens task
-    over the unlabeled token pool (K1 at B = 64, V = 4), 2 rounds; its
+    over the unlabeled token pool (K1 at B = 64, V = 4), 1 round; its
     round 1 rerun profiled on the card and against the CPU."""
     spec = tokens_spec(TOKENS_ROUNDS)
     rows = []
@@ -2578,7 +2650,7 @@ def buffered_faults_path():
     if not sum(l.n_corrupted for l in logs):
         problems.append("the mix corrupted no upload")
     check, _, more = card_vs_cpu(spec, BUFFERED_CPU_ROUNDS,
-                                 param_tol=ROUND2_PARAM_ATOL)
+                                 param_tol=ROUND2_PARAM_ATOL, gpu=res)
     m = spec.population.buffer_size
     report.update(cpu_check=check, faults=fault_facts(res),
                   partial_fuses=[l.round for l in logs if l.fused
@@ -3039,7 +3111,7 @@ def dist_tcp_path(sync):
 
 def dist_chaos_path(fp32_bytes_up: int):
     """10e: int8 uploads under the chaos mix (corrupted frames, a quorum,
-    pod 1 killed in round 1), 3 rounds on the card and the first 2 on the
+    pod 1 killed in round 1), 2 rounds on the card and on the
     CPU (:func:`held_rounds`: every wire decision equal, the re-routes
     too); the int8 uplink bytes of rounds 1-2 against 10c's fp32 ones
     (``fp32_bytes_up``)."""
@@ -3254,6 +3326,402 @@ def print_runtime(rep) -> None:
           f"{g['idle_gap_s']:.3f} s", flush=True)
 
 
+def cli_run(args, out_dir, env):
+    """``python -m repro_torch.launch.train ARGS --out OUT_DIR`` in a
+    subprocess on the card: (returncode, its summary.json or None, the
+    per-round distill steps it printed, its kernel launches, its output's
+    tail)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *args, "--out",
+         str(out_dir)], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    summary = None
+    if (out_dir / "summary.json").exists():
+        summary = json.loads((out_dir / "summary.json").read_text())
+    steps = [int(w.split("=")[1]) for line in proc.stdout.splitlines()
+             if line.startswith("[round") for w in line.split()
+             if w.startswith("distill_steps=")]
+    launches = next((json.loads(line.split(":", 1)[1])
+                     for line in reversed(proc.stderr.splitlines())
+                     if line.startswith("kernel launches:")), None)
+    return {"rc": proc.returncode, "wall_s": wall, "summary": summary,
+            "distill_steps": steps, "launches": launches,
+            "tail": (proc.stdout[-1500:], proc.stderr[-1500:])}
+
+
+def cli_path():
+    """Path 11a: the train CLI on the card.  A run of the quickstart's
+    flags with ``--dump-config``; its ``spec.json`` against the same flags
+    compiled in this process; then, side by side, a ``--config`` replay of
+    the dumped spec and a ``--resume`` of a copy of the run stopped after
+    round 1 (its round-2 snapshot removed), each with a per-round log equal
+    to the first run's."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.launch import train
+    base = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    argv = [*CLI_FLAGS, "--rounds", str(CLI_ROUNDS)]
+    t0 = time.perf_counter()
+    first = cli_run([*argv, "--dump-config", str(base / "dumped.json")],
+                    base / "run", env)
+    problems = []
+    report = {"argv": argv, "first": first}
+    if first["rc"] != 0 or first["summary"] is None:
+        return report, [f"the CLI run failed: {first['tail']}"]
+    want = train.spec_from_args(train.build_parser().parse_args(argv))
+    spec_json = json.loads((base / "run" / "spec.json").read_text())
+    dumped = json.loads((base / "dumped.json").read_text())
+    report["spec_equal"] = spec_json == want.to_dict() == dumped
+    if not report["spec_equal"]:
+        problems.append("spec.json differs from the in-process spec")
+    # the run stopped after round 1: its snapshots without round 2's
+    shutil.copytree(base / "run" / "ckpt", base / "stopped" / "ckpt")
+    shutil.rmtree(base / "stopped" / "ckpt" / "rounds" / f"{CLI_ROUNDS:05d}")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        replay = pool.submit(cli_run, ["--config", str(base / "dumped.json")],
+                             base / "replay", env)
+        resumed = pool.submit(cli_run, ["--resume", str(base / "stopped")],
+                              base / "stopped", env)
+        replay, resumed = replay.result(), resumed.result()
+    report.update(replay=replay, resumed=resumed,
+                  total_s=time.perf_counter() - t0)
+    per_round = first["summary"]["per_round"]
+    for name, r in (("replay", replay), ("resume", resumed)):
+        if r["rc"] != 0 or r["summary"] is None:
+            problems.append(f"the {name} failed: {r['tail']}")
+        elif r["summary"]["per_round"] != per_round:
+            problems.append(f"the {name}'s per-round log "
+                            f"{r['summary']['per_round']} differs from "
+                            f"{per_round}")
+    # K1 once per distill step of each run (the resume runs round 2 only)
+    for name, r, steps in (("first", first, sum(first["distill_steps"])),
+                           ("replay", replay, sum(replay["distill_steps"])),
+                           ("resume", resumed,
+                            first["distill_steps"][-1])):
+        got = r["launches"] or {}
+        if (r["distill_steps"] and name == "resume"
+                and r["distill_steps"] != first["distill_steps"][-1:]):
+            problems.append(f"the resume distilled {r['distill_steps']}")
+        if not steps or any(got.get(k) != steps for k in
+                            ("ensemble_kl_bank_fwd", "ensemble_kl_bank_bwd")):
+            problems.append(f"{name}: K1 launched {got} for {steps} distill "
+                            f"steps")
+    report["launches"] = first["launches"] or {}
+    return report, problems
+
+
+@contextlib.contextmanager
+def recording_calls(name: str, recs: list):
+    """While open, every call of ``core.feddf.<name>`` appends its
+    arguments to ``recs``."""
+    from repro_torch.core import feddf
+    fn = getattr(feddf, name)
+
+    def recording(*args, **kw):
+        recs.append((args, kw))
+        return fn(*args, **kw)
+    setattr(feddf, name, recording)
+    try:
+        yield recs
+    finally:
+        setattr(feddf, name, fn)
+
+
+def refuse_twice(fn, args, kw, groups_of) -> tuple:
+    """``fn(*args, **kw)`` twice on the card after the persistent bank is
+    cleared, each with its launch counts and teacher forwards from 0:
+    (per fuse: decisions, teacher batch forwards, bank build seconds,
+    counted forwards, distill steps, K1 launches; the two outputs)."""
+    import torch
+    from repro_torch.core.logit_bank import PERSISTENT_BANK, TEACHER_FORWARDS
+    PERSISTENT_BANK.clear()
+    facts, outs = [], []
+    for _ in range(2):
+        reset_all_launches()
+        TEACHER_FORWARDS.reset()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        infos = [i for i in groups_of(out) if not i.get("skipped")]
+        facts.append({
+            "decisions": [i["bank_decision"] for i in infos],
+            "teacher_batch_forwards": [i["teacher_batch_forwards"]
+                                       for i in infos],
+            "bank_build_s": [i["bank_build_s"] for i in infos],
+            "forwards_counted": TEACHER_FORWARDS.count,
+            "steps": sum(i["steps"] for i in infos),
+            "launches": {k: n for k, n in all_launches().items() if n}})
+        outs.append(out[0])
+    return facts, outs
+
+
+def reuse_problems(what, facts, outs, flat) -> list:
+    first, second = facts
+    problems = []
+    if set(first["decisions"]) != {"bank"} or set(
+            second["decisions"]) != {"bank_reused"}:
+        problems.append(f"{what}: decisions {first['decisions']} then "
+                        f"{second['decisions']}")
+    if (second["forwards_counted"] or any(second["teacher_batch_forwards"])
+            or any(second["bank_build_s"])
+            or not first["forwards_counted"]):
+        problems.append(f"{what}: the re-fuse forwarded teachers: {facts}")
+    for f in facts:
+        want = {"ensemble_kl_bank_fwd": f["steps"],
+                "ensemble_kl_bank_bwd": f["steps"]}
+        if not f["steps"] or f["launches"] != want:
+            problems.append(f"{what}: launches {f['launches']} for "
+                            f"{f['steps']} distill steps")
+    if not trees_bit_equal(flat(outs[0]), flat(outs[1])):
+        problems.append(f"{what}: the re-fuse's globals differ from the "
+                        f"first fuse's")
+    return problems
+
+
+def bank_reuse_path():
+    """Path 11b: one card round's uploads fused twice, through
+    ``feddf_fuse_stacked`` (the quickstart) and through the heterogeneous
+    fuse (path 5a's spec): the second fuse reuses the persistent bank
+    (``bank_reused``, no teacher forward, no build time), its globals equal
+    the first's bit for bit and K1 launches once per distill step both
+    times; once the uploads are freed the cache is empty."""
+    import gc
+    from repro_torch.api import Experiment
+    from repro_torch.core import feddf
+    from repro_torch.core.logit_bank import PERSISTENT_BANK
+    report, problems = {}, []
+    t0 = time.perf_counter()
+    for name, spec, fn_name in (
+            ("homogeneous", quickstart_spec(1), "feddf_fuse_stacked"),
+            ("heterogeneous", hetero_spec(1),
+             "feddf_fuse_heterogeneous_stacked")):
+        recs = []
+        with recording_calls(fn_name, recs):
+            Experiment(spec, device="cuda").run()
+        if len(recs) != 1:
+            problems.append(f"{name}: {len(recs)} fusions recorded")
+            continue
+        args, kw = recs.pop()
+        hetero = fn_name != "feddf_fuse_stacked"
+        facts, outs = refuse_twice(
+            getattr(feddf, fn_name), args, kw,
+            (lambda out: out[1]) if hetero else (lambda out: [out[1]]))
+        flat = ((lambda ps: [p for p in ps if p is not None]) if hetero
+                else (lambda p: [p]))
+        problems += reuse_problems(name, facts, outs, flat)
+        del args, kw, outs
+        gc.collect()
+        report[name] = {"fuses": facts,
+                        "cache_empty_after_free":
+                            PERSISTENT_BANK._bank is None}
+        if PERSISTENT_BANK._bank is not None:
+            problems.append(f"{name}: the cache outlived the uploads")
+    launches = {}
+    for r in report.values():
+        for f in r["fuses"]:
+            for k, n in f["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    report.update(launches=launches, total_s=time.perf_counter() - t0)
+    return report, problems
+
+
+def gqa_serve_path(device, arch: str, k4_per_prefill: int):
+    """Path 12: ``arch`` served at full width and depth on the card
+    (``repro_torch.launch.serve.serve``) at path 4's batch, prompt and
+    generated tokens from random fp32 weights drawn on the card from seed
+    0; K4 per prefill and none in decode; a profiled prefill; forward
+    against prefill + 2 forced decode steps at full depth (batch 1), and
+    GQA_CPU_LAYERS layers at full width card against CPU."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.common.pytree import tree_leaves, tree_map
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+    from torch.profiler import ProfilerActivity, profile
+    cfg = configs.get(arch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = T.init(cfg, torch.Generator(device=device).manual_seed(0),
+                    device=device)
+    torch.cuda.synchronize()
+    toks = torch.randint(0, cfg.vocab_size,
+                         (SERVE_BATCH, SERVE_PROMPT + 2),
+                         generator=torch.Generator().manual_seed(0))
+    prompts = toks[:, :SERVE_PROMPT]
+    report = {"arch": cfg.name, "batch": SERVE_BATCH,
+              "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+              "params_stored": sum(x.numel() for x in tree_leaves(params)),
+              "weights_bytes": sum(x.numel() * x.element_size()
+                                   for x in tree_leaves(params)),
+              "init_s": time.perf_counter() - t0}
+    problems = []
+    want = {"swa_attn": k4_per_prefill}
+
+    # one prefill alone: its launches
+    reset_all_launches()
+    with torch.no_grad():
+        T.prefill(params, cfg, {"tokens": prompts.to(device)},
+                  max_seq=SERVE_PROMPT + SERVE_GEN, last_only=True)
+    torch.cuda.synchronize()
+    prefill_launches = {k: n for k, n in all_launches().items() if n}
+
+    # the path: serve(), every count set to 0 just before and read after
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    res = serve(cfg, params, prompts, SERVE_GEN, device=device,
+                generator=torch.Generator().manual_seed(0))
+    launches = all_launches()
+    decode_launches = {k: launches[k] - prefill_launches.get(k, 0)
+                       for k in launches}
+    report.update(
+        launches=launches, prefill_launches=prefill_launches,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        decode_launches=decode_launches, prefill_s=res.prefill_s,
+        decode_s=res.decode_s, decode_tokens_per_s=res.decode_tokens_per_s,
+        tokens=res.tokens[:, :8].tolist())
+    if prefill_launches != want or {k: n for k, n in launches.items()
+                                    if n} != want:
+        problems.append(f"prefill launched {prefill_launches} and serve "
+                        f"{launches}, expected {want} per prefill")
+    if any(decode_launches.values()):
+        problems.append(f"decode launched kernels: {decode_launches}")
+    if tuple(res.tokens.shape) != (SERVE_BATCH, SERVE_GEN) or not (
+            0 <= int(res.tokens.min())
+            and int(res.tokens.max()) < cfg.vocab_size):
+        problems.append(f"tokens {tuple(res.tokens.shape)} out of range")
+    if not all(bool(torch.isfinite(t).all())
+               for t in [res.prefill_logits, *res.step_logits]):
+        problems.append("non-finite logits")
+
+    # the prefill's busy share and device time by kernel, from a trace
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.no_grad():
+            T.prefill(params, cfg, {"tokens": prompts.to(device)},
+                      max_seq=SERVE_PROMPT + SERVE_GEN, last_only=True)
+        torch.cuda.synchronize()
+    report["prefill_device"] = device_time(prof, res.prefill_s,
+                                           ("swa_attn", "gemm"))
+    del prof
+
+    # (a) full depth: forward(prompt + 2) against prefill + two forced
+    # decode steps, batch 1; gemma3's prompt outgrows its 1024 window, so
+    # its local caches roll and decode on the ring
+    with torch.no_grad():
+        dev_toks = toks[:GQA_CHECK_BATCH].to(device)
+        full = T.forward(params, cfg, {"tokens": dev_toks})
+        pre, caches = T.prefill(params, cfg,
+                                {"tokens": dev_toks[:, :SERVE_PROMPT]},
+                                max_seq=SERVE_PROMPT + 2)
+        scale = float(full.abs().max())
+        err_p = float((pre - full[:, :SERVE_PROMPT]).abs().max())
+        del pre
+        err_d = []
+        for i in range(2):
+            dec, caches = T.decode_step(
+                params, cfg,
+                {"tokens": dev_toks[:, SERVE_PROMPT + i:
+                                    SERVE_PROMPT + i + 1]},
+                caches, SERVE_PROMPT + i)
+            err_d.append(float((dec[:, 0] - full[:, SERVE_PROMPT + i])
+                               .abs().max()))
+        del full, caches
+    check_a = {"batch": GQA_CHECK_BATCH, "max_abs_logit": scale,
+               "atol": GQA_REL_ATOL * scale, "prefill_err": err_p,
+               "decode_err": err_d}
+    report["check_a"] = check_a
+    if max(err_p, *err_d) > check_a["atol"]:
+        problems.append(f"check (a) full depth: {check_a}")
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) GQA_CPU_LAYERS layers at full width: the card (kernels) against
+    # the CPU (plain versions) from the same weights, drawn on the card
+    small = dataclasses.replace(cfg, n_layers=GQA_CPU_LAYERS)
+    p_dev = T.init(small, torch.Generator(device=device).manual_seed(1),
+                   device=device)
+    p_cpu = tree_map(lambda x: x.cpu(), p_dev)
+    stoks = torch.randint(0, cfg.vocab_size,
+                          (1, GQA_CPU_PROMPT + GQA_CPU_STEPS),
+                          generator=torch.Generator().manual_seed(2))
+    runs = {}
+    for name, dev, p in (("cuda", device, p_dev),
+                         ("cpu", torch.device("cpu"), p_cpu)):
+        reset_all_launches()
+        with torch.no_grad():
+            t = stoks.to(dev)
+            lg, caches = T.prefill(p, small,
+                                   {"tokens": t[:, :GQA_CPU_PROMPT]},
+                                   max_seq=GQA_CPU_PROMPT + GQA_CPU_STEPS,
+                                   last_only=True)
+            steps = [lg.cpu()]
+            for i in range(GQA_CPU_STEPS):
+                d, caches = T.decode_step(
+                    p, small, {"tokens": t[:, GQA_CPU_PROMPT + i:
+                                           GQA_CPU_PROMPT + i + 1]},
+                    caches, GQA_CPU_PROMPT + i)
+                steps.append(d.cpu())
+        runs[name] = (torch.cat(steps, dim=1),
+                      {k: n for k, n in all_launches().items() if n})
+        del caches
+    del p_dev, p_cpu
+    torch.cuda.empty_cache()
+    scale_b = float(runs["cpu"][0].abs().max())
+    check_b = {"layers": GQA_CPU_LAYERS, "prompt": GQA_CPU_PROMPT,
+               "steps": GQA_CPU_STEPS, "max_abs_logit": scale_b,
+               "atol": GQA_REL_ATOL * scale_b,
+               "err": float((runs["cuda"][0] - runs["cpu"][0]).abs().max()),
+               "launches_cuda": runs["cuda"][1],
+               "launches_cpu": runs["cpu"][1]}
+    report["check_b"] = check_b
+    if (check_b["err"] > check_b["atol"]
+            or runs["cuda"][1] != {"swa_attn": GQA_CPU_LAYERS}
+            or runs["cpu"][1]):
+        problems.append(f"check (b) card vs CPU: {check_b}")
+    return report, problems
+
+
+def print_path11(name, rep) -> None:
+    if name == "path11a_cli":
+        for run in ("first", "replay", "resumed"):
+            r = rep.get(run)
+            if r is None:
+                continue
+            print(f"  {name} {run}: rc {r['rc']}, {r['wall_s']:.1f} s, "
+                  f"per-round test_acc "
+                  f"{(r['summary'] or {}).get('per_round')}, distill steps "
+                  f"{r['distill_steps']}, launches "
+                  f"{ {k: n for k, n in (r['launches'] or {}).items() if n} }")
+        print(f"  {name}: spec.json equals the in-process spec: "
+              f"{rep.get('spec_equal')}; whole path {rep['total_s']:.1f} s",
+              flush=True)
+        return
+    for what in ("homogeneous", "heterogeneous"):
+        if what in rep:
+            print(f"  {name} {what}: {rep[what]}")
+    print(f"  {name}: launches {rep['launches']}; whole path "
+          f"{rep['total_s']:.1f} s", flush=True)
+
+
+def print_path12(name, rep) -> None:
+    print(f"  {name} {rep['arch']} batch {rep['batch']} prompt "
+          f"{rep['prompt']} gen {rep['gen']}: {rep['params_stored']} "
+          f"parameters ({rep['weights_bytes'] / 1e9:.1f} GB), init "
+          f"{rep['init_s']:.1f} s, prefill {rep['prefill_s']:.3f} s, decode "
+          f"{rep['decode_s']:.3f} s ({rep['decode_tokens_per_s']:.1f} "
+          f"tok/s), peak {rep['peak_mem_bytes'] / 2**30:.2f} GiB; launches "
+          f"prefill {rep['prefill_launches']} decode "
+          f"{ {k: n for k, n in rep['decode_launches'].items() if n} }; "
+          f"whole path {rep['total_s']:.1f} s")
+    print(f"  {name} prefill on the card, from a profiler trace: "
+          f"{rep['prefill_device']}")
+    print(f"  {name} check (a) full depth: {rep['check_a']}")
+    print(f"  {name} check (b) card vs CPU: {rep['check_b']}", flush=True)
+
+
 def print_path(name, rep) -> None:
     for r in rep["rounds"]:
         ph = " ".join(f"{k}={v:.3f}s" for k, v in r["phase_s"].items())
@@ -3460,9 +3928,10 @@ def main() -> int:
     report.update(k4_errors=k4_errors, k4_timings=k4_timings,
                   k5_errors=k5_errors, k5_timings=k5_timings)
     for e in k4_errors:
-        print(f"  check swa_attn B={e['B']} H={e['H']} S={e['S']} D={e['D']} "
-              f"window={e['window']} {e['dtype']:8s}: max abs err "
-              f"{e['max_abs_err']:.2e} (rtol {e['rtol']:.0e} atol "
+        print(f"  check swa_attn B={e['B']} H={e['H']} H_kv={e['H_kv']} "
+              f"S={e['S']} D={e['D']} window={e['window']} {e['dtype']:8s}: "
+              f"max abs err {e['max_abs_err']:.2e}, excess over the bound "
+              f"{e['excess']:.2e} (rtol {e['rtol']:.0e} atol "
               f"{e['atol']:.0e}) {'ok' if e['ok'] else 'FAIL'}")
     for e in k5_errors:
         print(f"  check ssd_scan B={e['B']} S={e['S']} H={e['H']} P={e['P']} "
@@ -3473,8 +3942,8 @@ def main() -> int:
     for name, rows in (("swa_attn", k4_timings), ("ssd_scan", k5_timings)):
         for r in rows:
             shape = " ".join(f"{k}={r[k]}" for k in
-                             ("B", "H", "S", "D", "window", "dtype", "P",
-                              "N") if k in r)
+                             ("B", "H", "H_kv", "S", "D", "window", "dtype",
+                              "P", "N") if k in r)
             lib = ("-" if r["library_ms"] is None else
                    f"{r['library_ms'] * 1e3:.1f} / "
                    f"{r['library_call_ms'] * 1e3:.1f}")
@@ -3554,6 +4023,14 @@ def main() -> int:
             print_path(f"path10 {sub}", r)
     print_runtime(rep)
     print(f"  path10_runtime: whole path {rep['total_s']:.1f} s", flush=True)
+    for name, fn in (("path11a_cli", cli_path),
+                     ("path11b_bank_reuse", bank_reuse_path)):
+        t0 = time.perf_counter()
+        rep, path_problems = fn()
+        rep["total_s"] = time.perf_counter() - t0
+        paths[name] = rep
+        problems += [f"{name}: {p}" for p in path_problems]
+        print_path11(name, rep)
     print(f"  path 9a fault kinds (wave, client, kinds): "
           f"{paths['path9a_defended']['kinds']}; kept teachers "
           f"{paths['path9a_defended']['kept']}")
@@ -3613,6 +4090,14 @@ def main() -> int:
     print(f"  path4_serve check (a) full depth: {rep['check_a']}")
     print(f"  path4_serve check (b) card vs CPU: {rep['check_b']}",
           flush=True)
+    for arch, k4_per_prefill in GQA_SERVE:
+        name = f"path12_{arch}"
+        t0 = time.perf_counter()
+        rep, path_problems = gqa_serve_path(device, arch, k4_per_prefill)
+        rep["total_s"] = time.perf_counter() - t0
+        paths[name] = rep
+        problems += [f"{name}: {p}" for p in path_problems]
+        print_path12(name, rep)
 
     # 5. output
     def timing(rows, **key):
@@ -3658,6 +4143,17 @@ def main() -> int:
                 for sub, r in paths["path10_runtime"].items()
                 if sub != "total_s"}
 
+    def path11_launches(name):
+        """Path 11's launches of ``name``: the CLI's first run (its own
+        count, printed on its standard error) and the two re-fuses."""
+        return {"11a": paths["path11a_cli"]["launches"].get(name, 0),
+                "11b": paths["path11b_bank_reuse"]["launches"].get(name, 0)}
+
+    def path12_launches(name):
+        """Each path 12 model's launches of ``name`` while serving."""
+        return {arch: paths[f"path12_{arch}"]["launches"].get(name, 0)
+                for arch, _ in GQA_SERVE}
+
     def path8_launches(name):
         """Each path 8 sub-path's launches of ``name``."""
         b = paths["path8b_bucketing"]
@@ -3678,6 +4174,8 @@ def main() -> int:
                 "path8_launches": path8_launches(name),
                 "path9_launches": path9_launches(name),
                 "path10_launches": path10_launches(name),
+                "path11_launches": path11_launches(name),
+                "path12_launches": path12_launches(name),
                 "max_abs_err": max(e[i] for e in errs),
                 "ms": t[f"{kind}_ms"], "plain_ms": t[f"plain_{kind}_ms"],
                 "call_ms": t[f"{kind}_call_ms"],
@@ -3698,6 +4196,8 @@ def main() -> int:
             "path8_launches": path8_launches(name),
             "path9_launches": path9_launches(name),
             "path10_launches": path10_launches(name),
+            "path11_launches": path11_launches(name),
+            "path12_launches": path12_launches(name),
             "max_abs_err": max(e["max_abs_err"] for e in errs
                                if e.get("dtype", "float32") == "float32"),
             "ms": t["ms"], "plain_ms": t["plain_ms"],

@@ -150,6 +150,7 @@ def make_teacher_logits_fn(net: Net, teacher_stack):
 
     fn.n_teachers = int(next(iter(tree_flatten(teacher_stack).values())
                              ).shape[0])
+    fn.stack = teacher_stack  # the persistent bank cache keys on it
     return fn
 
 
@@ -236,7 +237,7 @@ def distill(
             expected_steps=expected_distill_steps(fusion, val_x is not None),
             teacher_weights=teacher_weights)
         decision = _bank_decision(reason)
-        built_here = bank is not None
+        built_here = bank is not None and not bank.reused
     n_teachers = sum(int(getattr(f, "n_teachers", 1))
                      for f in teacher_logit_fns)
     device = (bank.logits.device if bank is not None

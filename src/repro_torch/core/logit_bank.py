@@ -15,19 +15,26 @@ dequantizes rows in registers (``kernels/ensemble_kl_bank.py``).
 Teacher weights (the buffered-async driver's staleness importance) fold
 into the stored rows at build time: the bank holds the weighted consensus
 instead of the uniform mean, and the distillation steps stay the same.
-The persistent cross-round cache waits for ROADMAP.md queue 1 item 7.
+
+A size-1 cross-round cache (:data:`PERSISTENT_BANK`) keeps the last build:
+when the very same frozen teacher tensors are fused again over the same
+pool (a repeated fusion of one round's uploads), :func:`resolve_bank`
+returns the cached rows as ``reused`` instead of forwarding every teacher
+again.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 import warnings
+import weakref
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.common.options import (BANK_DTYPES, LOGIT_BANK_MODES,
                                         QUANTIZED_BANK_DTYPES)
+from repro_torch.common.pytree import tree_leaves
 from repro_torch.obs import trace as _trace
 from repro_torch.obs.metrics import REGISTRY
 
@@ -170,18 +177,88 @@ def build_logit_bank(teacher_logit_fns: Sequence[Callable], pool, *,
                      dtype_name=dtype)
 
 
+class _PersistentBankCache:
+    """Size-1 cross-round bank cache for static teacher pools.
+
+    Keyed on the identity of the teacher stacks (the ``id()`` of every
+    stacked teacher leaf, the pool's and the bank dtype) and on the teacher
+    weights by value: fusing the exact same frozen tensors again reuses the
+    previous build's rows.  New uploads are new tensors with new ids, a
+    miss that replaces the entry.  The keyed tensors are held through weak
+    references: a hit needs all of them alive, so a recycled id never hits,
+    and the entry (bank rows included) dies with the first keyed tensor, so
+    a training run's replaced uploads are not pinned."""
+
+    def __init__(self):
+        self._gen = 0
+        self._key = None
+        self._refs: Tuple = ()
+        self._bank: Optional[LogitBank] = None
+
+    def lookup(self, key) -> Optional[LogitBank]:
+        if key is None or key != self._key:
+            return None
+        if any(r() is None for r in self._refs):
+            self.clear()  # a keyed tensor died; its id may be recycled
+            return None
+        return self._bank
+
+    def store(self, key, referents, bank: LogitBank) -> None:
+        self._gen += 1
+        gen = self._gen
+
+        def on_dead(_ref, _gen=gen):
+            # drop the bank once any keyed tensor is freed, unless a newer
+            # entry (or a clear) has already replaced this one
+            if self._gen == _gen:
+                self.clear()
+
+        self._key = key
+        self._refs = tuple(weakref.ref(x, on_dead) for x in referents)
+        self._bank = bank
+
+    def clear(self) -> None:
+        self._gen += 1
+        self._key, self._refs, self._bank = None, (), None
+
+
+PERSISTENT_BANK = _PersistentBankCache()
+
+
+def _identity_key(teacher_logit_fns, pool, dtype_name: str,
+                  teacher_weights=None):
+    """(key, referents) for the persistent cache, or (None, ()) when a
+    teacher fn carries no stamped ``.stack`` (nothing stable to key on).
+    The teacher weights join the key by value: the same stacks fused under
+    other importances must not hit."""
+    ids, referents = [], []
+    for f in teacher_logit_fns:
+        stack = getattr(f, "stack", None)
+        if stack is None:
+            return None, ()
+        leaves = tree_leaves(stack)
+        ids.extend(id(x) for x in leaves)
+        referents.extend(leaves)
+    referents.append(pool)
+    w_key = (None if teacher_weights is None else tuple(
+        float(w) for w in torch.as_tensor(teacher_weights).reshape(-1)))
+    return (tuple(ids), id(pool), dtype_name, w_key), referents
+
+
 def resolve_bank(teacher_logit_fns: Sequence[Callable], source, fusion, *,
                  expected_steps: Optional[int] = None,
                  teacher_weights=None
                  ) -> Tuple[Optional[LogitBank], str]:
     """Resolve ``FusionConfig.logit_bank`` against the source.
 
-    Returns ``(bank_or_None, reason)``, reason one of ``built`` / ``off``
-    / ``no_teachers`` / ``no_pool`` / ``skipped_small_run``.  ``auto``
-    builds whenever the source has a pool and the run is expected to
-    touch at least ``N`` pool rows (``expected_steps x batch_size >= N``);
-    a shorter run keeps the on-the-fly path.  ``teacher_weights`` fold
-    into the bank rows (:func:`build_logit_bank`)."""
+    Returns ``(bank_or_None, reason)``, reason one of ``built`` /
+    ``reused`` (a :data:`PERSISTENT_BANK` hit) / ``off`` / ``no_teachers``
+    / ``no_pool`` / ``skipped_small_run``.  ``auto`` builds whenever the
+    source has a pool and the run is expected to touch at least ``N`` pool
+    rows (``expected_steps x batch_size >= N``); a shorter run keeps the
+    on-the-fly path.  A cached bank costs no forward, so the lookup comes
+    before that break-even skip.  ``teacher_weights`` fold into the bank
+    rows (:func:`build_logit_bank`)."""
     mode = getattr(fusion, "logit_bank", "off")
     if mode not in LOGIT_BANK_MODES:
         raise ValueError(f"logit_bank must be one of {LOGIT_BANK_MODES}, "
@@ -199,6 +276,12 @@ def resolve_bank(teacher_logit_fns: Sequence[Callable], source, fusion, *,
                 f"forwards", UserWarning, stacklevel=2)
         return None, "no_pool"
     bank_dtype(fusion.bank_dtype)
+    key, referents = _identity_key(teacher_logit_fns, pool,
+                                   fusion.bank_dtype, teacher_weights)
+    cached = PERSISTENT_BANK.lookup(key)
+    if cached is not None:
+        with _trace.span("bank_reuse", pool_n=len(pool)):
+            return dataclasses.replace(cached, reused=True), "reused"
     if (mode == "auto" and expected_steps is not None
             and expected_steps * fusion.batch_size < len(pool)):
         return None, "skipped_small_run"
@@ -207,4 +290,6 @@ def resolve_bank(teacher_logit_fns: Sequence[Callable], source, fusion, *,
         bank = build_logit_bank(teacher_logit_fns, pool,
                                 dtype=fusion.bank_dtype,
                                 teacher_weights=teacher_weights)
+    if key is not None:
+        PERSISTENT_BANK.store(key, referents, bank)
     return bank, "built"

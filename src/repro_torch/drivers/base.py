@@ -196,3 +196,9 @@ def make_driver(name: str, *, staleness: int = 0,
 
 def available_drivers() -> List[str]:
     return sorted(_REGISTRY)
+
+
+def pending_drivers() -> List[str]:
+    """Driver kinds the JAX package has and the port does not run yet
+    (:func:`get_driver` raises ``NotImplementedError`` for them)."""
+    return sorted(_PENDING)

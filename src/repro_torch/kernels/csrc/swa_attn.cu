@@ -4,9 +4,12 @@
 // Replaces the Pallas TPU kernel _swa_kernel of src/repro/kernels/swa_attn.py
 // (kernel :32, wrapper swa_attn_pallas :72, pallas_call :101).
 //
-// q, k, v, o: [BH, S, D] contiguous (the caller's [B, H, S, D] with equal
-// query and key heads), f32 or bf16 (a template parameter), softmax and
-// accumulation in f32.  As _swa_kernel computes it:
+// q, o: [B*H, S, D] and k, v: [B*H_kv, S, D] contiguous (the caller's
+// [B, H, S, D] and [B, H_kv, S, D]), f32 or bf16 (a template parameter),
+// softmax and accumulation in f32.  Grouped-query attention: H_kv divides
+// H, and query head h reads key / value head h / (H / H_kv), as the JAX
+// models' _sdpa groups its heads (H_kv = H is plain multi-head attention).
+// As _swa_kernel computes it:
 //   scores are q.k scaled by 1/sqrt(D) in f32;
 //   key kp is seen by query qp iff kp <= qp, qp - kp < window (when there is
 //   a window), and both are < S;
@@ -324,6 +327,16 @@ __device__ __forceinline__ void pv(float (&o)[DP / 8][4], const float (&p)[BK / 
   }
 }
 
+// Offset of the block's (batch, query head) rows in q and o.  Read from
+// %ctaid.x by a volatile move, so that the epilogue recomputes it instead of
+// holding it in registers across the key loop: at D <= 64 in f32 the loop
+// uses the whole register cap that __launch_bounds__ sets.
+__device__ __forceinline__ int64_t q_base(int s_total, int d) {
+  unsigned bx;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(bx));
+  return static_cast<int64_t>(bx) * s_total * d;
+}
+
 template <typename T, int DP, int BK>
 constexpr size_t smem_bytes() {
   return sizeof(T) * ((kBlockQ + BK) * static_cast<size_t>(DP + Tile<T>::kPadQK) +
@@ -333,7 +346,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int DP, int BK>
 __global__ void __launch_bounds__(kThreads, Occupancy<T, DP>::kMinBlocks)
 swa_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                T* __restrict__ o, int s_total, int d, int window, float scale, bool vec) {
+                T* __restrict__ o, int h, int h_kv, int s_total, int d, int window,
+                float scale, bool vec) {
   constexpr int LDQK = DP + Tile<T>::kPadQK, LDV = DP + Tile<T>::kPadV;
   // f32: each tile's P.V summed from zero, then added to O (see the top);
   // at D = 256 there are no registers for a second O
@@ -343,9 +357,11 @@ swa_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   T* ks = qs + kBlockQ * LDQK;             // [BK][LDQK]  K tile
   T* vs = ks + BK * LDQK;                  // [BK][LDV]   V tile
 
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * s_total * d;
-  const T* kb = k + base;
-  const T* vb = v + base;
+  // q and o by (batch, query head); k and v by (batch, its key head)
+  const int bh_kv = (blockIdx.x / h) * h_kv + (blockIdx.x % h) / (h / h_kv);
+  const int64_t kv_base = static_cast<int64_t>(bh_kv) * s_total * d;
+  const T* kb = k + kv_base;
+  const T* vb = v + kv_base;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -362,7 +378,7 @@ swa_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   // groups of copies in flight, oldest first: {Q, K(first)}, V(first), then
   // K(kt + 1) while tile kt's softmax and P.V run, V(kt + 1) while tile
   // kt + 1's Q.K^T runs
-  stage<T, kBlockQ, DP, LDQK>(qs, q + base, q0, s_total, d, vec);
+  stage<T, kBlockQ, DP, LDQK>(qs, q + q_base(s_total, d), q0, s_total, d, vec);
   stage<T, BK, DP, LDQK>(ks, kb, kt_first * BK, s_total, d, vec);
   cp_async_commit();
   stage<T, BK, DP, LDV>(vs, vb, kt_first * BK, s_total, d, vec);
@@ -463,11 +479,12 @@ swa_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     l[r] = fmaxf(l[r], 1e-30f);
   }
+  T* const ob = o + q_base(s_total, d);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = rows[i >> 1];
     if (qp >= s_total) continue;
-    T* orow = o + base + static_cast<int64_t>(qp) * d;
+    T* orow = ob + static_cast<int64_t>(qp) * d;
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
       const int col = 8 * n + 2 * t + (i & 1);
@@ -477,8 +494,9 @@ swa_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 }
 
 template <typename T, int DP, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int s_total,
-                   int d, int window, float scale, bool vec, cudaStream_t st) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int h,
+                   int h_kv, int s_total, int d, int window, float scale, bool vec,
+                   cudaStream_t st) {
   constexpr size_t smem = smem_bytes<T, DP, BK>();
   cudaError_t err = cudaFuncSetAttribute(swa_attn_kernel<T, DP, BK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -487,38 +505,44 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
   const dim3 grid(bh, (s_total + kBlockQ - 1) / kBlockQ);
   swa_attn_kernel<T, DP, BK><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), s_total, d, window, scale, vec);
+      static_cast<T*>(o), h, h_kv, s_total, d, window, scale, vec);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int bh, int s_total,
-                     int d, int window, float scale, cudaStream_t st) {
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int bh, int h,
+                     int h_kv, int s_total, int d, int window, float scale, cudaStream_t st) {
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                         reinterpret_cast<uintptr_t>(v);
   const bool vec = (d * sizeof(T)) % 16 == 0 && any % 16 == 0;
-  if (d <= 64) return launch<T, 64, 64>(q, k, v, o, bh, s_total, d, window, scale, vec, st);
-  if (d <= 128) return launch<T, 128, 64>(q, k, v, o, bh, s_total, d, window, scale, vec, st);
-  return launch<T, 256, 32>(q, k, v, o, bh, s_total, d, window, scale, vec, st);
+  if (d <= 64)
+    return launch<T, 64, 64>(q, k, v, o, bh, h, h_kv, s_total, d, window, scale, vec, st);
+  if (d <= 128)
+    return launch<T, 128, 64>(q, k, v, o, bh, h, h_kv, s_total, d, window, scale, vec, st);
+  return launch<T, 256, 32>(q, k, v, o, bh, h, h_kv, s_total, d, window, scale, vec, st);
 }
 
 }  // namespace
 
-// q, k, v, o: [bh, s, d] contiguous; window <= 0 means none (full causal);
-// kind 0 = f32, 1 = bf16.
-extern "C" int swa_attn_fwd(const void* q, const void* k, const void* v, void* o, int bh,
-                            int s_total, int d, int window, float scale, int kind, int device,
-                            void* stream) {
-  if (bh <= 0 || s_total <= 0 || d <= 0 || d > 256 || (s_total + kBlockQ - 1) / kBlockQ > 65535)
+// q, o: [bh, s, d] and k, v: [bh / h * h_kv, s, d] contiguous (bh = B * h
+// query heads over h_kv key heads, h_kv dividing h); window <= 0 means none
+// (full causal); kind 0 = f32, 1 = bf16.
+extern "C" int swa_attn_fwd(const void* q, const void* k, const void* v, void* o, int bh, int h,
+                            int h_kv, int s_total, int d, int window, float scale, int kind,
+                            int device, void* stream) {
+  if (bh <= 0 || h <= 0 || h_kv <= 0 || h % h_kv != 0 || bh % h != 0 || s_total <= 0 ||
+      d <= 0 || d > 256 || (s_total + kBlockQ - 1) / kBlockQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kind) {
-    case 0: return static_cast<int>(dispatch<float>(q, k, v, o, bh, s_total, d, window, scale, st));
+    case 0:
+      return static_cast<int>(
+          dispatch<float>(q, k, v, o, bh, h, h_kv, s_total, d, window, scale, st));
     case 1:
       return static_cast<int>(
-          dispatch<__nv_bfloat16>(q, k, v, o, bh, s_total, d, window, scale, st));
+          dispatch<__nv_bfloat16>(q, k, v, o, bh, h, h_kv, s_total, d, window, scale, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

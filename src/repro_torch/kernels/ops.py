@@ -96,8 +96,9 @@ def ensemble_kl_loss_bank(student_logits: torch.Tensor,
 
 def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   window: Optional[int] = None) -> torch.Tensor:
-    """Causal attention, optionally windowed (K4): q/k/v [B,H,S,D] with
-    equal head counts; the output is in q's dtype."""
+    """Causal attention, optionally windowed (K4): q [B,H,S,D], k/v
+    [B,H_kv,S,D] with H_kv dividing H (grouped-query attention); the output
+    is in q's dtype."""
     if q.is_cuda:
         from repro_torch.kernels.swa_attn import swa_attn
         return swa_attn(q, k, v, window)

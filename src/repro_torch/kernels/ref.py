@@ -66,9 +66,14 @@ def ensemble_kl_bank(student_logits: torch.Tensor, bank_rows: torch.Tensor,
 
 def swa_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              window: int | None) -> torch.Tensor:
-    """q/k/v: [B, H, S, D]; causal, optionally limited to i - j < window.
-    Plain version of K4."""
+    """q: [B, H, S, D], k/v: [B, H_kv, S, D] with H_kv dividing H (query
+    head h reads key head h // (H // H_kv)); causal, optionally limited to
+    i - j < window.  Plain version of K4."""
     s = q.shape[2]
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
     i = torch.arange(s, device=q.device)[:, None]

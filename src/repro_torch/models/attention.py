@@ -7,10 +7,12 @@ CPU.  JAX's ``attn_impl`` ``naive`` and ``chunked`` compute the same
 function, so both take that route here.  The model keeps JAX's ``[B, S, H,
 D]`` layout; the kernel takes contiguous ``[B, H, S, D]``, so q, k and v
 are transposed into contiguous copies before the call and the output back.
-K4 has equal query and key heads and causal masking only: grouped-query
-and bidirectional full-sequence attention raise ``NotImplementedError``
-(ROADMAP queue 1 item 11).  Decode attends over the cache in plain PyTorch
-(``_sdpa``), as JAX does outside any Pallas kernel.
+Grouped-query attention hands K4 the keys and values at their own
+``n_kv_heads`` (query head h reads key head ``h // (H // KV)``, as
+``_sdpa`` groups them); K4 masks causally only, so bidirectional
+full-sequence attention raises ``NotImplementedError`` (ROADMAP queue 1
+item 11).  Decode attends over the cache in plain PyTorch (``_sdpa``), as
+JAX does outside any Pallas kernel.
 
 Local layers use a ring-buffer cache of size ``window``.
 """
@@ -27,7 +29,7 @@ from repro_torch.models.layers import (ParamSpec, apply_rope, rmsnorm,
                                        rmsnorm_spec)
 
 UNPORTED = ("ROADMAP queue 1 item 11: the port's full-sequence attention is "
-            "K4, causal with equal query and key heads")
+            "K4, causal only")
 
 
 class KVCache(NamedTuple):
@@ -54,10 +56,6 @@ def check_supported(cfg: ArchConfig) -> None:
     if not cfg.causal:
         raise NotImplementedError(f"{cfg.name}: bidirectional attention "
                                   f"({UNPORTED})")
-    if cfg.n_kv_heads != cfg.n_heads:
-        raise NotImplementedError(
-            f"{cfg.name}: grouped-query attention ({cfg.n_heads} query, "
-            f"{cfg.n_kv_heads} key heads; {UNPORTED})")
 
 
 def _project_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -88,7 +86,7 @@ def _sdpa(q, k, v, mask, head_dim):
 
 def _full_attention(cfg: ArchConfig, q, k, v, local: bool) -> torch.Tensor:
     """Causal (optionally windowed) attention over the whole sequence
-    through K4: [B,S,H,D] in, [B,S,H,D] out."""
+    through K4: q [B,S,H,D] and k / v [B,S,KV,D] in, [B,S,H,D] out."""
     check_supported(cfg)
     to_bhsd = lambda t: t.transpose(1, 2).contiguous()
     out = ops.swa_attention(to_bhsd(q), to_bhsd(k), to_bhsd(v),

@@ -50,7 +50,8 @@ class ParamSpec:
         fan_in = self.shape[0] if len(self.shape) > 1 else max(self.shape[-1],
                                                                1)
         std = self.scale / math.sqrt(max(fan_in, 1))
-        return (torch.randn(self.shape, generator=generator) * std).to(dtype)
+        return (torch.randn(self.shape, generator=generator,
+                            device=generator.device) * std).to(dtype)
 
 
 def is_spec(x) -> bool:

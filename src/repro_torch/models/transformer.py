@@ -17,8 +17,8 @@ Public surface:
   init_caches             — decode-state construction
 
 Not ported yet (``check_supported`` raises ``NotImplementedError``, ROADMAP
-queue 1 item 11): MoE MLPs, the audio / vision frontends, bidirectional
-and grouped-query attention.
+queue 1 item 11): MoE MLPs, the audio / vision frontends and bidirectional
+attention.
 """
 from __future__ import annotations
 

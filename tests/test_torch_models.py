@@ -115,9 +115,9 @@ def test_param_specs_and_deterministic_init_match_jax():
 
 
 def _attn_cfgs(local: bool):
-    """Equal query and key heads (K4's contract): zamba2's shared attention
-    block, or gemma3's local layers with its key heads raised to its query
-    heads (the ring-buffer cache)."""
+    """Equal query and key heads: zamba2's shared attention block, or
+    gemma3's local layers with its key heads raised to its query heads (the
+    ring-buffer cache); grouped key heads: tests/test_torch_gqa.py."""
     if not local:
         return _cfgs("zamba2-1.2b")
     cj, ct = _cfgs("gemma3-4b")
@@ -183,8 +183,8 @@ def test_ssm_forward_and_decode_match_jax():
 
 
 @pytest.mark.parametrize("name,over,what", [
-    ("gemma3-4b", {}, "grouped-query"),
-    ("qwen3-8b", {}, "grouped-query"),
+    ("gemma3-4b", {"causal": False}, "bidirectional"),
+    ("qwen3-8b", {"causal": False}, "bidirectional"),
     ("granite-moe-1b-a400m", {}, "MoE"),
     ("internvl2-1b", {}, "frontend"),
     ("hubert-xlarge", {"frontend": "none"}, "bidirectional"),

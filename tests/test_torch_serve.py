@@ -192,4 +192,5 @@ def test_serve_without_device_needs_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_mod.main(["--arch", "zamba2-1.2b-smoke"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_mod.main(["--arch", "gemma3-4b-smoke", "--device", "cpu"])
+        serve_mod.main(["--arch", "granite-moe-1b-a400m-smoke", "--device",
+                        "cpu"])
