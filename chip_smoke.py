@@ -32,17 +32,20 @@ and in order:
    the serve path's shape, gemma3's local width, D = 80, D = 128 with a
    window, two ragged shapes and, with key / value heads grouped under the
    query heads, D = 256 without a window over 4096 keys, path 12's qwen3-8b
-   and gemma3-4b layers and a ragged grouped shape, float32 and bfloat16,
-   beside ``scaled_dot_product_attention`` (timed only), after checking
-   that its library holds tensor-core (HMMA) instructions and that its
-   serve-path instantiations spill no registers; K5 (Mamba2 SSD scan, y
-   and final
-   state) at the serve path's shape, mamba2-2.7b's width and two ragged
-   shapes in float32, and at the serve path's shape and one ragged shape in
-   bfloat16, after checking that its library holds tensor-core (HMMA)
-   instructions and that its float32 N = P = 64 instantiation (the serve
-   path's) spills no registers;
-4. drives twelve paths on the card, with every launch count set to 0 just
+   and gemma3-4b layers and a ragged grouped shape, and bidirectional at
+   hubert-xlarge's layer, a ragged grouped shape and a one-sided window,
+   float32 and bfloat16, beside ``scaled_dot_product_attention`` (timed
+   only), after checking that its library holds tensor-core (HMMA)
+   instructions and that none of its 12 instantiations spills registers;
+   K5 (Mamba2 SSD scan, y and final state) at the serve path's shape,
+   mamba2-2.7b's width and two ragged shapes in float32, at the serve
+   path's shape and one ragged shape in bfloat16, and from a nonzero
+   initial state at the serve path's shape and a ragged one, after
+   checking that its library holds tensor-core (HMMA) instructions and
+   that its float32 N = P = 64 instantiation (the serve path's) spills no
+   registers; then one zamba2-1.2b mamba layer at full width, a 2000-token
+   prompt split 1000 + 1000 through ``init_cache`` against the whole;
+4. drives thirteen paths on the card, with every launch count set to 0 just
    before a path and read just after it.  Paths 1-3 go through
    ``Experiment(spec).run()`` at the quickstart's published widths, 2
    rounds each:
@@ -154,15 +157,33 @@ and in order:
      36 and 34 times per prefill and none in decode, a profiled prefill,
      forward against prefill + 2 forced decode steps at full depth (batch
      1; gemma3's prompt outgrows its 1024 window, so its local caches roll
-     and decode on the ring) and 2 layers at full width card against CPU,
-     both within 1e-3 of the largest logit;
+     and decode on the ring) and the served model's first 2 layers card
+     against CPU (the CPU's 1-ulp spread beside), both within 1e-3 of the
+     largest logit;
+   - path 13, after path 12, the MoE and frontend models at full width and
+     depth (random fp32 weights drawn on the card from seed 0): 13a
+     granite-moe-1b-a400m served at path 12's traffic (K4 24 per prefill,
+     none in decode), the slots each ``_moe_capacity`` call drops
+     recorded and printed, check (a) on its first 2 layers at batch 1
+     (decode through ``_moe_gather``) and batch 4 (through
+     ``_moe_capacity``), each at the published capacity factor (held only
+     where no slot dropped: the drop order differs between forward's 2002
+     tokens and prefill's 2000 in the reference itself) and at E / k = 4
+     (no slot can drop; always held), and at full depth reported beside
+     the model's own 1-ulp spread (chaotic under the reference init:
+     ``chip_probe_conditioning.py``), check (b) with the differing expert
+     choices counted; 13b internvl2-1b served with 256 patch embeddings
+     ahead of each prompt (K4 24), path 12's checks; 13c hubert-xlarge,
+     encoder-only: one forward over 4 x 2000 frames (K4 48,
+     bidirectional), timed, profiled, its peak memory, and its first 2
+     layers card against CPU within 1e-3 of the largest logit;
    and, in step 3, K1 (every bank dtype) and K2 / K3 in each launch mode
    on rows holding a NaN, a +Inf and a -Inf teacher logit: non-finite
    exactly where the plain versions are, within tolerance elsewhere, two
    launches equal bit for bit;
 5. prints one ``{"kernels": [...]}`` line (each kernel's launches on its
-   path and, under ``path7_launches`` to ``path12_launches``, on each of
-   paths 7's to 12's sub-paths), the card line, and as its last line
+   path and, under ``path7_launches`` to ``path13_launches``, on each of
+   paths 7's to 13's sub-paths), the card line, and as its last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the last line, when there is no CUDA device,
@@ -285,7 +306,15 @@ K4_SHAPES = [(4, 32, 32, 2000, 64, None), (1, 8, 8, 4096, 256, 1024),
              (1, 8, 8, 4096, 256, None), (4, 32, 8, 2000, 128, None),
              (4, 8, 4, 2000, 256, 1024), (4, 8, 4, 2000, 256, None),
              (1, 6, 2, 300, 80, None)]
+# K4 bidirectional (the encoder's mode, path 13c), (B, H, H_kv, S, D,
+# window): hubert-xlarge's layer (16 heads of D 80, the kernel's 128
+# bucket, 4 x 2000 frames; first: it feeds the path-13 rows); a ragged
+# grouped shape; a one-sided window (i - j < window, later keys all seen)
+# over a sequence longer than it.
+K4_BIDIR_SHAPES = [(4, 16, 16, 2000, 80, None), (1, 6, 2, 300, 80, None),
+                   (2, 8, 8, 1000, 128, 256)]
 K4_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (3e-2, 3e-2)}
+K4_KERNELS = 12   # swa_attn.cu's instantiations, each held to 0 spills
 # K5 (B, S, H, P, N): the serve path's Mamba2 layers (zamba2-1.2b, prompt
 # 2000; first: it feeds the kernels line); mamba2-2.7b's width; two ragged
 # cases of tests/test_kernels.py.  Against the plain version at the
@@ -296,6 +325,14 @@ K4_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (3e-2, 3e-2)}
 K5_SHAPES = [(4, 2000, 64, 64, 64), (1, 4096, 80, 64, 128),
              (1, 17, 2, 8, 4), (1, 50, 3, 8, 16)]
 K5_BF16_SHAPES = [(4, 2000, 64, 64, 64), (1, 50, 3, 8, 16)]
+# K5 from a nonzero initial state (``ssm_forward(init_cache=)``), float32,
+# y and final state at K5's tolerance: the serve path's shape and a ragged
+# one (also against the sequential recurrence).  Then one zamba2-1.2b
+# mamba layer at full width (unstacked weights from seed 0): a
+# K5_SPLIT_PROMPT-token prompt of batch 4 split in two halves, the second
+# through ``init_cache``, against the whole prompt at K5's tolerance.
+K5_INIT_SHAPES = [(4, 2000, 64, 64, 64), (1, 50, 3, 8, 16)]
+K5_SPLIT_PROMPT = 2000
 K5_CHUNK = 256
 K5_RTOL, K5_ATOL = 1e-4, 1e-5
 # Path 4: zamba2-1.2b served at full width and depth.
@@ -452,12 +489,35 @@ CLI_FLAGS = ("--strategy", "feddf", "--clients", "20", "-C", "0.4",
 # prompt and generated tokens, K4 launches per prefill (qwen3-8b: 36
 # global layers; gemma3-4b: 29 local + 5 global); forward against prefill
 # + 2 forced decode steps at full depth at batch 1 (gemma3's [B, S, V]
-# logits at V = 262144), and GQA_CPU_LAYERS layers at full width card
-# against CPU on a GQA_CPU_PROMPT-token prompt and GQA_CPU_STEPS forced
-# steps, both within 1e-3 of the largest logit.
+# logits at V = 262144), and the served model's first GQA_CPU_LAYERS
+# layers card against CPU on a GQA_CPU_PROMPT-token prompt and
+# GQA_CPU_STEPS forced steps, both within 1e-3 of the largest logit.
 GQA_SERVE = (("qwen3-8b", 36), ("gemma3-4b", 34))
 GQA_CHECK_BATCH, GQA_CPU_LAYERS, GQA_CPU_PROMPT, GQA_CPU_STEPS = 1, 2, 256, 2
 GQA_REL_ATOL = 1e-3
+# Path 13: the MoE and frontend configurations at full width and depth,
+# path 12's traffic and checks.  13a granite-moe-1b-a400m (K4 24 per
+# prefill) also records the slots each _moe_capacity call drops, holds
+# check (a) at batch 1 (decode through _moe_gather) and at path 4's batch
+# (decode through _moe_capacity, 2 slots an expert), at the published
+# capacity factor only where no slot dropped and always at E / k (no slot
+# can drop), and counts the expert choices that differ card vs CPU in
+# check (b).  13b internvl2-1b (K4 24) serves 256 patch embeddings ahead of
+# each prompt.  13c hubert-xlarge (K4 48, bidirectional) is encoder-only:
+# one forward over 4 x 2000 frames, timed, and 2 layers card vs CPU.
+# Check (b) of paths 12 and 13 takes the served model's own first layers,
+# not a 2-layer init, whose stacked weights take their fan-in from a
+# repeat axis of 2 (std 0.71 against the served hubert's 0.14): another,
+# far worse conditioned model.  13a's check (a) is gated at the served
+# model's first MOE_CHECK_LAYERS layers: under the reference init the
+# served granite-moe is chaotic at depth (a 1-ulp nudge of its weights
+# moves its last logits by a tenth of their scale past 8 layers and by
+# more than half at 24: chip_probe_conditioning.py), so full depth is run
+# and reported beside its own 1-ulp spread, not gated.
+MOE_SERVE = ("granite-moe-1b-a400m", 24)
+VLM_SERVE = ("internvl2-1b", 24)
+AUDIO_FORWARD = ("hubert-xlarge", 48)
+MOE_CHECK_BATCHES, MOE_CHECK_LAYERS = (1, SERVE_BATCH), 2
 
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
@@ -867,15 +927,20 @@ def bound(byt: float, ops: float) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def k4_bound(b, h, s, d, window, elem, h_kv=None) -> dict:
+def k4_bound(b, h, s, d, window, elem, h_kv=None, causal=True) -> dict:
     """The tensor-core bound: q, k, v read and o written once (k and v at
     their ``h_kv`` heads); 4 D flops (q.k and p.v) and one exponential for
-    every (query, key) pair the mask lets through.  float32 runs three TF32
-    passes on the tensor cores, bfloat16 one bf16 pass.  The bound is the
-    largest of the three times, ``bound_detail`` names it."""
+    every (query, key) pair the mask lets through (causal: keys j <= i;
+    bidirectional: every key j < S; a window keeps i - j < window).
+    float32 runs three TF32 passes on the tensor cores, bfloat16 one bf16
+    pass.  The bound is the largest of the three times, ``bound_detail``
+    names it."""
     h_kv = h if h_kv is None else h_kv
     w = s if window is None else window
-    pairs = b * h * sum(min(i + 1, w) for i in range(s))
+    if causal:
+        pairs = b * h * sum(min(i + 1, w) for i in range(s))
+    else:   # query i sees keys max(0, i - w + 1) .. S - 1
+        pairs = b * h * sum(s - max(0, i - w + 1) for i in range(s))
     byt, ops = 2 * b * (h + h_kv) * s * d * elem, 4 * d * pairs
     times = {"bytes": byt / HBM_BYTES_PER_S,
              "tensor cores": (3 * ops / TF32_FLOPS_PER_S if elem == 4
@@ -918,10 +983,11 @@ def hmma_count(lib_path) -> int:
     return sum(1 for line in sass.splitlines() if " HMMA" in line)
 
 
-def k5_bound(b, s, h, p, n, elem) -> dict:
-    """The tensor-core bound: x, dt, a_log, B, C read and y, the final
-    state written once; per (batch, head) and kernel chunk of l valid steps
-    4 l N P (inter-chunk output and state update) + l (l + 1) (N + P) (C.B
+def k5_bound(b, s, h, p, n, elem, init_state=False) -> dict:
+    """The tensor-core bound: x, dt, a_log, B, C (and the initial state)
+    read and y, the final state written once; per (batch, head) and kernel
+    chunk of l valid steps 4 l N P (inter-chunk output and state update) +
+    l (l + 1) (N + P) (C.B
     and the intra-chunk product, lower triangles) + l (l - 1) / 2 (segment
     sums) flops, as three TF32 passes on the tensor cores for float32
     inputs and one bf16 pass for bfloat16.  The bound is the larger of the
@@ -933,7 +999,8 @@ def k5_bound(b, s, h, p, n, elem) -> dict:
         ops += 4 * ln * n * p + ln * (ln + 1) * (n + p) + ln * (ln - 1) // 2
     ops *= b * h
     byt = (2 * b * s * h * p * elem + 4 * b * s * h + 4 * h
-           + 2 * b * s * n * elem + 4 * b * h * n * p)
+           + 2 * b * s * n * elem + 4 * b * h * n * p * (2 if init_state
+                                                         else 1))
     times = {"bytes": byt / HBM_BYTES_PER_S,
              "tensor cores": (3 * ops / TF32_FLOPS_PER_S if elem == 4
                               else ops / BF16_FLOPS_PER_S)}
@@ -951,60 +1018,66 @@ def timed(fn) -> dict:
 
 
 def k4_phase(device):
-    """K4 against its plain version in float32 and bfloat16 at every shape;
-    timings of kernel, plain version and the library call
+    """K4 against its plain version in float32 and bfloat16 at every shape,
+    causal (K4_SHAPES) and bidirectional (K4_BIDIR_SHAPES); timings of
+    kernel, plain version and the library call
     (scaled_dot_product_attention, timed only) at each shape."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.swa_attn import swa_attn
     rows, errors = [], []
-    for (b, h, h_kv, s, d, w) in K4_SHAPES:
+    cases = ([(shape, True) for shape in K4_SHAPES]
+             + [(shape, False) for shape in K4_BIDIR_SHAPES])
+    for (b, h, h_kv, s, d, w), causal in cases:
         gen = torch.Generator().manual_seed(b + h + s + d)
         qkv32 = [torch.randn(b, n, s, d, generator=gen).to(device)
                  for n in (h, h_kv, h_kv)]
+        key = {"B": b, "H": h, "H_kv": h_kv, "S": s, "D": d, "window": w,
+               "causal": causal}
         for dtype_name, (rtol, atol) in K4_TOL.items():
             q, k, v = (t.to(getattr(torch, dtype_name)) for t in qkv32)
-            got = swa_attn(q, k, v, w)
-            want = ref.swa_attn(q, k, v, w)
+            got = swa_attn(q, k, v, w, causal)
+            want = ref.swa_attn(q, k, v, w, causal)
             torch.cuda.synchronize()
             err, over = excess(got, want, rtol, atol)
             ok = over <= 0 and got.dtype == q.dtype and bool(
                 torch.isfinite(got.float()).all())
-            errors.append({"B": b, "H": h, "H_kv": h_kv, "S": s, "D": d,
-                           "window": w, "dtype": dtype_name,
+            errors.append({**key, "dtype": dtype_name,
                            "max_abs_err": err, "excess": over,
                            "rtol": rtol, "atol": atol, "ok": ok})
             del got, want
             if s < 1000 and dtype_name != "float32":
                 continue
             with torch.no_grad():
-                t_k = timed(lambda: swa_attn(q, k, v, w))
-                t_p = timed(lambda: ref.swa_attn(q, k, v, w))
-                t_l = timed(k4_library(q, k, v, w))
-            rows.append({"B": b, "H": h, "H_kv": h_kv, "S": s, "D": d,
-                         "window": w, "dtype": dtype_name, **t_k,
+                t_k = timed(lambda: swa_attn(q, k, v, w, causal))
+                t_p = timed(lambda: ref.swa_attn(q, k, v, w, causal))
+                t_l = timed(k4_library(q, k, v, w, causal))
+            rows.append({**key, "dtype": dtype_name, **t_k,
                          "plain_ms": t_p["ms"], "plain_call_ms":
                          t_p["call_ms"], "library_ms": t_l["ms"],
                          "library_call_ms": t_l["call_ms"],
-                         **k4_bound(b, h, s, d, w, q.element_size(), h_kv)})
+                         **k4_bound(b, h, s, d, w, q.element_size(), h_kv,
+                                    causal)})
         del qkv32, q, k, v
         torch.cuda.empty_cache()
     return rows, errors
 
 
-def k4_library(q, k, v, w):
+def k4_library(q, k, v, w, causal=True):
     """One ``scaled_dot_product_attention`` call computing K4's function
-    (timed only, never used by the port): causal or windowed through a
-    mask, grouped heads by ``enable_gqa`` or, on a torch without it, by
-    key / value heads repeated beforehand (outside the timed call)."""
+    (timed only, never used by the port): causal, bidirectional or
+    windowed (through a mask), grouped heads by ``enable_gqa`` or, on a
+    torch without it, by key / value heads repeated beforehand (outside the
+    timed call)."""
     import torch
     import torch.nn.functional as F
     s = q.shape[2]
-    kw = {"is_causal": True}
+    kw = {"is_causal": causal}
     if w is not None:
         i = torch.arange(s, device=q.device)
-        kw = {"attn_mask": (i[None, :] <= i[:, None])
-              & (i[:, None] - i[None, :] < w)}
+        mask = i[:, None] - i[None, :] < w
+        kw = {"attn_mask": (i[None, :] <= i[:, None]) & mask if causal
+              else mask}
     if k.shape[1] != q.shape[1]:
         try:
             F.scaled_dot_product_attention(q[:, :, :1], k[:, :, :1],
@@ -1032,28 +1105,35 @@ def k5_inputs(b, s, h, p, n, device):
 
 def k5_phase(device):
     """K5 against its plain version (y and final state) at every shape in
-    float32, against the sequential recurrence at the small ones, and in
-    bfloat16 (x, B and C) at K5_BF16_SHAPES; timings of every float32
-    shape and of the serve path's shape in bfloat16."""
+    float32, against the sequential recurrence at the small ones, in
+    bfloat16 (x, B and C) at K5_BF16_SHAPES, and from a nonzero initial
+    state at K5_INIT_SHAPES; timings of every float32 shape, of the serve
+    path's shape in bfloat16 and from a state."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan
-    cases = ([(shape, "float32") for shape in K5_SHAPES]
-             + [(shape, "bfloat16") for shape in K5_BF16_SHAPES])
+    cases = ([(shape, "float32", False) for shape in K5_SHAPES]
+             + [(shape, "bfloat16", False) for shape in K5_BF16_SHAPES]
+             + [(shape, "float32", True) for shape in K5_INIT_SHAPES])
     rows, errors = [], []
-    for (b, s, h, p, n), dtype_name in cases:
+    for (b, s, h, p, n), dtype_name, from_state in cases:
         args = k5_inputs(b, s, h, p, n, device)
         if dtype_name == "bfloat16":
             for i in (0, 3, 4):     # x, B and C; dt and a_log stay float32
                 args[i] = args[i].to(torch.bfloat16)
+        if from_state:
+            args.append(torch.randn(
+                b, h, n, p, generator=torch.Generator().manual_seed(s + n)
+            ).to(device))
         rtol, atol = ((K5_RTOL, K5_ATOL) if dtype_name == "float32"
                       else K4_TOL["bfloat16"])
         y, final = ssd_scan(*args)
-        y_ref, final_ref = ref.ssd_scan(*args, K5_CHUNK)
+        y_ref, final_ref = ref.ssd_scan(*args[:5], K5_CHUNK, *args[5:])
         torch.cuda.synchronize()
         err_y, over_y = excess(y, y_ref, rtol, atol)
         err_s, over_s = excess(final, final_ref, rtol, atol)
         rec = {"B": b, "S": s, "H": h, "P": p, "N": n, "dtype": dtype_name,
+               "init_state": from_state,
                "max_abs_err": max(err_y, err_s), "y_err": err_y,
                "state_err": err_s, "rtol": rtol, "atol": atol}
         ok = (max(over_y, over_s) <= 0 and y.dtype == args[0].dtype
@@ -1069,15 +1149,59 @@ def k5_phase(device):
         if dtype_name == "float32" or s >= 1000:
             with torch.no_grad():
                 t_k = timed(lambda: ssd_scan(*args))
-                t_p = timed(lambda: ref.ssd_scan(*args, K5_CHUNK))
+                t_p = timed(lambda: ref.ssd_scan(*args[:5], K5_CHUNK,
+                                                 *args[5:]))
             rows.append({"B": b, "S": s, "H": h, "P": p, "N": n,
-                         "dtype": dtype_name, **t_k,
-                         "plain_ms": t_p["ms"],
+                         "dtype": dtype_name, "init_state": from_state,
+                         **t_k, "plain_ms": t_p["ms"],
                          "plain_call_ms": t_p["call_ms"], "library_ms": None,
-                         **k5_bound(b, s, h, p, n, args[0].element_size())})
+                         **k5_bound(b, s, h, p, n, args[0].element_size(),
+                                    from_state)})
         del args
         torch.cuda.empty_cache()
     return rows, errors
+
+
+def ssm_split_check(device) -> dict:
+    """One zamba2-1.2b mamba layer at full width on the card (unstacked
+    weights from seed 0, batch 4): a K5_SPLIT_PROMPT-token prompt as two
+    halves, the second through ``ssm_forward(init_cache=)`` from the first
+    half's cache, against the whole prompt, at K5's tolerance; K5 launches
+    once per call."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import init_params
+    cfg = configs.get(SERVE_ARCH)
+    p = init_params(ssm.ssm_specs(cfg),
+                    torch.Generator(device=device).manual_seed(0),
+                    device=device)
+    x = torch.randn(SERVE_BATCH, K5_SPLIT_PROMPT, cfg.d_model,
+                    generator=torch.Generator(device=device).manual_seed(1),
+                    device=device)
+    half = K5_SPLIT_PROMPT // 2
+    reset_all_launches()
+    with torch.no_grad():
+        whole, whole_cache = ssm.ssm_forward(p, cfg, x, return_cache=True)
+        _, first = ssm.ssm_forward(p, cfg, x[:, :half], return_cache=True)
+        second, cache = ssm.ssm_forward(p, cfg, x[:, half:],
+                                        init_cache=first, return_cache=True)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in all_launches().items() if n}
+    out_err, out_over = excess(second, whole[:, half:], K5_RTOL, K5_ATOL)
+    st_err, st_over = excess(cache.state, whole_cache.state, K5_RTOL,
+                             K5_ATOL)
+    conv_err, conv_over = excess(cache.conv, whole_cache.conv, K5_RTOL,
+                                 K5_ATOL)
+    rec = {"arch": cfg.name, "B": SERVE_BATCH, "S": K5_SPLIT_PROMPT,
+           "split": [half, K5_SPLIT_PROMPT - half], "out_err": out_err,
+           "state_err": st_err, "conv_err": conv_err,
+           "max_abs_out": float(whole.abs().max()),
+           "rtol": K5_RTOL, "atol": K5_ATOL, "launches": launches}
+    rec["ok"] = (max(out_over, st_over, conv_over) <= 0
+                 and launches == {"ssd_scan": 3}
+                 and bool(torch.isfinite(second).all()))
+    return rec
 
 
 def serve_path(device):
@@ -1416,10 +1540,11 @@ def card_vs_cpu(spec, rounds: int, profile_ref=None,
     busy = None
     if profile_ref is not None:
         # the card's rerun is profiled: its device time against round 1's
-        # unprofiled wall time is the device's busy share on the path
+        # unprofiled wall time is the device's busy share on the path.
+        # Device activity only: that is all device_time reads, and host
+        # ops go unrecorded
         from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             gpu = Experiment(short, device="cuda").run()
         busy = device_time(prof, sum(profile_ref.phase_seconds[0].values()))
     elif gpu is None:
@@ -3528,13 +3653,129 @@ def bank_reuse_path():
     return report, problems
 
 
-def gqa_serve_path(device, arch: str, k4_per_prefill: int):
-    """Path 12: ``arch`` served at full width and depth on the card
-    (``repro_torch.launch.serve.serve``) at path 4's batch, prompt and
-    generated tokens from random fp32 weights drawn on the card from seed
-    0; K4 per prefill and none in decode; a profiled prefill; forward
-    against prefill + 2 forced decode steps at full depth (batch 1), and
-    GQA_CPU_LAYERS layers at full width card against CPU."""
+def frontend_inputs(cfg, batch: int, device) -> dict:
+    """The patch embeddings a vision model serves ahead of its prompts
+    (``fake_vision_patches`` from a CUDA generator seeded 0), else none."""
+    import torch
+    from repro_torch.models.frontends import fake_vision_patches
+    if cfg.frontend != "vision_patches":
+        return {}
+    gen = torch.Generator(device=device).manual_seed(0)
+    return {"patches": fake_vision_patches(gen, cfg, batch, device=device)}
+
+
+@contextlib.contextmanager
+def recording_moe(drops: list, routes: Optional[list] = None):
+    """While open, the dispatch of every ``models.moe._moe_capacity`` call
+    (``moe.dispatch``, which each makes once) appends (tokens, slots
+    dropped) to ``drops``; with ``routes``, every ``_route`` call appends
+    (expert choices, softmax gates).  All stay tensors where they were
+    computed (read after the run: no synchronisation inside it)."""
+    from repro_torch.models import moe
+    orig_dispatch, orig_route = moe.dispatch, moe._route
+
+    def dispatch(cfg, idx, e_start, e_local):
+        dp = orig_dispatch(cfg, idx, e_start, e_local)
+        drops.append((idx.shape[0], (~dp.valid).sum()))
+        return dp
+
+    def route(p, cfg, x):
+        out = orig_route(p, cfg, x)
+        routes.append((out[1], (x @ p["router"]).float().softmax(-1)))
+        return out
+    moe.dispatch = dispatch
+    if routes is not None:
+        moe._route = route
+    try:
+        yield drops, routes
+    finally:
+        moe.dispatch, moe._route = orig_dispatch, orig_route
+
+
+def drop_counts(drops) -> dict:
+    """{"calls", "dropped", "slots"} of the recorded capacity calls."""
+    return {"calls": len(drops), "dropped": sum(int(n) for _, n in drops),
+            "tokens_per_call": sorted({t for t, _ in drops})}
+
+
+def served_layers(params, cfg, n: int):
+    """(config, parameters) of the first ``n`` layers of a served model:
+    views of its own weights (layer i is repeat i // P, position i % P of
+    its pattern of P blocks), laid out as ``T.param_specs`` lays out an
+    ``n``-layer model (full repeats stacked, the rest in the tail)."""
+    from repro_torch.common.pytree import tree_map
+    p, n_full, _ = len(cfg.pattern), *divmod(cfg.n_layers, len(cfg.pattern))
+    reps, rem = divmod(n, p)
+    sub = dict(params)
+    sub["blocks"] = tuple(tree_map(lambda x: x[:reps], b) if reps else {}
+                          for b in params["blocks"])
+    sub["tail"] = tuple(
+        tree_map(lambda x: x[reps], params["blocks"][j]) if reps < n_full
+        else params["tail"][j] for j in range(rem))
+    return dataclasses.replace(cfg, n_layers=n), sub
+
+
+def ulp_nudged(params, seed: int):
+    """``params`` with every weight moved by about one unit in the last
+    place (x (1 + 2^-23 N(0, 1)), drawn where each weight lives)."""
+    import torch
+    from repro_torch.common.pytree import tree_map
+    gens = {}
+
+    def nudge(x):
+        g = gens.setdefault(x.device, torch.Generator(
+            device=x.device).manual_seed(seed))
+        return x * (1 + 2.0 ** -23 * torch.randn(x.shape, generator=g,
+                                                 device=x.device))
+    return tree_map(nudge, params)
+
+
+def full_depth_check(params, cfg, toks, extra: dict, batch: int) -> dict:
+    """Check (a): forward(prompt + 2) against prefill(prompt) + two forced
+    decode steps at full depth, the first ``batch`` sequences (after the
+    patches, where the model has them: decode starts at position P + S)."""
+    import torch
+    from repro_torch.models import transformer as T
+    n_front = cfg.n_frontend_tokens if "patches" in extra else 0
+    sub = {k: v[:batch] for k, v in extra.items()}
+    with torch.no_grad():
+        dev_toks = toks[:batch].to(params["embed"].device)
+        full = T.forward(params, cfg, {**sub, "tokens": dev_toks})
+        pre, caches = T.prefill(params, cfg,
+                                {**sub, "tokens": dev_toks[:, :SERVE_PROMPT]},
+                                max_seq=n_front + SERVE_PROMPT + 2)
+        scale = float(full.abs().max())
+        err_p = float((pre - full[:, :n_front + SERVE_PROMPT]).abs().max())
+        del pre
+        err_d = []
+        for i in range(2):
+            dec, caches = T.decode_step(
+                params, cfg,
+                {"tokens": dev_toks[:, SERVE_PROMPT + i:
+                                    SERVE_PROMPT + i + 1]},
+                caches, n_front + SERVE_PROMPT + i)
+            err_d.append(float((dec[:, 0] - full[:, n_front + SERVE_PROMPT
+                                                 + i]).abs().max()))
+        del full, caches
+    return {"batch": batch, "max_abs_logit": scale,
+            "atol": GQA_REL_ATOL * scale, "prefill_err": err_p,
+            "decode_err": err_d,
+            "held": max(err_p, *err_d) <= GQA_REL_ATOL * scale}
+
+
+def decoder_serve_path(device, arch: str, k4_per_prefill: int):
+    """Paths 12 and 13a-b: ``arch`` served at full width and depth on the
+    card (``repro_torch.launch.serve.serve``) at path 4's batch, prompt and
+    generated tokens (a vision model with its patches ahead of the prompt)
+    from random fp32 weights drawn on the card from seed 0; K4 per prefill
+    and none in decode; a profiled prefill; check (a), forward against
+    prefill + 2 forced decode steps at full depth (batch 1; an MoE model
+    at its first MOE_CHECK_LAYERS layers, at batch 1 and path 4's batch,
+    each at the published capacity factor and at E / k, with the slots
+    each capacity call dropped, and at full depth reported beside its own
+    1-ulp spread), and check (b), the served model's first GQA_CPU_LAYERS
+    layers card against CPU, the CPU's 1-ulp spread beside (an MoE model's
+    differing expert choices counted)."""
     import torch
     from repro_torch import configs
     from repro_torch.common.pytree import tree_leaves, tree_map
@@ -3546,34 +3787,43 @@ def gqa_serve_path(device, arch: str, k4_per_prefill: int):
     t0 = time.perf_counter()
     params = T.init(cfg, torch.Generator(device=device).manual_seed(0),
                     device=device)
+    extra = frontend_inputs(cfg, SERVE_BATCH, device)
+    n_front = cfg.n_frontend_tokens if extra else 0
     torch.cuda.synchronize()
     toks = torch.randint(0, cfg.vocab_size,
                          (SERVE_BATCH, SERVE_PROMPT + 2),
                          generator=torch.Generator().manual_seed(0))
     prompts = toks[:, :SERVE_PROMPT]
     report = {"arch": cfg.name, "batch": SERVE_BATCH,
-              "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+              "prompt": SERVE_PROMPT, "frontend_tokens": n_front,
+              "gen": SERVE_GEN,
               "params_stored": sum(x.numel() for x in tree_leaves(params)),
               "weights_bytes": sum(x.numel() * x.element_size()
                                    for x in tree_leaves(params)),
               "init_s": time.perf_counter() - t0}
     problems = []
     want = {"swa_attn": k4_per_prefill}
+    max_seq = n_front + SERVE_PROMPT + SERVE_GEN
 
     # one prefill alone: its launches
     reset_all_launches()
     with torch.no_grad():
-        T.prefill(params, cfg, {"tokens": prompts.to(device)},
-                  max_seq=SERVE_PROMPT + SERVE_GEN, last_only=True)
+        T.prefill(params, cfg, {**extra, "tokens": prompts.to(device)},
+                  max_seq=max_seq, last_only=True)
     torch.cuda.synchronize()
     prefill_launches = {k: n for k, n in all_launches().items() if n}
 
-    # the path: serve(), every count set to 0 just before and read after
+    # the path: serve(), every count set to 0 just before and read after;
+    # an MoE model's capacity calls record their drops (tensors, read after)
+    drops = []
     torch.cuda.reset_peak_memory_stats()
-    reset_all_launches()
-    res = serve(cfg, params, prompts, SERVE_GEN, device=device,
-                generator=torch.Generator().manual_seed(0))
-    launches = all_launches()
+    with (recording_moe(drops) if cfg.has_moe
+          else contextlib.nullcontext()):
+        reset_all_launches()
+        res = serve(cfg, params, prompts, SERVE_GEN, device=device,
+                    generator=torch.Generator().manual_seed(0),
+                    patches=extra.get("patches"))
+        launches = all_launches()
     decode_launches = {k: launches[k] - prefill_launches.get(k, 0)
                        for k in launches}
     report.update(
@@ -3582,6 +3832,12 @@ def gqa_serve_path(device, arch: str, k4_per_prefill: int):
         decode_launches=decode_launches, prefill_s=res.prefill_s,
         decode_s=res.decode_s, decode_tokens_per_s=res.decode_tokens_per_s,
         tokens=res.tokens[:, :8].tolist())
+    if cfg.has_moe:
+        n_pre = SERVE_BATCH * (n_front + SERVE_PROMPT)
+        report["serve_drops"] = {
+            "prefill": drop_counts([d for d in drops if d[0] == n_pre]),
+            "decode": drop_counts([d for d in drops if d[0] != n_pre])}
+        del drops[:]
     if prefill_launches != want or {k: n for k, n in launches.items()
                                     if n} != want:
         problems.append(f"prefill launched {prefill_launches} and serve "
@@ -3600,80 +3856,217 @@ def gqa_serve_path(device, arch: str, k4_per_prefill: int):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with torch.no_grad():
-            T.prefill(params, cfg, {"tokens": prompts.to(device)},
-                      max_seq=SERVE_PROMPT + SERVE_GEN, last_only=True)
+            T.prefill(params, cfg, {**extra, "tokens": prompts.to(device)},
+                      max_seq=max_seq, last_only=True)
         torch.cuda.synchronize()
     report["prefill_device"] = device_time(prof, res.prefill_s,
                                            ("swa_attn", "gemm"))
     del prof
 
     # (a) full depth: forward(prompt + 2) against prefill + two forced
-    # decode steps, batch 1; gemma3's prompt outgrows its 1024 window, so
-    # its local caches roll and decode on the ring
-    with torch.no_grad():
-        dev_toks = toks[:GQA_CHECK_BATCH].to(device)
-        full = T.forward(params, cfg, {"tokens": dev_toks})
-        pre, caches = T.prefill(params, cfg,
-                                {"tokens": dev_toks[:, :SERVE_PROMPT]},
-                                max_seq=SERVE_PROMPT + 2)
-        scale = float(full.abs().max())
-        err_p = float((pre - full[:, :SERVE_PROMPT]).abs().max())
-        del pre
-        err_d = []
-        for i in range(2):
-            dec, caches = T.decode_step(
-                params, cfg,
-                {"tokens": dev_toks[:, SERVE_PROMPT + i:
-                                    SERVE_PROMPT + i + 1]},
-                caches, SERVE_PROMPT + i)
-            err_d.append(float((dec[:, 0] - full[:, SERVE_PROMPT + i])
-                               .abs().max()))
-        del full, caches
-    check_a = {"batch": GQA_CHECK_BATCH, "max_abs_logit": scale,
-               "atol": GQA_REL_ATOL * scale, "prefill_err": err_p,
-               "decode_err": err_d}
-    report["check_a"] = check_a
-    if max(err_p, *err_d) > check_a["atol"]:
-        problems.append(f"check (a) full depth: {check_a}")
-    del params
-    torch.cuda.empty_cache()
+    # decode steps; gemma3's prompt outgrows its 1024 window, so its local
+    # caches roll and decode on the ring.  An MoE model at batch 1 (decode
+    # through _moe_gather) and at path 4's batch (through _moe_capacity),
+    # at the published capacity factor, held only where no slot dropped in
+    # either run (the drop order differs between forward's 2002 tokens and
+    # prefill's 2000 in the reference itself), and at E / k, where no slot
+    # can drop, always held
+    if not cfg.has_moe:
+        check_a = full_depth_check(params, cfg, toks, extra, GQA_CHECK_BATCH)
+        report["check_a"] = check_a
+        if not check_a["held"]:
+            problems.append(f"check (a) full depth: {check_a}")
+    else:
+        report["check_a"] = []
+        no_drop = cfg.n_experts / cfg.top_k
+        for depth, cf, b in (
+                [(MOE_CHECK_LAYERS, cf, b) for cf in (cfg.capacity_factor,
+                                                      no_drop)
+                 for b in MOE_CHECK_BATCHES]
+                + [(cfg.n_layers, no_drop, 1)]):
+            c, p = served_layers(params, dataclasses.replace(
+                cfg, capacity_factor=cf), depth)
+            with recording_moe(drops):
+                rec = full_depth_check(p, c, toks, extra, b)
+            rec.update(layers=depth, capacity_factor=cf,
+                       drops=drop_counts(drops))
+            del drops[:]
+            rec["gated"] = depth == MOE_CHECK_LAYERS and (
+                cf == no_drop or rec["drops"]["dropped"] == 0)
+            if depth == cfg.n_layers:
+                # the model's own sensitivity at full depth: forward's last
+                # two positions with every weight moved by about 1 ulp
+                with torch.no_grad():
+                    t = toks[:b].to(device)
+                    rec["ulp_spread_last2"] = float((
+                        T.forward(ulp_nudged(p, 5), c, {"tokens": t})[:, -2:]
+                        - T.forward(p, c, {"tokens": t})[:, -2:]
+                    ).abs().max())
+            report["check_a"].append(rec)
+            if rec["gated"] and not rec["held"]:
+                problems.append(f"check (a): {rec}")
 
-    # (b) GQA_CPU_LAYERS layers at full width: the card (kernels) against
-    # the CPU (plain versions) from the same weights, drawn on the card
-    small = dataclasses.replace(cfg, n_layers=GQA_CPU_LAYERS)
-    p_dev = T.init(small, torch.Generator(device=device).manual_seed(1),
-                   device=device)
+    # (b) the served model's first GQA_CPU_LAYERS layers at full width: the
+    # card (kernels) against the CPU (plain versions), the CPU's own 1-ulp
+    # spread beside, at the published capacity factor; an MoE model's
+    # expert choices compared
+    small, p_dev = served_layers(params, cfg, GQA_CPU_LAYERS)
     p_cpu = tree_map(lambda x: x.cpu(), p_dev)
+    x_dev = {k: v[:1] for k, v in extra.items()}
     stoks = torch.randint(0, cfg.vocab_size,
                           (1, GQA_CPU_PROMPT + GQA_CPU_STEPS),
                           generator=torch.Generator().manual_seed(2))
     runs = {}
-    for name, dev, p in (("cuda", device, p_dev),
-                         ("cpu", torch.device("cpu"), p_cpu)):
+    cpu = torch.device("cpu")
+    for name, dev, p in (("cuda", device, p_dev), ("cpu", cpu, p_cpu),
+                         ("cpu_nudged", cpu, ulp_nudged(p_cpu, 3))):
         reset_all_launches()
-        with torch.no_grad():
+        drops, routes = [], []
+        with torch.no_grad(), (recording_moe(drops, routes) if cfg.has_moe
+                               else contextlib.nullcontext()):
             t = stoks.to(dev)
             lg, caches = T.prefill(p, small,
-                                   {"tokens": t[:, :GQA_CPU_PROMPT]},
-                                   max_seq=GQA_CPU_PROMPT + GQA_CPU_STEPS,
+                                   {**{k: v.to(dev) for k, v in
+                                       x_dev.items()},
+                                    "tokens": t[:, :GQA_CPU_PROMPT]},
+                                   max_seq=(n_front + GQA_CPU_PROMPT
+                                            + GQA_CPU_STEPS),
                                    last_only=True)
             steps = [lg.cpu()]
             for i in range(GQA_CPU_STEPS):
                 d, caches = T.decode_step(
                     p, small, {"tokens": t[:, GQA_CPU_PROMPT + i:
                                            GQA_CPU_PROMPT + i + 1]},
-                    caches, GQA_CPU_PROMPT + i)
+                    caches, n_front + GQA_CPU_PROMPT + i)
                 steps.append(d.cpu())
         runs[name] = (torch.cat(steps, dim=1),
-                      {k: n for k, n in all_launches().items() if n})
+                      {k: n for k, n in all_launches().items() if n},
+                      [(i.cpu(), g.cpu()) for i, g in routes])
         del caches
-    del p_dev, p_cpu
+    del params, p_dev, p_cpu
     torch.cuda.empty_cache()
     scale_b = float(runs["cpu"][0].abs().max())
     check_b = {"layers": GQA_CPU_LAYERS, "prompt": GQA_CPU_PROMPT,
                "steps": GQA_CPU_STEPS, "max_abs_logit": scale_b,
                "atol": GQA_REL_ATOL * scale_b,
                "err": float((runs["cuda"][0] - runs["cpu"][0]).abs().max()),
+               "launches_cuda": runs["cuda"][1],
+               "launches_cpu": runs["cpu"][1]}
+    check_b["cpu_one_ulp"] = float(
+        (runs["cpu_nudged"][0] - runs["cpu"][0]).abs().max())
+    if cfg.has_moe:
+        check_b.update(expert_choices(runs["cuda"][2], runs["cpu"][2]))
+    report["check_b"] = check_b
+    if (check_b["err"] > check_b["atol"]
+            or runs["cuda"][1] != {"swa_attn": GQA_CPU_LAYERS}
+            or runs["cpu"][1]):
+        problems.append(f"check (b) card vs CPU: {check_b}")
+    return report, problems
+
+
+def expert_choices(card, cpu) -> dict:
+    """The (token, slot) expert choices that differ between two runs'
+    recorded routes, and for each (up to 20) the gap between the CPU's
+    gates of the two experts."""
+    n, differ, gaps = 0, 0, []
+    for (ia, _), (ib, gb) in zip(card, cpu):
+        n += ib.numel()
+        diff = ia != ib
+        differ += int(diff.sum())
+        for t, k in diff.nonzero().tolist()[:20 - len(gaps)]:
+            gaps.append(float(gb[t, ib[t, k]] - gb[t, ia[t, k]]))
+    return {"expert_choices": n, "choices_differ": differ,
+            "gate_gaps": gaps, "route_calls": [len(card), len(cpu)]}
+
+
+def encoder_forward_path(device, arch: str, k4_per_forward: int):
+    """Path 13c: the encoder-only ``arch`` at full width and depth on the
+    card, random fp32 weights drawn on the card from seed 0: one forward
+    over path 4's batch of ``fake_audio_frames`` (SERVE_PROMPT frames each),
+    K4 (bidirectional) ``k4_per_forward`` times, timed and profiled, its
+    peak memory; and GQA_CPU_LAYERS layers at full width card against CPU
+    within 1e-3 of the largest logit, the served model's own first layers
+    (the CPU's 1-ulp spread beside)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.common.pytree import tree_leaves, tree_map
+    from repro_torch.models import transformer as T
+    from repro_torch.models.frontends import fake_audio_frames
+    from torch.profiler import ProfilerActivity, profile
+    cfg = configs.get(arch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = T.init(cfg, torch.Generator(device=device).manual_seed(0),
+                    device=device)
+    frames = fake_audio_frames(torch.Generator(device=device).manual_seed(0),
+                               cfg, SERVE_BATCH, SERVE_PROMPT, device=device)
+    torch.cuda.synchronize()
+    report = {"arch": cfg.name, "batch": SERVE_BATCH,
+              "frames": SERVE_PROMPT, "causal": cfg.causal,
+              "params_stored": sum(x.numel() for x in tree_leaves(params)),
+              "weights_bytes": sum(x.numel() * x.element_size()
+                                   for x in tree_leaves(params)),
+              "init_s": time.perf_counter() - t0}
+    problems = []
+    # the path: one forward, the counts set to 0 just before, read after
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = T.forward(params, cfg, {"frames": frames})
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    launches = all_launches()
+    report.update(launches=launches, first_forward_s=first_s,
+                  peak_mem_bytes=torch.cuda.max_memory_allocated())
+    if {k: n for k, n in launches.items() if n} != {"swa_attn":
+                                                     k4_per_forward}:
+        problems.append(f"forward launched {launches}, expected swa_attn "
+                        f"{k4_per_forward}")
+    if (tuple(logits.shape) != (SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size)
+            or not bool(torch.isfinite(logits).all())):
+        problems.append(f"logits {tuple(logits.shape)} or non-finite")
+    del logits
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T.forward(params, cfg, {"frames": frames})
+        torch.cuda.synchronize()
+        report["forward_s"] = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            T.forward(params, cfg, {"frames": frames})
+            torch.cuda.synchronize()
+    report["forward_device"] = device_time(prof, report["forward_s"],
+                                           ("swa_attn", "gemm"))
+    del prof
+
+    # (b) the served model's first GQA_CPU_LAYERS layers, card against CPU,
+    # the CPU's 1-ulp spread beside
+    small, p_dev = served_layers(params, cfg, GQA_CPU_LAYERS)
+    del params
+    torch.cuda.empty_cache()
+    f_dev = frames[:1, :GQA_CPU_PROMPT]
+    p_cpu = tree_map(lambda x: x.cpu(), p_dev)
+    runs = {}
+    for name, dev, p in (("cuda", device, p_dev),
+                         ("cpu", torch.device("cpu"), p_cpu),
+                         ("cpu_nudged", torch.device("cpu"),
+                          ulp_nudged(p_cpu, 3))):
+        reset_all_launches()
+        with torch.no_grad():
+            lg = T.forward(p, small, {"frames": f_dev.to(dev)})
+        runs[name] = (lg.cpu(), {k: n for k, n in all_launches().items()
+                                 if n})
+    del p_dev, p_cpu, frames
+    torch.cuda.empty_cache()
+    scale_b = float(runs["cpu"][0].abs().max())
+    check_b = {"layers": GQA_CPU_LAYERS, "frames": GQA_CPU_PROMPT,
+               "max_abs_logit": scale_b, "atol": GQA_REL_ATOL * scale_b,
+               "err": float((runs["cuda"][0] - runs["cpu"][0]).abs().max()),
+               "cpu_one_ulp": float((runs["cpu_nudged"][0]
+                                     - runs["cpu"][0]).abs().max()),
                "launches_cuda": runs["cuda"][1],
                "launches_cpu": runs["cpu"][1]}
     report["check_b"] = check_b
@@ -3707,8 +4100,10 @@ def print_path11(name, rep) -> None:
 
 
 def print_path12(name, rep) -> None:
+    front = (f" after {rep['frontend_tokens']} patches"
+             if rep.get("frontend_tokens") else "")
     print(f"  {name} {rep['arch']} batch {rep['batch']} prompt "
-          f"{rep['prompt']} gen {rep['gen']}: {rep['params_stored']} "
+          f"{rep['prompt']}{front} gen {rep['gen']}: {rep['params_stored']} "
           f"parameters ({rep['weights_bytes'] / 1e9:.1f} GB), init "
           f"{rep['init_s']:.1f} s, prefill {rep['prefill_s']:.3f} s, decode "
           f"{rep['decode_s']:.3f} s ({rep['decode_tokens_per_s']:.1f} "
@@ -3718,7 +4113,27 @@ def print_path12(name, rep) -> None:
           f"whole path {rep['total_s']:.1f} s")
     print(f"  {name} prefill on the card, from a profiler trace: "
           f"{rep['prefill_device']}")
-    print(f"  {name} check (a) full depth: {rep['check_a']}")
+    if "serve_drops" in rep:
+        print(f"  {name} slots dropped while serving: {rep['serve_drops']}")
+    for c in (rep["check_a"] if isinstance(rep["check_a"], list)
+              else [rep["check_a"]]):
+        depth = (f"{c['layers']} layers" if "layers" in c
+                 else "full depth")
+        print(f"  {name} check (a) {depth}: {c}")
+    print(f"  {name} check (b) card vs CPU: {rep['check_b']}", flush=True)
+
+
+def print_path13c(name, rep) -> None:
+    print(f"  {name} {rep['arch']} (causal {rep['causal']}) batch "
+          f"{rep['batch']} x {rep['frames']} frames: {rep['params_stored']} "
+          f"parameters ({rep['weights_bytes'] / 1e9:.1f} GB), init "
+          f"{rep['init_s']:.1f} s, forward {rep['forward_s']:.3f} s (first "
+          f"{rep['first_forward_s']:.3f} s), peak "
+          f"{rep['peak_mem_bytes'] / 2**30:.2f} GiB; launches "
+          f"{ {k: n for k, n in rep['launches'].items() if n} }; whole path "
+          f"{rep['total_s']:.1f} s")
+    print(f"  {name} forward on the card, from a profiler trace: "
+          f"{rep['forward_device']}")
     print(f"  {name} check (b) card vs CPU: {rep['check_b']}", flush=True)
 
 
@@ -3831,13 +4246,16 @@ def main() -> int:
                               f"are missing: {report['k2_ptxas']}")
     if report["k4_hmma"] == 0:
         build_problems.append("swa_attn has no HMMA instruction")
-    d64 = {n: u for n, u in report["k4_ptxas"].items()
-           if "IfLi64E" in n or "bfloat16Li64E" in n}
-    if len(d64) != 2 or any(u.get("spill_stores") != 0
-                            or u.get("spill_loads") != 0
-                            for u in d64.values()):
-        build_problems.append(f"swa_attn's D <= 64 instantiations spill or "
-                              f"are missing: {d64}")
+    # every instantiation (f32 / bf16 x D buckets 64 / 128 / 256 x causal
+    # / bidirectional) spills nothing: the paths run f32 D <= 64 (zamba2,
+    # granite-moe, internvl2), D 128 causal (qwen3-8b) and bidirectional
+    # (hubert's D = 80), D 256 (gemma3-4b)
+    k4_spills = {n: u for n, u in report["k4_ptxas"].items()
+                 if u.get("spill_stores") != 0 or u.get("spill_loads") != 0}
+    if len(report["k4_ptxas"]) != K4_KERNELS or k4_spills:
+        build_problems.append(f"swa_attn's {K4_KERNELS} instantiations "
+                              f"spill or are missing: "
+                              f"{report['k4_ptxas']}")
     # K5's chunk products run on the tensor cores too, and its serve-path
     # instantiation (float32, N and P buckets 64) spills nothing
     k5_lib = libs["ssd_scan"]
@@ -3925,25 +4343,29 @@ def main() -> int:
               f"{'ok' if e['ok'] else 'FAIL'}")
     k4_timings, k4_errors = k4_phase(device)
     k5_timings, k5_errors = k5_phase(device)
+    k5_split = ssm_split_check(device)
     report.update(k4_errors=k4_errors, k4_timings=k4_timings,
-                  k5_errors=k5_errors, k5_timings=k5_timings)
+                  k5_errors=k5_errors, k5_timings=k5_timings,
+                  k5_split=k5_split)
     for e in k4_errors:
         print(f"  check swa_attn B={e['B']} H={e['H']} H_kv={e['H_kv']} "
-              f"S={e['S']} D={e['D']} window={e['window']} {e['dtype']:8s}: "
+              f"S={e['S']} D={e['D']} window={e['window']} "
+              f"causal={e['causal']} {e['dtype']:8s}: "
               f"max abs err {e['max_abs_err']:.2e}, excess over the bound "
               f"{e['excess']:.2e} (rtol {e['rtol']:.0e} atol "
               f"{e['atol']:.0e}) {'ok' if e['ok'] else 'FAIL'}")
     for e in k5_errors:
         print(f"  check ssd_scan B={e['B']} S={e['S']} H={e['H']} P={e['P']} "
-              f"N={e['N']} {e['dtype']:8s}: y {e['y_err']:.2e} state "
+              f"N={e['N']} {e['dtype']:8s} from a state {e['init_state']}: "
+              f"y {e['y_err']:.2e} state "
               f"{e['state_err']:.2e} sequential "
               f"{e.get('sequential_err', '-')} (rtol {e['rtol']:.0e} atol "
               f"{e['atol']:.0e}) {'ok' if e['ok'] else 'FAIL'}")
     for name, rows in (("swa_attn", k4_timings), ("ssd_scan", k5_timings)):
         for r in rows:
             shape = " ".join(f"{k}={r[k]}" for k in
-                             ("B", "H", "H_kv", "S", "D", "window", "dtype",
-                              "P", "N") if k in r)
+                             ("B", "H", "H_kv", "S", "D", "window", "causal",
+                              "dtype", "P", "N", "init_state") if k in r)
             lib = ("-" if r["library_ms"] is None else
                    f"{r['library_ms'] * 1e3:.1f} / "
                    f"{r['library_call_ms'] * 1e3:.1f}")
@@ -3953,10 +4375,12 @@ def main() -> int:
                   f"{r['plain_call_ms'] * 1e3:.1f}; library {lib}; bound "
                   f"{r['bound_ms'] * 1e3:.1f} us by "
                   f"{r.get('bound_detail', r['bound_by'])}", flush=True)
+    print(f"  check zamba2 mamba layer split through init_cache: "
+          f"{k5_split} {'ok' if k5_split['ok'] else 'FAIL'}", flush=True)
     problems = build_problems + [
         f"kernel check failed: {e}" for e in
         errors + k1_modes + k1_grids + k1_poison + k2_errors + nonfinite
-        + k4_errors + k5_errors if not e["ok"]]
+        + k4_errors + k5_errors + [k5_split] if not e["ok"]]
 
     # 4. the paths, each with its own launch counts
     paths = {}
@@ -4090,14 +4514,20 @@ def main() -> int:
     print(f"  path4_serve check (a) full depth: {rep['check_a']}")
     print(f"  path4_serve check (b) card vs CPU: {rep['check_b']}",
           flush=True)
-    for arch, k4_per_prefill in GQA_SERVE:
-        name = f"path12_{arch}"
+    for name, (arch, k4) in [(f"path12_{a}", (a, n)) for a, n in GQA_SERVE] + [
+            ("path13a_moe", MOE_SERVE), ("path13b_vlm", VLM_SERVE)]:
         t0 = time.perf_counter()
-        rep, path_problems = gqa_serve_path(device, arch, k4_per_prefill)
+        rep, path_problems = decoder_serve_path(device, arch, k4)
         rep["total_s"] = time.perf_counter() - t0
         paths[name] = rep
         problems += [f"{name}: {p}" for p in path_problems]
         print_path12(name, rep)
+    t0 = time.perf_counter()
+    rep, path_problems = encoder_forward_path(device, *AUDIO_FORWARD)
+    rep["total_s"] = time.perf_counter() - t0
+    paths["path13c_audio"] = rep
+    problems += [f"path13c_audio: {p}" for p in path_problems]
+    print_path13c("path13c_audio", rep)
 
     # 5. output
     def timing(rows, **key):
@@ -4154,6 +4584,13 @@ def main() -> int:
         return {arch: paths[f"path12_{arch}"]["launches"].get(name, 0)
                 for arch, _ in GQA_SERVE}
 
+    def path13_launches(name):
+        """Each path 13 model's launches of ``name``: while serving (13a,
+        13b) or in its one forward (13c)."""
+        return {k: paths[p]["launches"].get(name, 0) for k, p in
+                (("13a", "path13a_moe"), ("13b", "path13b_vlm"),
+                 ("13c", "path13c_audio"))}
+
     def path8_launches(name):
         """Each path 8 sub-path's launches of ``name``."""
         b = paths["path8b_bucketing"]
@@ -4176,6 +4613,7 @@ def main() -> int:
                 "path10_launches": path10_launches(name),
                 "path11_launches": path11_launches(name),
                 "path12_launches": path12_launches(name),
+                "path13_launches": path13_launches(name),
                 "max_abs_err": max(e[i] for e in errs),
                 "ms": t[f"{kind}_ms"], "plain_ms": t[f"plain_{kind}_ms"],
                 "call_ms": t[f"{kind}_call_ms"],
@@ -4198,6 +4636,7 @@ def main() -> int:
             "path10_launches": path10_launches(name),
             "path11_launches": path11_launches(name),
             "path12_launches": path12_launches(name),
+            "path13_launches": path13_launches(name),
             "max_abs_err": max(e["max_abs_err"] for e in errs
                                if e.get("dtype", "float32") == "float32"),
             "ms": t["ms"], "plain_ms": t["plain_ms"],

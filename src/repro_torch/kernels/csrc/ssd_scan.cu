@@ -12,7 +12,9 @@
 //   y_i    = sum_{j <= i} (C_i . B_j) exp(seg_ij) dt_j x_j             (intra)
 //          + exp(cum_i) C_i . state                                 (inter)
 //   state <- exp(cum_last) state + sum_j exp(seg_last,j) dt_j B_j (x) x_j
-// from state = 0.  Steps past S get dt = 0 (no input, no decay).  y comes
+// from state = init_state, or 0 when init_state is null (a prompt continued
+// from a cache, as ssd_chunked(init_state=) does; the Pallas kernel always
+// starts from 0).  Steps past S get dt = 0 (no input, no decay).  y comes
 // out in x's dtype (D * x is added by the caller, as in the JAX model), and
 // the final f32 state [B, H, N, P] is written too: the prefill cache needs
 // it, and the Pallas kernel drops it.
@@ -216,8 +218,9 @@ template <typename T, int NB, int PB>
 __global__ void __launch_bounds__(kThreads, Plan<NB, PB>::kMinBlocks)
 ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ a_log, const T* __restrict__ bm,
-                const T* __restrict__ cm, T* __restrict__ y, float* __restrict__ final_state,
-                int s_total, int h_total, int p_dim, int n_dim, bool pair_store) {
+                const T* __restrict__ cm, const float* __restrict__ init_state,
+                T* __restrict__ y, float* __restrict__ final_state, int s_total, int h_total,
+                int p_dim, int n_dim, bool pair_store) {
   using PL = Plan<NB, PB>;
   constexpr int LDX = PL::kLdX, LDN = PL::kLdN, LDS = PL::kLdS, LDK = PL::kLdK;
   constexpr int YT = PB / 16;  // n8 tiles of y per warp
@@ -238,7 +241,15 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   // (i) - (iv): the warp's 16-row strip of the chunk and half of its tiles
   const int strip = warp >> 1, i0 = 16 * strip;
 
-  for (int e = tid; e < NB * PB; e += kThreads) st[(e / PB) * LDS + e % PB] = 0.f;
+  // the initial state, zero past N and P (and everywhere without one)
+  {
+    const float* is =
+        init_state ? init_state + static_cast<int64_t>(blockIdx.x) * n_dim * p_dim : nullptr;
+    for (int e = tid; e < NB * PB; e += kThreads) {
+      const int n = e / PB, p = e - n * PB;
+      st[n * LDS + p] = is && n < n_dim && p < p_dim ? is[n * p_dim + p] : 0.f;
+    }
+  }
 
   for (int c0 = 0; c0 < s_total; c0 += kChunk) {
     __syncthreads();  // the previous chunk is done with every buffer
@@ -436,8 +447,8 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
 template <typename T, int NB, int PB>
 cudaError_t launch(const void* x, const void* dt, const void* a_log, const void* bm,
-                   const void* cm, void* y, void* final_state, int b_total, int s_total,
-                   int h_total, int p_dim, int n_dim, cudaStream_t st) {
+                   const void* cm, const void* init_state, void* y, void* final_state,
+                   int b_total, int s_total, int h_total, int p_dim, int n_dim, cudaStream_t st) {
   constexpr size_t smem = Plan<NB, PB>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(ssd_scan_kernel<T, NB, PB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -449,38 +460,40 @@ cudaError_t launch(const void* x, const void* dt, const void* a_log, const void*
       p_dim % 2 == 0 && reinterpret_cast<uintptr_t>(y) % (2 * sizeof(T)) == 0;
   ssd_scan_kernel<T, NB, PB><<<b_total * h_total, kThreads, smem, st>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(a_log),
-      static_cast<const T*>(bm), static_cast<const T*>(cm), static_cast<T*>(y),
+      static_cast<const T*>(bm), static_cast<const T*>(cm),
+      static_cast<const float*>(init_state), static_cast<T*>(y),
       static_cast<float*>(final_state), s_total, h_total, p_dim, n_dim, pair_store);
   return cudaGetLastError();
 }
 
 template <typename T, int PB>
 cudaError_t by_n(const void* x, const void* dt, const void* a_log, const void* bm,
-                 const void* cm, void* y, void* fs, int b, int s, int h, int p, int n,
-                 cudaStream_t st) {
-  if (n <= 16) return launch<T, 16, PB>(x, dt, a_log, bm, cm, y, fs, b, s, h, p, n, st);
-  if (n <= 64) return launch<T, 64, PB>(x, dt, a_log, bm, cm, y, fs, b, s, h, p, n, st);
-  return launch<T, 128, PB>(x, dt, a_log, bm, cm, y, fs, b, s, h, p, n, st);
+                 const void* cm, const void* is, void* y, void* fs, int b, int s, int h, int p,
+                 int n, cudaStream_t st) {
+  if (n <= 16) return launch<T, 16, PB>(x, dt, a_log, bm, cm, is, y, fs, b, s, h, p, n, st);
+  if (n <= 64) return launch<T, 64, PB>(x, dt, a_log, bm, cm, is, y, fs, b, s, h, p, n, st);
+  return launch<T, 128, PB>(x, dt, a_log, bm, cm, is, y, fs, b, s, h, p, n, st);
 }
 
 template <typename T>
 cudaError_t by_p(const void* x, const void* dt, const void* a_log, const void* bm,
-                 const void* cm, void* y, void* fs, int b, int s, int h, int p, int n,
-                 cudaStream_t st) {
-  if (p <= 16) return by_n<T, 16>(x, dt, a_log, bm, cm, y, fs, b, s, h, p, n, st);
-  if (p <= 64) return by_n<T, 64>(x, dt, a_log, bm, cm, y, fs, b, s, h, p, n, st);
-  return by_n<T, 128>(x, dt, a_log, bm, cm, y, fs, b, s, h, p, n, st);
+                 const void* cm, const void* is, void* y, void* fs, int b, int s, int h, int p,
+                 int n, cudaStream_t st) {
+  if (p <= 16) return by_n<T, 16>(x, dt, a_log, bm, cm, is, y, fs, b, s, h, p, n, st);
+  if (p <= 64) return by_n<T, 64>(x, dt, a_log, bm, cm, is, y, fs, b, s, h, p, n, st);
+  return by_n<T, 128>(x, dt, a_log, bm, cm, is, y, fs, b, s, h, p, n, st);
 }
 
 }  // namespace
 
 // x: [b, s, h, p]; dt: [b, s, h] f32; a_log: [h] f32; bmat, cmat: [b, s, n];
-// y: [b, s, h, p] (x's type); final_state: [b, h, n, p] f32; all contiguous.
-// kind 0 = f32, 1 = bf16 (x, bmat, cmat and y).  n <= 128, p <= 128.
+// init_state: [b, h, n, p] f32 or null (a zero start); y: [b, s, h, p] (x's
+// type); final_state: [b, h, n, p] f32; all contiguous.  kind 0 = f32,
+// 1 = bf16 (x, bmat, cmat and y).  n <= 128, p <= 128.
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* a_log, const void* bmat,
-                            const void* cmat, void* y, void* final_state, int b_total,
-                            int s_total, int h_total, int p_dim, int n_dim, int kind, int device,
-                            void* stream) {
+                            const void* cmat, const void* init_state, void* y,
+                            void* final_state, int b_total, int s_total, int h_total, int p_dim,
+                            int n_dim, int kind, int device, void* stream) {
   if (b_total <= 0 || s_total <= 0 || h_total <= 0 || p_dim <= 0 || n_dim <= 0 ||
       p_dim > 128 || n_dim > 128 || static_cast<int64_t>(b_total) * h_total > 2147483647)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -489,11 +502,13 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* a_log, co
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case 0:
-      return static_cast<int>(by_p<float>(x, dt, a_log, bmat, cmat, y, final_state, b_total,
-                                          s_total, h_total, p_dim, n_dim, st));
+      return static_cast<int>(by_p<float>(x, dt, a_log, bmat, cmat, init_state, y,
+                                          final_state, b_total, s_total, h_total, p_dim,
+                                          n_dim, st));
     case 1:
-      return static_cast<int>(by_p<__nv_bfloat16>(x, dt, a_log, bmat, cmat, y, final_state,
-                                                  b_total, s_total, h_total, p_dim, n_dim, st));
+      return static_cast<int>(by_p<__nv_bfloat16>(x, dt, a_log, bmat, cmat, init_state, y,
+                                                  final_state, b_total, s_total, h_total,
+                                                  p_dim, n_dim, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,5 +1,5 @@
-// Causal flash attention with an optional sliding window for Hopper (sm_90a),
-// forward only (K4), on the tensor cores.
+// Flash attention, causal or bidirectional, with an optional sliding window,
+// for Hopper (sm_90a), forward only (K4), on the tensor cores.
 //
 // Replaces the Pallas TPU kernel _swa_kernel of src/repro/kernels/swa_attn.py
 // (kernel :32, wrapper swa_attn_pallas :72, pallas_call :101).
@@ -11,11 +11,15 @@
 // models' _sdpa groups its heads (H_kv = H is plain multi-head attention).
 // As _swa_kernel computes it:
 //   scores are q.k scaled by 1/sqrt(D) in f32;
-//   key kp is seen by query qp iff kp <= qp, qp - kp < window (when there is
-//   a window), and both are < S;
+//   key kp is seen by query qp iff kp <= qp (causal mode), qp - kp < window
+//   (when there is a window), and both are < S;
 //   online softmax with an f32 running max m (from -1e30), sum l and output
 //   o; masked scores have weight exactly 0;
 //   out = o / max(l, 1e-30), so a query that sees no key gives 0, not NaN.
+// The bidirectional mode (a template parameter, CAUSAL = false: hubert's
+// encoder) drops the kp <= qp condition and keeps the window one-sided, as
+// the JAX models' _make_mask and _sdpa_chunked mask (qp - kp < window; every
+// later key stays seen); the Pallas kernel is causal only.
 // The softmax runs in base 2 on the unscaled scores s: p = 2^(s c - m c)
 // with c = scale * log2(e), one FFMA and one ex2.approx each.  A masked
 // score is -inf rather than the TPU kernel's -1e30, so its weight is
@@ -27,19 +31,20 @@
 // (B*H = 128, S = 2000, D = 64, causal) that is 6.56e10 flops: in f32 three
 // TF32 passes at 495 TFLOP/s, ~0.40 ms; in bf16 one pass at 989 TFLOP/s,
 // ~66 us, above the 2.6e8 exponentials (~61 us at 16 per SM and clock) and
-// the 131 MB of q, k, v and o (~39 us at 3.35 TB/s).
+// the 131 MB of q, k, v and o (~39 us at 3.35 TB/s).  Bidirectional, every
+// query sees all S keys: twice the pairs, so twice the bound.
 //
 // Design: one block of 4 warps per (batch*head, 64-query tile); each warp
 // owns 16 query rows, one m16 strip of the warp-level mma.sync products.
 // The block loops only over the key tiles the mask can reach, from
-// max(0, q0 - window + 1) (or 0) to its last query, so the TPU kernel's
-// relative block index map and its clamped duplicate blocks are not needed;
-// query tiles are issued last tile first, since causal work grows along the
-// sequence.  Q, K and V tiles are staged in shared memory by 16-byte
-// cp.async copies (zero past S and past D, rows padded so fragment loads
-// hit distinct banks): K of the next tile loads while this tile's softmax
-// and P.V run, V of the next tile while its Q.K^T runs.  Per key tile each
-// warp computes
+// max(0, q0 - window + 1) (or 0) to its last query (causal) or to the last
+// key (bidirectional), so the TPU kernel's relative block index map and its
+// clamped duplicate blocks are not needed; query tiles are issued last tile
+// first, since causal work grows along the sequence.  Q, K and V tiles are
+// staged in shared memory by 16-byte cp.async copies (zero past S and past
+// D, rows padded so fragment loads hit distinct banks): K of the next tile
+// loads while this tile's softmax and P.V run, V of the next tile while its
+// Q.K^T runs.  Per key tile each warp computes
 //   S = Q.K^T with mma.sync into f32 registers (Q fragments read from the
 //     Q tile in shared memory per k-step, so no registers hold Q);
 //   the mask (only on tiles that touch the diagonal, the window's edge or
@@ -63,11 +68,13 @@
 // rounded to bf16 for P.V (relative 2^-9, inside the bf16 tolerance) and
 // its fragments are the S accumulators packed in pairs; V fragments come
 // from ldmatrix.trans.  Templates: the dtype, the head dimension rounded up
-// to a bucket (64, 128, 256; the columns past D are zero) and the key tile
+// to a bucket (64, 128, 256; the columns past D are zero), the key tile
 // (64; 32 at 256, where the f32 O accumulator alone takes 128 registers a
-// thread).  Shared memory is 53 KB at D <= 64 in f32 (29 KB in bf16) and
-// 132 KB at D <= 256, opted in per launch with cudaFuncSetAttribute.  No
-// TMA, wgmma or warp specialisation yet.
+// thread) and the mode (causal or not: a template parameter and not an
+// argument, since one more argument spilled the f32 D <= 64 instantiation
+// past its 168-register cap).  Shared memory is 53 KB at D <= 64 in f32
+// (29 KB in bf16) and 132 KB at D <= 256, opted in per launch with
+// cudaFuncSetAttribute.  No TMA, wgmma or warp specialisation yet.
 //
 // Plain C interface, loaded with ctypes.  The entry point selects the
 // device, launches on the given stream, allocates nothing, does not
@@ -343,7 +350,7 @@ constexpr size_t smem_bytes() {
                       BK * static_cast<size_t>(DP + Tile<T>::kPadV));
 }
 
-template <typename T, int DP, int BK>
+template <typename T, int DP, int BK, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, Occupancy<T, DP>::kMinBlocks)
 swa_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 T* __restrict__ o, int h, int h_kv, int s_total, int d, int window,
@@ -373,7 +380,7 @@ swa_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
   const int q_last = min(q0 + kBlockQ, s_total) - 1;
   const int kt_first = (window > 0 ? max(0, q0 - window + 1) : 0) / BK;
-  const int kt_last = q_last / BK;
+  const int kt_last = (CAUSAL ? q_last : s_total - 1) / BK;
 
   // groups of copies in flight, oldest first: {Q, K(first)}, V(first), then
   // K(kt + 1) while tile kt's softmax and P.V run, V(kt + 1) while tile
@@ -411,15 +418,20 @@ swa_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     // Masked scores become -inf, so their weight is exactly exp2(-inf) = 0,
     // also where the whole row is masked so far (the max stays -1e30: a
     // masked score of -1e30 would give exp2(0) = 1).  Only tiles that reach
-    // past the warp's first row, the window's edge or the end of the
-    // sequence are masked.
-    if (k0 + BK - 1 > qw0 || k0 + BK > s_total || (window > 0 && qw0 + 15 - k0 >= window)) {
+    // past the warp's first row (causal), the window's edge or the end of
+    // the sequence are masked.  Causal: seen iff 0 <= qp - kp < span, one
+    // unsigned compare; bidirectional: iff qp - kp < span, signed.
+    if ((CAUSAL && k0 + BK - 1 > qw0) || k0 + BK > s_total ||
+        (window > 0 && qw0 + 15 - k0 >= window)) {
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int kp = k0 + 8 * j + 2 * t + (i & 1);
-          const bool seen = static_cast<unsigned>(rows[i >> 1] - kp) < span && kp < s_total;
+          const int gap = rows[i >> 1] - kp;
+          const bool seen = (CAUSAL ? static_cast<unsigned>(gap) < span
+                                    : gap < static_cast<int>(span)) &&
+                            kp < s_total;
           s[j][i] = seen ? s[j][i] : __int_as_float(0xff800000);  // -inf
         }
     }
@@ -493,43 +505,54 @@ swa_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 }
 
-template <typename T, int DP, int BK>
+template <typename T, int DP, int BK, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int h,
                    int h_kv, int s_total, int d, int window, float scale, bool vec,
                    cudaStream_t st) {
   constexpr size_t smem = smem_bytes<T, DP, BK>();
-  cudaError_t err = cudaFuncSetAttribute(swa_attn_kernel<T, DP, BK>,
+  cudaError_t err = cudaFuncSetAttribute(swa_attn_kernel<T, DP, BK, CAUSAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (s_total + kBlockQ - 1) / kBlockQ);
-  swa_attn_kernel<T, DP, BK><<<grid, kThreads, smem, st>>>(
+  swa_attn_kernel<T, DP, BK, CAUSAL><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), h, h_kv, s_total, d, window, scale, vec);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool CAUSAL>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int bh, int h,
                      int h_kv, int s_total, int d, int window, float scale, cudaStream_t st) {
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                         reinterpret_cast<uintptr_t>(v);
   const bool vec = (d * sizeof(T)) % 16 == 0 && any % 16 == 0;
   if (d <= 64)
-    return launch<T, 64, 64>(q, k, v, o, bh, h, h_kv, s_total, d, window, scale, vec, st);
+    return launch<T, 64, 64, CAUSAL>(q, k, v, o, bh, h, h_kv, s_total, d, window, scale, vec,
+                                     st);
   if (d <= 128)
-    return launch<T, 128, 64>(q, k, v, o, bh, h, h_kv, s_total, d, window, scale, vec, st);
-  return launch<T, 256, 32>(q, k, v, o, bh, h, h_kv, s_total, d, window, scale, vec, st);
+    return launch<T, 128, 64, CAUSAL>(q, k, v, o, bh, h, h_kv, s_total, d, window, scale, vec,
+                                      st);
+  return launch<T, 256, 32, CAUSAL>(q, k, v, o, bh, h, h_kv, s_total, d, window, scale, vec,
+                                    st);
+}
+
+template <typename T>
+cudaError_t by_mode(const void* q, const void* k, const void* v, void* o, int bh, int h,
+                    int h_kv, int s_total, int d, int window, float scale, int causal,
+                    cudaStream_t st) {
+  return causal ? dispatch<T, true>(q, k, v, o, bh, h, h_kv, s_total, d, window, scale, st)
+                : dispatch<T, false>(q, k, v, o, bh, h, h_kv, s_total, d, window, scale, st);
 }
 
 }  // namespace
 
 // q, o: [bh, s, d] and k, v: [bh / h * h_kv, s, d] contiguous (bh = B * h
-// query heads over h_kv key heads, h_kv dividing h); window <= 0 means none
-// (full causal); kind 0 = f32, 1 = bf16.
+// query heads over h_kv key heads, h_kv dividing h); window <= 0 means none;
+// causal 1 masks kp <= qp, 0 is bidirectional; kind 0 = f32, 1 = bf16.
 extern "C" int swa_attn_fwd(const void* q, const void* k, const void* v, void* o, int bh, int h,
-                            int h_kv, int s_total, int d, int window, float scale, int kind,
-                            int device, void* stream) {
+                            int h_kv, int s_total, int d, int window, float scale, int causal,
+                            int kind, int device, void* stream) {
   if (bh <= 0 || h <= 0 || h_kv <= 0 || h % h_kv != 0 || bh % h != 0 || s_total <= 0 ||
       d <= 0 || d > 256 || (s_total + kBlockQ - 1) / kBlockQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -539,10 +562,10 @@ extern "C" int swa_attn_fwd(const void* q, const void* k, const void* v, void* o
   switch (kind) {
     case 0:
       return static_cast<int>(
-          dispatch<float>(q, k, v, o, bh, h, h_kv, s_total, d, window, scale, st));
+          by_mode<float>(q, k, v, o, bh, h, h_kv, s_total, d, window, scale, causal, st));
     case 1:
-      return static_cast<int>(
-          dispatch<__nv_bfloat16>(q, k, v, o, bh, h, h_kv, s_total, d, window, scale, st));
+      return static_cast<int>(by_mode<__nv_bfloat16>(q, k, v, o, bh, h, h_kv, s_total, d,
+                                                     window, scale, causal, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -95,28 +95,34 @@ def ensemble_kl_loss_bank(student_logits: torch.Tensor,
 
 
 def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  window: Optional[int] = None) -> torch.Tensor:
-    """Causal attention, optionally windowed (K4): q [B,H,S,D], k/v
-    [B,H_kv,S,D] with H_kv dividing H (grouped-query attention); the output
-    is in q's dtype."""
+                  window: Optional[int] = None,
+                  causal: bool = True) -> torch.Tensor:
+    """Attention, causal or bidirectional, optionally windowed (K4): q
+    [B,H,S,D], k/v [B,H_kv,S,D] with H_kv dividing H (grouped-query
+    attention); the output is in q's dtype."""
     if q.is_cuda:
         from repro_torch.kernels.swa_attn import swa_attn
-        return swa_attn(q, k, v, window)
+        return swa_attn(q, k, v, window, causal)
     _check_on_cpu(k=k, v=v)
-    return ref.swa_attn(q, k, v, window)
+    return ref.swa_attn(q, k, v, window, causal)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
-             bmat: torch.Tensor, cmat: torch.Tensor, chunk: int
+             bmat: torch.Tensor, cmat: torch.Tensor, chunk: int,
+             init_state: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mamba2 SSD scan from a zero state (K5): x [B,S,H,P], dt [B,S,H],
-    a_log [H], bmat / cmat [B,S,N] -> (y [B,S,H,P] in x's dtype, final
-    state [B,H,N,P] float32).  The plain version scans in chunks of
-    ``chunk``; the kernel in its own (``ssd_scan.CHUNK``)."""
+    """Mamba2 SSD scan (K5) from ``init_state`` [B,H,N,P] (zero when
+    None): x [B,S,H,P], dt [B,S,H], a_log [H], bmat / cmat [B,S,N] -> (y
+    [B,S,H,P] in x's dtype, final state [B,H,N,P] float32).  The plain
+    version scans in chunks of ``chunk``; the kernel in its own
+    (``ssd_scan.CHUNK``)."""
     if x.is_cuda:
         from repro_torch.kernels.ssd_scan import ssd_scan as kernel
         return kernel(x.contiguous(), dt.float().contiguous(),
                       a_log.float().contiguous(), bmat.contiguous(),
-                      cmat.contiguous())
-    _check_on_cpu(dt=dt, a_log=a_log, bmat=bmat, cmat=cmat)
-    return ref.ssd_scan(x, dt, a_log, bmat, cmat, chunk)
+                      cmat.contiguous(),
+                      None if init_state is None
+                      else init_state.float().contiguous())
+    _check_on_cpu(dt=dt, a_log=a_log, bmat=bmat, cmat=cmat,
+                  init_state=init_state)
+    return ref.ssd_scan(x, dt, a_log, bmat, cmat, chunk, init_state)

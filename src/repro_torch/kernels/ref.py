@@ -61,14 +61,16 @@ def ensemble_kl_bank(student_logits: torch.Tensor, bank_rows: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# swa_attn: sliding-window (or full causal) attention (K4)
+# swa_attn: sliding-window (or full) attention, causal or not (K4)
 # ---------------------------------------------------------------------------
 
 def swa_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             window: int | None) -> torch.Tensor:
+             window: int | None, causal: bool = True) -> torch.Tensor:
     """q: [B, H, S, D], k/v: [B, H_kv, S, D] with H_kv dividing H (query
-    head h reads key head h // (H // H_kv)); causal, optionally limited to
-    i - j < window.  Plain version of K4."""
+    head h reads key head h // (H // H_kv)); causal (j <= i) or
+    bidirectional, optionally limited to i - j < window (one-sided, as the
+    JAX models mask: without ``causal`` every later key stays seen).  Plain
+    version of K4."""
     s = q.shape[2]
     rep = q.shape[1] // k.shape[1]
     if rep > 1:
@@ -78,7 +80,8 @@ def swa_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
     i = torch.arange(s, device=q.device)[:, None]
     j = torch.arange(s, device=q.device)[None, :]
-    mask = j <= i
+    mask = j <= i if causal else torch.ones((s, s), dtype=torch.bool,
+                                            device=q.device)
     if window is not None:
         mask = mask & (i - j < window)
     scores = torch.where(mask, scores, -torch.inf)
@@ -91,13 +94,14 @@ def swa_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
-             bmat: torch.Tensor, cmat: torch.Tensor, chunk: int):
-    """Chunked SSD: the function of the JAX model's ``ssd_chunked`` from a
-    zero state, with the within-chunk segment sums of ``dt * A`` summed
-    directly rather than as differences of cumulative sums (see below).
-    x:[B,S,H,P] dt:[B,S,H] a_log:[H] bmat/cmat:[B,S,N].  Returns
-    (y [B,S,H,P] in x's dtype, final_state [B,H,N,P] float32).  Plain
-    version of K5."""
+             bmat: torch.Tensor, cmat: torch.Tensor, chunk: int,
+             init_state: torch.Tensor | None = None):
+    """Chunked SSD: the function of the JAX model's ``ssd_chunked``, from
+    ``init_state`` [B,H,N,P] (zero when None), with the within-chunk
+    segment sums of ``dt * A`` summed directly rather than as differences
+    of cumulative sums (see below).  x:[B,S,H,P] dt:[B,S,H] a_log:[H]
+    bmat/cmat:[B,S,N].  Returns (y [B,S,H,P] in x's dtype, final_state
+    [B,H,N,P] float32).  Plain version of K5."""
     b, s, h, p = x.shape
     n = bmat.shape[-1]
     q = min(chunk, s)
@@ -144,9 +148,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     decay_end = torch.exp(seg[:, :, -1])  # [B,nc,Q,H]
     states = torch.einsum("bcjh,bcjn,bcjhp->bchnp", decay_end * dtc, bc, xc)
 
-    # inter-chunk recurrence over nc, from a zero state
+    # inter-chunk recurrence over nc, from the initial state
     total = torch.exp(cum[:, :, -1, :])  # [B,nc,H]
-    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    state = (torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
     entering = []
     for c in range(nc):
         entering.append(state)  # the state entering chunk c
@@ -159,13 +164,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y.to(x.dtype), state
 
 
-def ssd_scan_sequential(x, dt, a_log, bmat, cmat) -> torch.Tensor:
+def ssd_scan_sequential(x, dt, a_log, bmat, cmat,
+                        init_state=None) -> torch.Tensor:
     """Step-by-step recurrence (an independent second oracle for the
-    chunked algorithm)."""
+    chunked algorithm), from ``init_state`` (zero when None)."""
     b, s, h, p = x.shape
     n = bmat.shape[-1]
     a = -torch.exp(a_log.float())
-    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    state = (torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
     ys = []
     for t in range(s):
         xt, dtt = x[:, t].float(), dt[:, t].float()

@@ -4,9 +4,10 @@ CUDA source: ``kernels/csrc/ssd_scan.cu``; it replaces the Pallas TPU
 kernel ``_ssd_kernel`` of the JAX package's ``kernels/ssd_scan.py``
 (forward only, as there).  :func:`ssd_scan` returns ``(y, final_state)``
 as ``ssd_chunked`` does: the Pallas kernel drops the final state, but the
-prefill cache needs it.  The kernel scans in chunks of ``CHUNK`` steps,
-whatever chunk the config names (the function does not depend on the
-chunk, up to rounding).
+prefill cache needs it.  It starts from a given state ``[B, H, N, P]``
+float32, as ``ssd_chunked(init_state=)`` does, or from zero.  The kernel
+scans in chunks of ``CHUNK`` steps, whatever chunk the config names (the
+function does not depend on the chunk, up to rounding).
 
 This wrapper takes CUDA tensors only; ``kernels/ops.py`` routes CPU tensors
 to the plain version ``kernels/ref.py:ssd_scan``.  Every launch adds one to
@@ -15,7 +16,7 @@ to the plain version ``kernels/ref.py:ssd_scan``.  Every launch adds one to
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,9 +28,9 @@ KINDS = {torch.float32: 0, torch.bfloat16: 1}
 CHUNK = 64          # the kernel's own chunk (csrc/ssd_scan.cu kChunk)
 MAX_STATE = 128     # N and P limits of the kernel's shared memory plan
 MAX_HEAD_DIM = 128
-# x, dt, a_log, bmat, cmat, y, final_state, b, s, h, p, n, kind, device,
-# stream
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# x, dt, a_log, bmat, cmat, init_state, y, final_state, b, s, h, p, n,
+# kind, device, stream
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _FN = []
 
 
@@ -48,12 +49,14 @@ def _fn():
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
-             bmat: torch.Tensor, cmat: torch.Tensor
+             bmat: torch.Tensor, cmat: torch.Tensor,
+             init_state: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5: x ``[B,S,H,P]``, dt ``[B,S,H]`` float32, a_log ``[H]`` float32,
-    bmat / cmat ``[B,S,N]`` (x's dtype, float32 or bfloat16), all
-    contiguous on one CUDA device.  Returns y ``[B,S,H,P]`` in x's dtype
-    and the final state ``[B,H,N,P]`` float32."""
+    bmat / cmat ``[B,S,N]`` (x's dtype, float32 or bfloat16), and the
+    initial state ``[B,H,N,P]`` float32 or None (zero), all contiguous on
+    one CUDA device.  Returns y ``[B,S,H,P]`` in x's dtype and the final
+    state ``[B,H,N,P]`` float32."""
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA SSD kernel takes CUDA tensors, got x on "
                          f"{x.device}")
@@ -67,6 +70,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
             "a_log": ((h,), torch.float32, a_log),
             "bmat": ((b, s, n), x.dtype, bmat),
             "cmat": ((b, s, n), x.dtype, cmat)}
+    if init_state is not None:
+        want["init_state"] = ((b, h, n, p), torch.float32, init_state)
     for name, (shape, dtype, t) in want.items():
         if (t.device != x.device or t.dtype != dtype
                 or tuple(t.shape) != shape):
@@ -80,13 +85,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if b * h >= 2 ** 31 or b * s * h * p >= 2 ** 62:
         raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's range")
     for name, t in (("x", x), ("dt", dt), ("a_log", a_log), ("bmat", bmat),
-                    ("cmat", cmat)):
-        if not t.is_contiguous():
+                    ("cmat", cmat), ("init_state", init_state)):
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     y = torch.empty_like(x)
     final = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
     err = _fn()(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(),
-                bmat.data_ptr(), cmat.data_ptr(), y.data_ptr(),
+                bmat.data_ptr(), cmat.data_ptr(),
+                None if init_state is None else init_state.data_ptr(),
+                y.data_ptr(),
                 final.data_ptr(), b, s, h, p, n, KINDS[x.dtype],
                 x.device.index,
                 torch.cuda.current_stream(x.device).cuda_stream)

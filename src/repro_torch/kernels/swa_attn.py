@@ -1,4 +1,5 @@
-"""Causal flash attention with an optional sliding window on the card (K4).
+"""Flash attention, causal or bidirectional, with an optional sliding window
+on the card (K4).
 
 CUDA source: ``kernels/csrc/swa_attn.cu``; it replaces the Pallas TPU
 kernel ``_swa_kernel`` of the JAX package's ``kernels/swa_attn.py``
@@ -6,7 +7,9 @@ kernel ``_swa_kernel`` of the JAX package's ``kernels/swa_attn.py``
 k, v ``[B, H_kv, S, D]`` with ``H_kv`` dividing ``H`` (grouped-query
 attention: query head h reads key / value head ``h // (H // H_kv)``, as the
 JAX models' ``_sdpa`` groups them), float32 or bfloat16, ``D <= 256``, and
-returns the output in q's dtype.
+returns the output in q's dtype.  ``causal=False`` is the encoder's
+bidirectional mask (a template mode of the kernel; a window stays one-sided,
+``i - j < window``, as the JAX models mask).
 
 This wrapper takes CUDA tensors only; ``kernels/ops.py`` routes CPU tensors
 to the plain version ``kernels/ref.py:swa_attn``.  Every launch adds one to
@@ -26,9 +29,10 @@ SOURCE = "swa_attn"
 LAUNCHES: Dict[str, int] = {"swa_attn": 0}
 KINDS = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-# q, k, v, o, bh, h, h_kv, s, d, window, scale, kind, device, stream
+# q, k, v, o, bh, h, h_kv, s, d, window, scale, causal, kind, device, stream
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p]
 _FN = []
 
 
@@ -47,11 +51,11 @@ def _fn():
 
 
 def swa_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             window: Optional[int]) -> torch.Tensor:
-    """K4: causal attention of q ``[B, H, S, D]`` over k, v ``[B, H_kv,
-    S, D]`` (contiguous, one CUDA device, one dtype, ``H_kv`` dividing
-    ``H``), each query limited to the last ``window`` keys when ``window``
-    is not None."""
+             window: Optional[int], causal: bool = True) -> torch.Tensor:
+    """K4: attention of q ``[B, H, S, D]`` over k, v ``[B, H_kv, S, D]``
+    (contiguous, one CUDA device, one dtype, ``H_kv`` dividing ``H``),
+    causal or not, each query limited to keys ``j > i - window`` when
+    ``window`` is not None."""
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA attention kernel takes CUDA tensors, got "
                          f"q on {q.device}")
@@ -83,7 +87,8 @@ def swa_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 b * h, h, h_kv, s, d,
                 0 if window is None else min(int(window), s),
-                1.0 / math.sqrt(d), KINDS[q.dtype], q.device.index,
+                1.0 / math.sqrt(d), int(bool(causal)), KINDS[q.dtype],
+                q.device.index,
                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"swa_attn launch failed with cudaError {err}")

@@ -9,10 +9,10 @@ D]`` layout; the kernel takes contiguous ``[B, H, S, D]``, so q, k and v
 are transposed into contiguous copies before the call and the output back.
 Grouped-query attention hands K4 the keys and values at their own
 ``n_kv_heads`` (query head h reads key head ``h // (H // KV)``, as
-``_sdpa`` groups them); K4 masks causally only, so bidirectional
-full-sequence attention raises ``NotImplementedError`` (ROADMAP queue 1
-item 11).  Decode attends over the cache in plain PyTorch (``_sdpa``), as
-JAX does outside any Pallas kernel.
+``_sdpa`` groups them); ``cfg.causal`` picks K4's mode, bidirectional for
+the encoder-only hubert (a window stays one-sided, as ``_make_mask`` masks).
+Decode attends over the cache in plain PyTorch (``_sdpa``), as JAX does
+outside any Pallas kernel.
 
 Local layers use a ring-buffer cache of size ``window``.
 """
@@ -27,9 +27,6 @@ from repro_torch.common.arch_config import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (ParamSpec, apply_rope, rmsnorm,
                                        rmsnorm_spec)
-
-UNPORTED = ("ROADMAP queue 1 item 11: the port's full-sequence attention is "
-            "K4, causal only")
 
 
 class KVCache(NamedTuple):
@@ -49,13 +46,6 @@ def attn_specs(cfg: ArchConfig) -> dict:
         specs["q_norm"] = rmsnorm_spec(hd, "qkv")
         specs["k_norm"] = rmsnorm_spec(hd, "qkv")
     return specs
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for attention the port's full-sequence path cannot run."""
-    if not cfg.causal:
-        raise NotImplementedError(f"{cfg.name}: bidirectional attention "
-                                  f"({UNPORTED})")
 
 
 def _project_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -85,12 +75,12 @@ def _sdpa(q, k, v, mask, head_dim):
 
 
 def _full_attention(cfg: ArchConfig, q, k, v, local: bool) -> torch.Tensor:
-    """Causal (optionally windowed) attention over the whole sequence
-    through K4: q [B,S,H,D] and k / v [B,S,KV,D] in, [B,S,H,D] out."""
-    check_supported(cfg)
+    """Attention over the whole sequence through K4, causal or not as the
+    config says, optionally windowed: q [B,S,H,D] and k / v [B,S,KV,D] in,
+    [B,S,H,D] out."""
     to_bhsd = lambda t: t.transpose(1, 2).contiguous()
     out = ops.swa_attention(to_bhsd(q), to_bhsd(k), to_bhsd(v),
-                            cfg.window if local else None)
+                            cfg.window if local else None, cfg.causal)
     return out.transpose(1, 2)
 
 

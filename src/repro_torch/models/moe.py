@@ -1,0 +1,157 @@
+"""Mixture-of-Experts block (Qwen3-MoE / Granite-MoE style), the JAX
+package's ``models/moe.py`` in PyTorch.
+
+Two execution paths, one math:
+
+* ``_moe_capacity`` — sort-based capacity dispatch (no [T,E,C] one-hots).
+  Used for train / prefill, and for decode once ``T * top_k >= n_experts``.
+  Each expert takes ``capacity(cfg, T)`` slots; the slots past it are
+  dropped in token order (the latest tokens first), as in JAX.
+* ``_moe_gather`` — per-token expert-weight gathering, used when
+  ``T * top_k < n_experts`` (single-token decode): reads only the touched
+  experts' weights.
+
+JAX's expert-parallel ``_moe_shard_map`` waits for the port's meshes:
+``moe_block(mesh=...)`` raises ``NotImplementedError`` (ROADMAP queue 1
+item 11).  No Pallas kernel runs here in JAX; the per-expert SwiGLU
+products are plain batched products here too.
+
+Router: softmax gates, top-k, renormalised weights, Switch-style load-balance
+auxiliary loss.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.common.arch_config import ArchConfig
+from repro_torch.models.layers import ParamSpec
+
+UNPORTED = ("ROADMAP queue 1 item 11: the expert-parallel MoE "
+            "(_moe_shard_map) waits for the port's meshes")
+
+
+def moe_specs(cfg: ArchConfig) -> dict:
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": ParamSpec((d, e), ("embed", None)),
+        "wi_gate": ParamSpec((e, d, ff), ("experts", "embed", "mlp")),
+        "wi_up": ParamSpec((e, d, ff), ("experts", "embed", "mlp")),
+        "wo": ParamSpec((e, ff, d), ("experts", "mlp", "embed")),
+    }
+
+
+def _route(p: dict, cfg: ArchConfig, x: torch.Tensor):
+    """x: [T, d] -> (weights [T,k], idx [T,k], aux_loss scalar)."""
+    logits = (x @ p["router"]).float()  # [T, E]
+    gates = torch.softmax(logits, dim=-1)
+    w, idx = torch.topk(gates, cfg.top_k, dim=-1)
+    w = w / torch.sum(w, dim=-1, keepdim=True)
+    # Switch-style load balance: E * sum_e f_e * P_e
+    e = cfg.n_experts
+    assign = torch.zeros((x.shape[0], e), dtype=gates.dtype, device=x.device)
+    assign.scatter_(1, idx, 1.0)
+    f = torch.mean(assign, dim=0)  # fraction routed (over top-k slots)
+    pe = torch.mean(gates, dim=0)
+    aux = e * torch.sum(f * pe) / cfg.top_k
+    return w.to(x.dtype), idx, aux
+
+
+def _expert_ffn(p: dict, buf: torch.Tensor) -> torch.Tensor:
+    """buf: [E_local, C, d] -> [E_local, C, d] (per-expert SwiGLU)."""
+    g = F.silu(torch.bmm(buf, p["wi_gate"]))
+    u = torch.bmm(buf, p["wi_up"])
+    return torch.bmm(g * u, p["wo"])
+
+
+def capacity(cfg: ArchConfig, t: int) -> int:
+    """Slots per expert for ``t`` tokens, with JAX's float arithmetic."""
+    return max(1, int(math.ceil(t * cfg.top_k / cfg.n_experts
+                                * cfg.capacity_factor)))
+
+
+class Dispatch(NamedTuple):
+    """Where each of the ``T * k`` (token, slot) choices goes, in the
+    stable order of the local expert index (``order``)."""
+    order: torch.Tensor  # [n] position in the flat (token, slot) list
+    src: torch.Tensor    # [n] token of each sorted choice
+    e_idx: torch.Tensor  # [n] local expert, e_local where dropped
+    p_idx: torch.Tensor  # [n] slot in the expert's buffer, 0 where dropped
+    valid: torch.Tensor  # [n] bool: the choice got a slot
+
+
+def dispatch(cfg: ArchConfig, idx: torch.Tensor, e_start: int,
+             e_local: int) -> Dispatch:
+    """The sort-based capacity dispatch of ``_moe_capacity`` for expert
+    choices ``idx`` [T, k]: a stable sort by local expert (the drop bucket
+    ``e_local`` last), each choice's position within its expert from a
+    left-side ``searchsorted``, and the choices past the capacity
+    dropped."""
+    t, k = idx.shape
+    n = t * k
+    dev = idx.device
+    fe = idx.reshape(n)
+    tok = torch.arange(n, device=dev) // k
+    mine = (fe >= e_start) & (fe < e_start + e_local)
+    le = torch.where(mine, fe - e_start, e_local)  # e_local == drop bucket
+    order = torch.argsort(le, stable=True)
+    le_s = le[order]
+    starts = torch.searchsorted(le_s, torch.arange(e_local, device=dev))
+    pos = torch.arange(n, device=dev) - starts[le_s.clamp(0, e_local - 1)]
+    valid = (le_s < e_local) & (pos < capacity(cfg, t))
+    return Dispatch(order, tok[order], torch.where(valid, le_s, e_local),
+                    torch.where(valid, pos, 0), valid)
+
+
+def _moe_capacity(p: dict, cfg: ArchConfig, x: torch.Tensor, w, idx,
+                  e_start: int, e_local: int) -> torch.Tensor:
+    """Sort-based capacity dispatch over the local expert slice."""
+    t, d = x.shape
+    k = cfg.top_k
+    dp = dispatch(cfg, idx, e_start, e_local)
+    buf = x.new_zeros((e_local, capacity(cfg, t), d))
+    # JAX's .set(mode="drop") skips the out-of-range drop bucket; PyTorch
+    # raises on it, so the dropped choices are masked out first
+    buf[dp.e_idx[dp.valid], dp.p_idx[dp.valid]] = x[dp.src[dp.valid]]
+
+    y = _expert_ffn(p, buf)  # [e_local, cap, d]
+    y_tok = y[dp.e_idx.clamp(0, e_local - 1), dp.p_idx]  # [n, d]
+    y_tok = y_tok * (w.reshape(-1)[dp.order] * dp.valid)[:, None]
+    # back to (token, slot) order through the inverse permutation, then a
+    # sum over the k slots: a fixed order, where index_add_ would sum by
+    # atomics on CUDA
+    flat = torch.empty_like(y_tok)
+    flat[dp.order] = y_tok
+    return flat.reshape(t, k, d).sum(dim=1)
+
+
+def _moe_gather(p: dict, cfg: ArchConfig, x: torch.Tensor, w, idx
+                ) -> torch.Tensor:
+    """Tiny-T decode path: gather only the touched experts' weights."""
+    wg = p["wi_gate"][idx]  # [T, k, d, ff]
+    wu = p["wi_up"][idx]
+    wo = p["wo"][idx]  # [T, k, ff, d]
+    g = F.silu(torch.einsum("td,tkdf->tkf", x, wg))
+    u = torch.einsum("td,tkdf->tkf", x, wu)
+    y = torch.einsum("tkf,tkfd->tkd", g * u, wo)
+    return torch.einsum("tkd,tk->td", y, w)
+
+
+def moe_block(p: dict, cfg: ArchConfig, x: torch.Tensor, mesh=None,
+              dp_axes: Tuple[str, ...] = ()
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, d] -> (out [B, S, d], aux loss), on one device."""
+    if mesh is not None:
+        raise NotImplementedError(f"moe_block(mesh=...): {UNPORTED}")
+    b, s, d = x.shape
+    x2 = x.reshape(b * s, d)
+    t = b * s
+    w, idx, aux = _route(p, cfg, x2)
+    if t * cfg.top_k < cfg.n_experts:
+        out = _moe_gather(p, cfg, x2, w, idx)
+    else:
+        out = _moe_capacity(p, cfg, x2, w, idx, 0, cfg.n_experts)
+    return out.reshape(b, s, d), aux

@@ -2,10 +2,10 @@
 ``models/ssm.py`` in PyTorch).
 
 The full-sequence scan goes through ``kernels/ops.ssd_scan``: K5 on CUDA
-tensors (which also returns the final state the prefill cache needs), the
-plain chunked SSD (``kernels/ref.ssd_scan``) on the CPU.  The one-token
-decode step stays plain PyTorch, as JAX computes it outside any Pallas
-kernel.
+tensors (which also returns the final state the prefill cache needs, and
+starts from a cache's state when given one), the plain chunked SSD
+(``kernels/ref.ssd_scan``) on the CPU.  The one-token decode step stays
+plain PyTorch, as JAX computes it outside any Pallas kernel.
 
 Layout: x:[B,S,H,P] heads H = d_inner/head_dim, state N = ssm_state,
 B/C shared across heads (n_groups = 1).
@@ -63,11 +63,9 @@ def _causal_conv(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor
 def ssm_forward(p: dict, cfg: ArchConfig, hidden: torch.Tensor,
                 init_cache: SSMCache | None = None,
                 return_cache: bool = False):
-    """Full-sequence Mamba2 block. hidden: [B,S,d_model]."""
-    if init_cache is not None:
-        raise NotImplementedError(
-            "ssm_forward(init_cache=...) is not ported: the scan kernel "
-            "starts from a zero state (ROADMAP queue 1 item 11)")
+    """Full-sequence Mamba2 block. hidden: [B,S,d_model].  With
+    ``init_cache`` the block continues from a cache (its conv history ahead
+    of the causal conv, its state as the scan's initial state)."""
     b, s, _ = hidden.shape
     di, ns, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
     hd = di // nh
@@ -77,22 +75,28 @@ def ssm_forward(p: dict, cfg: ArchConfig, hidden: torch.Tensor,
                     dim=-1)
     dt_raw = hidden @ p["wdt"]
 
-    conv_out = F.silu(_causal_conv(p["conv_w"], p["conv_b"], xbc))
+    if init_cache is not None:
+        xbc_in = torch.cat([init_cache.conv, xbc], dim=1)
+        conv_out = _causal_conv(p["conv_w"], p["conv_b"], xbc_in)[:, -s:]
+    else:
+        conv_out = _causal_conv(p["conv_w"], p["conv_b"], xbc)
+    conv_out = F.silu(conv_out)
     x = conv_out[..., :di].reshape(b, s, nh, hd)
     bmat = conv_out[..., di: di + ns]
     cmat = conv_out[..., di + ns:]
 
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
-    y, final_state = ops.ssd_scan(x, dt, p["A_log"], bmat, cmat,
-                                  cfg.ssm_chunk)
+    y, final_state = ops.ssd_scan(
+        x, dt, p["A_log"], bmat, cmat, cfg.ssm_chunk,
+        None if init_cache is None else init_cache.state)
     y = y + p["D"][None, None, :, None] * x
     y = y.reshape(b, s, di)
     y = rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
     out = y @ p["out"]
     if return_cache:
         w = cfg.ssm_conv
-        src = torch.cat([xbc.new_zeros((b, w - 1, xbc.shape[-1])), xbc],
-                        dim=1)
+        src = xbc_in if init_cache is not None else torch.cat(
+            [xbc.new_zeros((b, w - 1, xbc.shape[-1])), xbc], dim=1)
         return out, SSMCache(src[:, -(w - 1):].clone(), final_state)
     return out
 

@@ -1,6 +1,5 @@
 """Unified model from one config (the JAX package's ``models/
-transformer.py`` in PyTorch): dense / SSM / hybrid decoders with token
-inputs.
+transformer.py`` in PyTorch): dense / MoE / SSM / hybrid / audio / VLM.
 
 Layers are grouped by *pattern position*: ``pattern[j]`` repeats
 ``n_layers // len(pattern)`` times (stacked params with a leading
@@ -11,14 +10,16 @@ reused on every repeat.
 
 Public surface:
   param_specs / init      — parameters
-  forward(params, batch)  — full-sequence logits
+  forward(params, batch)  — full-sequence logits (and the MoE aux loss)
   prefill(params, batch)  — logits + populated caches
   decode_step(params, …)  — one-token logits; caches updated in place
   init_caches             — decode-state construction
 
-Not ported yet (``check_supported`` raises ``NotImplementedError``, ROADMAP
-queue 1 item 11): MoE MLPs, the audio / vision frontends and bidirectional
-attention.
+Inputs are tokens, or audio frames (``frontend == "audio_frames"``: the
+encoder-only hubert, no embedding, always a head), with projected vision
+patches prepended to the tokens (``"vision_patches"``; decode steps carry
+none, the patches live in the KV cache).  Not ported yet: the meshes
+(``moe_block(mesh=...)`` raises, ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -30,25 +31,18 @@ import torch
 from repro_torch.common.arch_config import ArchConfig, BlockSpec
 from repro_torch.common.pytree import tree_map
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     ParamSpec, gelu_mlp, gelu_mlp_specs, init_params, rmsnorm, rmsnorm_spec,
     stack_specs, swiglu, swiglu_specs)
 
-ROADMAP_ITEM = "ROADMAP queue 1 item 11"
-
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port's model path cannot
-    run yet."""
-    if cfg.has_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE MLPs are not ported "
-                                  f"({ROADMAP_ITEM})")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
-                                  f"is not ported ({ROADMAP_ITEM})")
-    if cfg.has_attention:
-        attn.check_supported(cfg)
+    """Raise for a config the port's model path cannot run: every config
+    of the registry runs (on one device), an unknown frontend does not."""
+    if cfg.frontend not in ("none", "audio_frames", "vision_patches"):
+        raise ValueError(f"{cfg.name}: unknown frontend {cfg.frontend!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -66,7 +60,9 @@ def _mlp_specs(cfg: ArchConfig, spec: BlockSpec) -> Optional[dict]:
         return swiglu_specs(cfg.d_model, cfg.d_ff)
     if spec.mlp == "gelu":
         return gelu_mlp_specs(cfg.d_model, cfg.d_ff)
-    return None                 # "none" (MoE raised in check_supported)
+    if spec.mlp == "moe":
+        return moe_mod.moe_specs(cfg)
+    return None
 
 
 def _block_specs(cfg: ArchConfig, spec: BlockSpec) -> dict:
@@ -86,9 +82,10 @@ def _layout(cfg: ArchConfig) -> Tuple[int, int, int]:
 def param_specs(cfg: ArchConfig) -> dict:
     check_supported(cfg)
     p, n_full, rem = _layout(cfg)
-    specs: Dict[str, Any] = {
-        "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", None),
-                           scale=1.0)}
+    specs: Dict[str, Any] = {}
+    if cfg.frontend != "audio_frames":
+        specs["embed"] = ParamSpec((cfg.vocab_size, cfg.d_model),
+                                   ("vocab", None), scale=1.0)
     blocks = []
     for j in range(p):
         bs = cfg.pattern[j]
@@ -108,7 +105,7 @@ def param_specs(cfg: ArchConfig) -> dict:
                  if b.mixer == "shared_attn")], mixer="attn_global")
         specs["shared"] = _block_specs(cfg, shared_spec)
     specs["final_norm"] = rmsnorm_spec(cfg.d_model)
-    if not cfg.tie_embeddings:
+    if not cfg.tie_embeddings or cfg.frontend == "audio_frames":
         specs["head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
                                   (None, "vocab"))
     return specs
@@ -126,16 +123,20 @@ def init(cfg: ArchConfig, generator: torch.Generator, dtype=torch.float32,
 # ---------------------------------------------------------------------------
 
 def _apply_mlp(bp: dict, cfg: ArchConfig, spec: BlockSpec, h: torch.Tensor):
+    """(h + the MLP of h, the MoE aux loss or 0.0)."""
     if spec.mlp == "none":
-        return h
+        return h, 0.0
     x = rmsnorm(bp["norm2"], h, cfg.norm_eps)
     if spec.mlp == "swiglu":
-        return h + swiglu(bp["mlp"], x)
-    return h + gelu_mlp(bp["mlp"], x)
+        return h + swiglu(bp["mlp"], x), 0.0
+    if spec.mlp == "gelu":
+        return h + gelu_mlp(bp["mlp"], x), 0.0
+    out, aux = moe_mod.moe_block(bp["mlp"], cfg, x)
+    return h + out, aux
 
 
 def _apply_block(bp: dict, cfg: ArchConfig, spec: BlockSpec,
-                 h: torch.Tensor) -> torch.Tensor:
+                 h: torch.Tensor):
     x = rmsnorm(bp["norm1"], h, cfg.norm_eps)
     if spec.mixer == "mamba":
         h = h + ssm_mod.ssm_forward(bp["mixer"], cfg, x)
@@ -173,8 +174,16 @@ def _layers(params: dict, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 def embed_inputs(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """Input hidden states from tokens [B, S]."""
-    return params["embed"][batch["tokens"]]
+    """Input hidden states: audio frames [B, S, d] as they are, or the
+    embedded tokens [B, S] with vision patches [B, P, d] prepended when
+    the batch has them (decode steps carry none: they live in the KV
+    cache)."""
+    if cfg.frontend == "audio_frames":
+        return batch["frames"]
+    h = params["embed"][batch["tokens"]]
+    if cfg.frontend == "vision_patches" and "patches" in batch:
+        h = torch.cat([batch["patches"].to(h.dtype), h], dim=1)
+    return h
 
 
 def unembed(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
@@ -183,15 +192,20 @@ def unembed(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     return h @ params["embed"].T
 
 
-def forward(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """Full-sequence logits [B, S, V] (JAX also returns the MoE aux loss,
-    which is 0 without MoE)."""
+def forward(params: dict, cfg: ArchConfig, batch: dict, *,
+            return_aux: bool = False):
+    """Full-sequence logits [B, S, V]; with ``return_aux``, ``(logits, aux)``
+    as JAX returns them, aux the MoE load-balance loss summed over layers
+    (a float32 scalar, 0 without MoE)."""
     check_supported(cfg)
     h = embed_inputs(params, cfg, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for bp, spec, _ in _layers(params, cfg):
-        h = _apply_block(bp, cfg, spec, h)
+        h, a = _apply_block(bp, cfg, spec, h)
+        aux = aux + a
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    return unembed(params, cfg, h)
+    logits = unembed(params, cfg, h)
+    return (logits, aux) if return_aux else logits
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +263,7 @@ def decode_step(params: dict, cfg: ArchConfig, batch: dict, caches: dict,
         else:
             out, _ = attn.decode_step(bp["mixer"], cfg, x, cache, cur_len,
                                       local=spec.mixer == "attn_local")
-        h = _apply_mlp(bp, cfg, spec, h + out)
+        h, _ = _apply_mlp(bp, cfg, spec, h + out)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return unembed(params, cfg, h), caches
 
@@ -271,7 +285,7 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, max_seq: int,
         else:
             out, cache = attn.prefill_cache(bp["mixer"], cfg, x, max_seq,
                                             local=spec.mixer == "attn_local")
-        h = _apply_mlp(bp, cfg, spec, h + out)
+        h, _ = _apply_mlp(bp, cfg, spec, h + out)
         (block_caches[j] if kind == "blocks" else tail_caches).append(cache)
     if last_only:
         h = h[:, -1:]

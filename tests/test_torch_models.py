@@ -30,6 +30,7 @@ from repro_torch.common.arch_config import reduced
 from repro_torch.convert import to_torch
 from repro_torch.models import attention, layers, ssm
 from repro_torch.models import transformer as T
+from repro_torch.models.layers import init_params
 
 EXACT = dict(rtol=1e-5, atol=1e-6)
 KERNEL = dict(rtol=1e-4, atol=1e-5)
@@ -178,20 +179,89 @@ def test_ssm_forward_and_decode_match_jax():
     want = jssm.init_ssm_cache(cfg_j, b)
     assert empty.conv.shape == want.conv.shape
     assert empty.state.shape == want.state.shape
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssm.ssm_forward(pt, cfg_t, torch.from_numpy(x), init_cache=empty)
+    # from a cache (``init_cache``): the second half of the prompt continued
+    # from the first half's cache, against JAX's and against the whole
+    # prompt; an empty cache is a zero start
+    _close(ssm.ssm_forward(pt, cfg_t, torch.from_numpy(x), init_cache=empty),
+           jssm.ssm_forward(pj, cfg_j, jnp.asarray(x)), KERNEL)
+    h = 13                        # ragged against the chunk on both sides
+    first_t = ssm.ssm_forward(pt, cfg_t, torch.from_numpy(x[:, :h]),
+                              return_cache=True)[1]
+    first_j = jssm.ssm_forward(pj, cfg_j, jnp.asarray(x[:, :h]),
+                               return_cache=True)[1]
+    out_t, cache_t = ssm.ssm_forward(pt, cfg_t, torch.from_numpy(x[:, h:]),
+                                     init_cache=first_t, return_cache=True)
+    out_j, cache_j = jssm.ssm_forward(pj, cfg_j, jnp.asarray(x[:, h:]),
+                                      init_cache=first_j, return_cache=True)
+    _close(out_t, out_j, KERNEL)
+    _close(cache_t.conv, cache_j.conv, KERNEL)
+    _close(cache_t.state, cache_j.state, KERNEL)
+    whole_t, whole_cache = ssm.ssm_forward(pt, cfg_t, torch.from_numpy(x),
+                                           return_cache=True)
+    _close(out_t, whole_t[:, h:], KERNEL)
+    _close(cache_t.state, whole_cache.state, KERNEL)
+    _close(cache_t.conv, whole_cache.conv, EXACT)
 
 
-@pytest.mark.parametrize("name,over,what", [
+def _batch_np(cfg, b, s, seed):
+    """A batch for ``cfg``: tokens, plus vision patches, or audio frames."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio_frames":
+        return {"frames": (rng.normal(size=(b, s, cfg.d_model)) * 0.02)
+                .astype(np.float32)}
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, s))}
+    if cfg.frontend == "vision_patches":
+        out["patches"] = (rng.normal(size=(b, cfg.n_frontend_tokens,
+                                           cfg.d_model)) * 0.02
+                          ).astype(np.float32)
+    return out
+
+
+# the five configs this file once held as unported (bidirectional,
+# MoE, frontend), each now run against JAX
+FORMERLY_UNPORTED = [
     ("gemma3-4b", {"causal": False}, "bidirectional"),
     ("qwen3-8b", {"causal": False}, "bidirectional"),
     ("granite-moe-1b-a400m", {}, "MoE"),
     ("internvl2-1b", {}, "frontend"),
     ("hubert-xlarge", {"frontend": "none"}, "bidirectional"),
-])
-def test_unported_configs_raise(name, over, what):
-    cfg = dataclasses.replace(reduced(configs.get(name)), **over)
-    with pytest.raises(NotImplementedError, match=what):
-        T.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.param_specs(cfg)
+]
+
+
+@pytest.mark.parametrize("name,over,what", FORMERLY_UNPORTED)
+def test_formerly_unported_configs_match_jax(name, over, what):
+    """Forward logits (and the MoE aux loss) against JAX at 1e-3 of the
+    largest logit (tests/test_torch_serve.py's tolerance); the prompt (40)
+    outgrows gemma3's reduced window (32), so its bidirectional local
+    layers mask one-sidedly."""
+    cfg_j, cfg_t = _cfgs(name, **over)
+    T.check_supported(cfg_t)
+    pj, pt = _params(JT.param_specs(cfg_j), 8)
+    batch = _batch_np(cfg_t, 2, 40, 9)
+    lj, aux_j = JT.forward(pj, cfg_j, {k: jnp.asarray(v)
+                                       for k, v in batch.items()})
+    lt, aux_t = T.forward(pt, cfg_t, {k: torch.from_numpy(v)
+                                      for k, v in batch.items()},
+                          return_aux=True)
+    want = np.asarray(lj)
+    assert lt.shape == want.shape
+    np.testing.assert_allclose(lt.numpy(), want, rtol=2e-3,
+                               atol=1e-3 * np.abs(want).max())
+    _close(aux_t, aux_j, dict(rtol=1e-4, atol=1e-6))
+    assert (float(aux_t) > 0) == (what == "MoE")
+
+
+def test_unported_configs_raise():
+    """The one axis of the model path still unported: the expert-parallel
+    MoE on a mesh (JAX's ``_moe_shard_map``)."""
+    from repro_torch.models import moe
+    for name in ("granite-moe-1b-a400m", "qwen3-moe-235b-a22b",
+                 "internvl2-1b", "hubert-xlarge"):
+        T.check_supported(configs.get(name))
+    cfg = reduced(configs.get("granite-moe-1b-a400m"))
+    p = init_params(moe.moe_specs(cfg), torch.Generator().manual_seed(0))
+    x = torch.zeros(1, 4, cfg.d_model)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
+        moe.moe_block(p, cfg, x, mesh=object())
+    out, aux = moe.moe_block(p, cfg, x)
+    assert out.shape == x.shape and aux.shape == ()

@@ -17,7 +17,8 @@ decode), the config registry, and parameter trees with tuples.
 * Within the port, ``prefill`` + ``decode_step`` reproduce ``forward`` to
   test_decode's own tolerances (prefill rtol 2e-3 / atol 2e-4, decode
   2e-3), for every reduced config the port runs.
-* The CLI runs on the CPU when asked, and raises without a card otherwise.
+* The CLI runs on the CPU when asked, and raises without a card otherwise;
+  it refuses the encoder-only hubert-xlarge (no decode step).
 """
 import dataclasses
 import os
@@ -191,6 +192,7 @@ def test_serve_without_device_needs_cuda():
         pytest.skip("a CUDA device is present: the default device works")
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_mod.main(["--arch", "zamba2-1.2b-smoke"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_mod.main(["--arch", "granite-moe-1b-a400m-smoke", "--device",
-                        "cpu"])
+    # an encoder-only model has no decode step: refused, as the JAX serve
+    # refuses it
+    with pytest.raises(SystemExit, match="encoder-only"):
+        serve_mod.main(["--arch", "hubert-xlarge-smoke", "--device", "cpu"])
