@@ -45,10 +45,10 @@ and in order:
    that its float32 N = P = 64 instantiation (the serve path's) spills no
    registers; then one zamba2-1.2b mamba layer at full width, a 2000-token
    prompt split 1000 + 1000 through ``init_cache`` against the whole;
-4. drives thirteen paths on the card, with every launch count set to 0 just
+4. drives fourteen paths on the card, with every launch count set to 0 just
    before a path and read just after it.  Paths 1-3 go through
-   ``Experiment(spec).run()`` at the quickstart's published widths, 2
-   rounds each:
+   ``Experiment(spec).run()`` at the quickstart's published widths, 1
+   round each for paths 1 and 2, 2 for path 3:
    - path 1, the FedDF quickstart (``unlabeled`` pool, logit bank): every
      round uses the bank and K1 launches once per distill step;
    - path 2, the paper's Fig. 5 ``generator`` source (no pool): every
@@ -57,9 +57,10 @@ and in order:
      ``noise`` source under traffic latency: stale uploads reach fusion,
      which takes the weighted consensus, so K2 + K3 launch once per
      distill step with K3 launching;
-   and each checks that the globals are finite, then reruns its first
-   rounds on the card and on the CPU (plain versions) from the same seed
-   and compares them.  Path 4 serves zamba2-1.2b at full width and depth
+   and each checks that the globals are finite, then runs its first
+   rounds on the CPU (plain versions) from the same seed and compares
+   them with the card's (path 1 with a profiled card rerun, which must
+   repeat the first run).  Path 4 serves zamba2-1.2b at full width and depth
    through ``repro_torch.launch.serve.serve`` (batch 4, a 2000-token
    prompt, 32 tokens): K4 launches 5 and K5 33 times in the prefill and
    neither in decode; it profiles one prefill, checks forward against
@@ -69,7 +70,7 @@ and in order:
    group with a CPU run at paths 1-2's bounds:
    - path 5a, heterogeneous FedDF (the paper's Algorithm 3) on
      ``examples/heterogeneous_fusion.py``'s spec at its published widths
-     (three mlp prototypes, 9 clients), 2 rounds: every fused group uses
+     (three mlp prototypes, 9 clients), 1 round: every fused group uses
      the one bank over all groups' teachers, and K1 launches once per
      distill step of every group (K2 and K3 never); a profiled card rerun
      of round 1 must repeat it;
@@ -177,13 +178,35 @@ and in order:
      encoder-only: one forward over 4 x 2000 frames (K4 48,
      bidirectional), timed, profiled, its peak memory, and its first 2
      layers card against CPU within 1e-3 of the largest logit;
+   - path 14, after path 13, the step builders (``repro_torch.launch.steps``)
+     on zamba2-1.2b at full width and depth with bf16 parameters: 14a
+     ``make_train_step`` at batch 4 x 4096, 2 microbatches, remat, 3 steps
+     (K4 20 and K5 132 a step, in bf16; every parameter leaf's gradient
+     finite and non-zero; each step's loss, wall and device time, peak
+     memory and ``train_step_mfu``); 14b ``make_distill_step`` with 4
+     teachers at batch 8 x 512 (K2 forward and backward at (4, 4096,
+     32000) with bf16 teachers, held against its plain version on the card
+     and timed against its byte bound); 14c ``make_fed_round_step`` at
+     JAX's defaults (8 clients, 4 local steps); 14d ``make_prefill_step``
+     + ``make_serve_step`` in bf16 with bf16 caches at path 4's traffic
+     (K4 5 and K5 33 per prefill, none in decode), its logits against the
+     port's own f32 prefill; 14e the analytic dry run over every (arch,
+     shape) pair; 14a-14c each hold one float32 step of the served model's
+     first 7 layers card against CPU (the loss within 1e-5, the gradients
+     within 4x the CPU's 1-ulp spread; 14c the updates of a 1-client,
+     2-step round within 4x 14a's spread plus one float32 rounding a
+     step);
+   paths 1-3 and 5-11 run in six worker processes beside each other
+   (``PATH_GROUPS``; each path's launch counts in its own process), after
+   step 3 and before path 4, so that the kernel and served-model timings
+   are the card's alone;
    and, in step 3, K1 (every bank dtype) and K2 / K3 in each launch mode
    on rows holding a NaN, a +Inf and a -Inf teacher logit: non-finite
    exactly where the plain versions are, within tolerance elsewhere, two
    launches equal bit for bit;
 5. prints one ``{"kernels": [...]}`` line (each kernel's launches on its
-   path and, under ``path7_launches`` to ``path13_launches``, on each of
-   paths 7's to 13's sub-paths), the card line, and as its last line
+   path and, under ``path7_launches`` to ``path14_launches``, on each of
+   paths 7's to 14's sub-paths), the card line, and as its last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the last line, when there is no CUDA device,
@@ -195,6 +218,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -296,8 +320,10 @@ BWD_ATOL = 3e-7
 # (each tile's P.V goes straight into the running O there), qwen3-8b's
 # layers (32 query over 8 key heads, D 128), gemma3-4b's local and global
 # layers (8 over 4, D 256, window 1024 or none) at path 12's batch and
-# prompt, and a ragged grouped shape (3 query heads a key head, D 80).
-# Against the plain version, the JAX package's tolerances
+# prompt, and a ragged grouped shape (3 query heads a key head, D 80);
+# then path 14's zamba2-1.2b attention, which runs in bfloat16 there: a
+# microbatch of the train step (2 x 4096) and the distill / fed-round
+# batch (8 x 512).  Against the plain version, the JAX package's tolerances
 # (tests/test_kernels.py): rtol 1e-4 / atol 1e-5 in float32, 3e-2 in
 # bfloat16.
 K4_SHAPES = [(4, 32, 32, 2000, 64, None), (1, 8, 8, 4096, 256, 1024),
@@ -305,7 +331,8 @@ K4_SHAPES = [(4, 32, 32, 2000, 64, None), (1, 8, 8, 4096, 256, 1024),
              (1, 2, 2, 100, 8, 24), (2, 4, 4, 128, 32, 32),
              (1, 8, 8, 4096, 256, None), (4, 32, 8, 2000, 128, None),
              (4, 8, 4, 2000, 256, 1024), (4, 8, 4, 2000, 256, None),
-             (1, 6, 2, 300, 80, None)]
+             (1, 6, 2, 300, 80, None), (2, 32, 32, 4096, 64, None),
+             (8, 32, 32, 512, 64, None)]
 # K4 bidirectional (the encoder's mode, path 13c), (B, H, H_kv, S, D,
 # window): hubert-xlarge's layer (16 heads of D 80, the kernel's 128
 # bucket, 4 x 2000 frames; first: it feeds the path-13 rows); a ragged
@@ -321,10 +348,13 @@ K4_KERNELS = 12   # swa_attn.cu's instantiations, each held to 0 spills
 # config's chunk (256; the kernel scans in chunks of 64), y and final
 # state, rtol 1e-4 / atol 1e-5 in float32 (tests/test_kernels.py); the
 # small cases also against the sequential recurrence.  bfloat16 x, B and C
-# at K5_BF16_SHAPES, held at K4's bfloat16 tolerance (3e-2).
+# at K5_BF16_SHAPES, held at K4's bfloat16 tolerance (3e-2): the serve
+# path's, a ragged one and path 14's (a train microbatch of 2 x 4096, the
+# distill / fed-round batch of 8 x 512).
 K5_SHAPES = [(4, 2000, 64, 64, 64), (1, 4096, 80, 64, 128),
              (1, 17, 2, 8, 4), (1, 50, 3, 8, 16)]
-K5_BF16_SHAPES = [(4, 2000, 64, 64, 64), (1, 50, 3, 8, 16)]
+K5_BF16_SHAPES = [(4, 2000, 64, 64, 64), (1, 50, 3, 8, 16),
+                  (2, 4096, 64, 64, 64), (8, 512, 64, 64, 64)]
 # K5 from a nonzero initial state (``ssm_forward(init_cache=)``), float32,
 # y and final state at K5's tolerance: the serve path's shape and a ragged
 # one (also against the sequential recurrence).  Then one zamba2-1.2b
@@ -349,9 +379,11 @@ PREFILL_RTOL, PREFILL_ATOL, DECODE_ATOL = 2e-3, 2e-4, 2e-3
 # last place.
 CPU_LAYERS, CPU_PROMPT, CPU_STEPS, CPU_REL_ATOL = 10, 300, 4, 1e-3
 
-# The quickstart main path (examples/quickstart.py at its published widths),
-# and paths 2, 3 and 9d, 2 rounds each (cut from 3 to keep the script inside
-# its time limit).
+# The quickstart main path (examples/quickstart.py at its published widths)
+# and path 2, 1 round each (cut from 3 to 2, then to 1 to keep the script
+# inside its time limit); paths 3 and 9d, whose second round is the first
+# with stale uploads, 2 rounds (cut from 3).
+QUICK_ROUNDS = 1
 MAIN_ROUNDS = 2
 # Path 3 is compared with the CPU after round 1 and after rounds 1-2 (the
 # main run itself): round 2 is the first with stale uploads (the weighted
@@ -382,10 +414,10 @@ FUSION_PREFIX_STEPS = 50
 ROUND2_PARAM_ATOL = 1e-2
 # Paths 5a / 5b: examples/heterogeneous_fusion.py's spec (Algorithm 3) at its
 # published widths, on the shared logit bank (K1) for HETERO_ROUNDS rounds
-# (cut from 6 to 3, then to 2) and on the fly (K2) for 1; path 6: the
+# (cut from 6 to 3, then to 2, then to 1) and on the fly (K2) for 1; path 6: the
 # baselines on the quickstart spec.  Every one is held card against CPU at
 # paths 1-2's bounds, every group checked.
-HETERO_ROUNDS = 2
+HETERO_ROUNDS = 1
 # Path 6's fedavgm server rule on its own: the CPU's rule on the card run's
 # uploads and momentum buffer of each round, against the card's new globals
 # and buffer.  The rule is a weighted mean over the clients and two
@@ -518,6 +550,83 @@ MOE_SERVE = ("granite-moe-1b-a400m", 24)
 VLM_SERVE = ("internvl2-1b", 24)
 AUDIO_FORWARD = ("hubert-xlarge", 48)
 MOE_CHECK_BATCHES, MOE_CHECK_LAYERS = (1, SERVE_BATCH), 2
+# Path 14: the step builders (repro_torch.launch.steps) on zamba2-1.2b at
+# full width and depth with bf16 parameters, as the builders draw them.
+# 14a make_train_step at batch 4 x 4096 (train_4k's sequence at a one-card
+# batch), 2 microbatches, remat, 3 steps: per step K4 2 x (5 + 5) and K5
+# 2 x (33 + 33) (forward plus the recompute); 14b make_distill_step, 4
+# teachers and a student each from its own seed at batch 8 x 512 (JAX's
+# 128 is a pod's global batch): K2 forward + backward at (4, 4096,
+# 32000) with bf16 teachers; 14c make_fed_round_step at JAX's defaults (8
+# clients, 4 local steps, batch 8 x 512, lr 3e-4); 14d make_prefill_step +
+# make_serve_step with bf16 caches at path 4's traffic; 14e the analytic
+# dry run over every (arch, shape) pair on the meta device.  14a-14c hold
+# one float32 step of the served model's first STEP_HELD_LAYERS layers
+# (one pattern repeat, the shared attention block in it) at batch 1 x
+# STEP_HELD_SEQ, card (kernels) against CPU (plain versions): the loss
+# within STEP_LOSS_RTOL, the gradients within STEP_SPREAD_FACTOR times the
+# CPU's own 1-ulp spread (the largest per-leaf gap as a share of the
+# leaf's largest gradient, as tests/test_torch_steps.py bounds the port
+# against JAX; the card's own spread is reported beside it); 14b's held
+# step takes STEP_DISTILL_HELD_TEACHERS teachers (the CPU runs every
+# teacher forward twice); 14c holds STEP_FED_HELD's round, its updates
+# (parameters after minus before) per leaf within STEP_SPREAD_FACTOR
+# times 14a's CPU spread (plain SGD: an update is lr times a gradient of
+# the same loss on the same layers).  14d holds bf16 against the float32
+# model of the same weights, the whole prompt's logits and one decode step
+# after a prefill (bf16 caches against float32 ones), within
+# STEP_SPREAD_FACTOR times the float32 model's own gap under a bf16-sized
+# nudge of its weights (x (1 + 2^-8 N(0, 1))), and the prompt's top-1
+# disagreement within STEP_SPREAD_FACTOR times the nudged model's.  The
+# random init is chaotic at depth (at 7 layers the nudge alone moves the
+# logits by ~0.5 of the largest), so the gate runs where that spread is
+# small: the served model's first layer (Mamba2, K5) and one shared
+# attention block drawn alone (K4); a gate whose bound reaches
+# STEP_SERVE_GATE_MAX of the largest logit could not fail and fails.  Full
+# depth and STEP_HELD_LAYERS layers are reported, not gated.
+STEP_TRAIN_BATCH, STEP_TRAIN_SEQ, STEP_MICROBATCH, STEP_TRAIN_STEPS = \
+    4, 4096, 2, 3
+STEP_K4, STEP_K5 = SERVE_K4, SERVE_K5      # launches per forward
+STEP_HELD_LAYERS, STEP_HELD_SEQ = 7, 512
+STEP_LOSS_RTOL, STEP_SPREAD_FACTOR = 1e-5, 4.0
+STEP_DISTILL = dict(n_teachers=4, batch_size=8, seq_len=512)
+STEP_FED = dict(n_clients=8, local_steps=4, batch_size=8, seq_len=512,
+                lr=3e-4)
+STEP_DISTILL_HELD_TEACHERS = 2
+STEP_FED_HELD = dict(n_clients=1, local_steps=2, batch_size=1, seq_len=512)
+STEP_SERVE_GATE_MAX = 0.5
+# Paths 1-3 and 5-11 drive quickstart-sized specs whose rounds are bound by
+# the host (the card busy 3-10%, PERF.md section 5): they run in one
+# worker process per group below (``chip_smoke.py --paths INDEX OUT``),
+# the groups beside each other, each path's launch counts set to 0 and
+# read in its own process, as in a run alone.  The workers start after
+# the kernel phases and end before the served models, whose device times
+# stay the card's alone; each worker's torch takes WORKER_THREADS host
+# thread (on a one-card machine's 8 cores the groups' CPU runs would
+# otherwise oversubscribe them, and those small CPU runs are no faster on
+# more threads).  The groups hold about equal seconds; path 10's 10b,
+# which needs no other sub-path, runs in a group of its own and rejoins
+# path 10's report.
+PATH_GROUPS = (
+    (("path1_quickstart", "main_path"), ("path2_generator", "generator_path"),
+     ("path3_buffered", "buffered_path"),
+     ("path5a_hetero_bank", "hetero_bank_path")),
+    (("path7_ablations", "ablations_path"),
+     ("path9b_undefended", "undefended_path"),
+     ("path9c_robust_rules", "robust_rules_path")),
+    (("path8a_buffered_hetero", "buffered_hetero_path"),
+     ("path8b_bucketing", "bucketing_path"), ("path8c_tokens", "tokens_path")),
+    (("path9a_defended", "defended_path"),
+     ("path9d_buffered_faults", "buffered_faults_path"),
+     ("path9e_resume", "resume_path"), ("path11a_cli", "cli_path"),
+     ("path11b_bank_reuse", "bank_reuse_path")),
+    (("path10_runtime", "runtime_path"),),
+    (("path10b_staleness", "staleness_path"),
+     ("path5b_hetero_fly", "hetero_fly_path"),
+     ("path6_baselines", "baselines_path")),
+)
+WORKER_THREADS, WORKER_TIMEOUT_S = 1, 900
+
 
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
@@ -1592,7 +1701,7 @@ def card_vs_cpu(spec, rounds: int, profile_ref=None,
 
 def main_path():
     """Path 1: the quickstart on the logit bank (K1)."""
-    spec = quickstart_spec(MAIN_ROUNDS)
+    spec = quickstart_spec(QUICK_ROUNDS)
     res, report, problems = run_path(spec)
     logs, launches = res.result.logs, report["launches"]
     if any(l.bank != "bank" for l in logs):
@@ -1609,7 +1718,7 @@ def main_path():
 
 def generator_path():
     """Path 2: the Fig. 5 generator source, on the fly (K2)."""
-    spec = generator_spec(MAIN_ROUNDS)
+    spec = generator_spec(QUICK_ROUNDS)
     res, report, problems = run_path(spec)
     logs, launches = res.result.logs, report["launches"]
     steps = report["distill_steps"]
@@ -1628,7 +1737,7 @@ def generator_path():
             problems.append(f"round {l.round}: {l.teacher_forwards} "
                             f"teacher forwards for {l.distill_steps} steps "
                             f"x {l.n_participants} teachers")
-    check, _, more = card_vs_cpu(spec, 1)
+    check, _, more = card_vs_cpu(spec, QUICK_ROUNDS, gpu=res)
     report.update(cpu_check=check)
     return report, problems + more
 
@@ -3389,14 +3498,12 @@ def armed_path(ref):
 
 
 def runtime_path():
-    """Path 10's sub-paths in order, each with its own launch counts."""
+    """Path 10's sub-paths but 10b (:func:`staleness_path`, which needs
+    none of them) in order, each with its own launch counts."""
     out, problems = {}, []
     t0 = time.perf_counter()
     out["10a"], more, sync, pipe = pipelined_sync_path()
     problems += [f"10a: {p}" for p in more]
-    sub, more = staleness_path()
-    out.update(sub)
-    problems += more
     out["10c"], more, loop = dist_loopback_path(sync)
     problems += [f"10c: {p}" for p in more]
     out["10d"], more = dist_tcp_path(sync)
@@ -4077,6 +4184,626 @@ def encoder_forward_path(device, arch: str, k4_per_forward: int):
     return report, problems
 
 
+def kernel_dtypes() -> dict:
+    """{kernel: sorted dtypes} of the K4 / K5 launches since the last
+    ``reset_all_launches``, as the wrappers tally them at each launch."""
+    from repro_torch.kernels import ssd_scan, swa_attn
+    return {m.SOURCE: sorted(m.LAUNCH_DTYPES) for m in (swa_attn, ssd_scan)
+            if m.LAUNCH_DTYPES}
+
+
+def flat32(tree) -> dict:
+    """{path: float32 CPU copy} of a tree's leaves."""
+    from repro_torch.common.pytree import tree_flatten
+    return {k: v.detach().float().cpu() for k, v in tree_flatten(tree).items()}
+
+
+def leaf_gaps(a: dict, b: dict) -> dict:
+    """{path: max |a - b| / max |b|} per leaf."""
+    return {k: float((a[k] - b[k]).abs().max()
+                     / max(float(b[k].abs().max()), 1e-30)) for k in b}
+
+
+def held_grads(grad_fn, p_card, batch, device) -> dict:
+    """Card (kernels) against CPU (plain versions) for one float32 step's
+    gradients: ``grad_fn(params, batch) -> (grads tree, loss)``; the loss
+    within STEP_LOSS_RTOL, the largest per-leaf gap within
+    STEP_SPREAD_FACTOR times the CPU's own 1-ulp spread; the card's own
+    spread is reported beside it."""
+    from repro_torch.common.pytree import tree_to
+    p_cpu = tree_to(p_card, "cpu")
+    b_cpu = tree_to(batch, "cpu")
+    b_card = tree_to(batch, device)
+    g_card, l_card = grad_fn(p_card, b_card)
+    card = flat32(g_card)
+    g_card, _ = grad_fn(ulp_nudged(p_card, 5), b_card)
+    card_spread = max(leaf_gaps(flat32(g_card), card).values())
+    del g_card
+    g_cpu, l_cpu = grad_fn(p_cpu, b_cpu)
+    cpu = flat32(g_cpu)
+    g_nud, _ = grad_fn(ulp_nudged(p_cpu, 5), b_cpu)
+    nud = flat32(g_nud)
+    gaps, spreads = leaf_gaps(card, cpu), leaf_gaps(nud, cpu)
+    gap, spread = max(gaps.values()), max(spreads.values())
+    l_card, l_cpu = float(l_card), float(l_cpu)
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    worst = sorted(gaps, key=gaps.get, reverse=True)[:3]
+    return {"loss_card": l_card, "loss_cpu": l_cpu, "loss_rel": loss_rel,
+            "grad_gap": gap, "cpu_ulp_spread": spread,
+            "card_ulp_spread": card_spread,
+            "bound": STEP_SPREAD_FACTOR * spread,
+            "worst_leaves": {k: (gaps[k], spreads[k]) for k in worst},
+            "finite": all(bool(torch_isfinite(v)) for v in card.values()),
+            "held": loss_rel <= STEP_LOSS_RTOL
+            and gap <= STEP_SPREAD_FACTOR * spread}
+
+
+def torch_isfinite(t) -> bool:
+    import torch
+    return bool(torch.isfinite(t).all())
+
+
+def served_f32(cfg, device, seed: int = 0):
+    """(config, params) of the served model's first STEP_HELD_LAYERS
+    layers, float32, drawn on the card from ``seed`` (contiguous copies;
+    the full draw is freed)."""
+    import torch
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.models import transformer as T
+    full = T.init(cfg, torch.Generator(device=device).manual_seed(seed),
+                  torch.float32, device)
+    c, sub = served_layers(full, cfg, STEP_HELD_LAYERS)
+    sub = tree_map(lambda x: x.clone(), sub)
+    del full
+    return c, sub
+
+
+def step_tokens(cfg, shape, seed: int) -> dict:
+    """Uniform token (and label) batch of ``shape`` on the CPU."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return {k: torch.randint(0, cfg.vocab_size, shape, generator=g)
+            for k in ("tokens", "labels")}
+
+
+def train_step_path(device):
+    """14a: make_train_step on zamba2-1.2b, bf16, batch 4 x 4096, 2
+    microbatches, remat, 3 steps; every leaf's gradient finite and non-zero;
+    one float32 step of the first 7 layers card vs CPU."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.common.pytree import tree_flatten, tree_map
+    from repro_torch.launch import dryrun, steps
+    from torch.profiler import ProfilerActivity, profile
+    cfg = configs.get(SERVE_ARCH)
+    t_start = time.perf_counter()
+    shape = configs.InputShape("train_4k_card", STEP_TRAIN_SEQ,
+                               STEP_TRAIN_BATCH, "train")
+    bundle = steps.make_train_step(cfg, shape, microbatch=STEP_MICROBATCH)
+    rep = {"arch": cfg.name, "batch": STEP_TRAIN_BATCH,
+           "seq": STEP_TRAIN_SEQ, "microbatch": STEP_MICROBATCH,
+           "param_dtype": "bfloat16", "predicted": dryrun.bundle_bytes(bundle)}
+    problems = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    args = bundle.init_args(torch.Generator(device=device).manual_seed(0),
+                            device)
+    rep["init_s"] = time.perf_counter() - t0
+    per_fwd = {"swa_attn": STEP_K4, "ssd_scan": STEP_K5}
+    want = {k: 2 * STEP_MICROBATCH * n for k, n in per_fwd.items()}
+
+    # the gate: every leaf's gradient finite and non-zero
+    reset_all_launches()
+    grads, m = steps.train_grads(args[0], cfg, args[3],
+                                 microbatch=STEP_MICROBATCH)
+    torch.cuda.synchronize()
+    rep["grad_launches"] = {k: n for k, n in all_launches().items() if n}
+    flat = tree_flatten(grads)
+    bad = [k for k, g in flat.items()
+           if not (torch_isfinite(g) and bool(g.abs().max() > 0))]
+    rep["grad_leaves"], rep["grad_bad_leaves"] = len(flat), bad
+    rep["kernel_dtypes"] = kernel_dtypes()
+    if bad:
+        problems.append(f"leaves without a finite non-zero gradient: {bad}")
+    if rep["kernel_dtypes"] != {"swa_attn": ["bfloat16"],
+                                "ssd_scan": ["bfloat16"]}:
+        problems.append(f"kernels ran in {rep['kernel_dtypes']}")
+    del grads, flat, m
+
+    # the path: 3 steps, each with its launches counted; the last profiled
+    steps_rep = []
+    for i in range(STEP_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        reset_all_launches()
+        # device activity only: all device_time reads (host ops unrecorded)
+        ctx = (profile(activities=[ProfilerActivity.CUDA])
+               if i == STEP_TRAIN_STEPS - 1 else contextlib.nullcontext())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        with ctx as prof:
+            start.record()
+            _, _, step, metrics = bundle.fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        args = (args[0], args[1], step, args[3])
+        launches = {k: n for k, n in all_launches().items() if n}
+        r = {"step": i, "loss": float(metrics["loss"]), "wall_s": wall,
+             "event_s": start.elapsed_time(end) / 1e3, "launches": launches,
+             "profiled": prof is not None}
+        if prof is not None:
+            r["device"] = device_time(prof, wall, ("swa_attn", "ssd_scan",
+                                                   "gemm"))
+        steps_rep.append(r)
+        if launches != want:
+            problems.append(f"step {i} launched {launches}, expected {want}")
+        if not math.isfinite(r["loss"]):
+            problems.append(f"step {i} loss {r['loss']}")
+    rep["steps"] = steps_rep
+    rep["steps_s"] = time.perf_counter() - t_start
+    rep["launches"] = {k: sum(r["launches"].get(k, 0) for r in steps_rep)
+                       for k in want}
+    rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    # the MFU of the second step: warm, and not profiled
+    tokens = STEP_TRAIN_BATCH * STEP_TRAIN_SEQ
+    rep["train_step_mfu"] = (6 * cfg.param_count() * tokens
+                             / (steps_rep[1]["wall_s"] * BF16_FLOPS_PER_S))
+    if not all(r["loss"] < steps_rep[0]["loss"] + 1 for r in steps_rep):
+        problems.append(f"losses {[r['loss'] for r in steps_rep]}")
+    del args, bundle
+    torch.cuda.empty_cache()
+
+    # one float32 step of the first 7 layers, card vs CPU
+    t0 = time.perf_counter()
+    c7, p7 = served_f32(cfg, device)
+    batch = step_tokens(c7, (1, STEP_HELD_SEQ), 1)
+
+    def grad_fn(p, b):          # remat changes no value: off for speed
+        g, mm = steps.train_grads(p, c7, b, remat=False)
+        return g, mm["loss"]
+    rep["held"] = held_grads(grad_fn, p7, batch, device)
+    if not rep["held"]["held"]:
+        problems.append(f"first {STEP_HELD_LAYERS} layers card vs CPU: "
+                        f"{rep['held']}")
+    # the bf16 step's loss against the f32 step's on the same weights
+    p16 = tree_map(lambda x: x.to(torch.bfloat16), p7)
+    _, m16 = steps.train_grads(p16, c7, {k: v.to(device)
+                                         for k, v in batch.items()},
+                               remat=False)
+    rep["held"]["loss_bf16"] = float(m16["loss"])
+    rep["held"]["held_s"] = time.perf_counter() - t0
+    del p7, p16
+    torch.cuda.empty_cache()
+    return rep, problems
+
+
+def distill_step_path(device):
+    """14b: make_distill_step on zamba2-1.2b, bf16, 4 teachers and a
+    student each from its own seed, batch 8 x 512: K2 forward + backward
+    at (4, 4096, 32000) with bf16 teachers, held against its plain version
+    on the card; one float32 step of the first 7 layers card vs CPU."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    cfg = configs.get(SERVE_ARCH)
+    bundle = steps.make_distill_step(cfg, **STEP_DISTILL)
+    k = STEP_DISTILL["n_teachers"]
+    rep = {"arch": cfg.name, **STEP_DISTILL, "param_dtype": "bfloat16"}
+    problems = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    draw = lambda seed: T.init(cfg, torch.Generator(
+        device=device).manual_seed(seed), torch.bfloat16, device)
+    student = draw(0)
+    teachers = tree_map(lambda *xs: torch.stack(xs),
+                        *[draw(1 + i) for i in range(k)])
+    opt_state = tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype,
+                                               device=device), bundle.args[2])
+    batch = {"tokens": step_tokens(cfg, (STEP_DISTILL["batch_size"],
+                                         STEP_DISTILL["seq_len"]), 2)
+             ["tokens"].to(device)}
+
+    # K2 at the step's own shape against its plain version on the card
+    with torch.no_grad():
+        t_logits = steps.teacher_logits(teachers, cfg, batch)
+        s_logits = T.forward(student, cfg, batch)
+    v = cfg.vocab_size
+    s2 = s_logits.reshape(-1, v).float()
+    t3 = t_logits.reshape(k, -1, v)
+    rep["k2_shape"] = [k, s2.shape[0], v, str(t3.dtype).split(".")[-1]]
+    xs, xr = s2.clone().requires_grad_(), s2.clone().requires_grad_()
+    lk = ops.ensemble_kl_loss(xs, t3)
+    lk.backward()
+    lr = ref.ensemble_kl(xr, t3)
+    lr.backward()
+    lk, lr = lk.detach(), lr.detach()
+    fwd_err = abs(float(lk) - float(lr))
+    bwd_err, bwd_ex = excess(xs.grad, xr.grad, 1e-4, 1e-7)
+    rep["k2_check"] = {"loss": float(lk), "plain_loss": float(lr),
+                       "fwd_err": fwd_err, "bwd_err": bwd_err,
+                       "ok": fwd_err <= 1e-5 * abs(float(lr)) + 1e-6
+                       and bwd_ex <= 0}
+    if not rep["k2_check"]["ok"]:
+        problems.append(f"K2 at the step's shape: {rep['k2_check']}")
+    rep["k2_time"] = k2_step_timing(s2, t3)
+    del xs, xr, lk, lr, s_logits, t_logits, s2, t3
+    torch.cuda.empty_cache()
+
+    # the path: one distill step
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    _, _, _, loss = bundle.fn(student, teachers, opt_state,
+                              torch.zeros((), dtype=torch.int32), batch)
+    torch.cuda.synchronize()
+    rep["step_s"] = time.perf_counter() - t0
+    rep["loss"] = float(loss)
+    rep["launches"] = {kk: n for kk, n in all_launches().items() if n}
+    rep["kernel_dtypes"] = kernel_dtypes()
+    rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    want = {"swa_attn": (k + 2) * STEP_K4, "ssd_scan": (k + 2) * STEP_K5,
+            "ensemble_kl_fwd": 1, "ensemble_kl_bwd": 1}
+    if rep["launches"] != want:
+        problems.append(f"launched {rep['launches']}, expected {want}")
+    if not math.isfinite(rep["loss"]):
+        problems.append(f"loss {rep['loss']}")
+    del student, teachers, opt_state, bundle
+    torch.cuda.empty_cache()
+
+    # one float32 step of the first 7 layers, card vs CPU
+    c7, p7 = served_f32(cfg, device, 0)
+    t7 = tree_map(lambda *xs: torch.stack(xs), *[
+        served_f32(cfg, device, 1 + i)[1]
+        for i in range(STEP_DISTILL_HELD_TEACHERS)])
+    tb = step_tokens(c7, (1, STEP_HELD_SEQ), 3)
+    tb.pop("labels")
+
+    def grad_fn(p, b):
+        tt = t7 if p["embed"].is_cuda else t7_cpu
+        return steps.distill_grads(p, tt, c7, b, remat=False)
+    from repro_torch.common.pytree import tree_to
+    t7_cpu = tree_to(t7, "cpu")
+    rep["held"] = held_grads(grad_fn, p7, tb, device)
+    if not rep["held"]["held"]:
+        problems.append(f"first {STEP_HELD_LAYERS} layers card vs CPU: "
+                        f"{rep['held']}")
+    del p7, t7, t7_cpu
+    torch.cuda.empty_cache()
+    return rep, problems
+
+
+def k2_step_timing(s2, t3) -> dict:
+    """K2 forward and backward at the distill step's shape: device time
+    (CUDA-graph replay), the plain version's, and the byte bound."""
+    from repro_torch.kernels import ensemble_kl as k2mod
+    from repro_torch.kernels import ref
+    k, b, v = t3.shape
+    elem = t3.element_size()
+    _, lse_t, lse_s = k2mod.kl_fwd(s2, t3)
+    import torch
+    g = torch.ones((), dtype=torch.float32, device=s2.device)
+    fwd = device_ms(lambda: k2mod.kl_fwd(s2, t3), reps=5, iters=5)
+    bwd = device_ms(lambda: k2mod.kl_bwd(s2, t3, lse_t, lse_s, g),
+                    reps=2, iters=5)
+    plain = call_ms(lambda: ref.ensemble_kl(s2, t3), iters=3, warmup=1)
+    fb = k2_bytes(k, b, v, elem, False) / HBM_BYTES_PER_S * 1e3
+    bb = k2_bytes(k, b, v, elem, True) / HBM_BYTES_PER_S * 1e3
+    return {"fwd_ms": fwd, "bwd_ms": bwd, "plain_fwd_call_ms": plain,
+            "fwd_bound_ms": fb, "bwd_bound_ms": bb, "bound_by": "bytes",
+            "plan": str(k2mod.card_plan(s2.device, k, b, v))}
+
+
+def fed_round_path(device, grad_spread: float):
+    """14c: make_fed_round_step at JAX's defaults on zamba2-1.2b, bf16;
+    then STEP_FED_HELD's round of the first 7 layers in float32 card vs
+    CPU: each leaf's update within STEP_SPREAD_FACTOR x ``grad_spread``
+    (14a's CPU 1-ulp spread of the same layers' gradients)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.common.pytree import tree_flatten, tree_map, tree_to
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    cfg = configs.get(SERVE_ARCH)
+    bundle = steps.make_fed_round_step(cfg, **STEP_FED)
+    n, ls = STEP_FED["n_clients"], STEP_FED["local_steps"]
+    rep = {"arch": cfg.name, **STEP_FED, "param_dtype": "bfloat16"}
+    problems = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stacked = tree_map(lambda *xs: torch.stack(xs), *[
+        T.init(cfg, torch.Generator(device=device).manual_seed(i),
+               torch.bfloat16, device) for i in range(n)])
+    shape4 = (n, ls, STEP_FED["batch_size"], STEP_FED["seq_len"])
+    batch = {kk: v.to(device) for kk, v in step_tokens(cfg, shape4,
+                                                       4).items()}
+    before = tree_map(lambda x: x[0].clone(), stacked)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    out = bundle.fn(stacked, batch)
+    torch.cuda.synchronize()
+    rep["round_s"] = time.perf_counter() - t0
+    rep["launches"] = {kk: c for kk, c in all_launches().items() if c}
+    rep["kernel_dtypes"] = kernel_dtypes()
+    rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    want = {"swa_attn": n * ls * 2 * STEP_K4,
+            "ssd_scan": n * ls * 2 * STEP_K5}
+    if rep["launches"] != want:
+        problems.append(f"launched {rep['launches']}, expected {want}")
+    moved = sum(not torch.equal(a[0], b) for a, b in zip(
+        tree_flatten(out).values(), tree_flatten(before).values()))
+    finite = all(torch_isfinite(x) for x in tree_flatten(out).values())
+    rep["leaves_moved"], rep["finite"] = moved, finite
+    if not finite or moved == 0:
+        problems.append(f"after the round: finite {finite}, {moved} leaves "
+                        f"moved")
+    del stacked, out, before, bundle, batch
+    torch.cuda.empty_cache()
+
+    # the first 7 layers in float32, STEP_FED_HELD's round, card vs CPU:
+    # each element within STEP_SPREAD_FACTOR x grad_spread of its leaf's
+    # largest update (after - before) plus one float32 rounding of the
+    # parameter per local step
+    k = STEP_FED_HELD["n_clients"]
+    subs = [served_f32(cfg, device, i) for i in range(k)]
+    c7 = subs[0][0]
+    held = steps.make_fed_round_step(c7, param_dtype=torch.float32,
+                                     lr=STEP_FED["lr"], remat=False,
+                                     **STEP_FED_HELD)
+    s7 = tree_map(lambda *xs: torch.stack(xs), *[p for _, p in subs])
+    del subs
+    start = flat32(s7)
+    s7_cpu = tree_to(s7, "cpu")
+    hb = step_tokens(c7, (k, STEP_FED_HELD["local_steps"],
+                          STEP_FED_HELD["batch_size"],
+                          STEP_FED_HELD["seq_len"]), 5)
+    card = flat32(held.fn(s7, tree_to(hb, device)))
+    cpu = flat32(held.fn(s7_cpu, hb))
+    worst, rel = None, {}
+    for kk in cpu:
+        upd = (cpu[kk] - start[kk]).abs().max()
+        ulps = STEP_FED_HELD["local_steps"] * 2.0 ** -23 * torch.maximum(
+            start[kk].abs(), cpu[kk].abs())
+        tol = STEP_SPREAD_FACTOR * grad_spread * upd + ulps
+        rel[kk] = float(((card[kk] - cpu[kk]).abs() / tol).max())
+    worst = max(rel, key=rel.get)
+    rep["held"] = {"worst_gap_over_tol": rel[worst], "worst_leaf": worst,
+                   "grad_spread_14a": grad_spread,
+                   "held": rel[worst] <= 1.0}
+    if not rep["held"]["held"]:
+        problems.append(f"first {STEP_HELD_LAYERS} layers' round card vs "
+                        f"CPU: {rep['held']}")
+    del s7, s7_cpu
+    torch.cuda.empty_cache()
+    return rep, problems
+
+
+def grow_caches(small, big):
+    """Copy ``small`` (a prefill's caches) into the zeros of ``big`` (the
+    same tree with room for more tokens), in place; returns ``big``."""
+    import torch
+    from repro_torch.common.pytree import tree_flatten
+    for (_, s), (_, b) in zip(tree_flatten(small).items(),
+                              tree_flatten(big).items()):
+        with torch.no_grad():
+            b[tuple(slice(0, n) for n in s.shape)].copy_(s)
+    return big
+
+
+def step_serve_path(device):
+    """14d: make_prefill_step + make_serve_step on zamba2-1.2b in bf16 with
+    bf16 caches at path 4's traffic; the logits held against the port's
+    own float32 prefill of the same weights."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    cfg = configs.get(SERVE_ARCH)
+    pre = steps.make_prefill_step(cfg, configs.InputShape(
+        "prefill_2k", SERVE_PROMPT, SERVE_BATCH, "prefill"))
+    srv = steps.make_serve_step(cfg, configs.InputShape(
+        "decode_2k", SERVE_PROMPT + SERVE_GEN, SERVE_BATCH, "decode"))
+    rep = {"arch": cfg.name, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+           "gen": SERVE_GEN, "param_dtype": "bfloat16",
+           "cache_dtype": "bfloat16"}
+    problems = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init(cfg, torch.Generator(device=device).manual_seed(0),
+                    torch.bfloat16, device)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=torch.Generator().manual_seed(0)
+                            ).to(device)
+    pre.fn(params, {"tokens": prompts})     # warm: the bf16 GEMM plans
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    logits, caches = pre.fn(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    rep["prefill_s"] = time.perf_counter() - t0
+    rep["prefill_launches"] = {k: n for k, n in all_launches().items() if n}
+    rep["kernel_dtypes"] = kernel_dtypes()
+    want = {"swa_attn": SERVE_K4, "ssd_scan": SERVE_K5}
+    if rep["prefill_launches"] != want:
+        problems.append(f"prefill launched {rep['prefill_launches']}, "
+                        f"expected {want}")
+    if rep["kernel_dtypes"] != {"swa_attn": ["bfloat16"],
+                                "ssd_scan": ["bfloat16"]}:
+        problems.append(f"kernels ran in {rep['kernel_dtypes']}")
+    big = grow_caches(caches, tree_map(
+        lambda m: torch.zeros(m.shape, dtype=m.dtype, device=device),
+        srv.args[2]))
+    del caches
+    tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+    first = logits[:, -1].float()
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(SERVE_GEN):
+        lg, big = srv.fn(params, {"tokens": tok}, big, SERVE_PROMPT + i)
+        tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True)
+    torch.cuda.synchronize()
+    rep["decode_s"] = time.perf_counter() - t0
+    rep["decode_launches"] = {k: n for k, n in all_launches().items() if n}
+    if rep["decode_launches"]:
+        problems.append(f"decode launched {rep['decode_launches']}")
+    rep["prefill_tokens_per_s"] = SERVE_BATCH * SERVE_PROMPT / rep[
+        "prefill_s"]
+    rep["decode_tokens_per_s"] = SERVE_BATCH * SERVE_GEN / rep["decode_s"]
+    rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    if not (torch_isfinite(first) and torch_isfinite(lg)):
+        problems.append("non-finite logits")
+    del big
+
+    # against the port's own float32 of the same weights: gated at the
+    # first layer and at one shared attention block, reported at 7 layers
+    # and at full depth
+    attn = dataclasses.replace(cfg, n_layers=1, pattern=tuple(
+        b for b in cfg.pattern if b.mixer == "shared_attn"))
+    cuts = {"attn_block": (attn, T.init(attn, torch.Generator(
+        device=device).manual_seed(1), torch.bfloat16, device)),
+        "1_layers": served_layers(params, cfg, 1),
+        f"{STEP_HELD_LAYERS}_layers": served_layers(params, cfg,
+                                                     STEP_HELD_LAYERS),
+        f"{cfg.n_layers}_layers": (cfg, params)}
+    rep["vs_f32"] = {}
+    for name, (c, p16) in cuts.items():
+        r, last32 = serve_vs_f32(c, p16, prompts)
+        rep["vs_f32"][name] = r
+        if name in ("attn_block", "1_layers") and not r["held"]:
+            problems.append(f"bf16 vs f32 at {name}: {r}")
+        if c is cfg:                    # the prefill step's own logits
+            r["prompt"]["step_last_gap_share"] = float(
+                (first - last32).abs().max()) / r["prompt"]["max_abs_logit"]
+    del cuts, params
+    torch.cuda.empty_cache()
+    return rep, problems
+
+
+def serve_vs_f32(c, p16, prompts):
+    """bf16 weights ``p16`` of config ``c`` against the same weights in
+    float32, and the float32 model against itself under a bf16-sized nudge
+    of its weights: the whole prompt's logits (``T.forward``) and one
+    decode step after a prefill (bf16 caches against float32 ones), each
+    gap as a share of the float32 model's largest logit, with top-1
+    agreement.  ``held``: both gaps within STEP_SPREAD_FACTOR times the
+    nudge's, both bounds under STEP_SERVE_GATE_MAX, and the prompt's top-1
+    disagreement within STEP_SPREAD_FACTOR times the nudge's (at least one
+    position's).  Returns (that record, the float32 prefill's last
+    logits)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    b, s = prompts.shape
+    p32 = tree_map(lambda x: x.float(), p16)
+    runs = {}
+    for name, p, dt in (("bf16", p16, torch.bfloat16),
+                        ("f32", p32, torch.float32),
+                        ("nudged", bf16_nudged(p32, 7), torch.float32)):
+        pre = steps.make_prefill_step(c, configs.InputShape(
+            "prefill", s, b, "prefill"), param_dtype=dt)
+        srv = steps.make_serve_step(c, configs.InputShape(
+            "decode", s + 1, b, "decode"), param_dtype=dt, cache_dtype=dt)
+        with torch.no_grad():
+            full = T.forward(p, c, {"tokens": prompts}).float()
+        last, caches = pre.fn(p, {"tokens": prompts})
+        big = grow_caches(caches, tree_map(
+            lambda m: torch.zeros(m.shape, dtype=m.dtype,
+                                  device=prompts.device), srv.args[2]))
+        del caches
+        dec, _ = srv.fn(p, {"tokens": prompts[:, -1:]}, big, s)
+        runs[name] = (full, dec[:, -1].float(), last[:, -1].float())
+        del big, p
+    del p32
+    rep = {}
+    for part, i in (("prompt", 0), ("decode", 1)):
+        f32 = runs["f32"][i]
+        scale = float(f32.abs().max())
+        gap = {k: float((runs[k][i] - f32).abs().max()) / scale
+               for k in ("bf16", "nudged")}
+        flips = {k: float((runs[k][i].argmax(-1) != f32.argmax(-1))
+                          .float().mean()) for k in ("bf16", "nudged")}
+        rep[part] = {"max_abs_logit": scale, "gap_share": gap["bf16"],
+                     "bf16_nudge_spread_share": gap["nudged"],
+                     "bound": STEP_SPREAD_FACTOR * gap["nudged"],
+                     "top1_agree": 1 - flips["bf16"],
+                     "nudged_top1_agree": 1 - flips["nudged"]}
+        if part == "prompt":
+            rep[part]["top1_flip_bound"] = STEP_SPREAD_FACTOR * max(
+                flips["nudged"], 1 / (f32.numel() // f32.shape[-1]))
+            rep[part]["top1_held"] = (flips["bf16"]
+                                      <= rep[part]["top1_flip_bound"])
+    rep["held"] = (all(rep[k]["gap_share"] <= rep[k]["bound"]
+                       < STEP_SERVE_GATE_MAX for k in ("prompt", "decode"))
+                   and rep["prompt"]["top1_held"])
+    return rep, runs["f32"][2]
+
+
+def bf16_nudged(params, seed: int):
+    """``params`` with every weight moved by about one bf16 unit in the
+    last place (x (1 + 2^-8 N(0, 1)), drawn where each weight lives)."""
+    import torch
+    from repro_torch.common.pytree import tree_map
+    gens = {}
+
+    def nudge(x):
+        g = gens.setdefault(x.device, torch.Generator(
+            device=x.device).manual_seed(seed))
+        return x * (1 + 2.0 ** -8 * torch.randn(x.shape, generator=g,
+                                                device=x.device))
+    return tree_map(nudge, params)
+
+
+def step_dryrun_path(predicted: dict, measured_peak: int):
+    """14e: the analytic dry run over every (arch, shape) pair and every
+    arch's distill step on the meta device, and 14a's predicted argument
+    bytes beside its measured peak."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        recs = dryrun.run_all(out_dir=str(ROOT / "chiprun_out"
+                                          / "dryrun_torch"))
+    rep = {"dryrun_s": time.perf_counter() - t0, "records": len(recs),
+           "ok": sum(r["ok"] for r in recs),
+           "skipped": sum("skipped" in r for r in recs),
+           "fits": sum(r.get("memory", {}).get("fits", False)
+                       for r in recs),
+           "train_4k_card_predicted": predicted,
+           "train_4k_card_peak_bytes": measured_peak}
+    problems = [] if rep["ok"] == rep["records"] else [
+        f"dry run failed: {[r for r in recs if not r['ok']]}"]
+    return rep, problems
+
+
+def step_builders_path(device):
+    """Path 14: 14a-14e, each with its own launch counts."""
+    rep, problems = {"card": card_line()}, []
+    for name, fn in (("14a_train", train_step_path),
+                     ("14b_distill", distill_step_path),
+                     ("14c_fed_round", lambda d: fed_round_path(
+                         d, rep["14a_train"]["held"]["cpu_ulp_spread"])),
+                     ("14d_serve", step_serve_path)):
+        t0 = time.perf_counter()
+        r, p = fn(device)
+        r["total_s"] = time.perf_counter() - t0
+        rep[name] = r
+        problems += [f"{name}: {x}" for x in p]
+    r, p = step_dryrun_path(rep["14a_train"]["predicted"],
+                            rep["14a_train"]["peak_mem_bytes"])
+    rep["14e_dryrun"] = r
+    problems += [f"14e_dryrun: {x}" for x in p]
+    return rep, problems
+
+
 def print_path11(name, rep) -> None:
     if name == "path11a_cli":
         for run in ("first", "replay", "resumed"):
@@ -4137,6 +4864,51 @@ def print_path13c(name, rep) -> None:
     print(f"  {name} check (b) card vs CPU: {rep['check_b']}", flush=True)
 
 
+def print_path14(rep) -> None:
+    a, b, c, d, e = (rep[k] for k in ("14a_train", "14b_distill",
+                                      "14c_fed_round", "14d_serve",
+                                      "14e_dryrun"))
+    gib = 2 ** 30
+    print(f"  path14 on {rep['card']}:")
+    print(f"  path14 14a train {a['arch']} bf16 batch {a['batch']} x "
+          f"{a['seq']}, microbatch {a['microbatch']}: losses "
+          f"{[round(r['loss'], 6) for r in a['steps']]}, walls "
+          f"{[round(r['wall_s'], 3) for r in a['steps']]} s (event "
+          f"{[round(r['event_s'], 3) for r in a['steps']]}; the last "
+          f"profiled: {a['steps'][-1].get('device')}), launches per step "
+          f"{a['steps'][0]['launches']}, train_step_mfu "
+          f"{a['train_step_mfu']:.4f}, peak "
+          f"{a['peak_mem_bytes'] / gib:.2f} GiB (predicted arguments "
+          f"{a['predicted']['argument_bytes'] / gib:.2f} GiB); gradients of "
+          f"{a['grad_leaves']} leaves finite and non-zero: "
+          f"{not a['grad_bad_leaves']}; kernels {a['kernel_dtypes']}")
+    for name, r in (("14a", a), ("14b", b)):
+        print(f"  path14 {name} first {STEP_HELD_LAYERS} layers f32 card "
+              f"vs CPU: {r['held']}")
+    print(f"  path14 14b distill K={b['n_teachers']} batch "
+          f"{b['batch_size']} x {b['seq_len']}: step {b['step_s']:.3f} s, "
+          f"loss {b['loss']:.6f}, launches {b['launches']}, peak "
+          f"{b['peak_mem_bytes'] / gib:.2f} GiB; K2 at {b['k2_shape']}: "
+          f"{b['k2_check']}; {b['k2_time']}")
+    print(f"  path14 14c fed round {c['n_clients']} clients x "
+          f"{c['local_steps']} steps, batch {c['batch_size']} x "
+          f"{c['seq_len']}: {c['round_s']:.3f} s, launches {c['launches']}, "
+          f"peak {c['peak_mem_bytes'] / gib:.2f} GiB; first "
+          f"{STEP_HELD_LAYERS} layers card vs CPU {c['held']}")
+    print(f"  path14 14d bf16 serve: prefill {d['prefill_s']:.3f} s "
+          f"({d['prefill_tokens_per_s']:.0f} tokens/s), decode "
+          f"{d['decode_tokens_per_s']:.1f} tokens/s, peak "
+          f"{d['peak_mem_bytes'] / gib:.2f} GiB, launches prefill "
+          f"{d['prefill_launches']} decode {d['decode_launches']}; against "
+          f"the f32 prefill {d['vs_f32']}")
+    print(f"  path14 14e dry run: {e['records']} records in "
+          f"{e['dryrun_s']:.2f} s ({e['skipped']} skipped, {e['fits']} fit "
+          f"one card); 14a predicted argument bytes "
+          f"{e['train_4k_card_predicted']['argument_bytes']} against a "
+          f"measured peak of {e['train_4k_card_peak_bytes']}; path 14 "
+          f"{rep['total_s']:.1f} s", flush=True)
+
+
 def print_path(name, rep) -> None:
     for r in rep["rounds"]:
         ph = " ".join(f"{k}={v:.3f}s" for k, v in r["phase_s"].items())
@@ -4175,17 +4947,97 @@ def print_path(name, rep) -> None:
               f"{rep['same_uploads']}", flush=True)
 
 
+KERNEL_SOURCES = ["ensemble_kl_bank", "ensemble_kl", "swa_attn", "ssd_scan"]
+
+
+def setup_torch():
+    """torch with the port on its path, float32 matmuls in full float32
+    (no TF32), or None when no CUDA card is visible."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        return None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch
+
+
+def group_worker(index: int, out: str) -> int:
+    """``chip_smoke.py --paths INDEX OUT``: the paths of PATH_GROUPS[INDEX]
+    in order in this process (the kernels loaded from the parent's build),
+    their reports and problems pickled to ``OUT``.  A path that raises
+    becomes a problem with its traceback, and ends the group."""
+    import pickle
+    import traceback
+    torch = setup_torch()
+    if torch is None:
+        return fail("torch.cuda.is_available() is False")
+    torch.set_num_threads(WORKER_THREADS)
+    from repro_torch.kernels import build
+    build.build(KERNEL_SOURCES)
+    paths, problems = {}, []
+    for name, fn_name in PATH_GROUPS[index]:
+        t0 = time.perf_counter()
+        try:
+            rep, more = globals()[fn_name]()
+        except Exception:
+            problems.append(f"{name} raised:\n{traceback.format_exc()}")
+            break
+        rep.setdefault("total_s", time.perf_counter() - t0)
+        paths[name] = rep
+        problems += [f"{name}: {p}" for p in more]
+        print(f"  [group {index}] {name}: {rep['total_s']:.1f} s",
+              flush=True)
+    Path(out).write_bytes(pickle.dumps({"paths": paths,
+                                        "problems": problems}))
+    return 0
+
+
+def run_path_groups(out_dir: Path) -> tuple:
+    """Every PATH_GROUPS entry in a worker process of its own, all started
+    together; waits for all (killing every one still running if the wait
+    fails) and returns the reports of every path by name, the problems and
+    the seconds until the last group ended."""
+    import pickle
+    procs, t0 = [], time.perf_counter()
+    out_dir.mkdir(exist_ok=True)
+    try:
+        for i in range(len(PATH_GROUPS)):
+            out = out_dir / f"chip_smoke_group{i}.pkl"
+            out.unlink(missing_ok=True)
+            procs.append((out, subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--paths",
+                 str(i), str(out)], cwd=ROOT)))
+        for _, p in procs:
+            p.wait(timeout=max(1.0, WORKER_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    paths, problems = {}, []
+    for i, (out, p) in enumerate(procs):
+        if p.returncode != 0 or not out.exists():
+            problems.append(f"path group {i} exited with {p.returncode}")
+            continue
+        got = pickle.loads(out.read_bytes())
+        out.unlink()
+        paths.update(got["paths"])
+        problems += got["problems"]
+    return paths, problems, time.perf_counter() - t0
+
+
 def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--paths":
+        return group_worker(int(sys.argv[2]), sys.argv[3])
     start_s = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
         return fail(f"the port (src/repro_torch) is not next to "
                     f"{Path(__file__).name}; run it from a checkout")
-    sys.path.insert(0, str(ROOT / "src"))
-    import torch
-    if not torch.cuda.is_available():
+    torch = setup_torch()
+    if torch is None:
         return fail("torch.cuda.is_available() is False")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     report = {}
 
@@ -4198,8 +5050,7 @@ def main() -> int:
     # 2. build
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    libs = build.build(["ensemble_kl_bank", "ensemble_kl", "swa_attn",
-                        "ssd_scan"])
+    libs = build.build(KERNEL_SOURCES)
     report["build_s"] = time.perf_counter() - t0
     print(f"build: {report['build_s']:.2f} s (all sources in parallel)",
           flush=True)
@@ -4382,26 +5233,33 @@ def main() -> int:
         errors + k1_modes + k1_grids + k1_poison + k2_errors + nonfinite
         + k4_errors + k5_errors + [k5_split] if not e["ok"]]
 
-    # 4. the paths, each with its own launch counts
-    paths = {}
-    for name, fn in (("path1_quickstart", main_path),
-                     ("path2_generator", generator_path),
-                     ("path3_buffered", buffered_path)):
-        t0 = time.perf_counter()
-        rep, path_problems = fn()
-        rep["total_s"] = time.perf_counter() - t0
-        paths[name] = rep
-        problems += [f"{name}: {p}" for p in path_problems]
-        print_path(name, rep)
-    for name, fn in (("path5a_hetero_bank", hetero_bank_path),
-                     ("path5b_hetero_fly", hetero_fly_path),
-                     ("path6_baselines", baselines_path),
-                     ("path7_ablations", ablations_path)):
-        t0 = time.perf_counter()
-        rep, path_problems = fn()
-        rep["total_s"] = time.perf_counter() - t0
-        paths[name] = rep
-        problems += [f"{name}: {p}" for p in path_problems]
+    # 4. the paths, each with its own launch counts: paths 1-3 and 5-11 in
+    # the PATH_GROUPS workers, beside each other; the served models after
+    print(f"kernel phases done at {time.perf_counter() - start_s:.1f} s",
+          flush=True)
+    paths, group_problems, groups_s = run_path_groups(ROOT / "chiprun_out")
+    problems += group_problems
+    report["path_groups_s"] = groups_s
+    print(f"path groups ({len(PATH_GROUPS)} workers): {groups_s:.1f} s, "
+          f"done at {time.perf_counter() - start_s:.1f} s", flush=True)
+    names = [name for group in PATH_GROUPS for name, _ in group]
+    if any(name not in paths for name in names):
+        for p in problems:
+            print(f"chip_smoke: {p}", file=sys.stderr)
+        return fail(f"paths without a report: "
+                    f"{[n for n in names if n not in paths]}")
+    # 10b rejoins path 10, its sub-paths in order; the seconds of both
+    stale, rt = paths.pop("path10b_staleness"), paths["path10_runtime"]
+    paths["path10_runtime"] = {
+        "10a": rt["10a"], **{k: v for k, v in stale.items()
+                             if k != "total_s"},
+        **{k: v for k, v in rt.items() if k not in ("10a", "total_s")},
+        "total_s": rt["total_s"] + stale["total_s"]}
+    for name in ("path1_quickstart", "path2_generator", "path3_buffered"):
+        print_path(name, paths[name])
+    for name in ("path5a_hetero_bank", "path5b_hetero_fly",
+                 "path6_baselines", "path7_ablations"):
+        rep = paths[name]
         subs = ({name: rep} if name in ("path5a_hetero_bank",
                                         "path5b_hetero_fly") else
                 {f"{name} {k}": v for k, v in rep.items() if k != "total_s"})
@@ -4410,51 +5268,31 @@ def main() -> int:
         for sub, r in subs.items():
             print_path(sub, r)
         print(f"  {name}: whole path {rep['total_s']:.1f} s", flush=True)
-    for name, fn in (("path8a_buffered_hetero", buffered_hetero_path),
-                     ("path8b_bucketing", bucketing_path),
-                     ("path8c_tokens", tokens_path)):
-        t0 = time.perf_counter()
-        rep, path_problems = fn()
-        rep["total_s"] = time.perf_counter() - t0
-        paths[name] = rep
-        problems += [f"{name}: {p}" for p in path_problems]
+    for name in ("path8a_buffered_hetero", "path8b_bucketing",
+                 "path8c_tokens"):
+        rep = paths[name]
         subs = ({f"{name} {k}": v for k, v in rep.items() if k != "total_s"}
                 if name == "path8b_bucketing" else {name: rep})
         for sub, r in subs.items():
             print_path(sub, r)
         print(f"  {name}: whole path {rep['total_s']:.1f} s", flush=True)
-    for name, fn in (("path9a_defended", defended_path),
-                     ("path9b_undefended", undefended_path),
-                     ("path9c_robust_rules", robust_rules_path),
-                     ("path9d_buffered_faults", buffered_faults_path),
-                     ("path9e_resume", resume_path)):
-        t0 = time.perf_counter()
-        rep, path_problems = fn()
-        rep["total_s"] = time.perf_counter() - t0
-        paths[name] = rep
-        problems += [f"{name}: {p}" for p in path_problems]
+    for name in ("path9a_defended", "path9b_undefended",
+                 "path9c_robust_rules", "path9d_buffered_faults",
+                 "path9e_resume"):
+        rep = paths[name]
         subs = ({f"{name} {k}": v for k, v in rep.items() if k != "total_s"}
                 if name == "path9c_robust_rules" else {name: rep})
         for sub, r in subs.items():
             print_path(sub, r)
         print(f"  {name}: whole path {rep['total_s']:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    rep, path_problems = runtime_path()
-    paths["path10_runtime"] = rep
-    problems += [f"path10_runtime: {p}" for p in path_problems]
+    rep = paths["path10_runtime"]
     for sub, r in rep.items():
         if sub != "total_s":
             print_path(f"path10 {sub}", r)
     print_runtime(rep)
     print(f"  path10_runtime: whole path {rep['total_s']:.1f} s", flush=True)
-    for name, fn in (("path11a_cli", cli_path),
-                     ("path11b_bank_reuse", bank_reuse_path)):
-        t0 = time.perf_counter()
-        rep, path_problems = fn()
-        rep["total_s"] = time.perf_counter() - t0
-        paths[name] = rep
-        problems += [f"{name}: {p}" for p in path_problems]
-        print_path11(name, rep)
+    for name in ("path11a_cli", "path11b_bank_reuse"):
+        print_path11(name, paths[name])
     print(f"  path 9a fault kinds (wave, client, kinds): "
           f"{paths['path9a_defended']['kinds']}; kept teachers "
           f"{paths['path9a_defended']['kept']}")
@@ -4528,6 +5366,14 @@ def main() -> int:
     paths["path13c_audio"] = rep
     problems += [f"path13c_audio: {p}" for p in path_problems]
     print_path13c("path13c_audio", rep)
+    t0 = time.perf_counter()
+    rep, path_problems = step_builders_path(device)
+    rep["total_s"] = time.perf_counter() - t0
+    paths["path14_steps"] = rep
+    problems += [f"path14_steps: {p}" for p in path_problems]
+    print_path14(rep)
+    print(f"served models done at {time.perf_counter() - start_s:.1f} s",
+          flush=True)
 
     # 5. output
     def timing(rows, **key):
@@ -4591,6 +5437,15 @@ def main() -> int:
                 (("13a", "path13a_moe"), ("13b", "path13b_vlm"),
                  ("13c", "path13c_audio"))}
 
+    def path14_launches(name):
+        """Each path 14 sub-path's launches of ``name``: 14a over its
+        steps, 14b's distill step, 14c's round, 14d's prefill."""
+        p = paths["path14_steps"]
+        return {"14a": p["14a_train"]["launches"].get(name, 0),
+                "14b": p["14b_distill"]["launches"].get(name, 0),
+                "14c": p["14c_fed_round"]["launches"].get(name, 0),
+                "14d": p["14d_serve"]["prefill_launches"].get(name, 0)}
+
     def path8_launches(name):
         """Each path 8 sub-path's launches of ``name``."""
         b = paths["path8b_bucketing"]
@@ -4614,6 +5469,7 @@ def main() -> int:
                 "path11_launches": path11_launches(name),
                 "path12_launches": path12_launches(name),
                 "path13_launches": path13_launches(name),
+                "path14_launches": path14_launches(name),
                 "max_abs_err": max(e[i] for e in errs),
                 "ms": t[f"{kind}_ms"], "plain_ms": t[f"plain_{kind}_ms"],
                 "call_ms": t[f"{kind}_call_ms"],
@@ -4637,6 +5493,12 @@ def main() -> int:
             "path11_launches": path11_launches(name),
             "path12_launches": path12_launches(name),
             "path13_launches": path13_launches(name),
+            "path14_launches": path14_launches(name),
+            "path14_dtypes": sorted({d for sub in ("14a_train", "14b_distill",
+                                                   "14c_fed_round",
+                                                   "14d_serve")
+                                     for d in paths["path14_steps"][sub]
+                                     ["kernel_dtypes"].get(name, ())}),
             "max_abs_err": max(e["max_abs_err"] for e in errs
                                if e.get("dtype", "float32") == "float32"),
             "ms": t["ms"], "plain_ms": t["plain_ms"],

@@ -3,6 +3,13 @@
 A CPU tensor takes the kernel's plain version (``kernels/ref.py``); a CUDA
 tensor takes the CUDA kernel, and a failed build or launch raises.  There
 is no path on which a CUDA tensor silently reaches the plain version.
+
+K4 and K5 are forward kernels, as their Pallas counterparts are: the JAX
+package differentiates attention and the SSD scan by autodiff of jnp code
+outside any kernel.  On CUDA tensors each runs inside an
+``autograd.Function`` whose forward is the kernel and whose backward
+recomputes the plain version from the saved inputs (not the S x S scores,
+so one layer's recompute is live at a time) and returns its gradient.
 """
 from __future__ import annotations
 
@@ -94,17 +101,79 @@ def ensemble_kl_loss_bank(student_logits: torch.Tensor,
     return ref.ensemble_kl_bank(s2, bank_rows, row_scale, idx2, temperature)
 
 
+def _plain_grads(fn, inputs, needs, outputs_grad):
+    """Gradients of the plain version ``fn(*inputs)`` for the cotangents
+    ``outputs_grad`` (one per output, None where an output has none),
+    recomputed from detached copies of ``inputs``, with respect to those
+    whose ``needs`` (``ctx.needs_input_grad``) is set; None elsewhere."""
+    with torch.enable_grad():
+        xs = [None if t is None else t.detach().requires_grad_(bool(n))
+              for t, n in zip(inputs, needs)]
+        outs = fn(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, outputs_grad) if g is not None]
+        wrt = [x for x in xs if x is not None and x.requires_grad]
+        if not pairs or not wrt:
+            return [None] * len(inputs)
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                         [g for _, g in pairs],
+                                         allow_unused=True))
+        return [next(grads) if x is not None and x.requires_grad else None
+                for x in xs]
+
+
+class _SwaAttn(torch.autograd.Function):
+    """K4 forward; the plain version's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, causal):
+        from repro_torch.kernels.swa_attn import swa_attn
+        ctx.save_for_backward(q, k, v)
+        ctx.window, ctx.causal = window, causal
+        return swa_attn(q, k, v, window, causal)
+
+    @staticmethod
+    def backward(ctx, go):
+        window, causal = ctx.window, ctx.causal
+        grads = _plain_grads(
+            lambda q, k, v: ref.swa_attn(q, k, v, window, causal),
+            ctx.saved_tensors, ctx.needs_input_grad[:3], [go])
+        return (*grads, None, None)
+
+
 def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   window: Optional[int] = None,
                   causal: bool = True) -> torch.Tensor:
     """Attention, causal or bidirectional, optionally windowed (K4): q
     [B,H,S,D], k/v [B,H_kv,S,D] with H_kv dividing H (grouped-query
-    attention); the output is in q's dtype."""
+    attention); the output is in q's dtype.  Differentiable: on CUDA
+    tensors the gradient is the plain version's, recomputed."""
     if q.is_cuda:
-        from repro_torch.kernels.swa_attn import swa_attn
-        return swa_attn(q, k, v, window, causal)
+        return _SwaAttn.apply(q, k, v, window, causal)
     _check_on_cpu(k=k, v=v)
     return ref.swa_attn(q, k, v, window, causal)
+
+
+class _SsdScan(torch.autograd.Function):
+    """K5 forward; the plain version's gradient backward (``chunk`` is the
+    plain version's, as the CPU runs it)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, bmat, cmat, init_state, chunk):
+        from repro_torch.kernels.ssd_scan import ssd_scan as kernel
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a_log, bmat, cmat, init_state)
+        ctx.chunk = chunk
+        return kernel(x, dt, a_log, bmat, cmat, init_state)
+
+    @staticmethod
+    def backward(ctx, gy, g_state):
+        chunk = ctx.chunk
+        grads = _plain_grads(
+            lambda x, dt, a, b, c, s0: ref.ssd_scan(x, dt, a, b, c, chunk,
+                                                    s0),
+            ctx.saved_tensors, ctx.needs_input_grad[:6], [gy, g_state])
+        return (*grads, None)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -115,14 +184,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     None): x [B,S,H,P], dt [B,S,H], a_log [H], bmat / cmat [B,S,N] -> (y
     [B,S,H,P] in x's dtype, final state [B,H,N,P] float32).  The plain
     version scans in chunks of ``chunk``; the kernel in its own
-    (``ssd_scan.CHUNK``)."""
+    (``ssd_scan.CHUNK``).  Differentiable: on CUDA tensors the gradient
+    is the plain version's, recomputed."""
     if x.is_cuda:
-        from repro_torch.kernels.ssd_scan import ssd_scan as kernel
-        return kernel(x.contiguous(), dt.float().contiguous(),
-                      a_log.float().contiguous(), bmat.contiguous(),
-                      cmat.contiguous(),
-                      None if init_state is None
-                      else init_state.float().contiguous())
+        return _SsdScan.apply(x.contiguous(), dt.float().contiguous(),
+                              a_log.float().contiguous(), bmat.contiguous(),
+                              cmat.contiguous(),
+                              None if init_state is None
+                              else init_state.float().contiguous(), chunk)
     _check_on_cpu(dt=dt, a_log=a_log, bmat=bmat, cmat=cmat,
                   init_state=init_state)
     return ref.ssd_scan(x, dt, a_log, bmat, cmat, chunk, init_state)

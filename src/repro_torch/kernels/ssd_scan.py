@@ -10,7 +10,9 @@ scans in chunks of ``CHUNK`` steps, whatever chunk the config names (the
 function does not depend on the chunk, up to rounding).
 
 This wrapper takes CUDA tensors only; ``kernels/ops.py`` routes CPU tensors
-to the plain version ``kernels/ref.py:ssd_scan``.  Every launch adds one to
+to the plain version ``kernels/ref.py:ssd_scan``, and gives CUDA tensors
+a gradient by recomputing the plain version in the backward pass (the JAX
+package has no backward kernel either).  Every launch adds one to
 ``LAUNCHES["ssd_scan"]``, so a run can show it went through the kernel.
 """
 from __future__ import annotations
@@ -24,6 +26,8 @@ from repro_torch.kernels import build
 
 SOURCE = "ssd_scan"
 LAUNCHES: Dict[str, int] = {"ssd_scan": 0}
+# launches by the input's dtype ("float32", "bfloat16"), reset with LAUNCHES
+LAUNCH_DTYPES: Dict[str, int] = {}
 KINDS = {torch.float32: 0, torch.bfloat16: 1}
 CHUNK = 64          # the kernel's own chunk (csrc/ssd_scan.cu kChunk)
 MAX_STATE = 128     # N and P limits of the kernel's shared memory plan
@@ -36,6 +40,7 @@ _FN = []
 
 def reset_launches() -> None:
     LAUNCHES["ssd_scan"] = 0
+    LAUNCH_DTYPES.clear()
 
 
 def _fn():
@@ -100,4 +105,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed with cudaError {err}")
     LAUNCHES["ssd_scan"] += 1
+    kind = str(x.dtype).removeprefix("torch.")
+    LAUNCH_DTYPES[kind] = LAUNCH_DTYPES.get(kind, 0) + 1
     return y, final

@@ -12,7 +12,9 @@ bidirectional mask (a template mode of the kernel; a window stays one-sided,
 ``i - j < window``, as the JAX models mask).
 
 This wrapper takes CUDA tensors only; ``kernels/ops.py`` routes CPU tensors
-to the plain version ``kernels/ref.py:swa_attn``.  Every launch adds one to
+to the plain version ``kernels/ref.py:swa_attn``, and gives CUDA tensors
+a gradient by recomputing the plain version in the backward pass (the JAX
+package has no backward kernel either).  Every launch adds one to
 ``LAUNCHES["swa_attn"]``, so a run can show it went through the kernel.
 """
 from __future__ import annotations
@@ -27,6 +29,8 @@ from repro_torch.kernels import build
 
 SOURCE = "swa_attn"
 LAUNCHES: Dict[str, int] = {"swa_attn": 0}
+# launches by the input's dtype ("float32", "bfloat16"), reset with LAUNCHES
+LAUNCH_DTYPES: Dict[str, int] = {}
 KINDS = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 # q, k, v, o, bh, h, h_kv, s, d, window, scale, causal, kind, device, stream
@@ -38,6 +42,7 @@ _FN = []
 
 def reset_launches() -> None:
     LAUNCHES["swa_attn"] = 0
+    LAUNCH_DTYPES.clear()
 
 
 def _fn():
@@ -93,4 +98,6 @@ def swa_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"swa_attn launch failed with cudaError {err}")
     LAUNCHES["swa_attn"] += 1
+    kind = str(q.dtype).removeprefix("torch.")
+    LAUNCH_DTYPES[kind] = LAUNCH_DTYPES.get(kind, 0) + 1
     return o

@@ -1,1 +1,3 @@
-"""Entry points of the port: ``serve`` (prefill + decode on the card)."""
+"""Entry points of the port: ``train`` (the FedDF CLI), ``serve`` (prefill +
+decode on the card), ``steps`` (the per-(arch, shape) step builders) and
+``dryrun`` (their analytic count for one H100)."""

@@ -19,7 +19,8 @@ Inputs are tokens, or audio frames (``frontend == "audio_frames"``: the
 encoder-only hubert, no embedding, always a head), with projected vision
 patches prepended to the tokens (``"vision_patches"``; decode steps carry
 none, the patches live in the KV cache).  Not ported yet: the meshes
-(``moe_block(mesh=...)`` raises, ROADMAP queue 1 item 11).
+(``moe_block(mesh=...)`` raises, ROADMAP queue 1 item 11; ``forward``'s
+``mesh``, ``dp_axes`` and ``act_sharding`` raise, item 11.7).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.arch_config import ArchConfig, BlockSpec
 from repro_torch.common.pytree import tree_map
@@ -192,16 +194,35 @@ def unembed(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     return h @ params["embed"].T
 
 
+MESH_PENDING = ("meshes, data-parallel axes and activation shardings are "
+                "not ported yet (ROADMAP queue 1 item 11.7); the port runs "
+                "one device")
+
+
 def forward(params: dict, cfg: ArchConfig, batch: dict, *,
-            return_aux: bool = False):
+            return_aux: bool = False, mesh=None, dp_axes=(),
+            remat: bool = False, unroll: bool = False, act_sharding=None):
     """Full-sequence logits [B, S, V]; with ``return_aux``, ``(logits, aux)``
     as JAX returns them, aux the MoE load-balance loss summed over layers
-    (a float32 scalar, 0 without MoE)."""
+    (a float32 scalar, 0 without MoE).
+
+    ``remat`` recomputes each block's activations in the backward pass
+    (``torch.utils.checkpoint``, as JAX's ``jax.checkpoint``), keeping
+    only each block's input; the result is the same bit for bit.
+    ``unroll`` changes nothing: the layer loop is already unrolled.  A
+    ``mesh``, ``dp_axes`` or ``act_sharding`` raises (item 11.7)."""
     check_supported(cfg)
+    if mesh is not None or dp_axes or act_sharding is not None:
+        raise NotImplementedError(MESH_PENDING)
+    del unroll
     h = embed_inputs(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for bp, spec, _ in _layers(params, cfg):
-        h, a = _apply_block(bp, cfg, spec, h)
+        if remat:
+            h, a = checkpoint(_apply_block, bp, cfg, spec, h,
+                              use_reentrant=False)
+        else:
+            h, a = _apply_block(bp, cfg, spec, h)
         aux = aux + a
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = unembed(params, cfg, h)

@@ -80,9 +80,11 @@ class AdamState(NamedTuple):
 
 
 def adam(lr: Union[Schedule, float], b1: float = 0.9, b2: float = 0.999,
-         eps: float = 1e-8) -> Optimizer:
+         eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
     """Adam as in the JAX package: fp32 moments, bias correction from
-    ``step + 1``, eps outside the square root."""
+    ``step + 1``, eps outside the square root; with ``weight_decay`` the
+    decoupled term ``eta * weight_decay * p`` (in float32) is subtracted
+    from each delta."""
     sched = _schedule(lr)
     f32 = np.float32
 
@@ -106,6 +108,10 @@ def adam(lr: Union[Schedule, float], b1: float = 0.9, b2: float = 0.999,
         den = torch._foreach_sqrt(torch._foreach_div(nu, nh))
         torch._foreach_add_(den, eps)
         deltas = torch._foreach_div(num, den)
+        if weight_decay:
+            decay = torch._foreach_mul([p.float() for p in params],
+                                       float(f32(eta) * f32(weight_decay)))
+            torch._foreach_sub_(deltas, decay)
         deltas = [d.to(p.dtype) for d, p in zip(deltas, params)]
         return deltas, AdamState(mu, nu)
 
