@@ -45,7 +45,7 @@ and in order:
    that its float32 N = P = 64 instantiation (the serve path's) spills no
    registers; then one zamba2-1.2b mamba layer at full width, a 2000-token
    prompt split 1000 + 1000 through ``init_cache`` against the whole;
-4. drives fourteen paths on the card, with every launch count set to 0 just
+4. drives fifteen paths on the card, with every launch count set to 0 just
    before a path and read just after it.  Paths 1-3 go through
    ``Experiment(spec).run()`` at the quickstart's published widths, 1
    round each for paths 1 and 2, 2 for path 3:
@@ -196,6 +196,22 @@ and in order:
      within 4x the CPU's 1-ulp spread; 14c the updates of a 1-client,
      2-step round within 4x 14a's spread plus one float32 rounding a
      step);
+   - path 15, after path 14, the client axis over a ``torch.distributed``
+     mesh (``repro_torch.launch.mesh``): 15a the quickstart spec with
+     ``sharding.shard_clients`` through the ``multihost`` driver on 4
+     ranks sharing the card (gloo, the collectives staged through host
+     memory; NCCL, one rank per card, where there are 4 cards) and on 1
+     rank over NCCL, against the same spec through ``sync`` in this
+     process (1 rank bit for bit; 4 ranks the same cohorts, steps, bank,
+     teacher forwards and accuracy, uploads within 1e-5 of the largest,
+     globals within 1e-3, the ranks' globals bit for bit, K1 on every
+     rank); 15b path 5a's heterogeneous spec on 4 ranks, its client caps
+     padded to 4, the padded lanes returned untouched; 15c
+     ``drive_fed_rounds`` on zamba2-1.2b at full width and depth in bf16
+     (8 clients x 4 steps of 8 x 512, 1 round) on 2 ranks, every upload
+     bit for bit (digests) and the mean within one bf16 ulp of the
+     unsharded round's, K4 and K5 on every rank; each rank is a process
+     of its own (``launch_ranks``), its launches counted in it;
    paths 1-3 and 5-11 run in six worker processes beside each other
    (``PATH_GROUPS``; each path's launch counts in its own process), after
    step 3 and before path 4, so that the kernel and served-model timings
@@ -205,9 +221,9 @@ and in order:
    exactly where the plain versions are, within tolerance elsewhere, two
    launches equal bit for bit;
 5. prints one ``{"kernels": [...]}`` line (each kernel's launches on its
-   path and, under ``path7_launches`` to ``path14_launches``, on each of
-   paths 7's to 14's sub-paths), the card line, and as its last line
-   ``{"ok": true, "device": {...}}``.
+   path and, under ``path7_launches`` to ``path15_launches``, on each of
+   paths 7's to 15's sub-paths and ranks), the card line, and as its last
+   line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the last line, when there is no CUDA device,
 when it does not find the port next to it, or when any phase fails.
@@ -4947,6 +4963,419 @@ def print_path(name, rep) -> None:
               f"{rep['same_uploads']}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Path 15: the client axis over a device mesh (ROADMAP item 11.7)
+# ---------------------------------------------------------------------------
+
+# 15a and 15b: 4 ranks, sharing the one card (gloo, the collectives staged
+# through host memory) or one per card where there are 4 (nccl); 15a(ii) 1
+# rank over nccl.  15c: drive_fed_rounds over 2 ranks at JAX's
+# make_fed_round_step defaults (STEP_FED), 1 round.  The uploads of a
+# sharded run against the one-process sync run's, within
+# PATH15_UPLOAD_REL of the largest upload: the sharded ranks train a
+# block of the client axis, so the card's batched products run at
+# another shape (cuBLAS picks its algorithm by shape).
+PATH15_RANKS, PATH15_FED_RANKS, PATH15_FED_ROUNDS = 4, 2, 1
+PATH15_UPLOAD_REL = 1e-5
+PATH15_RANK_THREADS, PATH15_TIMEOUT_S = 2, 600
+
+
+@contextlib.contextmanager
+def recording_uploads(recs: list):
+    """Each round's cohort per group and the group's trained stack (on the
+    host), as ``train_clients`` hands them to aggregation."""
+    from repro_torch.common.pytree import tree_flatten
+    from repro_torch.core.engine import RoundEngine
+    orig = RoundEngine.train_clients
+
+    def recorded(self, t, globals_, batches):
+        groups = orig(self, t, globals_, batches)
+        recs.append({
+            "round": int(t),
+            "cohort": [None if rb is None else [int(k) for k in rb.ks]
+                       for rb in batches],
+            "stacks": [None if g.stack is None else
+                       {k: v.detach().cpu() for k, v in
+                        tree_flatten(g.stack).items()} for g in groups]})
+        return groups
+    RoundEngine.train_clients = recorded
+    try:
+        yield
+    finally:
+        RoundEngine.train_clients = orig
+
+
+@contextlib.contextmanager
+def recording_padding(pads: list):
+    """Each batched update's lanes: how many took no step (the padded
+    clients) and whether those came back as the global, bit for bit."""
+    import torch
+    from repro_torch.common.pytree import tree_flatten
+    from repro_torch.core import engine as eng
+    orig = eng.make_batched_local_update
+
+    def make(*args, **kw):
+        fn = orig(*args, **kw)
+
+        def run(params, xb, yb, anchor, step_mask, dp_seeds=None):
+            stack = fn(params, xb, yb, anchor, step_mask, dp_seeds)
+            idle = [i for i in range(int(step_mask.shape[0]))
+                    if not bool(step_mask[i].any())]
+            got, want = tree_flatten(stack), tree_flatten(params)
+            pads.append({"lanes": int(step_mask.shape[0]),
+                         "idle": len(idle),
+                         "untouched": all(torch.equal(got[k][i], want[k])
+                                          for i in idle for k in got)})
+            return stack
+        return run
+    eng.make_batched_local_update = make
+    try:
+        yield
+    finally:
+        eng.make_batched_local_update = orig
+
+
+def mesh_run(spec, device="cuda") -> dict:
+    """One run of ``spec`` on this process's card, its launch counts and
+    collectives counted from 0: logs, cohorts, uploads, globals (on the
+    host), the padded lanes and the globals' digest."""
+    from repro_torch.api import Experiment
+    from repro_torch.common import sharding
+    from repro_torch.common.pytree import tree_flatten
+    from repro_torch.launch import mesh as tmesh
+    recs, pads = [], []
+    reset_all_launches()
+    sharding.reset_collectives()
+    with recording_uploads(recs), recording_padding(pads):
+        t0 = time.perf_counter()
+        res = Experiment(spec, device=device).run()
+        wall = time.perf_counter() - t0
+    return {"rank": tmesh.world_rank(), "backend": tmesh._WORLD["backend"],
+            "logs": [[{k: getattr(l, k) for k in LOG_KEYS} for l in g]
+                     for g in group_logs(res)],
+            "uploads": recs, "pads": pads, "wall_s": wall,
+            "phase_s": res.phase_seconds,
+            "globals": [{k: v.detach().cpu() for k, v in
+                         tree_flatten(g).items()}
+                        for g in res.global_params],
+            "digests": [sharding.tree_digest(g) for g in res.global_params],
+            "launches": {k: c for k, c in all_launches().items() if c},
+            "collectives": {k: dict(v)
+                            for k, v in sharding.COLLECTIVES.items()}}
+
+
+def path15_rank(specs: dict, device="cuda") -> dict:
+    """One rank of 15a / 15b: each spec (JSON) through ``mesh_run``."""
+    import torch
+    from repro_torch.api import ExperimentSpec
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {name: mesh_run(ExperimentSpec.from_json(text), device)
+            for name, text in specs.items()}
+
+
+def _flat_gap(a: dict, b: dict) -> tuple:
+    """(largest |a - b|, largest |b|) over two flat trees."""
+    gap = max(float((a[k].float() - b[k].float()).abs().max()) for k in b)
+    top = max(float(b[k].float().abs().max()) for k in b)
+    return gap, top
+
+
+def mesh_vs_sync(run: dict, ref: dict, exact: bool) -> tuple:
+    """A sharded run against the one-process sync run of the same spec:
+    (the gaps, problems).  ``exact``: every upload, global and log bit for
+    bit; else the same cohorts, discrete facts and accuracy, each round's
+    uploads within PATH15_UPLOAD_REL of their largest and the globals
+    within ROUND1_PARAM_ATOL."""
+    import torch
+    problems = []
+    facts = lambda r: [[(l["distill_steps"], l["bank"],
+                         l["teacher_forwards"], l["n_participants"],
+                         l["test_acc"]) for l in g] for g in r["logs"]]
+    cohorts = lambda r: [u["cohort"] for u in r["uploads"]]
+    if cohorts(run) != cohorts(ref):
+        problems.append(f"cohorts {cohorts(run)} against {cohorts(ref)}")
+    if facts(run) != facts(ref):
+        problems.append(f"(steps, bank, teacher forwards, participants, "
+                        f"test acc) {facts(run)} against {facts(ref)}")
+    up_gaps, rows_ok = [], True
+    for ur, uf in zip(run["uploads"], ref["uploads"], strict=True):
+        for g, (sr, sf) in enumerate(zip(ur["stacks"], uf["stacks"],
+                                         strict=True)):
+            if sr is None or sf is None:
+                rows_ok = rows_ok and sr is None and sf is None
+                continue
+            n = len(ur["cohort"][g])
+            rows_ok = rows_ok and all(int(v.shape[0]) == n
+                                      for v in sr.values())
+            gap, top = _flat_gap(sr, sf)
+            up_gaps.append(gap / top)
+    g_gaps = [_flat_gap(a, b)[0] for a, b in zip(run["globals"],
+                                                ref["globals"], strict=True)]
+    rep = {"upload_rel_gap": max(up_gaps or [0.0]),
+           "global_abs_gap": max(g_gaps), "uploads_rows_sliced": rows_ok,
+           "wall_s": run["wall_s"]}
+    if not rows_ok:
+        problems.append("a stack kept padded rows past the cohort")
+    if exact:
+        same = (run["logs"] == ref["logs"] and all(
+            torch.equal(a[k], b[k]) for a, b in
+            zip(run["globals"], ref["globals"]) for k in b) and all(
+            torch.equal(sr[k], sf[k])
+            for ur, uf in zip(run["uploads"], ref["uploads"])
+            for sr, sf in zip(ur["stacks"], uf["stacks"])
+            if sf is not None for k in sf))
+        rep["bit_equal"] = same
+        if not same:
+            problems.append(f"not bit for bit: {rep}")
+    elif (rep["upload_rel_gap"] > PATH15_UPLOAD_REL
+          or rep["global_abs_gap"] > ROUND1_PARAM_ATOL):
+        problems.append(f"gaps {rep} against bounds {PATH15_UPLOAD_REL} "
+                        f"(uploads, of the largest) and {ROUND1_PARAM_ATOL}")
+    return rep, problems
+
+
+def ranks_report(runs: list, ref: dict, what: str, exact: bool) -> tuple:
+    """Every rank of one sharded spec against the sync run: the ranks'
+    digests equal, K1 on every rank once per distill step, each rank's
+    gaps, its collectives and their share of the run's wall."""
+    problems, per_rank = [], []
+    steps = sum(l["distill_steps"] for g in ref["logs"] for l in g)
+    for r in runs:
+        rep, more = mesh_vs_sync(r, ref, exact)
+        problems += [f"{what} rank {r['rank']}: {p}" for p in more]
+        coll = r["collectives"]
+        rep.update(rank=r["rank"], backend=r["backend"],
+                   launches=r["launches"], collectives=coll,
+                   collective_share=sum(c["seconds"] for c in coll.values())
+                   / r["wall_s"], phase_s=r["phase_s"])
+        per_rank.append(rep)
+        for name in ("ensemble_kl_bank_fwd", "ensemble_kl_bank_bwd"):
+            if r["launches"].get(name, 0) != steps or steps == 0:
+                problems.append(f"{what} rank {r['rank']}: {name} launched "
+                                f"{r['launches'].get(name, 0)} times for "
+                                f"{steps} distill steps")
+    if any(r["digests"] != runs[0]["digests"] for r in runs):
+        problems.append(f"{what}: the ranks' globals differ "
+                        f"{[r['digests'] for r in runs]}")
+    return per_rank, problems
+
+
+def mesh_spec(spec):
+    """``spec`` with the client axis sharded, through ``multihost``."""
+    from repro_torch.api import DriverSpec, ShardingSpec
+    return dataclasses.replace(spec, sharding=ShardingSpec(
+        shard_clients=True), driver=DriverSpec(kind="multihost"))
+
+
+def mesh_engine_path(device):
+    """15a: the quickstart spec (path 1's) with ``sharding.shard_clients``
+    through ``multihost``, (i) over PATH15_RANKS ranks, (ii) over 1 rank
+    (nccl), (iii) through ``sync`` in this process; 15b: path 5a's
+    heterogeneous spec over PATH15_RANKS ranks against ``sync``, its
+    per-prototype client caps padded to the axis."""
+    import torch
+    from repro_torch.launch import mesh as tmesh
+    device = torch.device(device).type
+    quick, hetero = quickstart_spec(QUICK_ROUNDS), hetero_spec(HETERO_ROUNDS)
+    rep, problems = {}, []
+    t0 = time.perf_counter()
+    sync_q, sync_h = mesh_run(quick, device), mesh_run(hetero, device)
+    rep["sync_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    many = tmesh.launch_ranks(
+        path15_rank, PATH15_RANKS, device,
+        args=({"15a": mesh_spec(quick).to_json(),
+               "15b": mesh_spec(hetero).to_json()}, device),
+        threads=PATH15_RANK_THREADS, timeout_s=PATH15_TIMEOUT_S)
+    rep["ranks_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = tmesh.launch_ranks(path15_rank, 1, device,
+                             args=({"15a": mesh_spec(quick).to_json()},
+                                   device),
+                             timeout_s=PATH15_TIMEOUT_S)[0]["15a"]
+    rep["one_rank_s"] = time.perf_counter() - t0
+    rep["cards"] = torch.cuda.device_count() if device == "cuda" else 0
+    rep["15a_i"], more = ranks_report([r["15a"] for r in many], sync_q,
+                                      "15a(i)", exact=False)
+    problems += more
+    rep["15a_ii"], more = ranks_report([one], sync_q, "15a(ii)", exact=True)
+    problems += more
+    if one["backend"] != ("nccl" if device == "cuda" else "gloo"):
+        problems.append(f"15a(ii) ran on {one['backend']}, not nccl")
+    rep["15b"], more = ranks_report([r["15b"] for r in many], sync_h, "15b",
+                                    exact=False)
+    problems += more
+    pads = [p for r in many for p in r["15b"]["pads"]]
+    rep["15b_padded_lanes"] = sum(p["idle"] for p in pads)
+    rep["15b_lanes"] = sum(p["lanes"] for p in pads)
+    if not pads or rep["15b_padded_lanes"] == 0 or not all(
+            p["untouched"] for p in pads):
+        problems.append(f"15b padded lanes: {pads}")
+    rep["15a_iii_launches"] = sync_q["launches"]
+    rep["15b_sync_launches"] = sync_h["launches"]
+    rep["15a_test_acc"] = [[l["test_acc"] for l in g]
+                           for g in sync_q["logs"]]
+    return rep, problems
+
+
+def path15_fed_rank(kw: dict, device="cuda", arch=SERVE_ARCH) -> dict:
+    """One rank of 15c: ``drive_fed_rounds`` on ``arch`` over
+    ``make_host_mesh``, each upload's digest, the mean (rank 0, on the
+    host) and its digest."""
+    import torch
+    from repro_torch.launch import mesh as tmesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rep = fed_rounds_run(tmesh.make_host_mesh(), kw, device, arch)
+    if tmesh.world_rank() != 0:
+        rep.pop("mean")
+    return rep
+
+
+def fed_rounds_run(mesh, kw: dict, device="cuda", arch=SERVE_ARCH) -> dict:
+    """``drive_fed_rounds`` from the seed-0 bf16 init drawn on ``device``
+    (this rank's card)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.common.pytree import tree_flatten, tree_map
+    from repro_torch.common.sharding import tree_digest
+    from repro_torch.drivers import drive_fed_rounds
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import transformer as T
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if device == "cuda" else torch.device(device))
+    cfg = configs.get(arch)
+    digests = {}
+
+    def hook(t, clients, stack):
+        for i, c in enumerate(clients):
+            digests[c] = tree_digest(tree_map(lambda x: x[i], stack))
+    init = T.init(cfg, torch.Generator(device=device).manual_seed(0),
+                  torch.bfloat16, device)
+    reset_all_launches()
+    params, stats = drive_fed_rounds(
+        cfg, mesh, rounds=PATH15_FED_ROUNDS, seed=0,
+        param_dtype=torch.bfloat16, device=device, init_params=init,
+        upload_hook=hook, **kw)
+    return {"rank": tmesh.world_rank(), "backend": tmesh._WORLD["backend"],
+            "digests": digests, "stats": stats,
+            "launches": {k: c for k, c in all_launches().items() if c},
+            "mean_digest": tree_digest(params),
+            "mean": {k: v.cpu() for k, v in tree_flatten(params).items()}}
+
+
+def bf16_ulp_excess(a: dict, b: dict) -> dict:
+    """Elements of ``a`` more than one bfloat16 unit in the last place
+    (at the larger magnitude) from ``b``, and the largest gap."""
+    import torch
+    over, gap, n = 0, 0.0, 0
+    for k in b:
+        x, y = a[k].float(), b[k].float()
+        big = torch.maximum(x.abs(), y.abs()).to(torch.bfloat16)
+        ulp = (torch.nextafter(big, torch.full_like(big, float("inf")))
+               .float() - big.float())
+        d = (x - y).abs()
+        over += int((d > ulp).sum())
+        gap = max(gap, float(d.max()))
+        n += d.numel()
+    return {"elements": n, "over_one_ulp": over, "max_abs_gap": gap}
+
+
+def mesh_fed_path(device, arch=SERVE_ARCH):
+    """15c: ``drive_fed_rounds`` on zamba2-1.2b at full width and depth in
+    bf16 (JAX's make_fed_round_step defaults), one round over
+    PATH15_FED_RANKS ranks against the same round unsharded in this
+    process: every client's upload bit for bit (digests), the mean within
+    one bf16 ulp per element, K4 and K5 launched on every rank."""
+    import torch
+    from repro_torch.launch import mesh as tmesh
+    kw = dict(STEP_FED)
+    problems = []
+    device = torch.device(device).type
+    t0 = time.perf_counter()
+    ref = fed_rounds_run(None, kw, device, arch)
+    rep = {"unsharded_s": time.perf_counter() - t0,
+           "unsharded": ref["stats"], "unsharded_launches": ref["launches"]}
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs = tmesh.launch_ranks(path15_fed_rank, PATH15_FED_RANKS, device,
+                              args=(kw, device, arch), threads=4,
+                              timeout_s=PATH15_TIMEOUT_S)
+    rep["ranks_s"] = time.perf_counter() - t0
+    digests = {c: d for r in runs for c, d in r["digests"].items()}
+    rep["uploads_bit_equal"] = digests == ref["digests"]
+    if not rep["uploads_bit_equal"]:
+        problems.append(f"15c uploads' digests {digests} against the "
+                        f"unsharded {ref['digests']}")
+    rep["mean"] = bf16_ulp_excess(runs[0]["mean"], ref["mean"])
+    if rep["mean"]["over_one_ulp"]:
+        problems.append(f"15c mean against the unsharded: {rep['mean']}")
+    if any(r["mean_digest"] != runs[0]["mean_digest"] for r in runs):
+        problems.append("15c: the ranks' means differ")
+    per = kw["n_clients"] // PATH15_FED_RANKS * kw["local_steps"] * 2
+    want = {"swa_attn": per * STEP_K4, "ssd_scan": per * STEP_K5}
+    rep["ranks"] = [{"rank": r["rank"], "backend": r["backend"],
+                     "launches": r["launches"], "stats": r["stats"]}
+                    for r in runs]
+    for r in runs:
+        if r["launches"] != want:
+            problems.append(f"15c rank {r['rank']} launched "
+                            f"{r['launches']}, expected {want}")
+    return rep, problems
+
+
+def mesh_path(device):
+    """Path 15: 15a and 15b (``mesh_engine_path``), then 15c."""
+    t0 = time.perf_counter()
+    rep, problems = mesh_engine_path(device)
+    rep["15ab_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep["15c"], more = mesh_fed_path(device)
+    rep["15c_s"] = time.perf_counter() - t0
+    return rep, problems + more
+
+
+def print_path15(rep) -> None:
+    gib = 2 ** 30
+    for what in ("15a_i", "15a_ii", "15b"):
+        for r in rep[what]:
+            coll = ", ".join(
+                f"{k} {v['calls']} calls {v['bytes']} B {v['seconds']:.3f} s"
+                for k, v in r["collectives"].items())
+            print(f"  path15 {what} rank {r['rank']} ({r['backend']}): "
+                  f"uploads {r['upload_rel_gap']:.2e} of the largest, "
+                  f"globals {r['global_abs_gap']:.2e}"
+                  + (f", bit for bit {r['bit_equal']}"
+                     if "bit_equal" in r else "")
+                  + f"; run {r['wall_s']:.2f} s, collectives {coll} "
+                  f"({100 * r['collective_share']:.1f}% of the run); "
+                  f"launches {r['launches']}")
+    print(f"  path15 15a sync launches {rep['15a_iii_launches']}, test acc "
+          f"{rep['15a_test_acc']}; 15b sync launches "
+          f"{rep['15b_sync_launches']}, padded lanes "
+          f"{rep['15b_padded_lanes']} of {rep['15b_lanes']}; sync "
+          f"{rep['sync_s']:.1f} s, {PATH15_RANKS} ranks "
+          f"{rep['ranks_s']:.1f} s, 1 rank {rep['one_rank_s']:.1f} s on "
+          f"{rep['cards']} card(s)")
+    c = rep["15c"]
+    u = c["unsharded"][0]
+    print(f"  path15 15c {SERVE_ARCH} bf16 {STEP_FED}: unsharded round "
+          f"{u['round_s']:.3f} s, peak {u['peak_mem_bytes'] / gib:.2f} GiB, "
+          f"launches {c['unsharded_launches']}; uploads bit for bit "
+          f"{c['uploads_bit_equal']}; mean {c['mean']}")
+    for r in c["ranks"]:
+        s = r["stats"][0]
+        print(f"  path15 15c rank {r['rank']} ({r['backend']}): round "
+              f"{s['round_s']:.3f} s, all_reduce {s['all_reduce_bytes']} B "
+              f"in {s['all_reduce_s']:.3f} s, peak "
+              f"{s['peak_mem_bytes'] / gib:.2f} GiB, launches "
+              f"{r['launches']}")
+    print(f"  path15: 15a/15b {rep['15ab_s']:.1f} s, 15c {rep['15c_s']:.1f} "
+          f"s (unsharded {c['unsharded_s']:.1f} s, ranks "
+          f"{c['ranks_s']:.1f} s), whole path {rep['total_s']:.1f} s",
+          flush=True)
+
 KERNEL_SOURCES = ["ensemble_kl_bank", "ensemble_kl", "swa_attn", "ssd_scan"]
 
 
@@ -5374,6 +5803,14 @@ def main() -> int:
     print_path14(rep)
     print(f"served models done at {time.perf_counter() - start_s:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    rep, path_problems = mesh_path(device)
+    rep["total_s"] = time.perf_counter() - t0
+    paths["path15_mesh"] = rep
+    problems += [f"path15_mesh: {p}" for p in path_problems]
+    print_path15(rep)
+    print(f"path 15 done at {time.perf_counter() - start_s:.1f} s",
+          flush=True)
 
     # 5. output
     def timing(rows, **key):
@@ -5446,6 +5883,19 @@ def main() -> int:
                 "14c": p["14c_fed_round"]["launches"].get(name, 0),
                 "14d": p["14d_serve"]["prefill_launches"].get(name, 0)}
 
+    def path15_launches(name):
+        """Path 15's launches of ``name``: each rank of 15a(i), 15a(ii)
+        and 15b, the sync runs 15a(iii) and 15b's, each rank of 15c and
+        its unsharded round."""
+        p = paths["path15_mesh"]
+        ranks = lambda rows: [r["launches"].get(name, 0) for r in rows]
+        return {"15a_i": ranks(p["15a_i"]), "15a_ii": ranks(p["15a_ii"]),
+                "15a_iii": p["15a_iii_launches"].get(name, 0),
+                "15b": ranks(p["15b"]),
+                "15b_sync": p["15b_sync_launches"].get(name, 0),
+                "15c": ranks(p["15c"]["ranks"]),
+                "15c_unsharded": p["15c"]["unsharded_launches"].get(name, 0)}
+
     def path8_launches(name):
         """Each path 8 sub-path's launches of ``name``."""
         b = paths["path8b_bucketing"]
@@ -5470,6 +5920,7 @@ def main() -> int:
                 "path12_launches": path12_launches(name),
                 "path13_launches": path13_launches(name),
                 "path14_launches": path14_launches(name),
+                "path15_launches": path15_launches(name),
                 "max_abs_err": max(e[i] for e in errs),
                 "ms": t[f"{kind}_ms"], "plain_ms": t[f"plain_{kind}_ms"],
                 "call_ms": t[f"{kind}_call_ms"],
@@ -5494,6 +5945,7 @@ def main() -> int:
             "path12_launches": path12_launches(name),
             "path13_launches": path13_launches(name),
             "path14_launches": path14_launches(name),
+            "path15_launches": path15_launches(name),
             "path14_dtypes": sorted({d for sub in ("14a_train", "14b_distill",
                                                    "14c_fed_round",
                                                    "14d_serve")

@@ -29,6 +29,12 @@ in ``RunResult.obs`` and ``summary()["obs"]``.  A recorder armed by the
 caller is read the same way.  An armed run computes what a disarmed one
 does, bit for bit.
 
+Meshes (``spec.sharding.shard_clients``, or the ``multihost`` driver):
+every rank of a ``torch.distributed`` world runs the same experiment,
+the engine's client axis sharded over ``launch/mesh.make_client_mesh()``;
+rank 0 alone writes the checkpoints, the metrics files and the trace,
+and every rank can resume from them.
+
 :func:`build_engine` compiles a spec to its :class:`RoundEngine`; a tcp
 client pod (``python -m repro_torch.dist.pods``) rebuilds the fusion pod's
 engine with it.
@@ -308,6 +314,15 @@ def to_fl_config(spec: ExperimentSpec) -> FLConfig:
         population=spec.population_config())
 
 
+def build_mesh(spec: ExperimentSpec):
+    """The client mesh over every rank of the world when the spec shards
+    the client axis, else None (``launch/mesh.make_client_mesh``)."""
+    if not spec.sharding.shard_clients:
+        return None
+    from repro_torch.launch.mesh import make_client_mesh
+    return make_client_mesh()
+
+
 def build_engine(spec: ExperimentSpec, device="cuda", *, index_stream=None,
                  draw_stream=None, dp_draws=None, swag_draws=None,
                  filter_probe=None) -> RoundEngine:
@@ -335,7 +350,8 @@ def build_engine(spec: ExperimentSpec, device="cuda", *, index_stream=None,
                        to_fl_config(spec), source=source,
                        heterogeneous=len(nets) > 1, device=device,
                        dp_draws=dp_draws, swag_draws=swag_draws,
-                       filter_probe=filter_probe)
+                       filter_probe=filter_probe, mesh=build_mesh(spec),
+                       client_axis=spec.sharding.client_axis)
 
 
 # ---------------------------------------------------------------------------
@@ -524,8 +540,12 @@ class Experiment:
                 observer(event)
             return event.stop_requested  # True -> the driver stops
 
+        # over a mesh every rank runs the same rounds; rank 0 alone writes
+        # the checkpoints and the metrics files
+        from repro_torch.launch.mesh import world_rank
+        writer = world_rank() == 0
         round_end_hook = None
-        if checkpoint_dir is not None and checkpoint_every > 0:
+        if checkpoint_dir is not None and checkpoint_every > 0 and writer:
             os.makedirs(checkpoint_dir, exist_ok=True)
             spec.save(os.path.join(checkpoint_dir, "spec.json"))
 
@@ -543,10 +563,11 @@ class Experiment:
         armed_here = spec.obs.enabled
         metrics_obs = None
         if armed_here:
-            _trace.arm(path=spec.obs.trace_path,
+            _trace.arm(path=spec.obs.trace_path if writer else None,
                        profile_dir=(spec.obs.profile_dir
-                                    if spec.obs.profile else None))
-            if spec.obs.metrics_dir:
+                                    if spec.obs.profile and writer
+                                    else None))
+            if spec.obs.metrics_dir and writer:
                 metrics_obs = MetricsObserver([
                     JSONLSink(os.path.join(spec.obs.metrics_dir,
                                            "metrics.jsonl")),

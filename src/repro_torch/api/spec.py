@@ -739,9 +739,11 @@ class ExperimentSpec:
                 "obs.profile=True needs obs.profile_dir (where the "
                 "torch.profiler trace is written)")
 
-        # an axis the port does not run yet raises with its ROADMAP item
-        if self.sharding.shard_clients:
+        # the client axis over a mesh runs under the sync and multihost
+        # drivers; the others wait for the model axis's item
+        if self.sharding.shard_clients and self.driver.kind in (
+                "buffered_async", "async_pipelined", "distributed"):
             raise NotImplementedError(
-                "client-axis sharding is not ported yet (ROADMAP.md queue "
-                "1 item 11)")
+                f"sharding.shard_clients under the {self.driver.kind} "
+                f"driver is not ported yet (ROADMAP.md queue 1 item 11.8)")
         return self

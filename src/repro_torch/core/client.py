@@ -18,9 +18,15 @@ estimator, ``core/quantize.py``); the batched update calls it with
 and noised against the round's global model after its last step
 (``core/privacy.py``), its noise drawn on the host from its own seed.
 
+With a ``mesh`` the client axis is sharded over ``client_axis``, as
+JAX's ``shard_map`` with ``P(client_axis)`` lays it out: rank ``r`` of
+``n`` trains the contiguous clients ``[r K/n, (r+1) K/n)`` of the round's
+batches (built whole on every rank, so every draw matches the one-device
+run) and the ranks' uploads are all-gathered to the full ``[K, ...]``
+stack on every rank.
+
 The numpy batch builders are verbatim copies of the JAX package's, so both
-packages train on bitwise-identical batches.  A device mesh waits for
-ROADMAP.md queue 1 item 11.
+packages train on bitwise-identical batches.
 """
 from __future__ import annotations
 
@@ -30,7 +36,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.common.pytree import tree_flatten, tree_unflatten
+from repro_torch.common.pytree import (tree_flatten, tree_map,
+                                       tree_unflatten)
 from repro_torch.core.nets import Net
 from repro_torch.core.privacy import (NormalDraws, normal_draws,
                                       privatize_update_stacked)
@@ -94,7 +101,8 @@ def make_batched_local_update(net: Net, opt: Optimizer, *,
                               quantize: Optional[Callable] = None,
                               dp_clip: Optional[float] = None,
                               dp_noise_multiplier: float = 0.0,
-                              dp_draws: NormalDraws = normal_draws):
+                              dp_draws: NormalDraws = normal_draws,
+                              mesh=None, client_axis: str = "data"):
     """Vectorized local training for all K active clients of a round.
 
     Returns ``fn(params, xb [K,n,B,...], yb [K,n,B], anchor, step_mask
@@ -104,7 +112,9 @@ def make_batched_local_update(net: Net, opt: Optimizer, *,
     ``prox_mu > 0``.  ``quantize(params, stacked=True)`` maps the params
     every forward sees.  With ``dp_clip`` set, client ``k``'s upload is
     privatized against ``anchor`` with noise drawn by ``dp_draws`` from
-    ``dp_seeds[k]``."""
+    ``dp_seeds[k]``.  With a ``mesh`` each rank trains its block of the
+    client axis over ``client_axis`` (K must be a multiple of the axis
+    size) and every rank returns the all-gathered ``[K, ...]`` stack."""
 
     def run(params, xb, yb, anchor, step_mask, dp_seeds=None):
         if dp_clip is not None and dp_seeds is None:
@@ -162,7 +172,26 @@ def make_batched_local_update(net: Net, opt: Optimizer, *,
                     draws=dp_draws)
         return stack
 
-    return run
+    if mesh is None:
+        return run
+    from repro_torch.common.sharding import (all_gather, axis_index,
+                                             axis_size)
+    n_ranks = axis_size(mesh, client_axis)
+    me = axis_index(mesh, client_axis)
+
+    def sharded(params, xb, yb, anchor, step_mask, dp_seeds=None):
+        k = int(xb.shape[0])
+        if k % n_ranks:
+            raise ValueError(
+                f"a client axis of {k} does not divide over the "
+                f"{client_axis!r} mesh axis ({n_ranks} ranks)")
+        block = slice(me * (k // n_ranks), (me + 1) * (k // n_ranks))
+        local = run(params, xb[block], yb[block], anchor, step_mask[block],
+                    None if dp_seeds is None else list(dp_seeds)[block])
+        return tree_map(lambda v: all_gather(v, mesh, (client_axis,)),
+                        local)
+
+    return sharded
 
 
 def build_batches(x: np.ndarray, y: np.ndarray, batch_size: int, epochs: int,

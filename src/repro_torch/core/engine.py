@@ -55,7 +55,17 @@ counter-based ``population/faults.FaultModel``, and rebuilds a stack on
 the device only when a fault touched it; ``quorum_met`` decides whether
 the round fuses, and ``guard_globals`` rolls non-finite fused globals
 back.  A run with faults disabled copies nothing and is bit for bit the
-fault-free run.  Meshes wait for ROADMAP.md queue 1 item 11.
+fault-free run.
+
+With a device mesh (``mesh=`` or :meth:`RoundEngine.attach_mesh`, the
+``multihost`` driver's seam), every rank of the world runs the same
+engine: the host draws (cohort, batches, DP seeds) are made whole on
+every rank, the batched update trains the rank's block of the client
+axis and all-gathers the stack (``core/client.py``), and aggregation and
+evaluation run on every rank on the same uploads.  The unbucketed
+homogeneous path needs every cohort size to be a multiple of the axis
+size; heterogeneous and bucketed runs round their run-fixed client caps
+up to it instead (the padded lanes take no step and are sliced off).
 
 While the flight recorder is armed (``repro_torch.obs.trace``), every
 phase runs inside a span of its name, stamped with its round.
@@ -272,12 +282,14 @@ class RoundEngine:
                  heterogeneous: bool = False, device="cuda",
                  dp_draws: Optional[Callable] = None,
                  swag_draws: Optional[Callable] = None,
-                 filter_probe: Optional[Callable] = None):
+                 filter_probe: Optional[Callable] = None, mesh=None,
+                 client_axis: str = "data"):
         """``dp_draws`` (``core/privacy.NormalDraws``), ``swag_draws``
         (``core/swag.SwagDraws``) and ``filter_probe`` (the teacher
         filter's probe batch, ``core/strategies.FilterProbe``) replace the
         DP noise's, the SWAG samples' and the probe's CPU generators with
-        a caller's draws, e.g. the JAX package's."""
+        a caller's draws, e.g. the JAX package's.  ``mesh`` shards the
+        client axis over its ``client_axis`` (``launch/mesh.py``)."""
         if cfg.bucketing.kind not in BUCKET_KINDS:
             raise ValueError(
                 f"bucketing.kind must be one of {BUCKET_KINDS}, got "
@@ -294,6 +306,8 @@ class RoundEngine:
         self.swag_draws = swag_draws
         self.filter_probe = filter_probe
         self.heterogeneous = heterogeneous
+        self.mesh = mesh
+        self.client_axis = client_axis
         self.device = torch.device(device)
         self.strategy = get_strategy(cfg.strategy)
         self.n_clients = len(parts)
@@ -331,14 +345,56 @@ class RoundEngine:
         self.val_y = torch.as_tensor(val.y, device=self.device)
         self.test_x = torch.as_tensor(test.x, device=self.device)
         self.test_y = torch.as_tensor(test.y, device=self.device)
-        prox = self.strategy.local_prox_mu(cfg)
-        self.updates = [
-            make_batched_local_update(
-                self.nets[p], _make_opt(cfg), prox_mu=prox,
-                quantize=cfg.quantize, dp_clip=cfg.dp_clip,
-                dp_noise_multiplier=cfg.dp_noise_multiplier,
-                dp_draws=dp_draws or normal_draws)
-            for p in range(self.n_proto)]
+        self.dp_draws = dp_draws or normal_draws
+        # the batched updates, built at the first training so that a
+        # driver can still attach a mesh
+        self._updates: Optional[List[Callable]] = None
+        if self.mesh is not None:
+            self._validate_mesh(self.mesh, self.client_axis)
+
+    def _validate_mesh(self, mesh, client_axis: str) -> None:
+        """Fail where both mesh paths (the constructor's and a driver's
+        ``attach_mesh``) meet.  Heterogeneous and bucketed runs round
+        their client caps up to the axis size, so only the unbucketed
+        homogeneous path needs every cohort size to divide."""
+        if self.heterogeneous or self.cfg.bucketing.kind != "none":
+            return
+        from repro_torch.common.sharding import axis_size
+        axis = axis_size(mesh, client_axis)
+        bad = [k for k in self.k_cap if k % axis]
+        if bad:
+            raise ValueError(
+                f"active cohort size(s) {bad} do not divide the "
+                f"{client_axis!r} mesh axis ({axis} devices); pick "
+                f"client_fraction/n_clients so K is a multiple of the "
+                f"device count")
+
+    def attach_mesh(self, mesh, client_axis: str = "data") -> None:
+        """Shard the client axis of local training over ``mesh`` (the
+        multihost driver's seam); only before the first training."""
+        if self._updates is not None:
+            raise RuntimeError("attach_mesh must be called before the "
+                               "first train_clients call")
+        self._validate_mesh(mesh, client_axis)
+        self.mesh = mesh
+        self.client_axis = client_axis
+
+    @property
+    def updates(self) -> List[Callable]:
+        """Each prototype's batched client update (over the mesh, if
+        any)."""
+        if self._updates is None:
+            cfg = self.cfg
+            prox = self.strategy.local_prox_mu(cfg)
+            self._updates = [
+                make_batched_local_update(
+                    self.nets[p], _make_opt(cfg), prox_mu=prox,
+                    quantize=cfg.quantize, dp_clip=cfg.dp_clip,
+                    dp_noise_multiplier=cfg.dp_noise_multiplier,
+                    dp_draws=self.dp_draws, mesh=self.mesh,
+                    client_axis=self.client_axis)
+                for p in range(self.n_proto)]
+        return self._updates
 
     def _init_sampler(self) -> None:
         """Bind the cohort sampler to the run-fixed population facts, as
@@ -349,9 +405,9 @@ class RoundEngine:
         cfg.population.validate()
         self.population_size = int(cfg.population.size or self.n_clients)
         # the capacity_aware sampler's fill guide: the run-fixed client cap
-        # of every (prototype, bucket)
-        sampler_caps = [[self._bucket_client_cap(p, b)
-                         for b in range(len(self.bucket_caps[p]))]
+        # of every (prototype, bucket), without a mesh's rounding
+        sampler_caps = [[min(self.k_cap[p], int(c)) or 1
+                         for c in self._bucket_counts[p]]
                         for p in range(self.n_proto)]
         pop_part = np.arange(self.population_size,
                              dtype=np.int64) % self.n_clients
@@ -367,9 +423,17 @@ class RoundEngine:
 
     def _bucket_client_cap(self, p: int, b: int) -> int:
         """Run-fixed client-axis size of (prototype p, bucket b), as the
-        JAX package pads it without a mesh: no round activates more of
-        the bucket's clients than exist, nor more than the cohort."""
-        return min(self.k_cap[p], int(self._bucket_counts[p][b])) or 1
+        JAX package pads it: no round activates more of the bucket's
+        clients than exist, nor more than the cohort; with a mesh it is
+        rounded up to the axis size (but on the strictly validated
+        unbucketed homogeneous path)."""
+        cap = min(self.k_cap[p], int(self._bucket_counts[p][b])) or 1
+        if self.mesh is not None and (self.heterogeneous
+                                      or self.cfg.bucketing.kind != "none"):
+            from repro_torch.common.sharding import axis_size
+            axis = axis_size(self.mesh, self.client_axis)
+            cap = -(-cap // axis) * axis
+        return cap
 
     def make_rng(self) -> np.random.Generator:
         return np.random.default_rng(self.cfg.seed)

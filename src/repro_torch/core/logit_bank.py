@@ -16,6 +16,14 @@ Teacher weights (the buffered-async driver's staleness importance) fold
 into the stored rows at build time: the bank holds the weighted consensus
 instead of the uniform mean, and the distillation steps stay the same.
 
+With a ``sharding`` (``common/sharding.NamedSharding`` over one mesh
+axis, ``P(axis)``) each rank keeps only its contiguous block
+of rows, pool and scales alike, as ``device_put`` lays a ``P(axis)``
+array out: ``N / n`` rows each, and a pool that the axis does not divide
+raises, as there; :meth:`LogitBank.full` and
+:meth:`LogitBank.gather` give the unsharded rows and a gather by index
+on every rank.  A sharded bank takes no persistent-cache key.
+
 A size-1 cross-round cache (:data:`PERSISTENT_BANK`) keeps the last build:
 when the very same frozen teacher tensors are fused again over the same
 pool (a repeated fusion of one round's uploads), :func:`resolve_bank`
@@ -28,7 +36,7 @@ import dataclasses
 import time
 import warnings
 import weakref
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -59,7 +67,9 @@ TEACHER_FORWARDS = REGISTRY.counter("core.logit_bank.teacher_forwards")
 class LogitBank:
     """Per-round bank of averaged teacher logits over a distillation pool:
     ``pool`` [N, ...] and ``logits`` [N, C] in ``dtype_name``, on one
-    device; ``scales`` [N] fp32 for the quantized dtypes, else None."""
+    device; ``scales`` [N] fp32 for the quantized dtypes, else None.  A
+    sharded bank holds rows ``block`` = ``[start, stop)`` of ``n_total``
+    in those fields."""
 
     pool: torch.Tensor
     logits: torch.Tensor
@@ -69,10 +79,50 @@ class LogitBank:
     scales: Optional[torch.Tensor] = None
     dtype_name: str = "float32"
     reused: bool = False
+    sharding: Any = None
+    block: Optional[Tuple[int, int]] = None
+    n_total: Optional[int] = None
 
     @property
     def n(self) -> int:
-        return int(self.pool.shape[0])
+        return self.n_total if self.n_total is not None \
+            else int(self.pool.shape[0])
+
+    def _gather_blocks(self, local: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``local`` [m, ...] in rank order over the sharded
+        axis, its bytes gathered as uint8."""
+        from repro_torch.common.sharding import all_gather
+        raw = local.contiguous().view(torch.uint8)
+        out = all_gather(raw, self.sharding.mesh, _axes(self.sharding))
+        return out.view(local.dtype)
+
+    def full(self) -> "LogitBank":
+        """The unsharded bank on every rank (a collective call)."""
+        if self.sharding is None:
+            return self
+        take = lambda t: None if t is None else self._gather_blocks(t)
+        return dataclasses.replace(
+            self, pool=take(self.pool), logits=take(self.logits),
+            scales=take(self.scales), sharding=None, block=None,
+            n_total=None)
+
+    def gather(self, idx) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``(logits[idx], scales[idx] or None)`` of the whole bank on
+        every rank; all ranks call it with the same ``idx``."""
+        idx = torch.as_tensor(idx, device=self.logits.device).long()
+        if self.sharding is None:
+            return (self.logits[idx],
+                    None if self.scales is None else self.scales[idx])
+        # every rank picks row idx % per of its block; the owner's counts
+        per = _block_rows(self.n, self.sharding)
+        owner, local = idx // per, idx % per
+        pick = torch.arange(len(idx), device=idx.device)
+
+        def one(t):
+            got = self._gather_blocks(t[local])
+            return got.view((-1, len(idx)) + tuple(t.shape[1:]))[owner, pick]
+        return one(self.logits), None if self.scales is None \
+            else one(self.scales)
 
     @property
     def quantized(self) -> bool:
@@ -85,6 +135,26 @@ class LogitBank:
         if self.scales is not None:
             total += self.scales.numel() * self.scales.element_size()
         return int(total)
+
+
+def _axes(sharding) -> Tuple[str, ...]:
+    entry = tuple(sharding.spec)[0]
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _block_rows(n: int, sharding) -> int:
+    """Rows per rank of an ``n``-row array laid out ``P(axis)``."""
+    from repro_torch.common.sharding import axis_size
+    axes = _axes(sharding)
+    if len(axes) != 1:
+        raise NotImplementedError(
+            f"a bank sharded over {axes} (one axis only; ROADMAP queue 1 "
+            f"item 11.8)")
+    size = axis_size(sharding.mesh, axes[0])
+    if n % size:
+        raise ValueError(f"a pool of {n} rows does not divide over "
+                         f"{size} ranks")
+    return n // size
 
 
 def bank_dtype(name: str) -> torch.dtype:
@@ -135,7 +205,7 @@ def _normalized_weights(teacher_weights, k_total: int,
 
 def build_logit_bank(teacher_logit_fns: Sequence[Callable], pool, *,
                      chunk_size: int = DEFAULT_CHUNK,
-                     dtype: str = "float32",
+                     dtype: str = "float32", sharding=None,
                      teacher_weights=None) -> LogitBank:
     """One chunked pass of every teacher group over ``pool`` -> LogitBank.
 
@@ -144,7 +214,8 @@ def build_logit_bank(teacher_logit_fns: Sequence[Callable], pool, *,
     or to the ``teacher_weights`` consensus (``[K]`` in concat order, any
     positive scale: renormalized here); the full [K, N, C] tensor never
     exists.  The quantized dtypes quantize each chunk's rows in the same
-    pass."""
+    pass.  With a ``sharding`` this rank keeps its own block of the rows
+    only."""
     t0 = time.perf_counter()
     bank_dtype(dtype)
     n = int(pool.shape[0])
@@ -169,12 +240,29 @@ def build_logit_bank(teacher_logit_fns: Sequence[Callable], pool, *,
                 rows.append(mean.to(_STORAGE[dtype]))
             n_chunks += 1
             TEACHER_FORWARDS.add(k_total)
-    return LogitBank(pool=pool, logits=torch.cat(rows),
+    bank = LogitBank(pool=pool, logits=torch.cat(rows),
                      n_teachers=k_total,
                      n_teacher_batch_forwards=n_chunks * k_total,
                      build_time_s=time.perf_counter() - t0,
                      scales=torch.cat(scales) if scales else None,
                      dtype_name=dtype)
+    return bank if sharding is None else _shard(bank, sharding)
+
+
+def _shard(bank: LogitBank, sharding) -> LogitBank:
+    """This rank's block of a whole bank's rows, pool and scales (JAX
+    builds the whole bank and then puts it on the mesh: the rows are the
+    unsharded build's, bit for bit)."""
+    from repro_torch.common.sharding import axis_index
+    n = bank.n
+    per = _block_rows(n, sharding)
+    start = axis_index(sharding.mesh, _axes(sharding)[0]) * per
+    stop = start + per
+    cut = lambda t: None if t is None else t[start:stop].clone()
+    return dataclasses.replace(
+        bank, pool=cut(bank.pool), logits=cut(bank.logits),
+        scales=cut(bank.scales), sharding=sharding, block=(start, stop),
+        n_total=n)
 
 
 class _PersistentBankCache:
@@ -246,7 +334,7 @@ def _identity_key(teacher_logit_fns, pool, dtype_name: str,
 
 
 def resolve_bank(teacher_logit_fns: Sequence[Callable], source, fusion, *,
-                 expected_steps: Optional[int] = None,
+                 sharding=None, expected_steps: Optional[int] = None,
                  teacher_weights=None
                  ) -> Tuple[Optional[LogitBank], str]:
     """Resolve ``FusionConfig.logit_bank`` against the source.
@@ -258,7 +346,8 @@ def resolve_bank(teacher_logit_fns: Sequence[Callable], source, fusion, *,
     rows (``expected_steps x batch_size >= N``); a shorter run keeps the
     on-the-fly path.  A cached bank costs no forward, so the lookup comes
     before that break-even skip.  ``teacher_weights`` fold into the bank
-    rows (:func:`build_logit_bank`)."""
+    rows (:func:`build_logit_bank`); a ``sharding`` shards them and skips
+    the persistent cache."""
     mode = getattr(fusion, "logit_bank", "off")
     if mode not in LOGIT_BANK_MODES:
         raise ValueError(f"logit_bank must be one of {LOGIT_BANK_MODES}, "
@@ -276,8 +365,9 @@ def resolve_bank(teacher_logit_fns: Sequence[Callable], source, fusion, *,
                 f"forwards", UserWarning, stacklevel=2)
         return None, "no_pool"
     bank_dtype(fusion.bank_dtype)
-    key, referents = _identity_key(teacher_logit_fns, pool,
-                                   fusion.bank_dtype, teacher_weights)
+    key, referents = (None, ()) if sharding is not None else \
+        _identity_key(teacher_logit_fns, pool, fusion.bank_dtype,
+                      teacher_weights)
     cached = PERSISTENT_BANK.lookup(key)
     if cached is not None:
         with _trace.span("bank_reuse", pool_n=len(pool)):
@@ -288,7 +378,7 @@ def resolve_bank(teacher_logit_fns: Sequence[Callable], source, fusion, *,
     with _trace.span("bank_build", pool_n=len(pool),
                      n_teachers=len(teacher_logit_fns)):
         bank = build_logit_bank(teacher_logit_fns, pool,
-                                dtype=fusion.bank_dtype,
+                                dtype=fusion.bank_dtype, sharding=sharding,
                                 teacher_weights=teacher_weights)
     if key is not None:
         PERSISTENT_BANK.store(key, referents, bank)

@@ -1,7 +1,8 @@
 """The flat entry points over the round engine and the ``sync`` driver:
 ``run_federated`` (homogeneous, Algorithm 1) and
 ``run_federated_heterogeneous`` (Algorithm 3), with the JAX package's
-signatures minus the device mesh.
+signatures; ``run_rounds`` also takes its ``mesh`` / ``client_axis``
+(``launch/mesh.py``) and ``driver``.
 
 ``device`` defaults to ``"cuda"`` and raises without a CUDA device unless
 the caller asks for ``"cpu"``; ``init_globals`` replaces the run's own
@@ -28,22 +29,26 @@ def run_rounds(nets: List[Net], client_proto: Sequence[int], train: Dataset,
                cfg: FLConfig, *, source: Optional[DistillSource] = None,
                log_fn: Optional[Callable] = None,
                heterogeneous: bool = False, device="cuda",
-               init_globals: Optional[List[dict]] = None
+               init_globals: Optional[List[dict]] = None, mesh=None,
+               client_axis: str = "data", driver=None
                ) -> Tuple[List[FLResult], List[dict], Optional[int]]:
-    """The shared round loop on the ``sync`` driver.  Returns
-    ``(per-prototype results, final globals, rounds_to_target)``.
-    ``log_fn`` receives a ``RoundLog`` (homogeneous) or ``(group,
-    RoundLog)`` (heterogeneous)."""
+    """The shared round loop.  Returns ``(per-prototype results, final
+    globals, rounds_to_target)``.  ``log_fn`` receives a ``RoundLog``
+    (homogeneous) or ``(group, RoundLog)`` (heterogeneous).  ``mesh``
+    shards the client axis of local training over ``client_axis``;
+    ``driver`` is a registered name, a driver instance, or None for
+    ``sync``."""
     from repro_torch.api.experiment import resolve_device
-    from repro_torch.drivers import make_driver
+    from repro_torch.drivers import Driver, make_driver
     dev = resolve_device(device)
     engine = RoundEngine(nets, client_proto, train, parts, val, test, cfg,
                          source=source, heterogeneous=heterogeneous,
-                         device=dev)
+                         device=dev, mesh=mesh, client_axis=client_axis)
     if init_globals is not None:
         init_globals = [tree_to(g, dev) for g in init_globals]
-    return make_driver("sync").run(engine, init_globals=init_globals,
-                                   log_fn=log_fn)
+    drv = driver if isinstance(driver, Driver) else \
+        make_driver(driver or "sync")
+    return drv.run(engine, init_globals=init_globals, log_fn=log_fn)
 
 
 def run_federated(net: Net, train: Dataset, parts: Sequence[np.ndarray],

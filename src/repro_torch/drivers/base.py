@@ -1,9 +1,9 @@
 """Round-driver protocol + registry.
 
 A :class:`Driver` owns the round loop over a :class:`~repro_torch.core.
-engine.RoundEngine`; the engine owns the math.  ``sync``,
-``async_pipelined``, ``buffered_async`` and ``distributed`` are ported;
-``multihost`` raises ``NotImplementedError`` naming its ROADMAP.md item.
+engine.RoundEngine`; the engine owns the math.  Every driver
+kind of the JAX package is ported: ``sync``, ``async_pipelined``,
+``buffered_async``, ``distributed`` and ``multihost``.
 Every driver keeps ``phase_seconds``: each round's wall seconds per
 phase, with the issuing thread's current CUDA stream synchronised at each
 phase end, so that queued work is charged to the phase that issued it and
@@ -78,7 +78,8 @@ def _to_device(obj, device):
         return type(obj)(_to_device(v, device) for v in obj)
     return obj
 
-_PENDING = {"multihost": "ROADMAP.md queue 1 item 11"}
+# driver kinds the JAX package has and the port does not run yet
+_PENDING: Dict[str, str] = {}
 
 
 class Driver:

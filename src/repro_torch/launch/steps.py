@@ -18,10 +18,17 @@ and ``bundle.fn(*args)`` runs the step on them: K4 and K5 (and K2 in the
 distill loss) on CUDA tensors, their plain versions on the CPU.  A donated
 argument is updated in place and returned.
 
-The port runs one device.  A ``mesh``, ``layout`` other than ``"tp"``,
-``constrain_acts`` or ``use_moe_shard_map`` with a mesh raises (ROADMAP
-queue 1 item 11.7); ``fsdp`` shards nothing on one device either way.
-``batch_pspecs``, ``_shardings`` and ``kv_cache_rules`` wait for 11.7.
+``make_fed_round_step`` takes a mesh with a data axis (``launch/mesh.
+py``): its clients spread over every data axis (``("pod", "data")``
+where present) by the ``shard_clients`` rules with ``fsdp=False``, and
+the bundle's ``args`` / ``fn`` are this rank's block of them
+(``bundle.client_slice`` of the global client axis, ``client_axes`` the
+mesh axes it splits over).  Its ``"model"`` axis must be 1.  The other
+builders run one device: a ``mesh``, ``layout`` other than ``"tp"``,
+``constrain_acts`` or ``use_moe_shard_map`` with a mesh raises, as does
+a model axis larger than 1 (ROADMAP queue 1 item 11.8, the model axis);
+``fsdp`` shards nothing on one device either way.  ``batch_pspecs``,
+``_shardings`` and ``kv_cache_rules`` in the steps wait for 11.8.
 """
 from __future__ import annotations
 
@@ -42,8 +49,9 @@ from repro_torch.models.frontends import (fake_audio_frames,
 from repro_torch.optim.optimizers import AdamState, adam, apply_updates
 
 META = torch.device("meta")
-PENDING = ("not ported yet (ROADMAP queue 1 item 11.7: meshes and "
-           "shardings); the port's step builders run one device")
+PENDING = ("not ported yet (ROADMAP queue 1 item 11.8: the model axis "
+           "and parameter shardings); the port's step builders but the "
+           "federated round's client axis run one device")
 
 
 @dataclasses.dataclass
@@ -55,6 +63,10 @@ class StepBundle:
     outs: Any                      # the results' trees of meta tensors
     make_args: Callable            # (generator, device) -> real args
     donate_argnums: Tuple[int, ...] = ()
+    # a client-sharded step's block of the global client axis, and the
+    # mesh axes the clients split over (empty: every rank runs them all)
+    client_slice: Optional[slice] = None
+    client_axes: Tuple[str, ...] = ()
 
     def init_args(self, generator: Optional[torch.Generator] = None,
                   device="cuda") -> tuple:
@@ -469,16 +481,22 @@ def make_fed_round_step(cfg: ArchConfig, mesh=None, *, n_clients: int = 8,
     float32 and cast back to the parameter's dtype.  JAX vmaps over the
     clients; here they run one after another (one client's activations
     live at a time) and the stacked params are updated in place
-    (donated).  (stacked, batch) -> stacked."""
-    _no_mesh(mesh)
+    (donated).  (stacked, batch) -> stacked.  On a ``mesh`` the clients
+    spread over its data axes (the ``shard_clients`` rules, fsdp off,
+    fitted to K as ``fit_pspec`` fits them): ``args`` and ``fn`` are this
+    rank's ``client_slice`` of the K."""
+    client_slice, client_axes = slice(0, n_clients), ()
+    if mesh is not None:
+        client_slice, client_axes = _client_block(mesh, n_clients)
+    k_local = client_slice.stop - client_slice.start
     params = _param_structs(cfg, param_dtype)
-    stacked = _stacked(params, n_clients)
-    shape4 = (n_clients, local_steps, batch_size, seq_len)
+    stacked = _stacked(params, k_local)
+    shape4 = (k_local, local_steps, batch_size, seq_len)
     batch = {"tokens": _meta(shape4, torch.int32),
              "labels": _meta(shape4, torch.int32)}
 
     def fed_round_step(stacked_params, batch):
-        for k in range(n_clients):
+        for k in range(k_local):
             p = tree_map(lambda x: x[k], stacked_params)
             for i in range(local_steps):
                 t, lab = batch["tokens"][k, i], batch["labels"][k, i]
@@ -500,13 +518,37 @@ def make_fed_round_step(cfg: ArchConfig, mesh=None, *, n_clients: int = 8,
 
     def make_args(gen, device):
         t = [T.init(cfg, gen, param_dtype, device)
-             for _ in range(n_clients)]
+             for _ in range(k_local)]
         s = tree_map(lambda *xs: torch.stack(xs), *t)
         del t
         return s, _draw_batch(batch, cfg, gen, device)
 
     return StepBundle(fed_round_step, (stacked, batch), stacked, make_args,
-                      donate_argnums=(0,))
+                      donate_argnums=(0,), client_slice=client_slice,
+                      client_axes=client_axes)
+
+
+def _client_block(mesh, n_clients: int) -> Tuple[slice, Tuple[str, ...]]:
+    """This rank's contiguous block of the client axis and the mesh axes
+    it splits over: JAX's ``P(client_axes)`` fitted to ``n_clients``."""
+    from repro_torch.common import sharding as shd
+    names = shd.axis_names(mesh)
+    if "model" in names and shd.axis_size(mesh, "model") > 1:
+        raise NotImplementedError(
+            f"a 'model' mesh axis of {shd.axis_size(mesh, 'model')}: "
+            f"{PENDING}")
+    rules = shd.make_rules(multi_pod="pod" in names, fsdp=False,
+                           shard_clients=True)
+    entry = shd.fit_pspec(shd.logical_to_pspec(("clients",), rules),
+                          (n_clients,), mesh)[0]
+    axes = () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+    n_blocks, index = 1, 0
+    for a in axes:
+        n_blocks *= shd.axis_size(mesh, a)
+        index = index * shd.axis_size(mesh, a) + shd.axis_index(mesh, a)
+    per = n_clients // n_blocks
+    return slice(index * per, (index + 1) * per), axes
 
 
 def make_step(cfg: ArchConfig, shape: InputShape, mesh=None,

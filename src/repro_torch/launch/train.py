@@ -22,10 +22,17 @@ one) unless ``--device cpu`` is given.  Strategies: any name in the
 server-strategy registry (``core/strategies.py``) plus ``feddf-hetero``,
 which compiles to a feddf run over the task's default three-prototype
 ladder (Algorithm 3).  ``--driver`` selects the round driver (``sync``,
-``async_pipelined``, ``buffered_async``, ``distributed``).
-``--shard-clients`` and ``--driver multihost`` compile into the spec as in
-the JAX CLI, and the run raises ``NotImplementedError`` (ROADMAP queue 1
-item 11).  The run directory ``--out`` receives the final globals
+``async_pipelined``, ``buffered_async``, ``distributed``, ``multihost``).
+``--shard-clients`` and ``--driver multihost`` shard the client axis over
+a ``torch.distributed`` mesh (``launch/mesh.py``): under ``torchrun``
+over its world,
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --device cpu --driver multihost -C 0.4 --out runs/mh
+
+otherwise over one rank per visible card, started here, or over one
+rank with ``--device cpu``.  Rank 0 alone prints and writes the run
+directory.  The run directory ``--out`` receives the final globals
 (``global``, or ``proto_{g}`` per prototype group) through
 ``checkpoint/io.py`` in the JAX package's layout, ``spec.json`` and
 ``summary.json``; ``OUT/ckpt`` holds the per-round snapshots that
@@ -209,13 +216,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "rounds under OUT/ckpt (0 disables)")
     ap.add_argument("--shard-clients", action="store_true",
                     help="shard the round engine's client axis over all "
-                         "devices (not ported: the run raises)")
+                         "ranks (torchrun's world, else one rank per "
+                         "card)")
     ap.add_argument("--driver", default="sync",
                     choices=sorted(available_drivers() + pending_drivers()),
                     help="round driver: sync | async_pipelined (overlap "
                          "round t+1 client training with round t fusion) "
-                         "| buffered_async | distributed | multihost (not "
-                         "ported: the run raises)")
+                         "| buffered_async | distributed | multihost "
+                         "(client axis sharded over a mesh)")
     ap.add_argument("--bucket-by", default="none",
                     choices=["none", "pow2", "quantile"],
                     help="bucket clients by local-step count so skewed "
@@ -383,8 +391,47 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> dict:
-    ap = build_parser()
-    args = ap.parse_args(argv)
+    args = build_parser().parse_args(argv)
+    spec = _load_spec(args)
+    if not (spec.sharding.shard_clients or spec.driver.kind == "multihost"):
+        return _run(args, spec)
+    from repro_torch.launch import mesh
+    if mesh.under_torchrun():
+        mesh.init_world(args.device)
+        try:
+            return _run(args, spec)
+        finally:
+            mesh.close_world()
+    if args.device == "cpu":
+        with mesh.one_rank_world("cpu"):
+            return _run(args, spec)
+    from repro_torch.api.experiment import resolve_device
+    resolve_device(args.device)
+    import torch
+    argv = list(sys.argv[1:] if argv is None else argv)
+    return mesh.launch_ranks(_rank_main, torch.cuda.device_count(),
+                             args.device, args=(argv,))[0]
+
+
+def _load_spec(args) -> ExperimentSpec:
+    if args.resume:
+        return ExperimentSpec.load(os.path.join(args.resume, "ckpt",
+                                                "spec.json"))
+    return (ExperimentSpec.load(args.config) if args.config
+            else spec_from_args(args))
+
+
+def _rank_main(argv) -> dict:
+    """One spawned rank of a mesh run (the world is already up)."""
+    args = build_parser().parse_args(argv)
+    return _run(args, _load_spec(args))
+
+
+def _run(args, spec: ExperimentSpec) -> dict:
+    """The run on this rank; rank 0 alone prints and writes files."""
+    from repro_torch.launch.mesh import world_rank
+    writer = world_rank() == 0
+    observers = [print_event] if writer else []
     if args.profile and not args.profile_dir:
         args.profile_dir = os.path.join(args.out, "profile")
 
@@ -392,13 +439,10 @@ def main(argv=None) -> dict:
     if args.resume:
         out = args.out if args.out != "runs/latest" else args.resume
         res = Experiment.resume(os.path.join(args.resume, "ckpt"),
-                                device=args.device, observers=[print_event],
+                                device=args.device, observers=observers,
                                 checkpoint_every=args.checkpoint_every)
-        spec = res.spec
     else:
-        spec = (ExperimentSpec.load(args.config) if args.config
-                else spec_from_args(args))
-        if args.dump_config:
+        if args.dump_config and writer:
             os.makedirs(os.path.dirname(args.dump_config) or ".",
                         exist_ok=True)
             spec.save(args.dump_config)
@@ -406,11 +450,17 @@ def main(argv=None) -> dict:
         ckpt_dir = (os.path.join(out, "ckpt")
                     if args.checkpoint_every > 0 else None)
         res = Experiment(spec, device=args.device).run(
-            observers=[print_event], checkpoint_dir=ckpt_dir,
+            observers=observers, checkpoint_dir=ckpt_dir,
             checkpoint_every=args.checkpoint_every)
 
-    os.makedirs(out, exist_ok=True)
     summary = res.summary()
+    summary["wall_s"] = time.time() - t0
+    # the spec is the config: replay any run dir with
+    #   python -m repro_torch.launch.train --config <out>/spec.json
+    summary["config"] = spec.to_dict()
+    if not writer:
+        return summary
+    os.makedirs(out, exist_ok=True)
     if res.heterogeneous:
         for g, params in enumerate(res.global_params):
             ckpt.save(os.path.join(out, f"proto_{g}"), params,
@@ -419,11 +469,6 @@ def main(argv=None) -> dict:
         ckpt.save(os.path.join(out, "global"), res.global_params[0],
                   {"net": res.net_names[0],
                    "strategy": spec.strategy.name})
-
-    summary["wall_s"] = time.time() - t0
-    # the spec is the config: replay any run dir with
-    #   python -m repro_torch.launch.train --config <out>/spec.json
-    summary["config"] = spec.to_dict()
     spec.save(os.path.join(out, "spec.json"))
     with open(os.path.join(out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2)

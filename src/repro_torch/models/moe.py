@@ -11,9 +11,9 @@ Two execution paths, one math:
   ``T * top_k < n_experts`` (single-token decode): reads only the touched
   experts' weights.
 
-JAX's expert-parallel ``_moe_shard_map`` waits for the port's meshes:
-``moe_block(mesh=...)`` raises ``NotImplementedError`` (ROADMAP queue 1
-item 11).  No Pallas kernel runs here in JAX; the per-expert SwiGLU
+JAX's expert-parallel ``_moe_shard_map`` waits for the model axis of the
+port's meshes: ``moe_block(mesh=...)`` raises ``NotImplementedError``
+(ROADMAP queue 1 item 11.8).  No Pallas kernel runs here in JAX; the per-expert SwiGLU
 products are plain batched products here too.
 
 Router: softmax gates, top-k, renormalised weights, Switch-style load-balance
@@ -30,8 +30,9 @@ import torch.nn.functional as F
 from repro_torch.common.arch_config import ArchConfig
 from repro_torch.models.layers import ParamSpec
 
-UNPORTED = ("ROADMAP queue 1 item 11: the expert-parallel MoE "
-            "(_moe_shard_map) waits for the port's meshes")
+UNPORTED = ("ROADMAP queue 1 item 11.8: the expert-parallel MoE "
+            "(_moe_shard_map) waits for the model axis of the port's "
+            "meshes")
 
 
 def moe_specs(cfg: ArchConfig) -> dict:

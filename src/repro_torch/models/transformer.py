@@ -18,9 +18,9 @@ Public surface:
 Inputs are tokens, or audio frames (``frontend == "audio_frames"``: the
 encoder-only hubert, no embedding, always a head), with projected vision
 patches prepended to the tokens (``"vision_patches"``; decode steps carry
-none, the patches live in the KV cache).  Not ported yet: the meshes
-(``moe_block(mesh=...)`` raises, ROADMAP queue 1 item 11; ``forward``'s
-``mesh``, ``dp_axes`` and ``act_sharding`` raise, item 11.7).
+none, the patches live in the KV cache).  Not ported yet: the model axis
+of a mesh (``moe_block(mesh=...)``, ``forward``'s ``mesh``, ``dp_axes``
+and ``act_sharding`` raise, ROADMAP queue 1 item 11.8).
 """
 from __future__ import annotations
 
@@ -113,6 +113,11 @@ def param_specs(cfg: ArchConfig) -> dict:
     return specs
 
 
+def logical(cfg: ArchConfig):
+    """The parameters' logical axes (``common/sharding.tree_pspecs``)."""
+    return tree_map(lambda s: s.logical, param_specs(cfg))
+
+
 def init(cfg: ArchConfig, generator: torch.Generator, dtype=torch.float32,
          device="cpu"):
     """Parameters from ``generator`` (drawn where it lives, then moved to
@@ -195,8 +200,8 @@ def unembed(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 MESH_PENDING = ("meshes, data-parallel axes and activation shardings are "
-                "not ported yet (ROADMAP queue 1 item 11.7); the port runs "
-                "one device")
+                "not ported yet (ROADMAP queue 1 item 11.8, the model "
+                "axis); the port runs one device")
 
 
 def forward(params: dict, cfg: ArchConfig, batch: dict, *,
@@ -210,7 +215,7 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *,
     (``torch.utils.checkpoint``, as JAX's ``jax.checkpoint``), keeping
     only each block's input; the result is the same bit for bit.
     ``unroll`` changes nothing: the layer loop is already unrolled.  A
-    ``mesh``, ``dp_axes`` or ``act_sharding`` raises (item 11.7)."""
+    ``mesh``, ``dp_axes`` or ``act_sharding`` raises (item 11.8)."""
     check_supported(cfg)
     if mesh is not None or dp_axes or act_sharding is not None:
         raise NotImplementedError(MESH_PENDING)

@@ -79,8 +79,10 @@ def test_registry_and_state_wrapping():
     from repro_torch.drivers import available_drivers, get_driver
     assert {"sync", "async_pipelined", "buffered_async",
             "distributed"} <= set(available_drivers())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        get_driver("multihost")
+    from repro_torch.drivers import MultiHostDriver
+    from repro_torch.drivers.base import pending_drivers
+    assert get_driver("multihost") is MultiHostDriver
+    assert "multihost" in available_drivers() and pending_drivers() == []
     with pytest.raises(ValueError, match="staleness"):
         make_driver("async_pipelined", staleness=-1)
     w = wrap_state({"m": 1}, {"g": 2}, base_ring=[{"a": 1}, {"b": 2}])

@@ -179,9 +179,19 @@ def test_main_replays_resumes_and_writes_what_jax_reads(tmp_path, capsys):
 @pytest.mark.parametrize("flags", [["--shard-clients"],
                                    ["--driver", "multihost"]])
 def test_unported_axes_raise_not_implemented(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttrain.main(QUICK + flags + ["--device", "cpu", "--out",
-                                     str(tmp_path)])
+    """Once unported, both flags now run: with ``--device cpu`` and no
+    torchrun, over a world of this process alone, where the mesh run
+    equals the sync run bit for bit.  The spec records the flags as the
+    JAX CLI does."""
+    one = ["--rounds", "1", "--checkpoint-every", "0", "--device", "cpu"]
+    mesh = ttrain.main(QUICK + flags + one + ["--out", str(tmp_path / "m")])
+    sync = ttrain.main(QUICK + one + ["--out", str(tmp_path / "s")])
+    assert mesh["per_round"] == sync["per_round"]
+    spec = json.loads((tmp_path / "m" / "spec.json").read_text())
+    assert spec["sharding"]["shard_clients"] == ("--shard-clients" in flags)
+    assert spec["driver"]["kind"] == ("multihost" if "multihost" in flags
+                                      else "sync")
+    assert not torch.distributed.is_initialized()
 
 
 def test_cli_needs_a_card_unless_asked_for_the_cpu(tmp_path):

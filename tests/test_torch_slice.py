@@ -187,11 +187,16 @@ def test_new_spec_json_round_trips_in_both_packages(change):
 
 
 @pytest.mark.parametrize("change,exc", [
-    ({"driver": {"kind": "multihost", "staleness": 0,
-                 "prefetch": 1}}, NotImplementedError),
+    # the multihost driver and client-axis sharding were unported; they
+    # validate now (the case ids stay), and sharding under a driver that
+    # does not run it yet raises naming item 11.8
+    pytest.param({"driver": {"kind": "multihost", "staleness": 0,
+                             "prefetch": 1}}, None,
+                 id="change0-NotImplementedError"),
     ({"obs": {"trace": True, "trace_path": None, "metrics_dir": None,
               "profile": True, "profile_dir": None}}, ValueError),
-    ({"sharding": {"shard_clients": True}}, NotImplementedError),
+    pytest.param({"sharding": {"shard_clients": True}}, None,
+                 id="change2-NotImplementedError"),
     ({"faults": {"nan_rate": 1.5}}, ValueError),
     ({"task": {"name": "nope", "n_samples": 10, "seed": None,
                "params": {}}}, ValueError),
@@ -199,6 +204,15 @@ def test_new_spec_json_round_trips_in_both_packages(change):
 def test_unported_or_unknown_spec_axes_raise(change, exc):
     d = tiny_spec(tapi).to_dict()
     d.update(change)
+    if exc is None:
+        spec = tapi.ExperimentSpec.from_dict(d)
+        assert spec.validate() is spec
+        if "sharding" in change:
+            d["driver"] = {"kind": "buffered_async", "staleness": 0,
+                           "prefetch": 1}
+            with pytest.raises(NotImplementedError, match="11.8"):
+                tapi.ExperimentSpec.from_dict(d).validate()
+        return
     with pytest.raises(exc):
         tapi.ExperimentSpec.from_dict(d).validate()
 

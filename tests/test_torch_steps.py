@@ -452,13 +452,25 @@ def test_meshes_and_sharding_knobs_raise_naming_item_11_7():
                                          use_moe_shard_map=True)),
             (steps.make_prefill_step, dict(mesh=object())),
             (steps.make_serve_step, dict(mesh=object()))):
-        with pytest.raises(NotImplementedError, match="11.7"):
+        with pytest.raises(NotImplementedError, match="11.8"):
             build(ct, shape, **kw)
-    with pytest.raises(NotImplementedError, match="11.7"):
+    with pytest.raises(NotImplementedError, match="11.8"):
         steps.make_distill_step(ct, object())
-    with pytest.raises(NotImplementedError, match="11.7"):
-        steps.make_fed_round_step(ct, object())
-    with pytest.raises(NotImplementedError, match="11.7"):
+    # the federated round's client axis runs on a data-only mesh (11.7);
+    # a model axis larger than 1 waits for 11.8
+    from repro_torch.launch import mesh as tmesh
+    with tmesh.one_rank_world("cpu"):
+        for mesh in (tmesh.make_client_mesh(), tmesh.make_host_mesh(1, 1)):
+            b = steps.make_fed_round_step(ct, mesh, n_clients=2)
+            assert b.client_slice == slice(0, 2)
+            assert b.client_axes == ("data",)
+            assert tuple(tree_leaves(b.args[0])[0].shape)[0] == 2
+
+    class ModelAxis:
+        shape = {"data": 1, "model": 2}
+    with pytest.raises(NotImplementedError, match="11.8"):
+        steps.make_fed_round_step(ct, ModelAxis())
+    with pytest.raises(NotImplementedError, match="11.8"):
         T.forward(T.init(ct, torch.Generator().manual_seed(0)), ct,
                   {"tokens": torch.zeros((1, 4), dtype=torch.int64)},
                   dp_axes=("data",))
