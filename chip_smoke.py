@@ -45,7 +45,7 @@ and in order:
    that its float32 N = P = 64 instantiation (the serve path's) spills no
    registers; then one zamba2-1.2b mamba layer at full width, a 2000-token
    prompt split 1000 + 1000 through ``init_cache`` against the whole;
-4. drives fifteen paths on the card, with every launch count set to 0 just
+4. drives sixteen paths on the card, with every launch count set to 0 just
    before a path and read just after it.  Paths 1-3 go through
    ``Experiment(spec).run()`` at the quickstart's published widths, 1
    round each for paths 1 and 2, 2 for path 3:
@@ -212,6 +212,23 @@ and in order:
      bit for bit (digests) and the mean within one bf16 ulp of the
      unsharded round's, K4 and K5 on every rank; each rank is a process
      of its own (``launch_ranks``), its launches counted in it;
+   - path 16, after path 15, the model axis of a mesh: tensor parallelism
+     over ``"model"`` (K4 and K5 at each rank's heads), FSDP over
+     ``"data"``, the expert-parallel MoE.  16a the train step on a 1 x 2
+     mesh (zamba2-1.2b's first 7 layers in float32 against the unsharded
+     step, the loss within 1e-5 and the gradients gathered within 4x its
+     1-ulp spread; one bf16 step at full depth, 2 x 4096 tokens in 2
+     microbatches, every gradient block finite and non-zero); 16b the
+     7-layer check on a 2 x 2 mesh; 16c prefills on 1 x 2 at path 4's
+     traffic (zamba2-1.2b timed at
+     full depth, its first 2 layers' logits within 1e-3 of the largest
+     against the unsharded; granite-moe-1b-a400m expert-parallel, each
+     layer's dropped slots equal to one device's on the same choices);
+     16d ``drive_fed_rounds`` on ``make_host_mesh(1, 2)`` (the 7-layer
+     round's uploads and mean within 14c's bound of the unsharded round's;
+     a bf16 round at full depth, the ranks' gathered globals equal by
+     digest); each rank's collectives (calls, bytes, seconds per axis) and
+     launches printed;
    paths 1-3 and 5-11 run in six worker processes beside each other
    (``PATH_GROUPS``; each path's launch counts in its own process), after
    step 3 and before path 4, so that the kernel and served-model timings
@@ -221,8 +238,8 @@ and in order:
    exactly where the plain versions are, within tolerance elsewhere, two
    launches equal bit for bit;
 5. prints one ``{"kernels": [...]}`` line (each kernel's launches on its
-   path and, under ``path7_launches`` to ``path15_launches``, on each of
-   paths 7's to 15's sub-paths and ranks), the card line, and as its last
+   path and, under ``path7_launches`` to ``path16_launches``, on each of
+   paths 7's to 16's sub-paths and ranks), the card line, and as its last
    line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the last line, when there is no CUDA device,
@@ -339,16 +356,19 @@ BWD_ATOL = 3e-7
 # prompt, and a ragged grouped shape (3 query heads a key head, D 80);
 # then path 14's zamba2-1.2b attention, which runs in bfloat16 there: a
 # microbatch of the train step (2 x 4096) and the distill / fed-round
-# batch (8 x 512).  Against the plain version, the JAX package's tolerances
-# (tests/test_kernels.py): rtol 1e-4 / atol 1e-5 in float32, 3e-2 in
-# bfloat16.
+# batch (8 x 512); then path 16's, at one rank's heads of a model axis of
+# 2: zamba2-1.2b's train microbatch (16 heads) and granite-moe-1b-a400m's
+# prefill (8 query over 4 key heads).  Against the plain version, the JAX
+# package's tolerances (tests/test_kernels.py): rtol 1e-4 / atol 1e-5 in
+# float32, 3e-2 in bfloat16.
 K4_SHAPES = [(4, 32, 32, 2000, 64, None), (1, 8, 8, 4096, 256, 1024),
              (1, 4, 4, 300, 80, None), (2, 8, 8, 1000, 128, 256),
              (1, 2, 2, 100, 8, 24), (2, 4, 4, 128, 32, 32),
              (1, 8, 8, 4096, 256, None), (4, 32, 8, 2000, 128, None),
              (4, 8, 4, 2000, 256, 1024), (4, 8, 4, 2000, 256, None),
              (1, 6, 2, 300, 80, None), (2, 32, 32, 4096, 64, None),
-             (8, 32, 32, 512, 64, None)]
+             (8, 32, 32, 512, 64, None), (2, 16, 16, 4096, 64, None),
+             (4, 8, 4, 2000, 64, None)]
 # K4 bidirectional (the encoder's mode, path 13c), (B, H, H_kv, S, D,
 # window): hubert-xlarge's layer (16 heads of D 80, the kernel's 128
 # bucket, 4 x 2000 frames; first: it feeds the path-13 rows); a ragged
@@ -366,11 +386,14 @@ K4_KERNELS = 12   # swa_attn.cu's instantiations, each held to 0 spills
 # small cases also against the sequential recurrence.  bfloat16 x, B and C
 # at K5_BF16_SHAPES, held at K4's bfloat16 tolerance (3e-2): the serve
 # path's, a ragged one and path 14's (a train microbatch of 2 x 4096, the
-# distill / fed-round batch of 8 x 512).
+# distill / fed-round batch of 8 x 512), and path 16's at one rank's 32
+# heads of a model axis of 2 (the train microbatch; its float32 prefill
+# in K5_SHAPES).
 K5_SHAPES = [(4, 2000, 64, 64, 64), (1, 4096, 80, 64, 128),
-             (1, 17, 2, 8, 4), (1, 50, 3, 8, 16)]
+             (1, 17, 2, 8, 4), (1, 50, 3, 8, 16), (4, 2000, 32, 64, 64)]
 K5_BF16_SHAPES = [(4, 2000, 64, 64, 64), (1, 50, 3, 8, 16),
-                  (2, 4096, 64, 64, 64), (8, 512, 64, 64, 64)]
+                  (2, 4096, 64, 64, 64), (8, 512, 64, 64, 64),
+                  (2, 4096, 32, 64, 64)]
 # K5 from a nonzero initial state (``ssm_forward(init_cache=)``), float32,
 # y and final state at K5's tolerance: the serve path's shape and a ragged
 # one (also against the sequential recurrence).  Then one zamba2-1.2b
@@ -3791,7 +3814,9 @@ def frontend_inputs(cfg, batch: int, device) -> dict:
 def recording_moe(drops: list, routes: Optional[list] = None):
     """While open, the dispatch of every ``models.moe._moe_capacity`` call
     (``moe.dispatch``, which each makes once) appends (tokens, slots
-    dropped) to ``drops``; with ``routes``, every ``_route`` call appends
+    dropped) to ``drops``: the choices of this rank's experts that got no
+    slot (every choice on one device, its experts' share under the
+    expert-parallel block); with ``routes``, every ``_route`` call appends
     (expert choices, softmax gates).  All stay tensors where they were
     computed (read after the run: no synchronisation inside it)."""
     from repro_torch.models import moe
@@ -3799,7 +3824,8 @@ def recording_moe(drops: list, routes: Optional[list] = None):
 
     def dispatch(cfg, idx, e_start, e_local):
         dp = orig_dispatch(cfg, idx, e_start, e_local)
-        drops.append((idx.shape[0], (~dp.valid).sum()))
+        mine = ((idx >= e_start) & (idx < e_start + e_local)).sum()
+        drops.append((idx.shape[0], mine - dp.valid.sum()))
         return dp
 
     def route(p, cfg, x):
@@ -5376,6 +5402,538 @@ def print_path15(rep) -> None:
           f"{c['ranks_s']:.1f} s), whole path {rep['total_s']:.1f} s",
           flush=True)
 
+
+# ---------------------------------------------------------------------------
+# Path 16: the model axis of a mesh (ROADMAP items 11.8.1, 11.8.3, 11.8.5)
+# ---------------------------------------------------------------------------
+
+# Tensor parallelism over "model" (and FSDP over "data" in 16b), each rank
+# a process of its own (launch_ranks), the ranks sharing the one card over
+# gloo (NCCL, one rank per card, where there are as many cards).  The held
+# checks run at zamba2-1.2b's first STEP_HELD_LAYERS served layers in
+# float32, rank 0 computing the unsharded reference in its own process;
+# full width and depth run in bf16 from seed 0 for time, memory, the
+# collectives' counts and finiteness.
+# 16a: a 1 x 2 mesh.  The 7-layer train step at batch 1 x STEP_HELD_SEQ:
+#   the loss within STEP_LOSS_RTOL of the unsharded step's, the gathered
+#   gradients within STEP_SPREAD_FACTOR times the unsharded step's own
+#   1-ulp spread (measured as 14a measures it, here on the card).  Full
+#   depth: PATH16_TRAIN_STEPS make_train_step at PATH16_TRAIN_BATCH x
+#   4096 tokens, 2 microbatches, remat (cut from 14a's 3 steps of 4 x
+#   4096), every leaf's gradient block finite and non-zero on every rank.
+# 16b: the same 7-layer check on a 2 x 2 mesh (4 ranks: FSDP over "data",
+#   tensor parallelism over "model"), at batch PATH16_HELD_BATCH_2X2 (the
+#   data axis splits it).
+# 16c: make_prefill_step on a 1 x 2 mesh at path 4's traffic (4 x 2000,
+#   float32), zamba2-1.2b and granite-moe-1b-a400m (the expert-parallel
+#   block, 16 experts a rank): the next-token logits at the first
+#   PATH16_PREFILL_LAYERS served layers, gathered, within GQA_REL_ATOL of
+#   the largest against the unsharded prefill's (paths 12-13's check
+#   (b)); granite-moe's there at PATH16_MOE_CAPACITY (Switch's 1.0, not
+#   its 1.25, at which no expert overflows at this traffic), each layer's
+#   dropped slots summed over the ranks equal to one device's dispatch of
+#   the same choices and to the unsharded prefill's (one data rank: the
+#   capacity is the unsharded one) up to the expert choices that differ,
+#   and some slots dropped.  Both timed at full depth, granite-moe's drops
+#   there equal to one device's dispatch of the same choices (the init is
+#   chaotic at depth, so the unsharded choices are not the reference).
+# 16d: drive_fed_rounds on make_host_mesh(1, 2): the 7-layer round
+#   (PATH16_FED_HELD, float32) against the unsharded round, every upload
+#   and the mean gathered and held as 14c holds its round (within
+#   STEP_SPREAD_FACTOR x 14a's CPU spread of each leaf's largest update
+#   plus one float32 rounding a step; 2 steps, where 1 step sits at the
+#   bound's edge: 2-ulp flips of weights near 1); full depth in bf16,
+#   PATH16_FED (cut from JAX's 8 clients x 4 steps to 1 x 1, 1 round), the
+#   ranks' gathered
+#   globals equal by digest.  16c times one prefill each, not warmed (the
+#   held check before it has loaded the kernels and built the groups).
+PATH16_TRAIN_STEPS, PATH16_TRAIN_BATCH = 1, 2
+PATH16_HELD_BATCH_2X2, PATH16_PREFILL_LAYERS = 2, 2
+PATH16_FED = dict(n_clients=1, local_steps=1, batch_size=8, seq_len=512,
+                  lr=3e-4)
+PATH16_FED_HELD = dict(n_clients=2, local_steps=2, batch_size=1,
+                       seq_len=512, lr=3e-4)
+PATH16_MOE_CAPACITY = 1.0
+PATH16_TIMEOUT_S = 900
+
+
+def _p16_counts() -> dict:
+    """This rank's collectives and K4 / K5 launches since the last reset."""
+    from repro_torch.common import sharding
+    return {"collectives": {k: dict(v) for k, v in
+                            sharding.COLLECTIVES.items()},
+            "by_axes": {a: {k: dict(v) for k, v in kinds.items()}
+                        for a, kinds in sharding.COLLECTIVE_AXES.items()},
+            "launches": {k: c for k, c in all_launches().items() if c}}
+
+
+def _p16_reset() -> None:
+    import torch
+    from repro_torch.common import sharding
+    torch.cuda.synchronize()
+    sharding.reset_collectives()
+    reset_all_launches()
+
+
+def p16_held_train(device, mesh, batch_rows: int) -> tuple:
+    """A float32 train step of zamba2-1.2b's first STEP_HELD_LAYERS served
+    layers on ``mesh`` (FSDP over "data", tensor parallelism over
+    "model"): rank 0 also runs it unsharded and at a 1-ulp nudge; the
+    sharded gradients, gathered, against the unsharded ones."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.common import sharding as shd
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    cfg = configs.get(SERVE_ARCH)
+    c7, p7 = served_f32(cfg, device)
+    batch = {k: v.to(device) for k, v in step_tokens(
+        c7, (batch_rows, STEP_HELD_SEQ), 1).items()}
+    rep, problems = {"mesh": list(shd.axis_size(mesh, a)
+                                  for a in shd.axis_names(mesh))}, []
+    ref = None
+    if tmesh.world_rank() == 0:
+        g, m = steps.train_grads(p7, c7, batch, remat=False)
+        ref = (flat32(g), float(m["loss"]))
+        g_n, _ = steps.train_grads(ulp_nudged(p7, 5), c7, batch, remat=False)
+        rep["ulp_spread"] = max(leaf_gaps(flat32(g_n), ref[0]).values())
+        del g, g_n
+    tp = T.tp_layout(c7, mesh, shd.make_rules(fsdp=True), ("data",))
+    local = shd.shard_tree(p7, tp.pspecs, mesh)
+    _p16_reset()
+    t0 = time.perf_counter()
+    g, m = steps.train_grads(local, c7, steps.batch_block(batch, tp),
+                             remat=True, layout=tp, mesh=mesh)
+    torch.cuda.synchronize()
+    rep["step_s"] = time.perf_counter() - t0
+    rep.update(_p16_counts())
+    whole = shd.gather_tree(g, tp.pspecs, mesh)
+    rep["loss"] = float(m["loss"])
+    if ref is not None:
+        gaps = leaf_gaps(flat32(whole), ref[0])
+        rep["grad_gap"] = max(gaps.values())
+        rep["worst_leaves"] = sorted(gaps, key=gaps.get, reverse=True)[:3]
+        rep["loss_rel"] = abs(rep["loss"] - ref[1]) / abs(ref[1])
+        rep["bound"] = STEP_SPREAD_FACTOR * rep["ulp_spread"]
+        rep["held"] = (rep["loss_rel"] <= STEP_LOSS_RTOL
+                       and rep["grad_gap"] <= rep["bound"])
+        if not rep["held"]:
+            problems.append(f"held train step on {rep['mesh']}: {rep}")
+    del p7, local, g, whole
+    torch.cuda.empty_cache()
+    return rep, problems
+
+
+def p16_full_train(device, mesh, batch: int = PATH16_TRAIN_BATCH) -> tuple:
+    """make_train_step on zamba2-1.2b at full width and depth, bf16,
+    ``batch`` x 4096 tokens in 2 microbatches: PATH16_TRAIN_STEPS steps on
+    ``mesh``, every leaf's gradient block finite and non-zero on this
+    rank, K4 / K5 at this rank's heads."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.common.pytree import tree_flatten
+    from repro_torch.launch import steps
+    cfg = configs.get(SERVE_ARCH)
+    shape = configs.InputShape("train_4k_card", STEP_TRAIN_SEQ, batch,
+                               "train")
+    bundle = steps.make_train_step(cfg, shape, mesh,
+                                   microbatch=STEP_MICROBATCH)
+    problems, rep = [], {"batch": batch, "seq": STEP_TRAIN_SEQ,
+                         "microbatch": STEP_MICROBATCH}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    args = bundle.init_args(torch.Generator(device=device).manual_seed(0),
+                            device)
+    rep["init_s"] = time.perf_counter() - t0
+    flags = []
+    orig = steps._adam_step
+
+    def adam_step(opt, params, opt_state, grads, step):
+        flags.append({k: torch.stack([torch.isfinite(g).all(),
+                                      g.abs().max() > 0])
+                      for k, g in tree_flatten(grads).items()})
+        return orig(opt, params, opt_state, grads, step)
+    per_fwd = {"swa_attn": STEP_K4, "ssd_scan": STEP_K5}
+    want = {k: 2 * STEP_MICROBATCH * n for k, n in per_fwd.items()}
+    rep["steps"] = []
+    steps._adam_step = adam_step
+    try:
+        for i in range(PATH16_TRAIN_STEPS):
+            _p16_reset()
+            t0 = time.perf_counter()
+            _, _, step, metrics = bundle.fn(*args)
+            torch.cuda.synchronize()
+            r = {"step": i, "wall_s": time.perf_counter() - t0,
+                 "loss": float(metrics["loss"]), **_p16_counts()}
+            rep["steps"].append(r)
+            args = (args[0], args[1], step, args[3])
+            if r["launches"] != want:
+                problems.append(f"step {i} launched {r['launches']}, "
+                                f"expected {want}")
+            if not math.isfinite(r["loss"]):
+                problems.append(f"step {i} loss {r['loss']}")
+    finally:
+        steps._adam_step = orig
+    bad = [k for k, f in flags[0].items() if not bool(f.all())]
+    rep["grad_leaves"], rep["grad_bad_leaves"] = len(flags[0]), bad
+    if bad:
+        problems.append(f"leaves without a finite non-zero gradient: {bad}")
+    rep["kernel_dtypes"] = kernel_dtypes()
+    rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    del args, bundle
+    torch.cuda.empty_cache()
+    return rep, problems
+
+
+def p16_held_prefill(mesh, cfg, whole, toks, shape) -> dict:
+    """make_prefill_step of ``cfg``'s first PATH16_PREFILL_LAYERS served
+    layers on ``mesh`` against the unsharded prefill (rank 0): the
+    next-token logits, gathered, within GQA_REL_ATOL of the largest; with
+    MoE, each layer's dropped slots summed over the ranks against the
+    unsharded prefill's (apart by no more than the expert choices that
+    differ: one moved choice changes an expert's overflow by at most
+    one), and the sharded side must drop slots."""
+    import torch
+    from repro_torch.common import sharding as shd
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    cn, pn = served_layers(whole, cfg, PATH16_PREFILL_LAYERS)
+    pn = tree_map(lambda x: x.clone(), pn)
+    bundle = steps.make_prefill_step(cn, shape, mesh,
+                                     param_dtype=torch.float32)
+    tp = bundle.layout
+    drops, routes = [], []
+    with recording_moe(drops, routes):
+        lg, _ = bundle.fn(shd.shard_tree(pn, tp.pspecs, mesh),
+                          steps.batch_block({"tokens": toks}, tp))
+    split = "model" if lg.shape[-1] != cn.vocab_size else None
+    lg = shd.gather_tensor(lg, shd.P(tp.dp_axes, None, split), mesh)
+    rep = {"layers": PATH16_PREFILL_LAYERS}
+    if cn.has_moe:
+        rep.update(ep_drops(cn, drops, routes, mesh))
+    if tmesh.world_rank() == 0:
+        one, one_routes = [], []
+        with recording_moe(one, one_routes), torch.no_grad():
+            want, _ = T.prefill(pn, cn, {"tokens": toks}, SERVE_PROMPT,
+                                last_only=True)
+        scale = float(want.abs().max())
+        rep.update(max_abs_logit=scale, err=float((lg - want).abs().max()),
+                   atol=GQA_REL_ATOL * scale)
+        rep["held"] = rep["err"] <= rep["atol"]
+        if cn.has_moe:
+            rep["capacity_factor"] = cn.capacity_factor
+            rep["unsharded_drops"] = [int(n) for _, n in one]
+            rep["choices_differing"] = [
+                int((a.sort(-1).values != b.sort(-1).values).sum())
+                for (a, _), (b, _) in zip(routes, one_routes)]
+            apart = zip(rep["layer_drops"], rep["unsharded_drops"],
+                        rep["choices_differing"], strict=True)
+            rep["held"] = (rep["held"] and rep["drops_held"]
+                           and rep["dropped"] > 0
+                           and all(abs(g - u) <= n for g, u, n in apart))
+    return rep
+
+
+def p16_prefill(device, mesh) -> tuple:
+    """16c: make_prefill_step on ``mesh`` at path 4's traffic, float32:
+    zamba2-1.2b and granite-moe-1b-a400m expert-parallel, each held at
+    its first PATH16_PREFILL_LAYERS layers (granite-moe at
+    PATH16_MOE_CAPACITY, where its experts overflow) and timed at full
+    depth."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.common import sharding as shd
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    rep, problems = {}, []
+    shape = configs.InputShape("prefill_card", SERVE_PROMPT, SERVE_BATCH,
+                               "prefill")
+    for arch, k4, k5 in ((SERVE_ARCH, SERVE_K4, SERVE_K5),
+                         (MOE_SERVE[0], MOE_SERVE[1], 0)):
+        c = configs.get(arch)
+        gen = torch.Generator(device=device).manual_seed(0)
+        whole = T.init(c, gen, torch.float32, device)
+        t = step_tokens(c, (SERVE_BATCH, SERVE_PROMPT), 2)["tokens"].to(
+            device)
+        # the first layers, gathered, against the unsharded prefill
+        held_cfg = (dataclasses.replace(
+            c, capacity_factor=PATH16_MOE_CAPACITY) if c.has_moe else c)
+        held = p16_held_prefill(mesh, held_cfg, whole, t, shape)
+        if tmesh.world_rank() == 0:
+            rep[f"{arch}_held"] = held
+            if not held["held"]:
+                problems.append(f"16c {arch} first layers: {held}")
+        torch.cuda.empty_cache()
+        # full depth, timed
+        bundle = steps.make_prefill_step(c, shape, mesh,
+                                         param_dtype=torch.float32)
+        tp = bundle.layout
+        params = shd.shard_tree(whole, tp.pspecs, mesh)
+        batch = steps.batch_block({"tokens": t}, tp)
+        drops, routes = [], []
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _p16_reset()
+        with recording_moe(drops, routes):
+            t0 = time.perf_counter()
+            lg, caches = bundle.fn(params, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        r = {"prefill_s": wall, "logits_shape": list(lg.shape),
+             "finite": torch_isfinite(lg), **_p16_counts(),
+             "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        want = {"swa_attn": k4, **({"ssd_scan": k5} if k5 else {})}
+        if r["launches"] != want or not r["finite"]:
+            problems.append(f"16c {arch}: launches {r['launches']} "
+                            f"(expected {want}), finite {r['finite']}")
+        if c.has_moe:
+            r.update(ep_drops(c, drops, routes, mesh))
+            if not r["drops_held"]:
+                problems.append(f"16c {arch} drops: {r}")
+        rep[arch] = r
+        del whole, params, lg, caches, bundle
+        torch.cuda.empty_cache()
+    return rep, problems
+
+
+def ep_drops(cfg, drops, routes, mesh) -> dict:
+    """Each layer's dropped slots (``recording_moe``'s, this rank's)
+    summed over the model axis against one device's dispatch of the same
+    expert choices (all experts local, the same capacity)."""
+    import torch
+    from repro_torch.common import sharding as shd
+    from repro_torch.models import moe
+    mine = torch.stack([n for _, n in drops])
+    total = shd.all_reduce_sum(mine, mesh, ("model",))
+    one = [int(idx.numel() - moe.dispatch(cfg, idx, 0, cfg.n_experts)
+               .valid.sum()) for idx, _ in routes]
+    got = [int(n) for n in total]
+    return {"layer_drops": got, "one_device_drops": one,
+            "drops_held": got == one and len(got) == cfg.n_layers,
+            "dropped": sum(got)}
+
+
+def p16_fed(device, mesh, spread: float,
+            fed: Optional[dict] = None) -> tuple:
+    """16d: drive_fed_rounds on ``mesh``: the 7-layer float32 round held
+    against the unsharded round (rank 0), and one bf16 round at full
+    depth at ``fed`` (PATH16_FED by default)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.common import sharding as shd
+    from repro_torch.common.pytree import tree_flatten, tree_map
+    from repro_torch.drivers import drive_fed_rounds
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import transformer as T
+    rep, problems = {}, []
+    cfg = configs.get(SERVE_ARCH)
+    rank0 = tmesh.world_rank() == 0
+    c7, p7 = served_f32(cfg, device)
+    kw = dict(PATH16_FED_HELD)
+    got, want = {}, {}
+
+    def hook(into):
+        def keep(t, clients, stack):
+            for i, c in enumerate(clients):
+                into[c] = flat32(tree_map(lambda x: x[i], stack))
+        return keep
+    start = flat32(p7)
+    ref_mean = None
+    if rank0:
+        ref_mean, _ = drive_fed_rounds(
+            c7, None, rounds=1, seed=0, param_dtype=torch.float32,
+            device=device, init_params=p7, upload_hook=hook(want), **kw)
+        ref_mean = flat32(ref_mean)
+    mean, stats = drive_fed_rounds(
+        c7, mesh, rounds=1, seed=0, param_dtype=torch.float32,
+        device=device, init_params=p7, upload_hook=hook(got), **kw)
+    if rank0:
+        worst = {}
+        pairs = [(f"client {c}", got[c], want[c]) for c in got] + [
+            ("mean", flat32(mean), ref_mean)]
+        for what, a, b in pairs:
+            rel = {}
+            for k in b:
+                upd = (b[k] - start[k]).abs().max()
+                ulps = kw["local_steps"] * 2.0 ** -23 * torch.maximum(
+                    start[k].abs(), b[k].abs())
+                tol = STEP_SPREAD_FACTOR * spread * upd + ulps
+                rel[k] = float(((a[k] - b[k]).abs() / tol).max())
+            k = max(rel, key=rel.get)
+            worst[what] = (rel[k], k)
+        rep["held"] = {"worst_gap_over_tol": worst,
+                       "grad_spread_14a": spread,
+                       "clients": sorted(got),
+                       "held": bool(got) and set(got) <= set(want) and all(
+                           w <= 1.0 for w, _ in worst.values())}
+        if not rep["held"]["held"]:
+            problems.append(f"16d 7-layer round: {rep['held']}")
+    del p7, mean
+    torch.cuda.empty_cache()
+    # full depth, bf16
+    fed = dict(PATH16_FED if fed is None else fed)
+    init = T.init(cfg, torch.Generator(device=device).manual_seed(0),
+                  torch.bfloat16, device)
+    _p16_reset()
+    t0 = time.perf_counter()
+    params, stats = drive_fed_rounds(cfg, mesh, rounds=1, seed=0,
+                                     param_dtype=torch.bfloat16,
+                                     device=device, init_params=init, **fed)
+    torch.cuda.synchronize()
+    per = (fed["n_clients"] // shd.axis_size(mesh, "data")
+           * fed["local_steps"] * 2)
+    want = {"swa_attn": per * STEP_K4, "ssd_scan": per * STEP_K5}
+    rep["full"] = {**fed, "run_s": time.perf_counter() - t0,
+                   "stats": stats, **_p16_counts(),
+                   "digest": shd.tree_digest(params),
+                   "finite": all(torch_isfinite(v) for v in
+                                 tree_flatten(params).values())}
+    if rep["full"]["launches"] != want or not rep["full"]["finite"]:
+        problems.append(f"16d full depth: launches "
+                        f"{rep['full']['launches']} (expected {want}), "
+                        f"finite {rep['full']['finite']}")
+    del init, params
+    torch.cuda.empty_cache()
+    return rep, problems
+
+
+def path16_rank(device, spread: float, shape=(1, 2),
+                parts=("16a", "16c", "16d"), fed=None) -> dict:
+    """One rank of path 16's ``shape`` mesh: the parts in order, each
+    with its own counts; a part that raises ends the rank (and the
+    launch)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if device == "cuda" else torch.device(device))
+    from repro_torch.launch import mesh as tmesh
+    mesh = tmesh.make_mesh(shape, ("data", "model"))
+    out, problems = {"rank": tmesh.world_rank(),
+                     "backend": tmesh._WORLD["backend"]}, []
+    for part in parts:
+        t0 = time.perf_counter()
+        if part == "16a":
+            out["16a_held"], p = p16_held_train(device, mesh, 1)
+            problems += [f"16a: {x}" for x in p]
+            out["16a_full"], p = p16_full_train(device, mesh)
+        elif part == "16b":
+            out["16b_held"], p = p16_held_train(device, mesh,
+                                                PATH16_HELD_BATCH_2X2)
+        elif part == "16b_full":             # 14a's traffic, 4 cards
+            out["16b_full"], p = p16_full_train(device, mesh,
+                                                STEP_TRAIN_BATCH)
+        elif part == "16c":
+            out["16c"], p = p16_prefill(device, mesh)
+        else:
+            out["16d"], p = p16_fed(device, mesh, spread, fed)
+        problems += [f"{part}: {x}" for x in p]
+        out[f"{part}_s"] = time.perf_counter() - t0
+    out["problems"] = problems
+    return out
+
+
+def model_axis_path(device, spread: float):
+    """Path 16: 16a, 16c, 16d on a 1 x 2 mesh (2 ranks), 16b on a 2 x 2
+    mesh (4 ranks)."""
+    import torch
+    from repro_torch.launch import mesh as tmesh
+    device = torch.device(device).type
+    rep, problems = {"card": card_line()}, []
+    t0 = time.perf_counter()
+    rep["two"] = tmesh.launch_ranks(path16_rank, 2, device,
+                                    args=(device, spread), threads=4,
+                                    timeout_s=PATH16_TIMEOUT_S)
+    rep["two_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep["four"] = tmesh.launch_ranks(path16_rank, 4, device,
+                                     args=(device, spread, (2, 2), ("16b",)),
+                                     threads=2, timeout_s=PATH16_TIMEOUT_S)
+    rep["four_s"] = time.perf_counter() - t0
+    for world, runs in (("1 x 2", rep["two"]), ("2 x 2", rep["four"])):
+        problems += [f"{world} rank {r['rank']}: {p}" for r in runs
+                     for p in r["problems"]]
+    digests = {r["16d"]["full"]["digest"] for r in rep["two"]}
+    if len(digests) != 1:
+        problems.append(f"16d: the ranks' gathered globals differ {digests}")
+    return rep, problems
+
+
+def print_path16(rep) -> None:
+    gib = 2 ** 30
+
+    def coll(r):
+        return "; ".join(
+            f"{axes}: " + ", ".join(
+                f"{k} {v['calls']} x {v['bytes'] / 1e6:.1f} MB "
+                f"{v['seconds']:.2f} s" for k, v in kinds.items()
+                if v["calls"])
+            for axes, kinds in r["by_axes"].items())
+    print(f"  path16 on {rep['card']}:")
+    for r in rep["two"]:
+        h, f = r["16a_held"], r["16a_full"]
+        print(f"  path16 16a rank {r['rank']} ({r['backend']}) held "
+              f"{STEP_HELD_LAYERS} layers f32 on 1 x 2: loss {h['loss']:.6f}"
+              + (f", rel {h['loss_rel']:.2e}, gradient gap "
+                 f"{h['grad_gap']:.3g} against 4 x the unsharded 1-ulp "
+                 f"spread {h['ulp_spread']:.3g} (worst {h['worst_leaves']})"
+                 if "held" in h else "")
+              + f"; {h['step_s']:.2f} s, launches {h['launches']}; {coll(h)}")
+        for s in f["steps"]:
+            print(f"  path16 16a rank {r['rank']} full depth bf16 batch "
+                  f"{f['batch']} x {f['seq']} microbatch {f['microbatch']}: "
+                  f"step {s['step']} {s['wall_s']:.3f} s, loss "
+                  f"{s['loss']:.6f}, launches {s['launches']}; {coll(s)}")
+        print(f"  path16 16a rank {r['rank']}: init {f['init_s']:.1f} s, "
+              f"peak {f['peak_mem_bytes'] / gib:.2f} GiB, {f['grad_leaves']}"
+              f" gradient blocks finite and non-zero: "
+              f"{not f['grad_bad_leaves']}; kernels {f['kernel_dtypes']}")
+        c = r["16c"]
+        for arch in (SERVE_ARCH, MOE_SERVE[0]):
+            if f"{arch}_held" in c:
+                print(f"  path16 16c {arch} first {PATH16_PREFILL_LAYERS} "
+                      f"layers sharded vs unsharded: {c[f'{arch}_held']}")
+            a = c[arch]
+            extra = ("" if "layer_drops" not in a else
+                     f"; dropped slots per layer {a['layer_drops']} (one "
+                     f"device on the same choices "
+                     f"{a['one_device_drops']}, held {a['drops_held']})")
+            print(f"  path16 16c rank {r['rank']} {arch} prefill "
+                  f"{SERVE_BATCH} x {SERVE_PROMPT} f32: "
+                  f"{a['prefill_s']:.3f} s, peak "
+                  f"{a['peak_mem_bytes'] / gib:.2f} GiB, launches "
+                  f"{a['launches']}; {coll(a)}{extra}")
+        d = r["16d"]
+        if "held" in d:
+            print(f"  path16 16d 7-layer round vs unsharded: {d['held']}")
+        fd = d["full"]
+        print(f"  path16 16d rank {r['rank']} full depth bf16 "
+              f"{fd['n_clients']} clients x {fd['local_steps']} steps of "
+              f"{fd['batch_size']} x {fd['seq_len']}: run "
+              f"{fd['run_s']:.2f} s (round "
+              f"{fd['stats'][0]['round_s']:.2f} s), peak "
+              f"{fd['stats'][0]['peak_mem_bytes'] / gib:.2f} GiB, launches "
+              f"{fd['launches']}, digest {fd['digest']}; {coll(fd)}")
+        print(f"  path16 rank {r['rank']}: 16a {r['16a_s']:.1f} s, 16c "
+              f"{r['16c_s']:.1f} s, 16d {r['16d_s']:.1f} s")
+    for r in rep["four"]:
+        h = r["16b_held"]
+        print(f"  path16 16b rank {r['rank']} ({r['backend']}) held "
+              f"{STEP_HELD_LAYERS} layers f32 on 2 x 2: loss {h['loss']:.6f}"
+              + (f", rel {h['loss_rel']:.2e}, gradient gap "
+                 f"{h['grad_gap']:.3g} against 4 x {h['ulp_spread']:.3g}"
+                 if "held" in h else "")
+              + f"; {h['step_s']:.2f} s, launches {h['launches']}; {coll(h)}")
+    print(f"  path16: 1 x 2 world {rep['two_s']:.1f} s, 2 x 2 world "
+          f"{rep['four_s']:.1f} s, whole path {rep['total_s']:.1f} s",
+          flush=True)
+
+
 KERNEL_SOURCES = ["ensemble_kl_bank", "ensemble_kl", "swa_attn", "ssd_scan"]
 
 
@@ -5811,6 +6369,15 @@ def main() -> int:
     print_path15(rep)
     print(f"path 15 done at {time.perf_counter() - start_s:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    rep, path_problems = model_axis_path(
+        device, paths["path14_steps"]["14a_train"]["held"]["cpu_ulp_spread"])
+    rep["total_s"] = time.perf_counter() - t0
+    paths["path16_model_axis"] = rep
+    problems += [f"path16_model_axis: {p}" for p in path_problems]
+    print_path16(rep)
+    print(f"path 16 done at {time.perf_counter() - start_s:.1f} s",
+          flush=True)
 
     # 5. output
     def timing(rows, **key):
@@ -5896,6 +6463,20 @@ def main() -> int:
                 "15c": ranks(p["15c"]["ranks"]),
                 "15c_unsharded": p["15c"]["unsharded_launches"].get(name, 0)}
 
+    def path16_launches(name):
+        """Path 16's launches of ``name`` on each rank: 16a's full-depth
+        step and held step, 16b's held step, 16c's two prefills and 16d's
+        full-depth round."""
+        p = paths["path16_model_axis"]
+        two, four = p["two"], p["four"]
+        n = lambda r: r["launches"].get(name, 0)
+        return {"16a": [n(r["16a_full"]["steps"][0]) for r in two],
+                "16a_held": [n(r["16a_held"]) for r in two],
+                "16b_held": [n(r["16b_held"]) for r in four],
+                "16c_zamba2": [n(r["16c"][SERVE_ARCH]) for r in two],
+                "16c_granite": [n(r["16c"][MOE_SERVE[0]]) for r in two],
+                "16d": [n(r["16d"]["full"]) for r in two]}
+
     def path8_launches(name):
         """Each path 8 sub-path's launches of ``name``."""
         b = paths["path8b_bucketing"]
@@ -5921,6 +6502,7 @@ def main() -> int:
                 "path13_launches": path13_launches(name),
                 "path14_launches": path14_launches(name),
                 "path15_launches": path15_launches(name),
+                "path16_launches": path16_launches(name),
                 "max_abs_err": max(e[i] for e in errs),
                 "ms": t[f"{kind}_ms"], "plain_ms": t[f"plain_{kind}_ms"],
                 "call_ms": t[f"{kind}_call_ms"],
@@ -5946,6 +6528,7 @@ def main() -> int:
             "path13_launches": path13_launches(name),
             "path14_launches": path14_launches(name),
             "path15_launches": path15_launches(name),
+            "path16_launches": path16_launches(name),
             "path14_dtypes": sorted({d for sub in ("14a_train", "14b_distill",
                                                    "14c_fed_round",
                                                    "14d_serve")

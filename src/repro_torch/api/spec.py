@@ -740,10 +740,10 @@ class ExperimentSpec:
                 "torch.profiler trace is written)")
 
         # the client axis over a mesh runs under the sync and multihost
-        # drivers; the others wait for the model axis's item
+        # drivers; the others wait for item 11.8.6
         if self.sharding.shard_clients and self.driver.kind in (
                 "buffered_async", "async_pipelined", "distributed"):
             raise NotImplementedError(
                 f"sharding.shard_clients under the {self.driver.kind} "
-                f"driver is not ported yet (ROADMAP.md queue 1 item 11.8)")
+                f"driver is not ported yet (ROADMAP.md queue 1 item 11.8.6)")
         return self

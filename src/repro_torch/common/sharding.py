@@ -20,19 +20,31 @@ A mesh is a ``DeviceMesh`` with one process per rank
 (``launch/mesh.py``).  Where JAX's ``shard_map`` hands its caller a global
 array, the port's ranks hold their own block and meet through the
 collectives below: :func:`all_gather` along a mesh axis (the blocks in
-rank order, as ``P(axis)`` lays them out) and :func:`all_reduce_sum`.
-Under ``gloo`` a CUDA tensor is staged through host memory for the
-collective only (gloo's CUDA support lacks ``all_gather``); under
-``nccl`` it stays on the card.  :data:`COLLECTIVES` counts each kind's
-calls, bytes and seconds (:func:`reset_collectives`).
+rank order, as ``P(axis)`` lays them out), :func:`all_reduce_sum` and
+:func:`reduce_scatter_sum`.  Under ``gloo`` a CUDA tensor is staged
+through host memory for the collective only (gloo's CUDA support lacks
+``all_gather``), in float32 where it is a lower-precision float, and a
+reduce-scatter is an all-reduce and this rank's slice; under ``nccl`` it
+stays on the card.  :data:`COLLECTIVES` counts each kind's calls, bytes
+and seconds, and :data:`COLLECTIVE_AXES` the same per mesh axes
+(:func:`reset_collectives`).
 
-Only the client axis is sharded in the port so far (``shard_clients``);
-``tree_shardings`` and the model axis wait for ROADMAP queue 1 item 11.8.
+The model axis (JAX's GSPMD result of the ``tp`` rules) is written out by
+hand, Megatron-style: a rank holds its block of each parameter
+(:func:`shard_tree` of the global tree under the fitted PartitionSpecs;
+:func:`gather_tree` returns the global one) and the model code meets the
+other ranks through collectives that autograd differentiates
+(:func:`copy_to`, :func:`reduce_from`, :func:`sum_over`,
+:func:`gather_from`).  A :class:`TPLayout` carries the mesh, the
+parameters' specs and the data axes to the model code.  A
+:class:`Segmented` entry splits a dimension by segments rather than in
+contiguous blocks (the Mamba2 conv's ``[x | B | C]`` channels).
 """
 from __future__ import annotations
 
 import collections.abc
 import dataclasses
+import math
 import time
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -263,63 +275,114 @@ def kv_cache_rules(rules: Rules, *, batch: int, data_size: int) -> Rules:
 # collectives over the mesh (the port's side of JAX's shard_map)
 # ---------------------------------------------------------------------------
 
+_KINDS = ("all_gather", "all_reduce", "reduce_scatter")
 COLLECTIVES: Dict[str, Dict[str, float]] = {
-    "all_gather": {"calls": 0, "bytes": 0, "seconds": 0.0},
-    "all_reduce": {"calls": 0, "bytes": 0, "seconds": 0.0},
-}
+    k: {"calls": 0, "bytes": 0, "seconds": 0.0} for k in _KINDS}
+# {"data" / "model" / "pod+data" ...: {kind: {calls, bytes, seconds}}}
+COLLECTIVE_AXES: Dict[str, Dict[str, Dict[str, float]]] = {}
+# {(the mesh's ranks, its shape, its axis names, axes): (world, group)}
+_GROUPS: Dict[tuple, Tuple[Any, Any]] = {}
 
 
 def reset_collectives() -> None:
     for v in COLLECTIVES.values():
         v.update(calls=0, bytes=0, seconds=0.0)
+    COLLECTIVE_AXES.clear()
 
 
 def axes_group(mesh, axes: Sequence[str]):
     """The process group spanning ``axes`` of ``mesh``: one axis's group,
-    or the world's when ``axes`` cover every axis of size > 1."""
+    the world's when ``axes`` cover every axis of size > 1, else a group
+    of every rank that shares this rank's coordinates on the other axes
+    (built once per rank layout and axes of each world, by every rank, in
+    the same order).  Its ranks run in the row-major order of ``axes``,
+    as ``P(axes)`` lays out the blocks."""
     import torch.distributed as dist
     axes = tuple(axes)
     if len(axes) == 1:
         return mesh.get_group(axes[0])
-    rest = [a for a in axis_names(mesh) if a not in axes]
+    names = axis_names(mesh)
+    rest = [a for a in names if a not in axes]
     if all(axis_size(mesh, a) == 1 for a in rest):
         return dist.group.WORLD
-    raise NotImplementedError(
-        f"a collective over axes {axes} beside axes {rest} of size > 1 "
-        f"(ROADMAP queue 1 item 11.8)")
+    key = (tuple(mesh.mesh.flatten().tolist()), tuple(mesh.mesh.shape),
+           names, axes)
+    world = dist.group.WORLD
+    if key not in _GROUPS or _GROUPS[key][0] is not world:
+        ranks = mesh.mesh.permute(
+            [names.index(a) for a in rest] + [names.index(a) for a in axes])
+        groups = ranks.reshape(-1, math.prod(axis_size(mesh, a)
+                                             for a in axes)).tolist()
+        _GROUPS[key] = (world, dist.new_subgroups_by_enumeration(groups)[0])
+    return _GROUPS[key][1]
 
 
 def _staged(tensor: torch.Tensor, group) -> bool:
     import torch.distributed as dist
-    return tensor.is_cuda and dist.get_backend(group) == "gloo"
+    return dist.get_backend(group) == "gloo" and (
+        tensor.is_cuda or tensor.dtype in (torch.bfloat16, torch.float16))
 
 
-def _count(kind: str, nbytes: int, t0: float) -> None:
-    c = COLLECTIVES[kind]
-    c["calls"] += 1
-    c["bytes"] += int(nbytes)
-    c["seconds"] += time.perf_counter() - t0
+def _to_wire(tensor: torch.Tensor, staged: bool) -> torch.Tensor:
+    """The buffer a collective works on: a host float32 copy under gloo
+    for a CUDA or lower-precision tensor, else a contiguous copy."""
+    if not staged:
+        return tensor.detach().contiguous().clone()
+    t = tensor.detach().cpu()
+    return t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
 
 
-def all_gather(tensor: torch.Tensor, mesh, axes: Sequence[str] = ("data",)
-               ) -> torch.Tensor:
-    """Every rank's ``tensor`` (equal shapes) concatenated along dim 0 in
-    rank order over ``axes``: the global array of a ``P(axes)`` block."""
+def _count(kind: str, axes: Sequence[str], nbytes: int, t0: float) -> None:
+    dt = time.perf_counter() - t0
+    for c in (COLLECTIVES[kind], COLLECTIVE_AXES.setdefault(
+            "+".join(axes), {k: {"calls": 0, "bytes": 0, "seconds": 0.0}
+                             for k in _KINDS})[kind]):
+        c["calls"] += 1
+        c["bytes"] += int(nbytes)
+        c["seconds"] += dt
+
+
+def _axes(mesh, axes) -> Tuple[str, ...]:
+    return axis_names(mesh) if axes is None else tuple(axes)
+
+
+def all_gather(tensor: torch.Tensor, mesh, axes: Sequence[str] = ("data",),
+               dim: int = 0) -> torch.Tensor:
+    """Every rank's ``tensor`` (equal shapes) concatenated along ``dim``
+    in rank order over ``axes``: the global array of a block laid out
+    ``P(axes)`` on that dimension."""
     import torch.distributed as dist
     t0 = time.perf_counter()
+    axes = _axes(mesh, axes)
     group = axes_group(mesh, axes)
     n = dist.get_world_size(group)
     if n == 1:
         return tensor
     staged = _staged(tensor, group)
-    src = tensor.detach().cpu() if staged else tensor.detach().contiguous()
+    src = _to_wire(tensor, staged)
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
-    out = torch.cat(parts)
+    out = torch.cat(parts, dim=dim)
     if staged:
-        out = out.to(tensor.device)
-    _count("all_gather", out.numel() * out.element_size(), t0)
+        out = out.to(tensor.device, tensor.dtype)
+    _count("all_gather", axes, out.numel() * out.element_size(), t0)
     return out
+
+
+def _all_reduce(tensor: torch.Tensor, mesh, axes: Sequence[str],
+                op) -> torch.Tensor:
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    group = axes_group(mesh, axes)
+    if dist.get_world_size(group) == 1:
+        return tensor.clone()
+    staged = _staged(tensor, group)
+    buf = _to_wire(tensor, staged)
+    dist.all_reduce(buf, op=op, group=group)
+    if staged:
+        buf = buf.to(tensor.device, tensor.dtype)
+    _count("all_reduce", axes, buf.numel() * buf.element_size(), t0)
+    return buf
 
 
 def all_reduce_sum(tensor: torch.Tensor, mesh,
@@ -327,17 +390,348 @@ def all_reduce_sum(tensor: torch.Tensor, mesh,
     """The sum of every rank's ``tensor`` over ``axes`` (every axis by
     default), as a new tensor on ``tensor``'s device."""
     import torch.distributed as dist
+    return _all_reduce(tensor, mesh, _axes(mesh, axes), dist.ReduceOp.SUM)
+
+
+def all_reduce_max(tensor: torch.Tensor, mesh,
+                   axes: Sequence[str]) -> torch.Tensor:
+    """The elementwise largest of every rank's ``tensor`` over ``axes``
+    (counted with the all-reduces)."""
+    import torch.distributed as dist
+    return _all_reduce(tensor, mesh, tuple(axes), dist.ReduceOp.MAX)
+
+
+def reduce_scatter_sum(tensor: torch.Tensor, mesh, axes: Sequence[str],
+                       dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of every rank's
+    ``tensor`` over ``axes`` (blocks in rank order, as
+    :func:`all_gather` concatenates them)."""
+    import torch.distributed as dist
     t0 = time.perf_counter()
-    group = axes_group(mesh, axis_names(mesh) if axes is None else axes)
-    if dist.get_world_size(group) == 1:
+    axes = tuple(axes)
+    group = axes_group(mesh, axes)
+    n = dist.get_world_size(group)
+    if n == 1:
         return tensor.clone()
-    staged = _staged(tensor, group)
-    buf = tensor.detach().cpu() if staged else tensor.detach().clone()
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
-    if staged:
-        buf = buf.to(tensor.device)
-    _count("all_reduce", buf.numel() * buf.element_size(), t0)
-    return buf
+    per = tensor.shape[dim] // n
+    me = dist.get_rank(group)
+    if dist.get_backend(group) == "gloo":
+        buf = _to_wire(tensor, _staged(tensor, group))
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+        out = buf.narrow(dim, me * per, per).to(tensor.device, tensor.dtype)
+    else:
+        src = tensor.detach().movedim(dim, 0).contiguous()
+        out = src.new_empty((per,) + tuple(src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM,
+                                   group=group)
+        out = out.movedim(0, dim)
+    _count("reduce_scatter", axes, tensor.numel() * tensor.element_size(),
+           t0)
+    return out.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# collectives that autograd differentiates (the model axis, FSDP)
+# ---------------------------------------------------------------------------
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward, a sum over the axes backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.mesh, ctx.axes), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """A sum over the axes forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return all_reduce_sum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumOver(torch.autograd.Function):
+    """A sum over the axes forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_reduce_sum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.mesh, ctx.axes), None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    """All-gather along ``dim`` forward, reduce-scatter backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter_sum(g, ctx.mesh, ctx.axes, ctx.dim), None,
+                None, None)
+
+
+def copy_to(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over ``axes``.  A tensor equal
+    on every rank of ``axes`` enters a region where each rank computes
+    its own part with it (its heads, columns, experts, vocab rows)."""
+    return _CopyTo.apply(x, mesh, tuple(axes))
+
+
+def reduce_from(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """The sum of every rank's partial ``x`` over ``axes``; its gradient
+    as it is (what follows is computed alike on every rank of ``axes``)."""
+    return _ReduceFrom.apply(x, mesh, tuple(axes))
+
+
+def sum_over(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``axes`` where each rank goes on
+    to compute its own part with it: the gradient is summed too."""
+    return _SumOver.apply(x, mesh, tuple(axes))
+
+
+def gather_from(x: torch.Tensor, mesh, axes: Sequence[str],
+                dim: int) -> torch.Tensor:
+    """The whole of a block split over ``axes`` along ``dim`` (FSDP's
+    gather); its gradient summed over ``axes`` and cut back to this
+    rank's block (a reduce-scatter)."""
+    return _GatherFrom.apply(x, mesh, tuple(axes), dim)
+
+
+# ---------------------------------------------------------------------------
+# blocks of parameter trees
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Segmented:
+    """A spec entry that cuts a dimension into ``sizes`` segments and
+    splits over ``axis`` only those whose ``split`` is True, each in
+    contiguous blocks; the others stay whole on every rank.  A rank's
+    block is its piece of each segment, in segment order."""
+
+    axis: str
+    sizes: Tuple[int, ...]
+    split: Tuple[bool, ...]
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    if isinstance(entry, Segmented):
+        return (entry.axis,)
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def block_index(mesh, axes: Sequence[str]) -> Tuple[int, int]:
+    """(this rank's block, number of blocks) of a dimension split over
+    ``axes`` in row-major order."""
+    n, i = 1, 0
+    for a in axes:
+        n *= axis_size(mesh, a)
+        i = i * axis_size(mesh, a) + axis_index(mesh, a)
+    return i, n
+
+
+def local_shape(shape: Sequence[int], spec: PartitionSpec,
+                mesh) -> Tuple[int, ...]:
+    """The shape of this rank's block of a ``shape`` array laid out
+    ``spec``."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        if isinstance(entry, Segmented):
+            m = axis_size(mesh, entry.axis)
+            out[d] = sum(s // m if cut else s
+                         for s, cut in zip(entry.sizes, entry.split))
+        elif entry is not None:
+            out[d] //= block_index(mesh, _entry_axes(entry))[1]
+    return tuple(out)
+
+
+def shard_tensor(x: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
+    """This rank's block of the global ``x`` laid out ``spec`` (a copy)."""
+    for d, entry in enumerate(spec):
+        if isinstance(entry, Segmented):
+            i, m = axis_index(mesh, entry.axis), axis_size(mesh, entry.axis)
+            parts = torch.split(x, list(entry.sizes), dim=d)
+            x = torch.cat([p.narrow(d, i * (p.shape[d] // m), p.shape[d] // m)
+                           if cut else p
+                           for p, cut in zip(parts, entry.split)], dim=d)
+        elif entry is not None:
+            i, n = block_index(mesh, _entry_axes(entry))
+            per = x.shape[d] // n
+            x = x.narrow(d, i * per, per)
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def gather_tensor(x: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
+    """The global array of this rank's block ``x`` laid out ``spec``
+    (whole segments from this rank's copy)."""
+    for d, entry in enumerate(spec):
+        if isinstance(entry, Segmented):
+            m = axis_size(mesh, entry.axis)
+            sizes = [s // m if cut else s
+                     for s, cut in zip(entry.sizes, entry.split)]
+            x = torch.cat([all_gather(p, mesh, (entry.axis,), d)
+                           if cut else p for p, cut in zip(
+                               torch.split(x, sizes, dim=d), entry.split)],
+                          dim=d)
+        elif entry is not None:
+            x = all_gather(x, mesh, _entry_axes(entry), d)
+    return x
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, PartitionSpec)
+
+
+def map_specs(fn, spec_tree, *trees):
+    """``fn(spec, *leaves)`` over a tree of PartitionSpecs and trees of
+    the same structure."""
+    if _is_spec(spec_tree):
+        return fn(spec_tree, *trees)
+    if isinstance(spec_tree, dict):
+        return {k: map_specs(fn, spec_tree[k], *(t[k] for t in trees))
+                for k in spec_tree}
+    out = [map_specs(fn, s, *(t[i] for t in trees))
+           for i, s in enumerate(spec_tree)]
+    return type(spec_tree)(*out) if hasattr(spec_tree, "_fields") \
+        else type(spec_tree)(out)
+
+
+def tree_shardings(mesh, pspecs) -> Any:
+    """A :class:`NamedSharding` per PartitionSpec (JAX's
+    ``tree_shardings``)."""
+    return map_specs(lambda s: NamedSharding(mesh, s), pspecs)
+
+
+def shard_tree(global_tree, pspecs, mesh):
+    """This rank's blocks of ``global_tree`` under ``pspecs``."""
+    return map_specs(lambda s, x: shard_tensor(x, s, mesh), pspecs,
+                      global_tree)
+
+
+def gather_tree(local_tree, pspecs, mesh):
+    """The global tree of this rank's blocks ``local_tree`` under
+    ``pspecs`` (for checks, snapshots and digests)."""
+    return map_specs(lambda s, x: gather_tensor(x, s, mesh), pspecs,
+                      local_tree)
+
+
+def local_structs(structs, pspecs, mesh):
+    """Meta tensors of this rank's block shapes for ``structs`` (anything
+    with ``shape`` and ``dtype``)."""
+    return map_specs(lambda s, x: torch.empty(
+        local_shape(x.shape, s, mesh), dtype=x.dtype, device="meta"),
+        pspecs, structs)
+
+
+def stacked_specs(pspecs, lead=None):
+    """``pspecs`` with one more leading dimension laid out ``lead``."""
+    return map_specs(lambda s: P(lead, *tuple(s)), pspecs)
+
+
+def inner_specs(pspecs):
+    """``pspecs`` without their leading dimension (one layer of a stack)."""
+    return map_specs(lambda s: P(*tuple(s)[1:]), pspecs)
+
+
+@dataclasses.dataclass(eq=False)
+class TPLayout:
+    """What a sharded forward needs to know: the mesh, the parameters'
+    PartitionSpecs (this rank holds its block of each leaf), and the data
+    axes the batch splits over (empty: the batch is whole on every rank,
+    as in a client of the federated round).  The model code reads which
+    of its dimensions are local from its blocks' shapes; the specs say
+    which dimensions FSDP split over the data axes."""
+
+    mesh: Any
+    pspecs: Any
+    dp_axes: Tuple[str, ...] = ()
+    model_axis: str = "model"
+
+    def __post_init__(self):
+        names = axis_names(self.mesh)
+        self.dp_axes = tuple(a for a in self.dp_axes if a in names)
+
+    @property
+    def model_size(self) -> int:
+        return axis_size(self.mesh, self.model_axis)
+
+    @property
+    def model_index(self) -> int:
+        return axis_index(self.mesh, self.model_axis)
+
+    @property
+    def dp_size(self) -> int:
+        return math.prod(axis_size(self.mesh, a) for a in self.dp_axes)
+
+    @property
+    def dp_index(self) -> int:
+        return block_index(self.mesh, self.dp_axes)[0]
+
+    def copy_to(self, x):
+        return copy_to(x, self.mesh, (self.model_axis,))
+
+    def reduce_from(self, x):
+        return reduce_from(x, self.mesh, (self.model_axis,))
+
+    def sum_over(self, x):
+        return sum_over(x, self.mesh, (self.model_axis,))
+
+    def fsdp_axes(self, spec: PartitionSpec) -> list:
+        """(dimension, axes) of each dimension of ``spec`` split over
+        data axes."""
+        out = []
+        for d, entry in enumerate(spec):
+            axes = _entry_axes(entry)
+            if axes and all(a in self.dp_axes for a in axes):
+                out.append((d, axes))
+        return out
+
+    def gather_fsdp(self, tree, specs):
+        """``tree`` with every leaf split over data axes gathered whole
+        (its gradient reduce-scattered back)."""
+        def one(spec, x):
+            for d, axes in self.fsdp_axes(spec):
+                x = gather_from(x, self.mesh, axes, d)
+            return x
+        return map_specs(one, specs, tree)
+
+    def sum_replicated_grads(self, grads, specs):
+        """``grads`` with the gradient of every leaf whole on the data
+        axes summed over them (one all-reduce of them all, in float32);
+        the split leaves' gradients came back summed from
+        :meth:`gather_fsdp`."""
+        if self.dp_size == 1:
+            return grads
+        flat_g, flat_s = [], []
+        map_specs(lambda s, g: (flat_s.append(s), flat_g.append(g)),
+                   specs, grads)
+        whole = [i for i, s in enumerate(flat_s) if not self.fsdp_axes(s)]
+        if whole:
+            buf = torch.cat([flat_g[i].reshape(-1).float() for i in whole])
+            buf = all_reduce_sum(buf, self.mesh, self.dp_axes)
+            for i, part in zip(whole, torch.split(
+                    buf, [flat_g[i].numel() for i in whole])):
+                flat_g[i] = part.reshape(flat_g[i].shape).to(
+                    flat_g[i].dtype)
+        it = iter(flat_g)
+        return map_specs(lambda s: next(it), specs)
 
 
 def all_gather_object(obj) -> list:

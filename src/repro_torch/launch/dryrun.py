@@ -14,8 +14,7 @@ arguments (parameters, Adam state, batch, caches) and results, and
 whether they fit one card's memory (activations are not counted);
 ``compute_s = model_flops / peak bf16`` and ``memory_s = argument bytes /
 HBM bandwidth`` at the H100 SXM's published peaks.  There is no
-collective term until the model axis is ported (ROADMAP queue 1 item
-11.8).
+collective term yet (ROADMAP queue 1 item 11.8.7).
 Outputs one JSON per pair under ``experiments/dryrun_torch/``.  It needs
 no card and allocates nothing.
 """
@@ -39,8 +38,8 @@ PEAK_FLOPS_BF16 = 989e12
 HBM_BW = 3.35e12
 HBM_BYTES = 80e9
 CARD = "NVIDIA H100 SXM 80GB (published peaks)"
-NO_COLLECTIVE = ("one device: no collective term until the model axis is "
-                 "ported (ROADMAP queue 1 item 11.8)")
+NO_COLLECTIVE = ("one device: no collective term yet (ROADMAP queue 1 "
+                 "item 11.8.7)")
 DISTILL_KW = dict(n_teachers=4, batch_size=128, seq_len=512)
 
 

@@ -262,6 +262,12 @@ def _mesh(shape: Tuple[int, ...], names: Tuple[str, ...]):
                             mesh_dim_names=names)
 
 
+def make_mesh(shape: Sequence[int], names: Sequence[str]):
+    """A mesh of ``shape`` with axis ``names`` over the whole world (JAX's
+    ``jax.make_mesh``)."""
+    return _mesh(tuple(shape), tuple(names))
+
+
 def make_production_mesh(*, multi_pod: bool = False):
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")

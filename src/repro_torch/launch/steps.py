@@ -1,6 +1,5 @@
 """Step builders: per (architecture x input shape) programs with their
-input stand-ins (the JAX package's ``launch/steps.py`` in PyTorch, on one
-device).
+input stand-ins (the JAX package's ``launch/steps.py`` in PyTorch).
 
   train_4k     -> train_step    (forward + next-token loss + grad + Adam)
   prefill_32k  -> prefill_step  (full-prompt forward, returns caches)
@@ -18,17 +17,27 @@ and ``bundle.fn(*args)`` runs the step on them: K4 and K5 (and K2 in the
 distill loss) on CUDA tensors, their plain versions on the CPU.  A donated
 argument is updated in place and returned.
 
-``make_fed_round_step`` takes a mesh with a data axis (``launch/mesh.
-py``): its clients spread over every data axis (``("pod", "data")``
-where present) by the ``shard_clients`` rules with ``fsdp=False``, and
-the bundle's ``args`` / ``fn`` are this rank's block of them
-(``bundle.client_slice`` of the global client axis, ``client_axes`` the
-mesh axes it splits over).  Its ``"model"`` axis must be 1.  The other
-builders run one device: a ``mesh``, ``layout`` other than ``"tp"``,
-``constrain_acts`` or ``use_moe_shard_map`` with a mesh raises, as does
-a model axis larger than 1 (ROADMAP queue 1 item 11.8, the model axis);
-``fsdp`` shards nothing on one device either way.  ``batch_pspecs``,
-``_shardings`` and ``kv_cache_rules`` in the steps wait for 11.8.
+On a mesh (``launch/mesh.py``, one process per rank) ``make_train_step``
+and ``make_prefill_step`` take a ``("data", "model")`` or ``("pod",
+"data", "model")`` mesh under the ``tp`` rules: ``args``, ``outs`` and
+``make_args`` are this rank's blocks (``bundle.layout``, a
+``TPLayout``): parameters drawn whole from the one generator on every
+rank and cut (``sharding.shard_tree``), so a sharded run starts from the
+unsharded run's weights; batches drawn whole and cut over the data axes.
+``fsdp=True`` splits d_model over the data axes (each leaf gathered where
+its layer runs, its gradient reduce-scattered; Adam is elementwise, so it
+runs on the blocks); the gradients of leaves whole on the data axes are
+summed over them.  The loss is vocab-parallel (:func:`token_xent`): the
+[B, S, V] logits are never gathered.  Prefill returns the next-token
+logits split over the vocabulary and the caches at this rank's heads.
+``make_fed_round_step`` spreads its clients over the data axes (the
+``shard_clients`` rules, fsdp off), each client's replica
+tensor-parallel over ``"model"``.  Still raising: ``make_serve_step``
+(item 11.8.2, its ``kv_cache_rules`` caches) and ``make_distill_step``
+(item 11.8.1, the distill loss over vocabulary shards) on a mesh, and
+``layout`` other than ``"tp"``, ``constrain_acts``, ``naive_xent`` on a
+mesh and ``use_moe_shard_map=False`` on a mesh (item 11.8.4; ROADMAP
+queue 1).
 """
 from __future__ import annotations
 
@@ -49,9 +58,14 @@ from repro_torch.models.frontends import (fake_audio_frames,
 from repro_torch.optim.optimizers import AdamState, adam, apply_updates
 
 META = torch.device("meta")
-PENDING = ("not ported yet (ROADMAP queue 1 item 11.8: the model axis "
-           "and parameter shardings); the port's step builders but the "
-           "federated round's client axis run one device")
+KNOBS_PENDING = ("not ported yet (ROADMAP queue 1 item 11.8.4: layouts "
+                 "other than 'tp', activation shardings, the naive loss and "
+                 "the MoE's partitioner path on a mesh)")
+SERVE_PENDING = ("the serve step on a mesh is not ported yet (ROADMAP queue "
+                 "1 item 11.8.2: the kv_cache_rules caches)")
+DISTILL_PENDING = ("the distill step on a mesh is not ported yet (ROADMAP "
+                   "queue 1 item 11.8.1: the distill loss over vocabulary "
+                   "shards)")
 
 
 @dataclasses.dataclass
@@ -67,6 +81,8 @@ class StepBundle:
     # mesh axes the clients split over (empty: every rank runs them all)
     client_slice: Optional[slice] = None
     client_axes: Tuple[str, ...] = ()
+    # on a mesh, the TPLayout of this rank's parameter blocks
+    layout: Any = None
 
     def init_args(self, generator: Optional[torch.Generator] = None,
                   device="cuda") -> tuple:
@@ -131,10 +147,12 @@ def _draw_batch(specs: dict, cfg: ArchConfig, gen: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def token_xent_naive(logits: torch.Tensor, labels: torch.Tensor,
-                     cfg: ArchConfig) -> torch.Tensor:
+                     cfg: ArchConfig, layout=None) -> torch.Tensor:
     """v0 loss: slices the logits and gathers the label logit (JAX keeps
     it for its sharding record; here it is the same loss by another
-    route)."""
+    route, on one device: a ``layout`` raises)."""
+    if layout is not None:
+        raise NotImplementedError(f"naive_xent on a mesh: {KNOBS_PENDING}")
     if cfg.frontend == "vision_patches":
         logits = logits[:, cfg.n_frontend_tokens:]
         labels = labels[:, : logits.shape[1]]
@@ -147,12 +165,20 @@ def token_xent_naive(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def token_xent(logits: torch.Tensor, labels: torch.Tensor,
-               cfg: ArchConfig) -> torch.Tensor:
+               cfg: ArchConfig, layout=None) -> torch.Tensor:
     """Next-token LM loss for decoders; per-frame classification for
     encoders.  VLM: the prepended patch positions are masked out.  The
     labels are rolled and the last position masked, as JAX writes it to
     keep the logits whole; the label logit is gathered (JAX's one-hot
-    select sums it with zeros: the same value)."""
+    select sums it with zeros: the same value).
+
+    With ``layout`` (a ``TPLayout``) ``logits`` are this rank's data
+    shard and, where the head splits the vocabulary, its vocabulary
+    columns: the row max and the sum of exponentials are summed over
+    ``"model"``, and the label logit comes from the rank that holds it
+    (the [B, S, V] logits are never gathered).  The result is this shard's
+    masked sum over the global mask count: its sum over the data axes is
+    the loss."""
     b, s = logits.shape[0], logits.shape[1]
     pos = torch.arange(s, device=logits.device)[None, :]
     if cfg.is_decoder:
@@ -164,18 +190,38 @@ def token_xent(logits: torch.Tensor, labels: torch.Tensor,
     if cfg.frontend == "vision_patches":
         mask = mask * (pos >= cfg.n_frontend_tokens)
     lg = logits.float()
-    z = torch.logsumexp(lg, dim=-1)                              # [B,S]
-    picked = torch.gather(lg, -1, targets[..., None].long())[..., 0]
-    return (torch.sum((z - picked) * mask)
-            / torch.sum(mask * torch.ones((b, 1), device=logits.device)))
+    v = lg.shape[-1]
+    if layout is not None and v != cfg.vocab_size:
+        from repro_torch.common.sharding import all_reduce_max
+        top = all_reduce_max(lg.detach().amax(dim=-1), layout.mesh,
+                             (layout.model_axis,))
+        z = top + torch.log(layout.reduce_from(
+            torch.exp(lg - top[..., None]).sum(dim=-1)))         # [B,S]
+        local = targets.long() - layout.model_index * v
+        mine = (local >= 0) & (local < v)
+        picked = layout.reduce_from(torch.gather(
+            lg, -1, local.clamp(0, v - 1)[..., None])[..., 0] * mine)
+    else:
+        z = torch.logsumexp(lg, dim=-1)                          # [B,S]
+        picked = torch.gather(lg, -1, targets[..., None].long())[..., 0]
+    count = torch.sum(mask * torch.ones((b, 1), device=logits.device))
+    if layout is not None:
+        count = count * layout.dp_size
+    return torch.sum((z - picked) * mask) / count
 
 
 # ---------------------------------------------------------------------------
 # Structures
 # ---------------------------------------------------------------------------
 
-def _param_structs(cfg: ArchConfig, dtype=torch.bfloat16):
-    return tree_map(lambda s: _meta(s.shape, dtype), T.param_specs(cfg))
+def _param_structs(cfg: ArchConfig, dtype=torch.bfloat16, layout=None):
+    """Meta tensors of the parameters (this rank's blocks with a
+    ``layout``)."""
+    structs = tree_map(lambda s: _meta(s.shape, dtype), T.param_specs(cfg))
+    if layout is None:
+        return structs
+    from repro_torch.common.sharding import local_structs
+    return local_structs(structs, layout.pspecs, layout.mesh)
 
 
 def _opt_structs(params) -> AdamState:
@@ -193,13 +239,47 @@ def _zeros_like_meta(tree, device):
                                           device=device), tree)
 
 
-def _no_mesh(mesh, **knobs) -> None:
-    """Raise for a mesh or a sharding knob the single device cannot mean."""
+def _knobs(mesh, **knobs) -> None:
+    """Raise for a sharding knob the port does not run: ``knobs`` maps a
+    name to (value, the value it runs)."""
+    for name, (value, runs) in knobs.items():
+        if value != runs:
+            raise NotImplementedError(
+                f"{name}={value!r}{' on a mesh' if mesh is not None else ''}"
+                f": {KNOBS_PENDING}")
+
+
+def _no_mesh(mesh, pending: str) -> None:
     if mesh is not None:
-        raise NotImplementedError(f"mesh={mesh!r}: {PENDING}")
-    for name, (value, one_device) in knobs.items():
-        if value != one_device:
-            raise NotImplementedError(f"{name}={value!r}: {PENDING}")
+        raise NotImplementedError(f"mesh={mesh!r}: {pending}")
+
+
+def _tp(cfg: ArchConfig, mesh, fsdp: bool):
+    """The ``TPLayout`` of the train and prefill steps on ``mesh`` (None
+    without one): the ``tp`` rules, the batch over every data axis."""
+    if mesh is None:
+        return None
+    from repro_torch.common import sharding as shd
+    multi_pod = "pod" in shd.axis_names(mesh)
+    rules = shd.make_rules(multi_pod=multi_pod, fsdp=fsdp)
+    return T.tp_layout(cfg, mesh, rules,
+                       ("pod", "data") if multi_pod else ("data",))
+
+
+def batch_block(batch: dict, layout) -> dict:
+    """This rank's rows of a whole batch (dimension 0 over the layout's
+    data axes; JAX's ``batch_pspecs``)."""
+    if layout is None:
+        return batch
+    n, i = layout.dp_size, layout.dp_index
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"a batch of {v.shape[0]} does not divide over "
+                             f"the data axes {layout.dp_axes} of {n} ranks")
+        per = v.shape[0] // n
+        out[k] = v if n == 1 else v[i * per:(i + 1) * per]
+    return out
 
 
 def _as_param_dtype(batch: dict, dtype) -> dict:
@@ -231,12 +311,19 @@ def _grads(params, loss_fn):
 
 def train_grads(params, cfg: ArchConfig, batch: dict, *,
                 microbatch: int = 1, remat: bool = True,
-                unroll: bool = False, naive_xent: bool = False):
+                unroll: bool = False, naive_xent: bool = False,
+                layout=None, mesh=None):
     """(grads, {"loss", "moe_aux"}): the gradient of ``loss +
     router_aux_coef * aux`` over every leaf of ``params`` (a tree like
     it), as the train step takes it.  With ``microbatch`` > 1 the batch
     is split along its first axis and the gradients accumulated in
-    float32, then averaged (JAX's scan over microbatch slices)."""
+    float32, then averaged (JAX's scan over microbatch slices).
+
+    With ``layout`` (a ``TPLayout``) ``params`` and ``batch`` are this
+    rank's blocks and so are the gradients, each the global loss's;
+    ``mesh`` routes the MoE expert-parallel (JAX's ``use_moe_shard_map``).
+    Microbatch ``i`` is JAX's: the i-th slice of the global batch, of
+    which this rank takes its data shard."""
     xent = token_xent_naive if naive_xent else token_xent
     dtype = tree_leaves(params)[0].dtype
 
@@ -245,8 +332,9 @@ def train_grads(params, cfg: ArchConfig, batch: dict, *,
 
         def loss_fn(p):
             logits, aux = T.forward(p, cfg, mb, return_aux=True,
-                                    remat=remat, unroll=unroll)
-            loss = xent(logits, mb["labels"], cfg)
+                                    remat=remat, unroll=unroll,
+                                    layout=layout, mesh=mesh)
+            loss = xent(logits, mb["labels"], cfg, layout)
             return loss + cfg.router_aux_coef * aux, (loss.detach(),
                                                       aux.detach())
         return _grads(params, loss_fn)
@@ -254,25 +342,45 @@ def train_grads(params, cfg: ArchConfig, batch: dict, *,
     if microbatch == 1:
         grads, (loss, aux) = one(batch)
     else:
-        b = next(iter(batch.values())).shape[0]
-        if b % microbatch:
-            raise ValueError(f"batch {b} is not a multiple of microbatch "
-                             f"{microbatch}")
-        n = b // microbatch
+        mbs = _microbatches(batch, microbatch, layout)
         leaves = tree_leaves(params)
         grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                  for p in leaves]
         loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         aux = torch.zeros_like(loss)
-        for i in range(microbatch):
-            g, (l, a) = one({k: v[i * n: (i + 1) * n]
-                             for k, v in batch.items()})
+        for mb in mbs:
+            g, (l, a) = one(mb)
             torch._foreach_add_(grads, g)
             loss, aux = loss + l, aux + a
             del g
         torch._foreach_div_(grads, float(microbatch))
         loss, aux = loss / microbatch, aux / microbatch
-    return _unflatten(params, grads), {"loss": loss, "moe_aux": aux}
+    grads = _unflatten(params, grads)
+    if layout is not None:
+        from repro_torch.common.sharding import all_reduce_sum
+        grads = layout.sum_replicated_grads(grads, layout.pspecs)
+        if layout.dp_axes:
+            loss = all_reduce_sum(loss, layout.mesh, layout.dp_axes)
+    return grads, {"loss": loss, "moe_aux": aux}
+
+
+def _microbatches(batch: dict, microbatch: int, layout) -> list:
+    """The ``microbatch`` slices of the global batch along its first
+    axis, each this rank's data shard of it (on one device, or with the
+    batch whole on every rank, the local batch's slices)."""
+    b = next(iter(batch.values())).shape[0]
+    dp = 1 if layout is None else layout.dp_size
+    if b % microbatch:
+        raise ValueError(f"batch {b * dp} is not a multiple of microbatch "
+                         f"{microbatch} x {dp} data ranks")
+    if dp > 1:
+        from repro_torch.common.sharding import all_gather
+        batch = {k: all_gather(v, layout.mesh, layout.dp_axes)
+                 for k, v in batch.items()}
+    n = b * dp // microbatch
+    per, i = n // dp, 0 if layout is None else layout.dp_index
+    return [{k: v[j * n + i * per: j * n + (i + 1) * per]
+             for k, v in batch.items()} for j in range(microbatch)]
 
 
 def _adam_step(opt, params, opt_state: AdamState, grads, step) -> AdamState:
@@ -304,32 +412,50 @@ def make_train_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
                     param_dtype=torch.bfloat16) -> StepBundle:
     """(params, opt_state, step, batch) -> (params, opt_state, step + 1,
     {"loss", "moe_aux"}): Adam at 3e-4 with float32 moments; params and
-    opt_state are donated (updated in place)."""
-    del fsdp, use_moe_shard_map        # one device: nothing to shard
-    _no_mesh(mesh, layout=(layout, "tp"),
-             constrain_acts=(constrain_acts, False))
-    params = _param_structs(cfg, param_dtype)
+    opt_state are donated (updated in place).  On a ``mesh``, every
+    argument and result is this rank's block (``bundle.layout``);
+    ``fsdp`` splits d_model over the data axes, and shards nothing on one
+    device."""
+    _knobs(mesh, layout=(layout, "tp"), constrain_acts=(constrain_acts,
+                                                        False))
+    if mesh is not None:
+        _knobs(mesh, use_moe_shard_map=(use_moe_shard_map, True))
+    tp = _tp(cfg, mesh, fsdp)
+    params = _param_structs(cfg, param_dtype, tp)
     opt_state = _opt_structs(params)
-    batch = input_specs(cfg, shape)
+    whole = input_specs(cfg, shape)
+    batch = batch_block(whole, tp)
     opt = adam(3e-4)
 
     def train_step(params, opt_state, step, batch):
         grads, metrics = train_grads(params, cfg, batch,
                                      microbatch=microbatch, remat=remat,
-                                     unroll=unroll, naive_xent=naive_xent)
+                                     unroll=unroll, naive_xent=naive_xent,
+                                     layout=tp, mesh=mesh)
         _adam_step(opt, params, opt_state, grads, step)
         return params, opt_state, step + 1, metrics
 
     def make_args(gen, device):
-        p = T.init(cfg, gen, param_dtype, device)
+        p = _init_block(cfg, gen, param_dtype, device, tp)
         return (p, _zeros_like_meta(opt_state, device),
-                _step_scalar("cpu"), _draw_batch(batch, cfg, gen, device))
+                _step_scalar("cpu"),
+                batch_block(_draw_batch(whole, cfg, gen, device), tp))
 
     outs = (params, opt_state, _step_scalar(),
             {"loss": _meta((), torch.float32),
              "moe_aux": _meta((), torch.float32)})
     return StepBundle(train_step, (params, opt_state, _step_scalar(), batch),
-                      outs, make_args, donate_argnums=(0, 1))
+                      outs, make_args, donate_argnums=(0, 1), layout=tp)
+
+
+def _init_block(cfg: ArchConfig, gen, dtype, device, layout):
+    """``T.init`` from ``gen``, cut to this rank's blocks under
+    ``layout``."""
+    p = T.init(cfg, gen, dtype, device)
+    if layout is None:
+        return p
+    from repro_torch.common.sharding import shard_tree
+    return shard_tree(p, layout.pspecs, layout.mesh)
 
 
 def make_prefill_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
@@ -337,28 +463,35 @@ def make_prefill_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
                       layout: str = "tp", constrain_acts: bool = False,
                       param_dtype=torch.bfloat16) -> StepBundle:
     """(params, batch) -> (next-token logits [B, 1, V], caches sized
-    ``shape.seq_len``)."""
-    del fsdp, unroll
-    _no_mesh(mesh, layout=(layout, "tp"),
-             constrain_acts=(constrain_acts, False))
-    params = _param_structs(cfg, param_dtype)
-    batch = input_specs(cfg, shape)
+    ``shape.seq_len``); on a ``mesh``, this rank's blocks: the logits of
+    its data shard and vocabulary columns, the caches at its heads."""
+    del unroll
+    _knobs(mesh, layout=(layout, "tp"), constrain_acts=(constrain_acts,
+                                                        False))
+    tp = _tp(cfg, mesh, fsdp)
+    params = _param_structs(cfg, param_dtype, tp)
+    whole = input_specs(cfg, shape)
+    batch = batch_block(whole, tp)
     max_seq = shape.seq_len
 
     def prefill_step(params, batch):
         with torch.no_grad():
             return T.prefill(params, cfg,
                              _as_param_dtype(batch, param_dtype), max_seq,
-                             last_only=True)
+                             last_only=True, mesh=mesh, layout=tp)
 
     def make_args(gen, device):
-        return (T.init(cfg, gen, param_dtype, device),
-                _draw_batch(batch, cfg, gen, device))
+        return (_init_block(cfg, gen, param_dtype, device, tp),
+                batch_block(_draw_batch(whole, cfg, gen, device), tp))
 
-    outs = (_meta((shape.global_batch, 1, cfg.vocab_size), param_dtype),
-            T.init_caches(cfg, shape.global_batch, max_seq, param_dtype,
-                          META))
-    return StepBundle(prefill_step, (params, batch), outs, make_args)
+    b, v = next(iter(batch.values())).shape[0], cfg.vocab_size
+    if tp is not None:     # this rank's vocabulary columns
+        v = (params["head"].shape[1] if "head" in params
+             else params["embed"].shape[0])
+    outs = (_meta((b, 1, v), param_dtype),
+            T.init_caches(cfg, b, max_seq, param_dtype, META, layout=tp))
+    return StepBundle(prefill_step, (params, batch), outs, make_args,
+                      layout=tp)
 
 
 def make_serve_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
@@ -369,7 +502,7 @@ def make_serve_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
     tokens: (params, batch, caches, cur_len) -> (logits [B, 1, V],
     caches), the caches donated (updated in place)."""
     del fsdp, unroll
-    _no_mesh(mesh)
+    _no_mesh(mesh, SERVE_PENDING)
     params = _param_structs(cfg, param_dtype)
     batch = input_specs(cfg, shape)
     caches = T.init_caches(cfg, shape.global_batch, shape.seq_len,
@@ -442,7 +575,8 @@ def make_distill_step(cfg: ArchConfig, mesh=None, *, n_teachers: int = 4,
     CUDA tensors, its plain version on the CPU (JAX runs the Pallas
     kernel's jnp reference)."""
     del fsdp
-    _no_mesh(mesh, constrain_acts=(constrain_acts, False))
+    _no_mesh(mesh, DISTILL_PENDING)
+    _knobs(mesh, constrain_acts=(constrain_acts, False))
     student = _param_structs(cfg, param_dtype)
     teachers = _stacked(student, n_teachers)
     opt_state = _opt_structs(student)
@@ -484,12 +618,16 @@ def make_fed_round_step(cfg: ArchConfig, mesh=None, *, n_clients: int = 8,
     (donated).  (stacked, batch) -> stacked.  On a ``mesh`` the clients
     spread over its data axes (the ``shard_clients`` rules, fsdp off,
     fitted to K as ``fit_pspec`` fits them): ``args`` and ``fn`` are this
-    rank's ``client_slice`` of the K."""
-    client_slice, client_axes = slice(0, n_clients), ()
+    rank's ``client_slice`` of the K; with a ``"model"`` axis > 1 each
+    client's replica is tensor-parallel over it (``bundle.layout``; the
+    stacked leaves are this rank's blocks, the client's batch whole on
+    every model rank)."""
+    client_slice, client_axes, tp = slice(0, n_clients), (), None
     if mesh is not None:
         client_slice, client_axes = _client_block(mesh, n_clients)
+        tp = _client_layout(cfg, mesh)
     k_local = client_slice.stop - client_slice.start
-    params = _param_structs(cfg, param_dtype)
+    params = _param_structs(cfg, param_dtype, tp)
     stacked = _stacked(params, k_local)
     shape4 = (k_local, local_steps, batch_size, seq_len)
     batch = {"tokens": _meta(shape4, torch.int32),
@@ -505,8 +643,9 @@ def make_fed_round_step(cfg: ArchConfig, mesh=None, *, n_clients: int = 8,
                     logits, aux = T.forward(
                         pp, cfg, {"tokens": t, "labels": lab},
                         return_aux=True, remat=remat and not unroll,
-                        unroll=unroll)
-                    return (token_xent(logits, lab, cfg)
+                        unroll=unroll, layout=tp,
+                        mesh=None if tp is None else tp.mesh)
+                    return (token_xent(logits, lab, cfg, tp)
                             + cfg.router_aux_coef * aux), None
 
                 g, _ = _grads(p, loss_fn)
@@ -517,7 +656,7 @@ def make_fed_round_step(cfg: ArchConfig, mesh=None, *, n_clients: int = 8,
         return stacked_params
 
     def make_args(gen, device):
-        t = [T.init(cfg, gen, param_dtype, device)
+        t = [_init_block(cfg, gen, param_dtype, device, tp)
              for _ in range(k_local)]
         s = tree_map(lambda *xs: torch.stack(xs), *t)
         del t
@@ -525,7 +664,7 @@ def make_fed_round_step(cfg: ArchConfig, mesh=None, *, n_clients: int = 8,
 
     return StepBundle(fed_round_step, (stacked, batch), stacked, make_args,
                       donate_argnums=(0,), client_slice=client_slice,
-                      client_axes=client_axes)
+                      client_axes=client_axes, layout=tp)
 
 
 def _client_block(mesh, n_clients: int) -> Tuple[slice, Tuple[str, ...]]:
@@ -533,22 +672,28 @@ def _client_block(mesh, n_clients: int) -> Tuple[slice, Tuple[str, ...]]:
     it splits over: JAX's ``P(client_axes)`` fitted to ``n_clients``."""
     from repro_torch.common import sharding as shd
     names = shd.axis_names(mesh)
-    if "model" in names and shd.axis_size(mesh, "model") > 1:
-        raise NotImplementedError(
-            f"a 'model' mesh axis of {shd.axis_size(mesh, 'model')}: "
-            f"{PENDING}")
     rules = shd.make_rules(multi_pod="pod" in names, fsdp=False,
                            shard_clients=True)
     entry = shd.fit_pspec(shd.logical_to_pspec(("clients",), rules),
                           (n_clients,), mesh)[0]
     axes = () if entry is None else (
         (entry,) if isinstance(entry, str) else tuple(entry))
-    n_blocks, index = 1, 0
-    for a in axes:
-        n_blocks *= shd.axis_size(mesh, a)
-        index = index * shd.axis_size(mesh, a) + shd.axis_index(mesh, a)
+    index, n_blocks = shd.block_index(mesh, axes)
     per = n_clients // n_blocks
     return slice(index * per, (index + 1) * per), axes
+
+
+def _client_layout(cfg: ArchConfig, mesh):
+    """A client's tensor-parallel layout on ``mesh`` (None without a
+    ``"model"`` axis > 1): the ``shard_clients`` rules with fsdp off, the
+    client's batch whole on every rank of it."""
+    from repro_torch.common import sharding as shd
+    names = shd.axis_names(mesh)
+    if "model" not in names or shd.axis_size(mesh, "model") == 1:
+        return None
+    rules = shd.make_rules(multi_pod="pod" in names, fsdp=False,
+                           shard_clients=True)
+    return T.tp_layout(cfg, mesh, rules, ())
 
 
 def make_step(cfg: ArchConfig, shape: InputShape, mesh=None,

@@ -15,6 +15,16 @@ Decode attends over the cache in plain PyTorch (``_sdpa``), as JAX does
 outside any Pallas kernel.
 
 Local layers use a ring-buffer cache of size ``window``.
+
+Tensor parallelism (``tp``, a ``common/sharding.TPLayout``): a rank holds
+its block of the query heads (``wq``, ``wo``) and of the key / value
+heads where their count divides the model axis; where it does not,
+``fit_pspec`` leaves them whole and the rank takes the key / value heads
+its query heads read (global query head ``g`` reads ``g // (H / KV)``),
+so K4 runs at (H_local, KV_local).  The normed input, and every weight
+left whole but used for this rank's heads only (the key / value
+projections then, ``q_norm`` / ``k_norm``), enter through ``copy_to``;
+the output projection's partial sums through ``reduce_from``.
 """
 from __future__ import annotations
 
@@ -46,6 +56,40 @@ def attn_specs(cfg: ArchConfig) -> dict:
         specs["q_norm"] = rmsnorm_spec(hd, "qkv")
         specs["k_norm"] = rmsnorm_spec(hd, "qkv")
     return specs
+
+
+def kv_keep(cfg: ArchConfig, h_loc: int, model_index: int):
+    """The key / value heads a rank holding query heads ``[model_index *
+    h_loc, (model_index + 1) * h_loc)`` reads when the key / value heads
+    are whole on every rank: a contiguous run where its query heads group
+    evenly onto them (K4's grouped-query mode), else one per query
+    head."""
+    rep = cfg.n_heads // cfg.n_kv_heads
+    g0 = model_index * h_loc
+    need = torch.arange(g0, g0 + h_loc) // rep
+    lo, n = int(need[0]), int(need[-1]) + 1 - int(need[0])
+    if h_loc % n == 0 and torch.equal(
+            need, lo + torch.arange(h_loc) // (h_loc // n)):
+        return torch.arange(lo, lo + n)
+    return need
+
+
+def _tp_params(p: dict, cfg: ArchConfig, tp):
+    """(params, tp) for this rank: ``tp`` None where the heads are whole
+    here; else the whole weights used for this rank's heads only through
+    ``copy_to``, and the key / value heads its query heads read."""
+    h_loc = p["wq"].shape[1]
+    if tp is None or h_loc == cfg.n_heads:
+        return p, None
+    p = dict(p)
+    for k in ("q_norm", "k_norm"):
+        if k in p:
+            p[k] = tp.copy_to(p[k])
+    if p["wk"].shape[1] == cfg.n_kv_heads:   # key / value heads whole
+        keep = kv_keep(cfg, h_loc, tp.model_index)
+        for k in ("wk", "wv"):
+            p[k] = tp.copy_to(p[k])[:, keep.to(p[k].device)]
+    return p, tp
 
 
 def _project_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -84,14 +128,19 @@ def _full_attention(cfg: ArchConfig, q, k, v, local: bool) -> torch.Tensor:
     return out.transpose(1, 2)
 
 
-def attention(p: dict, cfg: ArchConfig, x: torch.Tensor, *, local: bool
-              ) -> torch.Tensor:
-    """Full-sequence attention (train / prefill)."""
+def attention(p: dict, cfg: ArchConfig, x: torch.Tensor, *, local: bool,
+              tp=None) -> torch.Tensor:
+    """Full-sequence attention (train / prefill); ``tp`` a
+    ``TPLayout`` (this rank's heads)."""
+    p, tp = _tp_params(p, cfg, tp)
+    if tp is not None:
+        x = tp.copy_to(x)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
     out = _full_attention(cfg, q, k, v, local)
-    return torch.einsum("bshd,hdm->bsm", out, p["wo"])
+    out = torch.einsum("bshd,hdm->bsm", out, p["wo"])
+    return out if tp is None else tp.reduce_from(out)
 
 
 # ---------------------------------------------------------------------------
@@ -103,9 +152,10 @@ def cache_size(cfg: ArchConfig, local: bool, max_seq: int) -> int:
 
 
 def init_cache(cfg: ArchConfig, local: bool, batch: int, max_seq: int,
-               dtype=torch.float32, device="cpu") -> KVCache:
+               dtype=torch.float32, device="cpu", kv_heads=None) -> KVCache:
+    """Zero caches at ``kv_heads`` heads (all of them by default)."""
     cs = cache_size(cfg, local, max_seq)
-    shape = (batch, cs, cfg.n_kv_heads, cfg.head_dim)
+    shape = (batch, cs, kv_heads or cfg.n_kv_heads, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
@@ -138,13 +188,19 @@ def decode_step(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: KVCache,
 
 
 def prefill_cache(p: dict, cfg: ArchConfig, x: torch.Tensor, max_seq: int,
-                  *, local: bool):
-    """Run full attention over the prompt AND return the populated cache."""
+                  *, local: bool, tp=None):
+    """Run full attention over the prompt AND return the populated cache
+    (with ``tp``, at the key / value heads this rank's heads read)."""
+    p, tp = _tp_params(p, cfg, tp)
+    if tp is not None:
+        x = tp.copy_to(x)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
     out = _full_attention(cfg, q, k, v, local)
     out = torch.einsum("bshd,hdm->bsm", out, p["wo"])
+    if tp is not None:
+        out = tp.reduce_from(out)
     cs = cache_size(cfg, local, max_seq)
     if cs >= s:
         ck = k.new_zeros((b, cs) + k.shape[2:])

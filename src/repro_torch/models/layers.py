@@ -130,9 +130,15 @@ def swiglu_specs(d_model: int, d_ff: int) -> dict:
     }
 
 
-def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+def swiglu(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """With ``tp`` (a ``TPLayout``) the hidden columns are this rank's:
+    ``x`` enters through ``copy_to`` and the partial outputs are summed
+    over the model axis."""
+    if tp is not None:
+        x = tp.copy_to(x)
     g = F.silu(x @ p["wi_gate"])
-    return (g * (x @ p["wi_up"])) @ p["wo"]
+    out = (g * (x @ p["wi_up"])) @ p["wo"]
+    return out if tp is None else tp.reduce_from(out)
 
 
 def gelu_mlp_specs(d_model: int, d_ff: int) -> dict:
@@ -142,6 +148,10 @@ def gelu_mlp_specs(d_model: int, d_ff: int) -> dict:
     }
 
 
-def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+def gelu_mlp(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """``tp`` as :func:`swiglu`'s."""
+    if tp is not None:
+        x = tp.copy_to(x)
     # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
+    out = F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
+    return out if tp is None else tp.reduce_from(out)

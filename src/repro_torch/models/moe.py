@@ -11,10 +11,17 @@ Two execution paths, one math:
   ``T * top_k < n_experts`` (single-token decode): reads only the touched
   experts' weights.
 
-JAX's expert-parallel ``_moe_shard_map`` waits for the model axis of the
-port's meshes: ``moe_block(mesh=...)`` raises ``NotImplementedError``
-(ROADMAP queue 1 item 11.8).  No Pallas kernel runs here in JAX; the per-expert SwiGLU
-products are plain batched products here too.
+* ``_moe_expert_parallel`` — JAX's ``_moe_shard_map`` on the port's
+  meshes (``moe_block(mesh=...)``, under JAX's conditions): a rank holds
+  ``n_experts / m`` whole experts of the ``"model"`` axis of ``m`` and
+  its data shard of the tokens, routes them with the whole router,
+  dispatches to its experts with a capacity from its own token count,
+  and the partial outputs are summed over ``"model"``; the aux loss is
+  the mean of the shards' over the data axes (JAX's ``pmean``, not the
+  global batch's).
+
+No Pallas kernel runs here in JAX; the per-expert SwiGLU products are
+plain batched products here too.
 
 Router: softmax gates, top-k, renormalised weights, Switch-style load-balance
 auxiliary loss.
@@ -30,9 +37,9 @@ import torch.nn.functional as F
 from repro_torch.common.arch_config import ArchConfig
 from repro_torch.models.layers import ParamSpec
 
-UNPORTED = ("ROADMAP queue 1 item 11.8: the expert-parallel MoE "
-            "(_moe_shard_map) waits for the model axis of the port's "
-            "meshes")
+UNPORTED = ("the MoE's global path over experts split on the model axis "
+            "beside tokens split on data axes, or over too few tokens (JAX's "
+            "partitioner path), is not ported (ROADMAP queue 1 item 11.8.4)")
 
 
 def moe_specs(cfg: ArchConfig) -> dict:
@@ -144,15 +151,65 @@ def _moe_gather(p: dict, cfg: ArchConfig, x: torch.Tensor, w, idx
 def moe_block(p: dict, cfg: ArchConfig, x: torch.Tensor, mesh=None,
               dp_axes: Tuple[str, ...] = ()
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] -> (out [B, S, d], aux loss), on one device."""
-    if mesh is not None:
-        raise NotImplementedError(f"moe_block(mesh=...): {UNPORTED}")
+    """x: [B, S, d] -> (out [B, S, d], aux loss).
+
+    With a ``mesh`` that has a ``"model"`` axis, ``p`` is this rank's
+    block (its experts whole, the router whole) and ``x`` its data shard
+    over ``dp_axes``, equal on every ``"model"`` rank; the block runs
+    expert-parallel where JAX's runs ``_moe_shard_map`` (the experts
+    divide the axis, and the global tokens times top-k reach the expert
+    count; with no ``dp_axes``, as in the federated round's client,
+    whose batch is whole on every rank, the capacity and the drops are
+    one device's).  Elsewhere the block runs on one device's whole
+    weights and raises where its experts are split."""
+    from repro_torch.common import sharding as shd
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
     t = b * s
+    e = cfg.n_experts
+    split = p["wi_gate"].shape[0] != e
+    if mesh is not None and "model" in shd.axis_names(mesh):
+        dp = tuple(a for a in dp_axes if a in shd.axis_names(mesh))
+        dp_size = math.prod(shd.axis_size(mesh, a) for a in dp)
+        m = shd.axis_size(mesh, "model")
+        if e % m == 0 and t * dp_size * cfg.top_k >= e:
+            out, aux = _moe_expert_parallel(p, cfg, x2, mesh, dp)
+            return out.reshape(b, s, d), aux
+        if split or dp_size > 1:
+            raise NotImplementedError(f"moe_block(mesh=...) over {t} local "
+                                      f"tokens: {UNPORTED}")
+    elif split:
+        raise NotImplementedError(f"moe_block over experts split on the "
+                                  f"model axis: {UNPORTED}")
     w, idx, aux = _route(p, cfg, x2)
     if t * cfg.top_k < cfg.n_experts:
         out = _moe_gather(p, cfg, x2, w, idx)
     else:
         out = _moe_capacity(p, cfg, x2, w, idx, 0, cfg.n_experts)
     return out.reshape(b, s, d), aux
+
+
+def _moe_expert_parallel(p: dict, cfg: ArchConfig, x2: torch.Tensor, mesh,
+                         dp: Tuple[str, ...]):
+    """JAX's ``_moe_shard_map`` on this rank: (its tokens' output summed
+    over ``"model"``, the aux loss's mean over ``dp``).  The tokens and
+    the router enter through ``copy_to``: each rank's gradient of them is
+    its experts' share.  The aux loss is the same on every ``"model"``
+    rank, so its gradient is carried at 1 / (m * |dp|) of the loss's
+    (the model axis's sum and the data axes' sum of the router's gradient
+    restore JAX's ``pmean``), while its value is the mean itself."""
+    from repro_torch.common import sharding as shd
+    m = shd.axis_size(mesh, "model")
+    dp_size = math.prod(shd.axis_size(mesh, a) for a in dp)
+    e_local = cfg.n_experts // m
+    x2 = shd.copy_to(x2, mesh, ("model",))
+    pl = dict(p, router=shd.copy_to(p["router"], mesh, ("model",)))
+    w, idx, aux = _route(pl, cfg, x2)
+    out = _moe_capacity(pl, cfg, x2, w, idx,
+                        shd.axis_index(mesh, "model") * e_local, e_local)
+    out = shd.reduce_from(out, mesh, ("model",))
+    mean = aux.detach()
+    if dp:
+        mean = shd.all_reduce_sum(mean, mesh, dp) / dp_size
+    carried = aux / (m * dp_size)
+    return out, carried + (mean - carried).detach()

@@ -12,6 +12,22 @@ B/C shared across heads (n_groups = 1).
 
 Recurrence (per head): h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t x_t^T,
 y_t = C_t . h_t + D * x_t.
+
+Tensor parallelism (``tp``, a ``common/sharding.TPLayout``): a rank holds
+its block of the SSM heads (``wdt``, ``dt_bias``, ``A_log``, ``D``) and
+of the inner channels they own (``wz``, ``wx``, ``norm``, ``out``); K5
+runs at its heads.  ``conv_w`` / ``conv_b`` are logically ``"inner"``
+over ``d_inner + 2 * ssm_state`` channels, whose contiguous blocks would
+not line up with the ``[x | B | C]`` layout: the port splits them by
+segment instead (``sharding.Segmented``), the x channels of this rank's
+heads and B and C whole, a deviation from JAX's block split that
+``transformer.param_pspecs`` states and ``shard_tree`` / ``gather_tree``
+translate.  ``wB`` / ``wC`` (logical ``"state"``, never sharded) and the
+conv's B / C channels are whole on every rank but serve its heads only,
+so they enter through ``copy_to`` and their gradients are summed over the
+model axis.  The gated RMSNorm takes its mean over the whole ``d_inner``:
+the sum of squares is summed over the model axis (``sum_over``) and
+divided by the full width.
 """
 from __future__ import annotations
 
@@ -60,15 +76,49 @@ def _causal_conv(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor
     return out + b
 
 
+def _tp_params(p: dict, cfg: ArchConfig, tp):
+    """(params, tp, local heads): ``tp`` None where the heads are whole
+    here; else the whole weights that serve this rank's heads only
+    through ``copy_to`` (the conv's B / C channels split off and
+    rejoined)."""
+    nh_loc = p["A_log"].shape[0]
+    if tp is None or nh_loc == cfg.n_ssm_heads:
+        return p, None, nh_loc
+    di_loc = nh_loc * (cfg.d_inner // cfg.n_ssm_heads)
+    p = dict(p, wB=tp.copy_to(p["wB"]), wC=tp.copy_to(p["wC"]))
+    for k in ("conv_w", "conv_b"):
+        w = p[k]
+        p[k] = torch.cat([w[..., :di_loc], tp.copy_to(w[..., di_loc:])],
+                         dim=-1)
+    return p, tp, nh_loc
+
+
+def _gated_norm(w: torch.Tensor, x: torch.Tensor, eps: float, width: int,
+                tp) -> torch.Tensor:
+    """``rmsnorm`` over the whole inner width when ``x`` holds this
+    rank's channels of it."""
+    if tp is None:
+        return rmsnorm(w, x, eps)
+    dt = x.dtype
+    x = x.float()
+    var = tp.sum_over(torch.sum(x * x, dim=-1, keepdim=True)) / width
+    return (x * torch.rsqrt(var + eps) * w.float()).to(dt)
+
+
 def ssm_forward(p: dict, cfg: ArchConfig, hidden: torch.Tensor,
                 init_cache: SSMCache | None = None,
-                return_cache: bool = False):
+                return_cache: bool = False, tp=None):
     """Full-sequence Mamba2 block. hidden: [B,S,d_model].  With
     ``init_cache`` the block continues from a cache (its conv history ahead
-    of the causal conv, its state as the scan's initial state)."""
+    of the causal conv, its state as the scan's initial state).  ``tp`` a
+    ``TPLayout``: this rank's heads, its cache at them."""
     b, s, _ = hidden.shape
     di, ns, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
-    hd = di // nh
+    p, tp, nh = _tp_params(p, cfg, tp)
+    hd = di // cfg.n_ssm_heads
+    width, di = di, nh * hd
+    if tp is not None:
+        hidden = tp.copy_to(hidden)
 
     z = hidden @ p["wz"]
     xbc = torch.cat([hidden @ p["wx"], hidden @ p["wB"], hidden @ p["wC"]],
@@ -91,8 +141,10 @@ def ssm_forward(p: dict, cfg: ArchConfig, hidden: torch.Tensor,
         None if init_cache is None else init_cache.state)
     y = y + p["D"][None, None, :, None] * x
     y = y.reshape(b, s, di)
-    y = rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    y = _gated_norm(p["norm"], y * F.silu(z), cfg.norm_eps, width, tp)
     out = y @ p["out"]
+    if tp is not None:
+        out = tp.reduce_from(out)
     if return_cache:
         w = cfg.ssm_conv
         src = xbc_in if init_cache is not None else torch.cat(
@@ -102,9 +154,12 @@ def ssm_forward(p: dict, cfg: ArchConfig, hidden: torch.Tensor,
 
 
 def init_ssm_cache(cfg: ArchConfig, batch: int, dtype=torch.float32,
-                   device="cpu") -> SSMCache:
-    di, ns, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
-    hd = di // nh
+                   device="cpu", heads=None) -> SSMCache:
+    """Zero caches at ``heads`` SSM heads (all of them by default) and
+    their conv channels."""
+    ns, nh = cfg.ssm_state, heads or cfg.n_ssm_heads
+    hd = cfg.d_inner // cfg.n_ssm_heads
+    di = nh * hd
     return SSMCache(
         conv=torch.zeros((batch, cfg.ssm_conv - 1, di + 2 * ns), dtype=dtype,
                          device=device),

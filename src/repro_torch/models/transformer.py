@@ -18,9 +18,21 @@ Public surface:
 Inputs are tokens, or audio frames (``frontend == "audio_frames"``: the
 encoder-only hubert, no embedding, always a head), with projected vision
 patches prepended to the tokens (``"vision_patches"``; decode steps carry
-none, the patches live in the KV cache).  Not ported yet: the model axis
-of a mesh (``moe_block(mesh=...)``, ``forward``'s ``mesh``, ``dp_axes``
-and ``act_sharding`` raise, ROADMAP queue 1 item 11.8).
+none, the patches live in the KV cache).
+
+The model axis of a mesh (JAX's GSPMD result of the ``tp`` rules,
+written out by hand): ``forward`` and ``prefill`` take a ``layout`` (a
+``common/sharding.TPLayout`` from :func:`tp_layout`) and this rank's
+block of every parameter (:func:`param_pspecs`).  Each layer's leaves
+split over the data axes (FSDP) are gathered where the layer runs, inside
+its remat, their gradients reduce-scattered back; each module computes
+its own heads, inner channels, MLP columns or experts and meets the
+other ranks through ``copy_to`` / ``reduce_from``; the embedding and the
+head are split over the vocabulary (a masked take summed over
+``"model"``; the logits stay this rank's vocabulary columns).  ``mesh``
+keeps JAX's meaning: it routes the MoE blocks through the expert-parallel
+path.  ``act_sharding`` raises (ROADMAP queue 1 item 11.8.4); decode
+runs one device.
 """
 from __future__ import annotations
 
@@ -118,6 +130,57 @@ def logical(cfg: ArchConfig):
     return tree_map(lambda s: s.logical, param_specs(cfg))
 
 
+def param_pspecs(cfg: ArchConfig, rules, mesh):
+    """The parameters' PartitionSpecs on ``mesh`` under ``rules``:
+    JAX's ``fit_pspecs(tree_pspecs(logical(cfg), rules), ...)`` with two
+    deviations the port's hand-written parallelism needs.  A Mamba2
+    block's heads and inner channels split together or not at all (a
+    rank computes whole heads), and its conv splits by segment
+    (``sharding.Segmented``: the x channels of the rank's heads, B and C
+    whole) where JAX's would cut ``d_inner + 2 * ssm_state`` channels in
+    contiguous blocks; an attention block whose query heads stay whole
+    keeps its key / value heads whole too."""
+    from repro_torch.common import sharding as shd
+    fitted = shd.fit_pspecs(shd.tree_pspecs(logical(cfg), rules),
+                            param_specs(cfg), mesh)
+    di, ns = cfg.d_inner, cfg.ssm_state
+
+    def fix(block: dict) -> dict:
+        mix = block.get("mixer")
+        if not mix:
+            return block
+        mix = dict(mix)
+        if "A_log" in mix:
+            heads, inner = mix["A_log"][-1], mix["wz"][-1]
+            if heads != inner:
+                raise NotImplementedError(
+                    f"{cfg.name}: SSM heads laid out {heads!r} beside inner "
+                    f"channels {inner!r} (ROADMAP queue 1 item 11.8.4)")
+            seg = None if inner is None else shd.Segmented(
+                inner, (di, ns, ns), (True, False, False))
+            for k in ("conv_w", "conv_b"):
+                mix[k] = shd.P(*tuple(mix[k])[:-1], seg)
+        elif mix["wq"][-2] is None:
+            for k in ("wk", "wv"):
+                spec = list(mix[k])
+                spec[-2] = None
+                mix[k] = shd.P(*spec)
+        return dict(block, mixer=mix)
+    out = dict(fitted)
+    out["blocks"] = tuple(fix(b) for b in fitted["blocks"])
+    out["tail"] = tuple(fix(b) for b in fitted["tail"])
+    if "shared" in fitted:
+        out["shared"] = fix(fitted["shared"])
+    return out
+
+
+def tp_layout(cfg: ArchConfig, mesh, rules, dp_axes=()):
+    """The ``TPLayout`` of ``cfg``'s parameters on ``mesh`` under
+    ``rules``, the batch split over ``dp_axes``."""
+    from repro_torch.common.sharding import TPLayout
+    return TPLayout(mesh, param_pspecs(cfg, rules, mesh), tuple(dp_axes))
+
+
 def init(cfg: ArchConfig, generator: torch.Generator, dtype=torch.float32,
          device="cpu"):
     """Parameters from ``generator`` (drawn where it lives, then moved to
@@ -129,28 +192,36 @@ def init(cfg: ArchConfig, generator: torch.Generator, dtype=torch.float32,
 # Block application
 # ---------------------------------------------------------------------------
 
-def _apply_mlp(bp: dict, cfg: ArchConfig, spec: BlockSpec, h: torch.Tensor):
-    """(h + the MLP of h, the MoE aux loss or 0.0)."""
+def _apply_mlp(bp: dict, cfg: ArchConfig, spec: BlockSpec, h: torch.Tensor,
+               tp=None, mesh=None):
+    """(h + the MLP of h, the MoE aux loss or 0.0); ``tp`` a
+    ``TPLayout`` (this rank's MLP columns or experts), ``mesh`` the MoE's
+    expert-parallel route."""
     if spec.mlp == "none":
         return h, 0.0
     x = rmsnorm(bp["norm2"], h, cfg.norm_eps)
-    if spec.mlp == "swiglu":
-        return h + swiglu(bp["mlp"], x), 0.0
-    if spec.mlp == "gelu":
-        return h + gelu_mlp(bp["mlp"], x), 0.0
-    out, aux = moe_mod.moe_block(bp["mlp"], cfg, x)
+    if spec.mlp in ("swiglu", "gelu"):
+        mlp = swiglu if spec.mlp == "swiglu" else gelu_mlp
+        split = tp is not None and bp["mlp"]["wo"].shape[0] != cfg.d_ff
+        return h + mlp(bp["mlp"], x, tp if split else None), 0.0
+    out, aux = moe_mod.moe_block(bp["mlp"], cfg, x, mesh,
+                                 () if tp is None else tp.dp_axes)
     return h + out, aux
 
 
 def _apply_block(bp: dict, cfg: ArchConfig, spec: BlockSpec,
-                 h: torch.Tensor):
+                 h: torch.Tensor, tp=None, mesh=None, bspec=None):
+    """One layer; with ``tp`` its leaves split over the data axes are
+    gathered first (``bspec`` their specs)."""
+    if tp is not None:
+        bp = tp.gather_fsdp(bp, bspec)
     x = rmsnorm(bp["norm1"], h, cfg.norm_eps)
     if spec.mixer == "mamba":
-        h = h + ssm_mod.ssm_forward(bp["mixer"], cfg, x)
+        h = h + ssm_mod.ssm_forward(bp["mixer"], cfg, x, tp=tp)
     else:
         h = h + attn.attention(bp["mixer"], cfg, x,
-                               local=spec.mixer == "attn_local")
-    return _apply_mlp(bp, cfg, spec, h)
+                               local=spec.mixer == "attn_local", tp=tp)
+    return _apply_mlp(bp, cfg, spec, h, tp, mesh)
 
 
 def _resolve(cfg: ArchConfig, j: int, bp: dict, shared: Optional[dict]):
@@ -160,77 +231,121 @@ def _resolve(cfg: ArchConfig, j: int, bp: dict, shared: Optional[dict]):
     return spec, bp
 
 
-def _layers(params: dict, cfg: ArchConfig):
-    """(block params, spec, (where, j, r)) for every layer in order: the
-    ``n_full`` repeats of the pattern, then the tail.  ``where`` is
-    ``"blocks"`` (repeat ``r`` of pattern position ``j``) or ``"tail"``."""
+def _layers(params: dict, cfg: ArchConfig, tp=None):
+    """(block params, spec, (where, j, r), the block's PartitionSpecs
+    under ``tp`` or None) for every layer in order: the ``n_full`` repeats
+    of the pattern, then the tail.  ``where`` is ``"blocks"`` (repeat
+    ``r`` of pattern position ``j``) or ``"tail"``."""
+    from repro_torch.common.sharding import inner_specs
     p, n_full, rem = _layout(cfg)
     shared = params.get("shared")
+    ps = None if tp is None else tp.pspecs
+    layer_specs = None if ps is None else [
+        inner_specs(b) if b else b for b in ps["blocks"]]
     for r in range(n_full):
         for j in range(p):
             bp = tree_map(lambda x: x[r], params["blocks"][j])
             spec, bp = _resolve(cfg, j, bp, shared)
-            yield bp, spec, ("blocks", j, r)
+            yield bp, spec, ("blocks", j, r), None if ps is None else \
+                _resolve(cfg, j, layer_specs[j], ps.get("shared"))[1]
     for j in range(rem):
         spec, bp = _resolve(cfg, j, params["tail"][j], shared)
-        yield bp, spec, ("tail", j, None)
+        yield bp, spec, ("tail", j, None), None if ps is None else \
+            _resolve(cfg, j, ps["tail"][j], ps.get("shared"))[1]
 
 
 # ---------------------------------------------------------------------------
 # Forward (full-sequence eval)
 # ---------------------------------------------------------------------------
 
-def embed_inputs(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+def embed_inputs(params: dict, cfg: ArchConfig, batch: dict,
+                 tp=None) -> torch.Tensor:
     """Input hidden states: audio frames [B, S, d] as they are, or the
     embedded tokens [B, S] with vision patches [B, P, d] prepended when
     the batch has them (decode steps carry none: they live in the KV
-    cache)."""
+    cache).  With ``tp`` and the embedding split over the vocabulary, each
+    rank takes the rows it holds (zero elsewhere) and the ranks' rows are
+    summed over ``"model"``."""
     if cfg.frontend == "audio_frames":
         return batch["frames"]
-    h = params["embed"][batch["tokens"]]
+    emb, toks = params["embed"], batch["tokens"]
+    if tp is not None and emb.shape[0] != cfg.vocab_size:
+        n = emb.shape[0]
+        local = toks - tp.model_index * n
+        mine = (local >= 0) & (local < n)
+        h = tp.reduce_from(emb[local.clamp(0, n - 1)]
+                           * mine[..., None].to(emb.dtype))
+    else:
+        h = emb[toks]
     if cfg.frontend == "vision_patches" and "patches" in batch:
         h = torch.cat([batch["patches"].to(h.dtype), h], dim=1)
     return h
 
 
-def unembed(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    if "head" in params:
-        return h @ params["head"]
-    return h @ params["embed"].T
+def unembed(params: dict, cfg: ArchConfig, h: torch.Tensor,
+            tp=None) -> torch.Tensor:
+    """The logits; with ``tp`` and the head split over the vocabulary,
+    this rank's vocabulary columns (``h`` enters through ``copy_to``)."""
+    w = params["head"] if "head" in params else params["embed"].T
+    if tp is not None and w.shape[-1] != cfg.vocab_size:
+        h = tp.copy_to(h)
+    return h @ w
 
 
-MESH_PENDING = ("meshes, data-parallel axes and activation shardings are "
-                "not ported yet (ROADMAP queue 1 item 11.8, the model "
-                "axis); the port runs one device")
+MESH_PENDING = ("activation shardings are not ported yet (ROADMAP queue 1 "
+                "item 11.8.4)")
+
+
+def _check_mesh(mesh, layout, act_sharding) -> None:
+    if act_sharding is not None:
+        raise NotImplementedError(f"act_sharding: {MESH_PENDING}")
+    if mesh is not None and layout is None:
+        raise ValueError("a mesh needs the layout of this rank's parameter "
+                         "blocks (layout=tp_layout(cfg, mesh, rules))")
+
+
+def _top(params: dict, tp) -> dict:
+    """The leaves outside the layers, FSDP-gathered under ``tp``."""
+    if tp is None:
+        return params
+    keys = [k for k in ("embed", "final_norm", "head") if k in params]
+    return {**params, **tp.gather_fsdp({k: params[k] for k in keys},
+                                       {k: tp.pspecs[k] for k in keys})}
 
 
 def forward(params: dict, cfg: ArchConfig, batch: dict, *,
             return_aux: bool = False, mesh=None, dp_axes=(),
-            remat: bool = False, unroll: bool = False, act_sharding=None):
+            remat: bool = False, unroll: bool = False, act_sharding=None,
+            layout=None):
     """Full-sequence logits [B, S, V]; with ``return_aux``, ``(logits, aux)``
     as JAX returns them, aux the MoE load-balance loss summed over layers
     (a float32 scalar, 0 without MoE).
 
     ``remat`` recomputes each block's activations in the backward pass
     (``torch.utils.checkpoint``, as JAX's ``jax.checkpoint``), keeping
-    only each block's input; the result is the same bit for bit.
-    ``unroll`` changes nothing: the layer loop is already unrolled.  A
-    ``mesh``, ``dp_axes`` or ``act_sharding`` raises (item 11.8)."""
+    only each block's input (and re-running its collectives, in the same
+    order on every rank); the result is the same bit for bit.
+    ``unroll`` changes nothing: the layer loop is already unrolled.  With
+    ``layout`` (a ``TPLayout``) ``params`` are this rank's blocks and
+    ``batch`` its data shard; the logits are [B_local, S, V_local] and
+    ``mesh`` routes the MoE through the expert-parallel path.
+    ``dp_axes`` is the layout's (JAX reads it only with a mesh);
+    ``act_sharding`` raises (item 11.8.4)."""
     check_supported(cfg)
-    if mesh is not None or dp_axes or act_sharding is not None:
-        raise NotImplementedError(MESH_PENDING)
-    del unroll
-    h = embed_inputs(params, cfg, batch)
+    _check_mesh(mesh, layout, act_sharding)
+    del unroll, dp_axes
+    top = _top(params, layout)
+    h = embed_inputs(top, cfg, batch, layout)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for bp, spec, _ in _layers(params, cfg):
+    for bp, spec, _, bspec in _layers(params, cfg, layout):
         if remat:
-            h, a = checkpoint(_apply_block, bp, cfg, spec, h,
-                              use_reentrant=False)
+            h, a = checkpoint(_apply_block, bp, cfg, spec, h, layout, mesh,
+                              bspec, use_reentrant=False)
         else:
-            h, a = _apply_block(bp, cfg, spec, h)
+            h, a = _apply_block(bp, cfg, spec, h, layout, mesh, bspec)
         aux = aux + a
-    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    logits = unembed(params, cfg, h)
+    h = rmsnorm(top["final_norm"], h, cfg.norm_eps)
+    logits = unembed(top, cfg, h, layout)
     return (logits, aux) if return_aux else logits
 
 
@@ -239,11 +354,22 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *,
 # ---------------------------------------------------------------------------
 
 def _layer_cache_init(cfg: ArchConfig, spec: BlockSpec, batch: int,
-                      max_seq: int, dtype, device):
+                      max_seq: int, dtype, device, tp=None, bspec=None):
+    """A layer's zero caches; with ``tp``, at this rank's heads (``bspec``
+    the layer's PartitionSpecs)."""
+    from repro_torch.common.sharding import local_shape
+    local = lambda k: local_shape(_mixer_specs(cfg, spec)[k].shape,
+                                  bspec["mixer"][k], tp.mesh)
     if spec.mixer == "mamba":
-        return ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
-    local = spec.mixer == "attn_local"
-    return attn.init_cache(cfg, local, batch, max_seq, dtype, device)
+        heads = None if tp is None else local("A_log")[0]
+        return ssm_mod.init_ssm_cache(cfg, batch, dtype, device, heads)
+    kv = None
+    if tp is not None:
+        h_loc, kv = local("wq")[1], local("wk")[1]
+        if h_loc != cfg.n_heads and kv == cfg.n_kv_heads:
+            kv = len(attn.kv_keep(cfg, h_loc, tp.model_index))
+    return attn.init_cache(cfg, spec.mixer == "attn_local", batch, max_seq,
+                           dtype, device, kv)
 
 
 def _stack_caches(caches: list):
@@ -251,19 +377,25 @@ def _stack_caches(caches: list):
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
-                dtype=torch.float32, device="cpu") -> dict:
+                dtype=torch.float32, device="cpu", layout=None) -> dict:
+    """Zero decode caches; with ``layout``, this rank's (at its heads, as
+    a sharded ``prefill`` returns them)."""
     check_supported(cfg)
     p, n_full, rem = _layout(cfg)
+    specs = {}
+    if layout is not None:
+        meta = tree_map(lambda s: torch.empty(s.shape, device="meta"),
+                        param_specs(cfg))
+        for _, _, (kind, j, _), bspec in _layers(meta, cfg, layout):
+            specs[(kind, j)] = bspec
+    one = lambda kind, j: _layer_cache_init(
+        cfg, cfg.pattern[j], batch, max_seq, dtype, device, layout,
+        specs.get((kind, j)))
     return {
         "blocks": tuple(
-            _stack_caches([_layer_cache_init(cfg, cfg.pattern[j], batch,
-                                             max_seq, dtype, device)
-                           for _ in range(n_full)])
+            _stack_caches([one("blocks", j) for _ in range(n_full)])
             for j in range(p)) if n_full > 0 else tuple({} for _ in range(p)),
-        "tail": tuple(
-            _layer_cache_init(cfg, cfg.pattern[j], batch, max_seq, dtype,
-                              device)
-            for j in range(rem)),
+        "tail": tuple(one("tail", j) for j in range(rem)),
     }
 
 
@@ -281,7 +413,7 @@ def decode_step(params: dict, cfg: ArchConfig, batch: dict, caches: dict,
     caches are updated in place (JAX returns updated copies)."""
     check_supported(cfg)
     h = embed_inputs(params, cfg, batch)
-    for bp, spec, where in _layers(params, cfg):
+    for bp, spec, where, _ in _layers(params, cfg):
         cache = _layer_cache(caches, where)
         x = rmsnorm(bp["norm1"], h, cfg.norm_eps)
         if spec.mixer == "mamba":
@@ -295,28 +427,36 @@ def decode_step(params: dict, cfg: ArchConfig, batch: dict, caches: dict,
 
 
 def prefill(params: dict, cfg: ArchConfig, batch: dict, max_seq: int,
-            last_only: bool = False):
+            last_only: bool = False, *, mesh=None, layout=None):
     """Full-prompt forward that also populates the decode caches.  Returns
-    (logits [B,S,V], or [B,1,V] with ``last_only``, and the caches)."""
+    (logits [B,S,V], or [B,1,V] with ``last_only``, and the caches).
+    ``layout`` and ``mesh`` as :func:`forward`'s: this rank's vocabulary
+    columns of the logits, its caches at its heads (the tensor-parallel
+    layout)."""
     check_supported(cfg)
+    _check_mesh(mesh, layout, None)
     p, n_full, rem = _layout(cfg)
-    h = embed_inputs(params, cfg, batch)
+    top = _top(params, layout)
+    h = embed_inputs(top, cfg, batch, layout)
     block_caches = [[] for _ in range(p)]
     tail_caches = []
-    for bp, spec, (kind, j, _) in _layers(params, cfg):
+    for bp, spec, (kind, j, _), bspec in _layers(params, cfg, layout):
+        if layout is not None:
+            bp = layout.gather_fsdp(bp, bspec)
         x = rmsnorm(bp["norm1"], h, cfg.norm_eps)
         if spec.mixer == "mamba":
             out, cache = ssm_mod.ssm_forward(bp["mixer"], cfg, x,
-                                             return_cache=True)
+                                             return_cache=True, tp=layout)
         else:
             out, cache = attn.prefill_cache(bp["mixer"], cfg, x, max_seq,
-                                            local=spec.mixer == "attn_local")
-        h, _ = _apply_mlp(bp, cfg, spec, h + out)
+                                            local=spec.mixer == "attn_local",
+                                            tp=layout)
+        h, _ = _apply_mlp(bp, cfg, spec, h + out, layout, mesh)
         (block_caches[j] if kind == "blocks" else tail_caches).append(cache)
     if last_only:
         h = h[:, -1:]
-    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    h = rmsnorm(top["final_norm"], h, cfg.norm_eps)
     caches = {"blocks": tuple(_stack_caches(c) if c else {}
                               for c in block_caches),
               "tail": tuple(tail_caches)}
-    return unembed(params, cfg, h), caches
+    return unembed(top, cfg, h, layout), caches

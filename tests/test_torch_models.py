@@ -252,8 +252,10 @@ def test_formerly_unported_configs_match_jax(name, over, what):
 
 
 def test_unported_configs_raise():
-    """The one axis of the model path still unported: the expert-parallel
-    MoE on a mesh (JAX's ``_moe_shard_map``)."""
+    """The one route of the MoE still unported: JAX's partitioner path
+    over experts split on the model axis (item 11.8.4), here a mesh whose
+    tokens are too few for the expert-parallel block (JAX's
+    ``_moe_shard_map`` runs on meshes since item 11.8.3)."""
     from repro_torch.models import moe
     for name in ("granite-moe-1b-a400m", "qwen3-moe-235b-a22b",
                  "internvl2-1b", "hubert-xlarge"):
@@ -261,8 +263,13 @@ def test_unported_configs_raise():
     cfg = reduced(configs.get("granite-moe-1b-a400m"))
     p = init_params(moe.moe_specs(cfg), torch.Generator().manual_seed(0))
     x = torch.zeros(1, 4, cfg.d_model)
+
+    class ModelAxis:                  # a stub mesh: sizes by axis name
+        shape = {"data": 1, "model": 2}
+    half = {k: v if k == "router" else v[: cfg.n_experts // 2]
+            for k, v in p.items()}
     with pytest.raises(NotImplementedError,
                        match="ROADMAP queue 1 item 11.8"):
-        moe.moe_block(p, cfg, x, mesh=object())
+        moe.moe_block(half, cfg, x[:, :1], mesh=ModelAxis())
     out, aux = moe.moe_block(p, cfg, x)
     assert out.shape == x.shape and aux.shape == ()

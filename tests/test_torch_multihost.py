@@ -15,12 +15,15 @@ The parent computes the references:
   ``sync``; the globals stay within ``tests/test_torch_slice.py``'s
   1e-4 of JAX's; a 1-rank mesh equals the port's ``sync`` bit for bit.
   JAX's init and distillation indices are injected;
-* ``drive_fed_rounds`` on reduced qwen3-8b: JAX's own loop does not run
-  under the installed JAX (``ShardingTypeError`` at the embedding take,
-  on any mesh), so it is held against a loop over JAX's
-  ``make_fed_round_step(...).jit()`` on a 1 x 1 mesh and a numpy mean,
-  within ``tests/test_torch_steps.py``'s 1e-5 of each leaf's largest
-  value.
+* ``drive_fed_rounds`` on reduced qwen3-8b (over ``make_host_mesh(4,
+  1)``, ``(2, 1)`` and ``(2, 2)``, the last tensor-parallel within each
+  client), and reduced granite-moe over ``(2, 2)`` (each client's MoE
+  expert-parallel over "model"): JAX's own loop does not run under the
+  installed JAX
+  (``ShardingTypeError`` at the embedding take, on any mesh), so it is
+  held against a loop over JAX's ``make_fed_round_step(...).jit()`` on a
+  1 x 1 mesh and a numpy mean, within ``tests/test_torch_steps.py``'s
+  1e-5 of each leaf's largest value.
 """
 import os
 
@@ -37,6 +40,8 @@ FUSION = dict(max_steps=60, patience=40, eval_every=20, batch_size=32,
 FED = dict(n_clients=4, local_steps=2, batch_size=2, seq_len=16)
 PARAM_ATOL = 1e-4          # tests/test_torch_slice.py's bound on globals
 STEP_REL = 1e-5            # tests/test_torch_steps.py's bound
+SPREAD_FACTOR = 4.0        # tests/test_torch_steps.py's
+MOE_ARCH = "granite-moe-1b-a400m"
 RANK_TIMEOUT_S = 300
 
 
@@ -153,13 +158,13 @@ def bank_case():
     return out, uneven
 
 
-def fed_case(hosts, model, init):
-    """``drive_fed_rounds`` on reduced qwen3-8b over ``make_host_mesh``."""
+def fed_case(hosts, model, init, arch="qwen3-8b"):
+    """``drive_fed_rounds`` on reduced ``arch`` over ``make_host_mesh``."""
     from repro_torch import configs
     from repro_torch.common.arch_config import reduced
     from repro_torch.common.pytree import tree_flatten
     from repro_torch.drivers import drive_fed_rounds
-    ct = reduced(configs.get("qwen3-8b"))
+    ct = reduced(configs.get(arch))
     mesh = tmesh.make_host_mesh(hosts, model)
     params, stats = drive_fed_rounds(ct, mesh, rounds=ROUNDS, seed=SEED,
                                      init_params=init, **FED)
@@ -187,7 +192,8 @@ def rank_suite(refs):
                              hetero=True, bucket="pow2")
     out["bank"] = bank_case()
     out["fed_4x1"] = fed_case(4, 1, refs["fed_init"])
-    out["fed_2x2"] = _raises(fed_case, 2, 2, refs["fed_init"])
+    out["fed_2x2"] = fed_case(2, 2, refs["fed_init"])
+    out["fed_2x2_moe"] = fed_case(2, 2, refs["moe_init"], MOE_ARCH)
     return out
 
 
@@ -243,14 +249,17 @@ def _jax_refs():
     cj = jreduced(jconfigs.get("qwen3-8b"))
     fed = jax.jit(lambda key: JT.init(cj, key, jax.numpy.float32))(
         jax.random.PRNGKey(SEED))
+    cm = jreduced(jconfigs.get(MOE_ARCH))
+    moe = jax.jit(lambda key: JT.init(cm, key, jax.numpy.float32))(
+        jax.random.PRNGKey(SEED))
     return {"init": init, "hetero_init": hetero, "blocks": blocks,
-            "fed_init": to_t(fed)}, fed, cj
+            "fed_init": to_t(fed), "moe_init": to_t(moe)}, fed, cj, moe, cm
 
 
 @pytest.fixture(scope="module")
 def world():
     """Every rank world's results, and the parent's references."""
-    refs, fed_j, cj = _jax_refs()
+    refs, fed_j, cj, moe_j, cm = _jax_refs()
     threads = max(1, (os.cpu_count() or 4) // 4)
     four = tmesh.launch_ranks(rank_suite, 4, "cpu", args=(refs,),
                               timeout_s=RANK_TIMEOUT_S, threads=threads)
@@ -258,7 +267,7 @@ def world():
                              timeout_s=RANK_TIMEOUT_S, threads=2 * threads)
     return {"refs": refs, "four": four, "two": two,
             "one": one_rank_suite(refs),
-            "fed_j": fed_j, "cj": cj}
+            "fed_j": fed_j, "cj": cj, "moe_j": moe_j, "cm": cm}
 
 
 def _jax_run(strategy, hetero=False, fraction=0.5):
@@ -372,17 +381,19 @@ def test_sharded_bank_matches_unsharded(world):
             assert "does not divide over 4 ranks" in got
 
 
-def _jax_fed_loop(world):
+def _jax_fed_loop(world, cfg="cj", init="fed_j"):
     """A loop over JAX's make_fed_round_step(...).jit() on a 1 x 1 mesh,
     the FedAvg mean in numpy."""
     import jax
     import jax.numpy as jnp
     from repro.launch import steps as jsteps
-    cj, params = world["cj"], world["fed_j"]
+    cj, params = world[cfg], world[init]
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
                              ("data", "model"))
-    step = jsteps.make_fed_round_step(cj, mesh, param_dtype=jnp.float32,
-                                      **FED).jit()
+    if ("step", cfg) not in world:
+        world[("step", cfg)] = jsteps.make_fed_round_step(
+            cj, mesh, param_dtype=jnp.float32, **FED).jit()
+    step = world[("step", cfg)]
     rng = np.random.default_rng(SEED)
     k = FED["n_clients"]
     for _ in range(ROUNDS):
@@ -422,9 +433,61 @@ def test_drive_fed_rounds_matches_the_jax_loop(world, hosts):
 
 
 def test_a_model_axis_raises_naming_11_8(world):
-    for r in world["four"]:
-        assert r["fed_2x2"] is not None and "11.8" in r["fed_2x2"]
-        assert r["fed_2x2"].startswith("NotImplementedError")
+    """``drive_fed_rounds`` on ``make_host_mesh(2, 2)`` (item 11.8.5: each
+    client's replica tensor-parallel over "model") against the JAX loop,
+    within STEP_REL of each leaf's largest; every rank returns the same
+    gathered global, bit for bit."""
+    if "fed_want" not in world:
+        world["fed_want"] = _jax_fed_loop(world)
+    want = world["fed_want"]
+    runs = [r["fed_2x2"] for r in world["four"]]
+    for flat, stats in runs:
+        assert [s["round"] for s in stats] == list(range(1, ROUNDS + 1))
+        assert all(s["update_norm"] > 0 for s in stats)
+        assert all(s["all_reduce_bytes"] > 0 for s in stats)
+        assert flat.keys() == want.keys()
+        for k in want:
+            gap = float(np.abs(flat[k] - want[k]).max())
+            assert gap <= STEP_REL * float(np.abs(want[k]).max()), (k, gap)
+    for flat, _ in runs[1:]:
+        assert all(np.array_equal(flat[k], runs[0][0][k]) for k in flat)
+    # the update norm is the global one: a leaf split over "model" summed
+    # over it, a whole one counted once (the 4 x 1 run's, where each rank
+    # holds every leaf whole)
+    for (_, s4), (_, s2) in zip((r["fed_4x1"] for r in world["four"]),
+                                runs):
+        for a, b in zip(s4, s2):
+            assert b["update_norm"] == pytest.approx(a["update_norm"],
+                                                     rel=1e-4)
+
+
+def test_drive_fed_rounds_moe_on_a_model_axis_matches_the_jax_loop(world):
+    """Reduced granite-moe on ``make_host_mesh(2, 2)``: each client's MoE
+    runs expert-parallel over "model" at its whole batch (the federated
+    round passes its mesh, no data axes), where JAX's round runs one
+    device's dispatch; against the JAX loop within STEP_REL of each
+    leaf's largest or, where that is tighter than JAX's own rounding,
+    SPREAD_FACTOR times the JAX loop's 1-ulp spread (the embedding's
+    is 9.0e-6 of its largest after 2 rounds); every rank's global the
+    same."""
+    import jax
+    rng = np.random.default_rng(5)
+    world["moe_j_nudged"] = jax.tree.map(lambda x: (np.asarray(x) * (
+        1 + 2.0 ** -23 * rng.standard_normal(x.shape))).astype(np.float32),
+        world["moe_j"])
+    want = _jax_fed_loop(world, "cm", "moe_j")
+    nudged = _jax_fed_loop(world, "cm", "moe_j_nudged")
+    rel = lambda a: max(float(np.abs(a[k] - want[k]).max()
+                              / np.abs(want[k]).max()) for k in want)
+    bound = max(STEP_REL, SPREAD_FACTOR * rel(nudged))
+    runs = [r["fed_2x2_moe"] for r in world["four"]]
+    for flat, stats in runs:
+        assert [s["round"] for s in stats] == list(range(1, ROUNDS + 1))
+        assert all(s["update_norm"] > 0 for s in stats)
+        assert flat.keys() == want.keys()
+        assert rel(flat) <= bound, (rel(flat), bound)
+    for flat, _ in runs[1:]:
+        assert all(np.array_equal(flat[k], runs[0][0][k]) for k in flat)
 
 
 def test_a_failing_rank_fails_the_launch_within_its_timeout():

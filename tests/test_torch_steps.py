@@ -442,38 +442,37 @@ def test_fed_round_step_matches_jax():
 # ---------------------------------------------------------------------------
 
 def test_meshes_and_sharding_knobs_raise_naming_item_11_7():
+    """What still raises, naming its item of 11.8: the serve step (11.8.2)
+    and the distill step (11.8.1) on a mesh, layouts other than ``tp``
+    and ``constrain_acts`` (11.8.4), ``act_sharding`` (11.8.4).  The train
+    and prefill steps and the federated round's model axis run on meshes
+    (``tests/test_torch_model_axis.py``, ``tests/test_torch_multihost.py``).
+    """
     ct = reduced(configs.get("qwen3-8b"))
     shape = InputShape("t", S, B, "train")
-    for build, kw in (
-            (steps.make_train_step, dict(mesh=object())),
-            (steps.make_train_step, dict(layout="dp_heavy")),
-            (steps.make_train_step, dict(constrain_acts=True)),
-            (steps.make_train_step, dict(mesh=object(),
-                                         use_moe_shard_map=True)),
-            (steps.make_prefill_step, dict(mesh=object())),
-            (steps.make_serve_step, dict(mesh=object()))):
-        with pytest.raises(NotImplementedError, match="11.8"):
+    for build, kw, item in (
+            (steps.make_train_step, dict(layout="dp_heavy"), "11.8.4"),
+            (steps.make_train_step, dict(constrain_acts=True), "11.8.4"),
+            (steps.make_prefill_step, dict(layout="dp_heavy_z3"),
+             "11.8.4"),
+            (steps.make_serve_step, dict(mesh=object()), "11.8.2")):
+        with pytest.raises(NotImplementedError, match=item):
             build(ct, shape, **kw)
-    with pytest.raises(NotImplementedError, match="11.8"):
+    with pytest.raises(NotImplementedError, match="11.8.1"):
         steps.make_distill_step(ct, object())
-    # the federated round's client axis runs on a data-only mesh (11.7);
-    # a model axis larger than 1 waits for 11.8
+    # the federated round's client axis runs on a data-only mesh (11.7)
     from repro_torch.launch import mesh as tmesh
     with tmesh.one_rank_world("cpu"):
         for mesh in (tmesh.make_client_mesh(), tmesh.make_host_mesh(1, 1)):
             b = steps.make_fed_round_step(ct, mesh, n_clients=2)
             assert b.client_slice == slice(0, 2)
             assert b.client_axes == ("data",)
+            assert b.layout is None
             assert tuple(tree_leaves(b.args[0])[0].shape)[0] == 2
-
-    class ModelAxis:
-        shape = {"data": 1, "model": 2}
-    with pytest.raises(NotImplementedError, match="11.8"):
-        steps.make_fed_round_step(ct, ModelAxis())
-    with pytest.raises(NotImplementedError, match="11.8"):
+    with pytest.raises(NotImplementedError, match="11.8.4"):
         T.forward(T.init(ct, torch.Generator().manual_seed(0)), ct,
                   {"tokens": torch.zeros((1, 4), dtype=torch.int64)},
-                  dp_axes=("data",))
+                  act_sharding=object())
     # fsdp shards nothing on one device: both values build
     steps.make_train_step(ct, shape, fsdp=False)
     bundle = steps.make_train_step(ct, shape, param_dtype=torch.float32)
