@@ -28,7 +28,13 @@ and in order:
    (the 8-teacher load template twice) and K = 1 too,
    float32 and bfloat16 teachers, two temperatures, each shape's launch
    plan printed, two launches of each kernel held to equal bits and every
-   instantiation to zero spills; K4 (causal / sliding-window attention) at
+   instantiation to zero spills; K2 over one vocabulary shard (K2s, its
+   rows' statistics unfinished) at path 17's shards (zamba2's and
+   qwen3-8b's vocabularies over two ranks, and 3 of 6 classes), f32 and
+   bf16 teachers: the rows it finishes to against its plain version, a
+   row set split into 2 and 4 column chunks, merged, against whole K2f
+   and K2b, two launches equal bit for bit, each shard timed against its
+   byte bound; K4 (causal / sliding-window attention) at
    the serve path's shape, gemma3's local width, D = 80, D = 128 with a
    window, two ragged shapes and, with key / value heads grouped under the
    query heads, D = 256 without a window over 4096 keys, path 12's qwen3-8b
@@ -45,7 +51,7 @@ and in order:
    that its float32 N = P = 64 instantiation (the serve path's) spills no
    registers; then one zamba2-1.2b mamba layer at full width, a 2000-token
    prompt split 1000 + 1000 through ``init_cache`` against the whole;
-4. drives sixteen paths on the card, with every launch count set to 0 just
+4. drives seventeen paths on the card, with every launch count set to 0 just
    before a path and read just after it.  Paths 1-3 go through
    ``Experiment(spec).run()`` at the quickstart's published widths, 1
    round each for paths 1 and 2, 2 for path 3:
@@ -229,6 +235,24 @@ and in order:
      a bf16 round at full depth, the ranks' gathered globals equal by
      digest); each rank's collectives (calls, bytes, seconds per axis) and
      launches printed;
+   - path 17, after path 16, the distill and serve steps on a mesh, 2
+     ranks sharing the card as 16a's: 17k the distill loss at each K2s
+     shard two ways over the model axis (K2s and the merged statistics,
+     which the port runs; the logits all-gathered and whole K2f), timed;
+     17a ``make_distill_step`` on 1 x 2 with 4 teachers (zamba2-1.2b's
+     first 7 layers in f32 at 2 x 512 against the unsharded
+     ``distill_grads``: the loss within 1e-6, the gathered gradients
+     within 4x its 1-ulp spread, Adam on the blocks equal to Adam on
+     the gathered gradients; one bf16 step at full depth, K2s and K2b
+     once a rank); 17b a sharded f32 prefill at path 4's batch and
+     prompt, ``T.serve_caches`` into JAX's ``kv_cache_rules`` layout and
+     8 decode tokens through ``make_serve_step`` across the sequence
+     shards' boundary, zamba2-1.2b's and qwen3-8b's first 2 layers each
+     token within 1e-3 of the largest logit against the unsharded
+     ``prefill`` + ``decode_step``; zamba2-1.2b at full depth in bf16, 16
+     tokens, its tokens/s and cache bytes a rank; 17c the zamba2 check on
+     a 2 x 1 mesh at batch 1 (the batch released, the sequence over both
+     axes);
    paths 1-3 and 5-11 run in six worker processes beside each other
    (``PATH_GROUPS``; each path's launch counts in its own process), after
    step 3 and before path 4, so that the kernel and served-model timings
@@ -238,8 +262,8 @@ and in order:
    exactly where the plain versions are, within tolerance elsewhere, two
    launches equal bit for bit;
 5. prints one ``{"kernels": [...]}`` line (each kernel's launches on its
-   path and, under ``path7_launches`` to ``path16_launches``, on each of
-   paths 7's to 16's sub-paths and ranks), the card line, and as its last
+   path and, under ``path7_launches`` to ``path17_launches``, on each of
+   paths 7's to 17's sub-paths and ranks), the card line, and as its last
    line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the last line, when there is no CUDA device,
@@ -322,7 +346,7 @@ K2_SHAPES = [(8, 64, 3), (6, 64, 3), (13, 64, 3), (8, 256, 64),
              (3, 1, 5003)]
 K3_SHAPES = [(64, 3), (256, 64), (37, 5003)]
 K2_MODES = ("lanes", "cluster", "block")
-K2_KERNELS = 30   # instantiations in ensemble_kl.cu, each checked for spills
+K2_KERNELS = 48   # instantiations in ensemble_kl.cu, each checked for spills
 TEACHER_DTYPES = ("float32", "bfloat16")
 # K2 / K3 against their plain versions: both take t / T in the teachers' type
 # and sum the same values, in another order (the kernel sums over K in
@@ -5934,6 +5958,565 @@ def print_path16(rep) -> None:
           flush=True)
 
 
+# Path 17 (after path 16): the distill and serve steps on a mesh (items
+# 11.8.1's rest and 11.8.2), on 2 gloo ranks sharing the card as path 16's
+# 1 x 2 world does, zamba2-1.2b at full width.  17k first times K2 over
+# vocabulary shards (K2s, the statistics merged over "model") against the
+# logits all-gathered over "model" and whole K2f, at K2S_SHAPES.  17a
+# make_distill_step on 1 x 2 with 4 teachers: the first STEP_HELD_LAYERS
+# served layers in float32 at PATH17_HELD_BATCH x STEP_HELD_SEQ tokens
+# against the unsharded distill_grads on rank 0 (the loss within
+# PATH17_LOSS_RTOL, the gathered gradients within STEP_SPREAD_FACTOR x the
+# unsharded 1-ulp spread, as 16a holds its step; the step's Adam on the
+# blocks equal to Adam on the gathered gradients, bit for bit), then one
+# bf16 step at full depth at PATH17_DISTILL (K2s and K2b once a rank, K4 /
+# K5 (K + 2) x 14b's per forward).  17b make_prefill_step in float32 at
+# path 4's batch and prompt, T.serve_caches into JAX's kv_cache_rules
+# layout (the sequence of a PATH17_MAX_SEQ cache over "model", every head
+# on each rank) and PATH17_TOKENS tokens through make_serve_step on the
+# mesh, whose cur_len crosses the shards' boundary at PATH17_MAX_SEQ / 2:
+# zamba2-1.2b's and qwen3-8b's first PATH17_HELD_LAYERS layers (qwen3-8b's
+# drawn as a 2-layer model at full width: 32 / 8 heads of D 128, the
+# grouped-query case that made JAX split the sequence), each token's
+# logits gathered within GQA_REL_ATOL of the largest against the unsharded
+# prefill + decode_step on rank 0 (the gap beside PATH17_REPORT_REL
+# printed); then zamba2-1.2b at full depth in bf16 (PATH17_FULL_TOKENS
+# tokens): tokens/s, cache bytes a rank against the unsharded cache's, the
+# reshard's bytes and seconds.  17c repeats 17b's zamba2 held check once on
+# a 2 x 1 mesh at batch 1 (the batch released, the sequence over ("data",
+# "model"), FSDP over "data"); qwen3-8b's check stays on the CPU there
+# (tests/test_torch_mesh_serve.py): at batch 1 each decoded token would
+# all-gather its 2.5 GB f32 embedding and head over "data" through host
+# memory.
+K2S_SHAPES = [(4, 64, 3), (4, 1024, 16000), (4, 256, 75968)]
+K2S_PARTS = (2, 4)
+PATH17_HELD_BATCH, PATH17_LOSS_RTOL = 2, 1e-6
+PATH17_DISTILL = dict(n_teachers=4, batch_size=2, seq_len=512)
+PATH17_HELD_LAYERS, PATH17_TOKENS, PATH17_FULL_TOKENS = 2, 8, 16
+PATH17_MAX_SEQ = 2 * (SERVE_PROMPT + 2)
+PATH17_REPORT_REL = 1e-5
+PATH17_GQA = "qwen3-8b"
+PATH17_TIMEOUT_S = 600
+
+
+def k2s_bytes(k, b, v, elem) -> int:
+    """Bytes K2s must move: teachers and student read once, six float32
+    statistics a row written."""
+    return k * b * v * elem + 4 * b * v + 6 * 4 * b
+
+
+def k2s_phase(device):
+    """K2s against its plain version at K2S_SHAPES, f32 and bf16
+    teachers: the rows it finishes to (kl, lse_t, lse_s) at K2f's bounds;
+    one row set split into 2 and 4 column chunks, merged, against whole
+    K2f (the loss) and K2b (each chunk's gradient from the merged
+    log-sum-exps); two launches equal bit for bit; timed at T = 1."""
+    import torch
+    from repro_torch.kernels import ensemble_kl as k2
+    from repro_torch.kernels import ref
+    rows, errors = [], []
+    g1 = torch.ones((), device=device)
+    for k, b, v in K2S_SHAPES:
+        mode = k2.card_plan(device, k, b, v).mode
+        for dtype_name in TEACHER_DTYPES:
+            s, t = k2_case(k, b, v, dtype_name, seed=k + b + v + 1,
+                           device=device)
+            first = k2.kl_fwd_split(s, t)
+            again = k2.kl_fwd_split(s, t)
+            got = ref.kl_combine([first])
+            want = ref.kl_combine([ref.kl_partial(s, t)])
+            fwd = [excess(x, y, K2_FWD_RTOL, K2_FWD_ATOL)
+                   for x, y in zip(got, want)]
+            kl, lse_t, lse_s = k2.kl_fwd(s, t)
+            ds = k2.kl_bwd(s, t, lse_t, lse_s, g1)
+            merged = {}
+            for parts in (p for p in K2S_PARTS if p <= v):
+                cols = torch.tensor_split(torch.arange(v, device=device),
+                                          parts)
+                chunks = [(s[:, c].contiguous(), t[:, :, c].contiguous())
+                          for c in cols]
+                m_kl, m_lt, m_ls = ref.kl_combine(
+                    [k2.kl_fwd_split(*c) for c in chunks])
+                m_ds = torch.cat([k2.kl_bwd(*c, m_lt, m_ls, g1)
+                                  for c in chunks], dim=1)
+                loss, whole = float(m_kl.mean()), float(kl.mean())
+                merged[parts] = {
+                    "loss_err": abs(loss - whole),
+                    "loss_ok": abs(loss - whole)
+                    <= K2_FWD_ATOL + K2_FWD_RTOL * abs(whole),
+                    "grad": excess(m_ds, ds, K2_GRAD_RTOL, K2_GRAD_ATOL)}
+            torch.cuda.synchronize()
+            ok = (all(e <= 0 for _, e in fwd) and torch.equal(first, again)
+                  and all(m["loss_ok"] and m["grad"][1] <= 0
+                          for m in merged.values()))
+            errors.append({"K": k, "B": b, "V_loc": v,
+                           "teachers": dtype_name, "mode": mode,
+                           "fwd_err": max(e for e, _ in fwd),
+                           "merged": merged,
+                           "repeat_equal": torch.equal(first, again),
+                           "ok": ok})
+            ms = device_ms(lambda: k2.kl_fwd_split(s, t))
+            plain = device_ms(lambda: ref.kl_partial(s, t))
+            row = {"K": k, "B": b, "V_loc": v, "teachers": dtype_name,
+                   "mode": mode, "ms": ms, "plain_ms": plain,
+                   "call_ms": call_ms(lambda: k2.kl_fwd_split(s, t)),
+                   **{kk: vv for kk, vv in bound(
+                       k2s_bytes(k, b, v, t.element_size()),
+                       2 * k * b * v + 14 * b * v).items()}}
+            rows.append(row)
+            del s, t, ds
+    return rows, errors
+
+
+def _p17_sync_s(fn, reps: int = 3) -> float:
+    """The least of ``reps`` host-clock runs of ``fn`` between card
+    synchronisations (a collective's wall, both ranks in it)."""
+    import torch
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _p17_barrier(mesh, device) -> None:
+    """Every rank of ``mesh`` here before a timed part (rank 0's
+    unsharded references would otherwise count in the others' walls)."""
+    import torch
+    from repro_torch.common import sharding as shd
+    shd.all_reduce_sum(torch.zeros(1, device=device), mesh)
+
+
+def p17_gather_alternative(device, mesh) -> dict:
+    """17k: the distill loss at each K2S_SHAPES shard (bf16 teachers) two
+    ways over the model axis of ``mesh``: K2s and the merge over the
+    ranks (what the port runs), and the logits all-gathered over "model"
+    then whole K2f (what the ROADMAP weighed against it)."""
+    import torch
+    from repro_torch.common import sharding as shd
+    from repro_torch.kernels import ensemble_kl as k2
+    from repro_torch.kernels import ops
+    out = []
+    for k, b, v in K2S_SHAPES:
+        s, t = k2_case(k, b, v, "bfloat16",
+                       seed=k + b + v + shd.axis_index(mesh, "model"),
+                       device=device)
+        with torch.no_grad():
+            split = _p17_sync_s(lambda: ops.ensemble_kl_loss_split(
+                s, t, mesh, "model"))
+
+            def gathered():
+                sg = shd.all_gather(s, mesh, ("model",), dim=1)
+                tg = shd.all_gather(t, mesh, ("model",), dim=2)
+                k2.kl_fwd(sg, tg)
+            whole = _p17_sync_s(gathered)
+        out.append({"K": k, "B": b, "V_loc": v, "split_s": split,
+                    "gathered_s": whole})
+        del s, t
+    torch.cuda.empty_cache()
+    return {"shapes": out}
+
+
+def p17_distill_held(device, mesh) -> tuple:
+    """17a's held check: a float32 distill step of zamba2-1.2b's first
+    STEP_HELD_LAYERS served layers with 4 teachers on ``mesh``, against
+    the unsharded distill_grads (and its 1-ulp nudge) on rank 0."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.common import sharding as shd
+    from repro_torch.common.pytree import tree_leaves, tree_map
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import steps
+    from repro_torch.optim import optimizers as topt
+    cfg = configs.get(SERVE_ARCH)
+    k = PATH17_DISTILL["n_teachers"]
+    c7, p7 = served_f32(cfg, device)
+    t7 = tree_map(lambda *xs: torch.stack(xs), *[
+        served_f32(cfg, device, 1 + i)[1] for i in range(k)])
+    batch = {"tokens": step_tokens(c7, (PATH17_HELD_BATCH, STEP_HELD_SEQ),
+                                   3)["tokens"].to(device)}
+    rep, problems = {"mesh": [shd.axis_size(mesh, a)
+                              for a in shd.axis_names(mesh)]}, []
+    ref = None
+    if tmesh.world_rank() == 0:
+        g, loss = steps.distill_grads(p7, t7, c7, batch, remat=False)
+        ref = (flat32(g), float(loss))
+        g_n, _ = steps.distill_grads(ulp_nudged(p7, 5), t7, c7, batch,
+                                     remat=False)
+        rep["ulp_spread"] = max(leaf_gaps(flat32(g_n), ref[0]).values())
+        del g, g_n
+    bundle = steps.make_distill_step(
+        c7, mesh, n_teachers=k, batch_size=PATH17_HELD_BATCH,
+        seq_len=STEP_HELD_SEQ, param_dtype=torch.float32)
+    tp = bundle.layout
+    student = shd.shard_tree(p7, tp.pspecs, mesh)
+    teachers = shd.shard_tree(t7, shd.stacked_specs(tp.pspecs), mesh)
+    opt = topt.AdamState(*(tree_map(torch.zeros_like, student)
+                           for _ in range(2)))
+    used = []
+    orig = steps._adam_step
+
+    def adam_step(o, params, opt_state, grads, step):
+        used.append(tree_map(lambda x: x.clone(), grads))
+        return orig(o, params, opt_state, grads, step)
+    _p16_reset()
+    steps._adam_step = adam_step
+    try:
+        t0 = time.perf_counter()
+        _, _, _, loss = bundle.fn(student, teachers, opt,
+                                  torch.zeros((), dtype=torch.int32),
+                                  steps.batch_block(batch, tp))
+        torch.cuda.synchronize()
+        rep["step_s"] = time.perf_counter() - t0
+    finally:
+        steps._adam_step = orig
+    rep.update(_p16_counts())
+    rep["loss"] = float(loss)
+    g_whole = shd.gather_tree(used[0], tp.pspecs, mesh)
+    stepped = tree_leaves(shd.gather_tree(student, tp.pspecs, mesh))
+    if ref is not None:
+        w = tree_leaves(p7)
+        o = topt.adam(1e-3)
+        deltas, _ = o.update(tree_leaves(g_whole), o.init(w), w, 0)
+        rep["adam_equal"] = all(torch.equal(a, b) for a, b in zip(
+            stepped, topt.apply_updates(w, deltas)))
+        gaps = leaf_gaps(flat32(g_whole), ref[0])
+        rep["grad_gap"] = max(gaps.values())
+        rep["worst_leaves"] = sorted(gaps, key=gaps.get, reverse=True)[:3]
+        rep["loss_rel"] = abs(rep["loss"] - ref[1]) / abs(ref[1])
+        rep["bound"] = STEP_SPREAD_FACTOR * rep["ulp_spread"]
+        rep["held"] = (rep["loss_rel"] <= PATH17_LOSS_RTOL
+                       and rep["grad_gap"] <= rep["bound"]
+                       and rep["adam_equal"])
+        if not rep["held"]:
+            problems.append(f"held distill step on {rep['mesh']}: {rep}")
+    del p7, t7, student, teachers, opt, used, g_whole, stepped
+    torch.cuda.empty_cache()
+    return rep, problems
+
+
+def p17_distill_full(device, mesh) -> tuple:
+    """17a at full depth: make_distill_step on zamba2-1.2b in bf16 at
+    PATH17_DISTILL on ``mesh``: one step, its seconds, peak memory a rank,
+    collectives by axis, launches (K2s and K2b once, K4 / K5 (K + 2)
+    forwards' worth)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    cfg = configs.get(SERVE_ARCH)
+    bundle = steps.make_distill_step(cfg, mesh, **PATH17_DISTILL)
+    k = PATH17_DISTILL["n_teachers"]
+    rep, problems = dict(PATH17_DISTILL), []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    args = bundle.init_args(torch.Generator(device=device).manual_seed(0),
+                            device)
+    rep["init_s"] = time.perf_counter() - t0
+    _p17_barrier(mesh, device)
+    _p16_reset()
+    t0 = time.perf_counter()
+    _, _, _, loss = bundle.fn(*args)
+    torch.cuda.synchronize()
+    rep["step_s"] = time.perf_counter() - t0
+    rep.update(_p16_counts())
+    rep["loss"] = float(loss)
+    rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    rep["vocab_local"] = int(args[0]["embed"].shape[0])
+    want = {"swa_attn": (k + 2) * STEP_K4, "ssd_scan": (k + 2) * STEP_K5,
+            "ensemble_kl_split_fwd": 1, "ensemble_kl_bwd": 1}
+    if rep["launches"] != want or not math.isfinite(rep["loss"]):
+        problems.append(f"17a full depth: launches {rep['launches']} "
+                        f"(expected {want}), loss {rep['loss']}")
+    del args, bundle
+    torch.cuda.empty_cache()
+    return rep, problems
+
+
+def p17_serve(mesh, cfg, params, toks, dtype, n_tokens, max_seq,
+              held: bool, ref=None) -> dict:
+    """make_prefill_step, T.serve_caches and ``n_tokens`` decode steps of
+    make_serve_step on ``mesh`` from the whole ``params``: the seconds of
+    each part, the caches' bytes a rank, the reshard's collectives, the
+    launches.  With ``held`` (on every rank) each token's logits are
+    gathered, and held against ``ref`` (rank 0's unsharded logits per
+    token) where it is given; else the last token's."""
+    import torch
+    from repro_torch.common import sharding as shd
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.configs import InputShape
+    b = toks.shape[0]
+    pre = steps.make_prefill_step(
+        cfg, InputShape("prefill_card", max_seq, b, "prefill"), mesh,
+        param_dtype=dtype)
+    serve = steps.make_serve_step(
+        cfg, InputShape("decode_card", max_seq, b, "decode"), mesh,
+        param_dtype=dtype, cache_dtype=dtype)
+    local = shd.shard_tree(params, pre.layout.pspecs, mesh)
+    rep = {"batch": b, "prompt": SERVE_PROMPT, "tokens": n_tokens,
+           "max_seq": max_seq}
+    _p17_barrier(mesh, toks.device)
+    _p16_reset()
+    t0 = time.perf_counter()
+    _, caches = pre.fn(local, steps.batch_block(
+        {"tokens": toks[:, :SERVE_PROMPT]}, pre.layout))
+    torch.cuda.synchronize()
+    rep["prefill_s"] = time.perf_counter() - t0
+    rep["prefill"] = _p16_counts()
+    rep["heads_cache_bytes"] = sum(x.numel() * x.element_size()
+                                   for x in tree_leaves(caches))
+    _p16_reset()
+    t0 = time.perf_counter()
+    caches = T.serve_caches(caches, cfg, pre.layout, serve.layout)
+    torch.cuda.synchronize()
+    rep["reshard_s"] = time.perf_counter() - t0
+    rep["reshard"] = _p16_counts()
+    rep["cache_bytes"] = sum(x.numel() * x.element_size()
+                             for x in tree_leaves(caches))
+    rep["unsharded_cache_bytes"] = sum(
+        x.numel() * x.element_size() for x in tree_leaves(
+            T.init_caches(cfg, b, max_seq, dtype, "meta")))
+    tp, errs, scale = serve.layout, [], 0.0
+    _p16_reset()
+    t0 = time.perf_counter()
+    for i in range(n_tokens):
+        tok = steps.batch_block(
+            {"tokens": toks[:, SERVE_PROMPT + i:SERVE_PROMPT + i + 1]}, tp)
+        logits, caches = serve.fn(local, tok, caches, SERVE_PROMPT + i)
+        if held or i == n_tokens - 1:
+            whole = shd.gather_tensor(logits, shd.P(
+                tp.batch_entry, None,
+                "model" if logits.shape[-1] != cfg.vocab_size else None),
+                mesh)
+            rep["finite"] = torch_isfinite(whole)
+            if ref is not None:
+                scale = max(scale, float(ref[i].abs().max()))
+                errs.append(float((whole.float() - ref[i]).abs().max()))
+    torch.cuda.synchronize()
+    rep["decode_s"] = time.perf_counter() - t0
+    rep["decode"] = _p16_counts()
+    rep["tokens_per_s"] = b * n_tokens / rep["decode_s"]
+    if errs:
+        rep.update(err=max(errs), errs=errs, max_abs_logit=scale,
+                   atol=GQA_REL_ATOL * scale,
+                   held=max(errs) <= GQA_REL_ATOL * scale)
+    del local, caches
+    return rep
+
+
+def p17_unsharded(cfg, params, toks, n_tokens, max_seq) -> list:
+    """Rank 0's unsharded prefill + decode_step logits per token."""
+    import torch
+    from repro_torch.models import transformer as T
+    with torch.no_grad():
+        _, caches = T.prefill(params, cfg,
+                              {"tokens": toks[:, :SERVE_PROMPT]}, max_seq)
+        out = []
+        for i in range(n_tokens):
+            lg, caches = T.decode_step(
+                params, cfg,
+                {"tokens": toks[:, SERVE_PROMPT + i:SERVE_PROMPT + i + 1]},
+                caches, SERVE_PROMPT + i)
+            out.append(lg.float())
+    return out
+
+
+def p17_serve_held(device, mesh, arch: str, batch: int) -> tuple:
+    """17b / 17c's held check: ``arch``'s first PATH17_HELD_LAYERS layers
+    in float32 (zamba2-1.2b's served layers; qwen3-8b drawn as a model of
+    that many layers at full width), ``batch`` sequences."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import transformer as T
+    c = configs.get(arch)
+    gen = torch.Generator(device=device).manual_seed(0)
+    if arch == SERVE_ARCH:
+        whole = T.init(c, gen, torch.float32, device)
+        cn, pn = served_layers(whole, c, PATH17_HELD_LAYERS)
+        pn = tree_map(lambda x: x.clone(), pn)
+        del whole
+    else:
+        cn = dataclasses.replace(c, n_layers=PATH17_HELD_LAYERS)
+        pn = T.init(cn, gen, torch.float32, device)
+    toks = step_tokens(cn, (SERVE_BATCH, SERVE_PROMPT + PATH17_TOKENS),
+                       2)["tokens"][:batch].to(device)
+    ref = (p17_unsharded(cn, pn, toks, PATH17_TOKENS, PATH17_MAX_SEQ)
+           if tmesh.world_rank() == 0 else None)
+    rep = p17_serve(mesh, cn, pn, toks, torch.float32, PATH17_TOKENS,
+                    PATH17_MAX_SEQ, True, ref)
+    rep.update(arch=arch, layers=PATH17_HELD_LAYERS)
+    problems = []
+    if ref is not None and not rep["held"]:
+        problems.append(f"{arch} first {PATH17_HELD_LAYERS} layers: {rep}")
+    del pn, ref
+    torch.cuda.empty_cache()
+    return rep, problems
+
+
+def p17_serve_full(device, mesh) -> tuple:
+    """17b at full depth: zamba2-1.2b in bf16 at path 4's batch and
+    prompt, PATH17_FULL_TOKENS tokens (K4 and K5 only in the prefill)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    cfg = configs.get(SERVE_ARCH)
+    params = T.init(cfg, torch.Generator(device=device).manual_seed(0),
+                    torch.bfloat16, device)
+    toks = step_tokens(cfg, (SERVE_BATCH, SERVE_PROMPT + PATH17_FULL_TOKENS),
+                       2)["tokens"].to(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rep = p17_serve(mesh, cfg, params, toks, torch.bfloat16,
+                    PATH17_FULL_TOKENS, SERVE_PROMPT + PATH17_FULL_TOKENS,
+                    False)
+    rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    problems = []
+    want = {"swa_attn": SERVE_K4, "ssd_scan": SERVE_K5}
+    if (rep["prefill"]["launches"] != want or rep["decode"]["launches"]
+            or not rep["finite"]):
+        problems.append(f"17b full depth: prefill launches "
+                        f"{rep['prefill']['launches']} (expected {want}), "
+                        f"decode {rep['decode']['launches']} (expected "
+                        f"none), finite {rep['finite']}")
+    del params
+    torch.cuda.empty_cache()
+    return rep, problems
+
+
+def path17_rank(device, parts=("17k", "17a", "17b", "17c")) -> dict:
+    """One rank of path 17's 2-rank world: the 1 x 2 mesh's parts, then
+    17c's 2 x 1 mesh, each part with its own counts; a part that raises
+    ends the rank (and the launch)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if device == "cuda" else torch.device(device))
+    from repro_torch.launch import mesh as tmesh
+    mesh = tmesh.make_debug_mesh(1, 2)
+    out, problems = {"rank": tmesh.world_rank(),
+                     "backend": tmesh._WORLD["backend"]}, []
+    for part in parts:
+        t0 = time.perf_counter()
+        p = []
+        if part == "17k":
+            out["17k"] = p17_gather_alternative(device, mesh)
+        elif part == "17a":
+            out["17a_held"], p = p17_distill_held(device, mesh)
+            out["17a_full"], more = p17_distill_full(device, mesh)
+            p += more
+        elif part == "17b":
+            out["17b_held"], p = p17_serve_held(device, mesh, SERVE_ARCH,
+                                                SERVE_BATCH)
+            out["17b_gqa"], more = p17_serve_held(device, mesh, PATH17_GQA,
+                                                  SERVE_BATCH)
+            out["17b_full"], more2 = p17_serve_full(device, mesh)
+            p += more + more2
+        else:
+            out["17c_held"], p = p17_serve_held(
+                device, tmesh.make_debug_mesh(2, 1), SERVE_ARCH, 1)
+        problems += [f"{part}: {x}" for x in p]
+        out[f"{part}_s"] = time.perf_counter() - t0
+    out["problems"] = problems
+    return out
+
+
+def mesh_serve_path(device, k2s_rows=()):
+    """Path 17 on 2 ranks sharing the card (``launch_ranks``)."""
+    import torch
+    from repro_torch.launch import mesh as tmesh
+    device = torch.device(device).type
+    rep, problems = {"card": card_line()}, []
+    rep["ranks"] = tmesh.launch_ranks(path17_rank, 2, device,
+                                      args=(device,), threads=4,
+                                      timeout_s=PATH17_TIMEOUT_S)
+    problems += [f"rank {r['rank']}: {p}" for r in rep["ranks"]
+                 for p in r["problems"]]
+    rep["k2s_rows"] = list(k2s_rows)
+    return rep, problems
+
+
+def print_path17(rep) -> None:
+    gib = 2 ** 30
+
+    def coll(r):
+        return "; ".join(
+            f"{axes}: " + ", ".join(
+                f"{k} {v['calls']} x {v['bytes'] / 1e6:.1f} MB "
+                f"{v['seconds']:.2f} s" for k, v in kinds.items()
+                if v["calls"])
+            for axes, kinds in r["by_axes"].items())
+    print(f"  path17 on {rep['card']}:")
+    alt = {(a["K"], a["B"], a["V_loc"]): a
+           for a in rep["ranks"][0]["17k"]["shapes"]}
+    for r in rep["k2s_rows"]:
+        a = alt.get((r["K"], r["B"], r["V_loc"]), {})
+        print(f"  path17 K2s K={r['K']} B={r['B']} V_loc={r['V_loc']} "
+              f"{r['teachers']} mode {r['mode']}: {r['ms'] * 1e3:.2f} us "
+              f"device / {r['call_ms'] * 1e3:.2f} us per call, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} at 3.35 "
+              f"TB/s, plain {r['plain_ms'] * 1e3:.2f} us"
+              + (f"; over 2 gloo ranks (bf16): split + merge "
+                 f"{a['split_s'] * 1e3:.2f} ms, logits all-gathered + "
+                 f"whole K2f {a['gathered_s'] * 1e3:.2f} ms"
+                 if a and r["teachers"] == "bfloat16" else ""))
+    for r in rep["ranks"]:
+        h, f = r["17a_held"], r["17a_full"]
+        print(f"  path17 17a rank {r['rank']} ({r['backend']}) held "
+              f"{STEP_HELD_LAYERS} layers f32, 4 teachers on 1 x 2: loss "
+              f"{h['loss']:.7f}"
+              + (f", rel {h['loss_rel']:.2e}, gradient gap "
+                 f"{h['grad_gap']:.3g} against 4 x the unsharded 1-ulp "
+                 f"spread {h['ulp_spread']:.3g} (worst "
+                 f"{h['worst_leaves']}), Adam on the blocks equal "
+                 f"{h['adam_equal']}" if "held" in h else "")
+              + f"; {h['step_s']:.2f} s, launches {h['launches']}; "
+              f"{coll(h)}")
+        print(f"  path17 17a rank {r['rank']} full depth bf16 "
+              f"{f['batch_size']} x {f['seq_len']}, {f['n_teachers']} "
+              f"teachers: step {f['step_s']:.2f} s (init {f['init_s']:.1f}"
+              f" s), loss {f['loss']:.6f}, peak "
+              f"{f['peak_mem_bytes'] / gib:.2f} GiB, vocabulary "
+              f"{f['vocab_local']} a rank, launches {f['launches']}; "
+              f"{coll(f)}")
+        for key in ("17b_held", "17b_gqa", "17c_held"):
+            s = r[key]
+            held = (f", gap {s['err']:.3g} of a {s['max_abs_logit']:.4g} "
+                    f"largest ({s['err'] / s['max_abs_logit']:.2e} of it; "
+                    f"reported against {PATH17_REPORT_REL:.0e}, gate "
+                    f"{GQA_REL_ATOL:.0e}) held {s['held']}"
+                    if "held" in s else "")
+            print(f"  path17 {key} rank {r['rank']} {s['arch']} first "
+                  f"{s['layers']} layers f32 batch {s['batch']}: prefill "
+                  f"{s['prefill_s']:.3f} s, reshard {s['reshard_s']:.3f} s "
+                  f"({coll(s['reshard'])}), {s['tokens']} tokens "
+                  f"{s['decode_s']:.3f} s{held}")
+        s = r["17b_full"]
+        print(f"  path17 17b rank {r['rank']} full depth bf16 batch "
+              f"{s['batch']} prompt {s['prompt']}: prefill "
+              f"{s['prefill_s']:.3f} s ({coll(s['prefill'])}), reshard "
+              f"{s['reshard_s']:.3f} s ({coll(s['reshard'])}), "
+              f"{s['tokens']} tokens {s['decode_s']:.3f} s = "
+              f"{s['tokens_per_s']:.1f} tokens/s ({coll(s['decode'])}); "
+              f"cache {s['cache_bytes'] / 1e6:.1f} MB a rank against "
+              f"{s['unsharded_cache_bytes'] / 1e6:.1f} MB unsharded "
+              f"(at its heads after prefill "
+              f"{s['heads_cache_bytes'] / 1e6:.1f} MB); peak "
+              f"{s['peak_mem_bytes'] / gib:.2f} GiB; launches prefill "
+              f"{s['prefill']['launches']} decode {s['decode']['launches']}")
+        print(f"  path17 rank {r['rank']}: " + ", ".join(
+            f"{p} {r[f'{p}_s']:.1f} s" for p in ("17k", "17a", "17b",
+                                                  "17c")))
+    print(f"  path17: whole path {rep['total_s']:.1f} s", flush=True)
+
+
 KERNEL_SOURCES = ["ensemble_kl_bank", "ensemble_kl", "swa_attn", "ssd_scan"]
 
 
@@ -6069,8 +6652,9 @@ def main() -> int:
         build_problems.append(f"ensemble_kl_bank's {K1_KERNELS} kernels spill "
                               f"or are missing: {report['k1_ptxas']}")
     # K2 / K3: every instantiation spills nothing: lane groups, cluster and
-    # block per row forward, and the backward at both index widths, each for
-    # 1, 4 and 8 teachers in flight and f32 and bf16 teachers (30)
+    # block per row forward, each finishing its rows or (K2s) writing their
+    # statistics, and the backward at both index widths, each for 1, 4 and
+    # 8 teachers in flight and f32 and bf16 teachers (48)
     report["k2_ptxas"] = ptxas_usage(libs["ensemble_kl"].log)
     k2_spills = {n: u for n, u in report["k2_ptxas"].items()
                  if u.get("spill_stores") != 0 or u.get("spill_loads") != 0}
@@ -6149,6 +6733,17 @@ def main() -> int:
               f"{e['fwd_err']:.2e} bwd {e['bwd_err']:.2e} two launches "
               f"{'equal' if e['repeat_equal'] else 'DIFFER'} "
               f"{'ok' if e['ok'] else 'FAIL'}")
+    k2s_timings, k2s_errors = k2s_phase(device)
+    report["k2s_errors"], report["k2s_timings"] = k2s_errors, k2s_timings
+    for e in k2s_errors:
+        print(f"  check K2s K={e['K']} B={e['B']} V_loc={e['V_loc']} "
+              f"{e['teachers']:8s} mode {e['mode']}: rows {e['fwd_err']:.2e}"
+              f" against the plain version; merged chunks " + ", ".join(
+                  f"{n}: loss {m['loss_err']:.2e} grad {m['grad'][0]:.2e}"
+                  for n, m in e["merged"].items())
+              + f" against whole K2f / K2b; two launches "
+              f"{'equal' if e['repeat_equal'] else 'DIFFER'} "
+              f"{'ok' if e['ok'] else 'FAIL'}")
     # each forward mode and the backward ran, and repeated bit for bit
     missing = set(K2_MODES) - {e["mode"] for e in k2_errors}
     if missing:
@@ -6217,7 +6812,8 @@ def main() -> int:
           f"{k5_split} {'ok' if k5_split['ok'] else 'FAIL'}", flush=True)
     problems = build_problems + [
         f"kernel check failed: {e}" for e in
-        errors + k1_modes + k1_grids + k1_poison + k2_errors + nonfinite
+        errors + k1_modes + k1_grids + k1_poison + k2_errors + k2s_errors
+        + nonfinite
         + k4_errors + k5_errors + [k5_split] if not e["ok"]]
 
     # 4. the paths, each with its own launch counts: paths 1-3 and 5-11 in
@@ -6378,6 +6974,14 @@ def main() -> int:
     print_path16(rep)
     print(f"path 16 done at {time.perf_counter() - start_s:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    rep, path_problems = mesh_serve_path(device, k2s_timings)
+    rep["total_s"] = time.perf_counter() - t0
+    paths["path17_mesh_serve"] = rep
+    problems += [f"path17_mesh_serve: {p}" for p in path_problems]
+    print_path17(rep)
+    print(f"path 17 done at {time.perf_counter() - start_s:.1f} s",
+          flush=True)
 
     # 5. output
     def timing(rows, **key):
@@ -6477,6 +7081,18 @@ def main() -> int:
                 "16c_granite": [n(r["16c"][MOE_SERVE[0]]) for r in two],
                 "16d": [n(r["16d"]["full"]) for r in two]}
 
+    def path17_launches(name):
+        """Path 17's launches of ``name`` on each rank: 17a's held and
+        full-depth distill steps, 17b's and 17c's prefills and decodes."""
+        ranks = paths["path17_mesh_serve"]["ranks"]
+        n = lambda r: r["launches"].get(name, 0)
+        out = {"17a_held": [n(r["17a_held"]) for r in ranks],
+               "17a": [n(r["17a_full"]) for r in ranks]}
+        for key in ("17b_held", "17b_gqa", "17b_full", "17c_held"):
+            for part in ("prefill", "decode"):
+                out[f"{key}_{part}"] = [n(r[key][part]) for r in ranks]
+        return out
+
     def path8_launches(name):
         """Each path 8 sub-path's launches of ``name``."""
         b = paths["path8b_bucketing"]
@@ -6503,6 +7119,7 @@ def main() -> int:
                 "path14_launches": path14_launches(name),
                 "path15_launches": path15_launches(name),
                 "path16_launches": path16_launches(name),
+                "path17_launches": path17_launches(name),
                 "max_abs_err": max(e[i] for e in errs),
                 "ms": t[f"{kind}_ms"], "plain_ms": t[f"plain_{kind}_ms"],
                 "call_ms": t[f"{kind}_call_ms"],
@@ -6529,6 +7146,7 @@ def main() -> int:
             "path14_launches": path14_launches(name),
             "path15_launches": path15_launches(name),
             "path16_launches": path16_launches(name),
+            "path17_launches": path17_launches(name),
             "path14_dtypes": sorted({d for sub in ("14a_train", "14b_distill",
                                                    "14c_fed_round",
                                                    "14d_serve")
@@ -6541,6 +7159,21 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"] if lib else None,
             "bound_detail": t["bound_detail"]})
+    # K2s: its launches are path 17a's full-depth step (rank 0), its
+    # times at that step's shard (4 teachers over 2 x 512 rows, 16000 of
+    # zamba2's 32000 columns, bf16 teachers)
+    t = timing(k2s_timings, K=4, B=1024, V_loc=16000, teachers="bfloat16")
+    name = "ensemble_kl_split_fwd"
+    kernels.append({
+        "name": name, "route": "cuda", "source": src + "ensemble_kl.cu",
+        "replaces": pallas + "107",
+        "launches": paths["path17_mesh_serve"]["ranks"][0]["17a_full"]
+        ["launches"].get(name, 0),
+        "path17_launches": path17_launches(name),
+        "max_abs_err": max(e["fwd_err"] for e in k2s_errors),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "call_ms": t["call_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None})
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - start_s
     out_dir = ROOT / "chiprun_out"

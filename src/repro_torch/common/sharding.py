@@ -260,7 +260,10 @@ def fit_pspecs(pspec_tree: Any, struct_tree: Any, mesh) -> Any:
 def kv_cache_rules(rules: Rules, *, batch: int, data_size: int) -> Rules:
     """Decode-cache sharding: the cache SEQUENCE dim over "model"; with a
     batch smaller than the data axis the batch dim is released and the
-    sequence dim takes both axes."""
+    sequence dim takes both axes.  (A cache's leaves are laid out by
+    ``fit_pspec`` of these rules, as JAX fits them: a sequence the axes
+    do not divide stays whole on every rank, ``models/transformer.
+    cache_pspecs``.)"""
     out = dict(rules)
     if batch < data_size:
         out["batch"] = ()
@@ -529,7 +532,9 @@ class Segmented:
     split: Tuple[bool, ...]
 
 
-def _entry_axes(entry) -> Tuple[str, ...]:
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one PartitionSpec entry, in order (empty for
+    None)."""
     if entry is None:
         return ()
     if isinstance(entry, Segmented):
@@ -558,7 +563,7 @@ def local_shape(shape: Sequence[int], spec: PartitionSpec,
             out[d] = sum(s // m if cut else s
                          for s, cut in zip(entry.sizes, entry.split))
         elif entry is not None:
-            out[d] //= block_index(mesh, _entry_axes(entry))[1]
+            out[d] //= block_index(mesh, entry_axes(entry))[1]
     return tuple(out)
 
 
@@ -572,7 +577,7 @@ def shard_tensor(x: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
                            if cut else p
                            for p, cut in zip(parts, entry.split)], dim=d)
         elif entry is not None:
-            i, n = block_index(mesh, _entry_axes(entry))
+            i, n = block_index(mesh, entry_axes(entry))
             per = x.shape[d] // n
             x = x.narrow(d, i * per, per)
     return x.clone(memory_format=torch.contiguous_format)
@@ -591,7 +596,7 @@ def gather_tensor(x: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
                                torch.split(x, sizes, dim=d), entry.split)],
                           dim=d)
         elif entry is not None:
-            x = all_gather(x, mesh, _entry_axes(entry), d)
+            x = all_gather(x, mesh, entry_axes(entry), d)
     return x
 
 
@@ -640,6 +645,26 @@ def local_structs(structs, pspecs, mesh):
         pspecs, structs)
 
 
+def reshard_tensor(x: torch.Tensor, src: PartitionSpec, dst: PartitionSpec,
+                   mesh) -> torch.Tensor:
+    """This rank's block under ``dst`` of the array whose block under
+    ``src`` is ``x``: each dimension laid out differently is all-gathered
+    over its ``src`` axes, then cut to this rank's ``dst`` block (the
+    all-gathers counted in :data:`COLLECTIVE_AXES`)."""
+    for d, (a, b) in enumerate(zip(src, dst)):
+        if a == b or (not isinstance(a, Segmented)
+                      and not isinstance(b, Segmented)
+                      and entry_axes(a) == entry_axes(b)):
+            continue
+        if a is not None:
+            x = all_gather(x, mesh, entry_axes(a), d)
+        if b is not None:
+            i, n = block_index(mesh, entry_axes(b))
+            per = x.shape[d] // n
+            x = x.narrow(d, i * per, per)
+    return x.contiguous()
+
+
 def stacked_specs(pspecs, lead=None):
     """``pspecs`` with one more leading dimension laid out ``lead``."""
     return map_specs(lambda s: P(lead, *tuple(s)), pspecs)
@@ -663,10 +688,19 @@ class TPLayout:
     pspecs: Any
     dp_axes: Tuple[str, ...] = ()
     model_axis: str = "model"
+    # the axes a batch's rows split over, where JAX's fitted spec gives
+    # fewer than dp_axes (a batch they do not divide stays whole; FSDP
+    # still gathers over dp_axes); None: dp_axes
+    batch_axes: Optional[Tuple[str, ...]] = None
+    # the serve layout's decode caches (transformer.cache_pspecs); None
+    # elsewhere: caches at this rank's heads, as prefill makes them
+    cache_pspecs: Any = None
 
     def __post_init__(self):
         names = axis_names(self.mesh)
         self.dp_axes = tuple(a for a in self.dp_axes if a in names)
+        if self.batch_axes is None:
+            self.batch_axes = self.dp_axes
 
     @property
     def model_size(self) -> int:
@@ -684,6 +718,12 @@ class TPLayout:
     def dp_index(self) -> int:
         return block_index(self.mesh, self.dp_axes)[0]
 
+    @property
+    def batch_entry(self):
+        """The batch dimension's PartitionSpec entry (``batch_axes``)."""
+        axes = tuple(self.batch_axes)
+        return None if not axes else axes[0] if len(axes) == 1 else axes
+
     def copy_to(self, x):
         return copy_to(x, self.mesh, (self.model_axis,))
 
@@ -698,7 +738,7 @@ class TPLayout:
         data axes."""
         out = []
         for d, entry in enumerate(spec):
-            axes = _entry_axes(entry)
+            axes = entry_axes(entry)
             if axes and all(a in self.dp_axes for a in axes):
                 out.append((d, axes))
         return out

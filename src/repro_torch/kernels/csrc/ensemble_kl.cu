@@ -8,6 +8,14 @@
 //   K3b  _bwd_kernel on rank-2 rows               (_bwd_rule,       called at :295)
 // K3 is K2 with K = 1 on the weighted teacher consensus; it has its own entry
 // points (and launch counts) so a run can tell the two paths apart.
+//   K2s  the forward of K2 over one shard of the vocabulary (ensemble_kl_split_fwd):
+//        the same passes write each row's unfinished statistics instead of
+//        finishing it, for a model axis that splits the logits by columns.
+//        The caller merges the shards' statistics (the max over ranks, then the
+//        rescaled sums) and finishes the rows; K2b then runs unchanged on each
+//        shard's columns, fed the merged log-sum-exps.  It replaces the same
+//        Pallas forward, whose _init_row_stats / _online_step / _emit_row_stats
+//        (:66-105) build these statistics before _fwd_kernel finishes a row.
 //
 // Per row b of the student batch [B, V], as the Pallas kernel orders it
 // (_fwd :240-241 divides both inputs by T before the tile takes the mean):
@@ -195,10 +203,31 @@ __device__ __forceinline__ void emit(const Stats& a, int64_t row, float* __restr
   lse_s[row] = ls;
 }
 
+// Split mode: the row's statistics unfinished, six float32 planes of B rows
+// (m_t, z_t, st, ss, m_s, z_s) starting at `stats`.
+__device__ __forceinline__ void emit_partial(const Stats& a, int64_t row, int64_t b_total,
+                                             float* __restrict__ stats) {
+  stats[row] = a.m_t;
+  stats[b_total + row] = a.z_t;
+  stats[2 * b_total + row] = a.st;
+  stats[3 * b_total + row] = a.ss;
+  stats[4 * b_total + row] = a.m_s;
+  stats[5 * b_total + row] = a.z_s;
+}
+
+// kPartial: `kl` is the split mode's stats planes, lse_t and lse_s unused.
+template <bool kPartial>
+__device__ __forceinline__ void store(const Stats& a, int64_t row, int b_total,
+                                      float* __restrict__ kl, float* __restrict__ lse_t,
+                                      float* __restrict__ lse_s) {
+  if constexpr (kPartial) emit_partial(a, row, b_total, kl);
+  else emit(a, row, kl, lse_t, lse_s);
+}
+
 // Lane-group mode: 2^log2_lanes lanes per row, blockDim.x / 2^log2_lanes rows
 // per block.  Every lane of the warp takes part in the shuffles, also those
 // past the last row.
-template <int NB, typename TT>
+template <int NB, typename TT, bool kPartial>
 __global__ void __launch_bounds__(kMaxThreads)
 kl_fwd_lanes(const float* __restrict__ student, const TT* __restrict__ teachers,
              float* __restrict__ kl, float* __restrict__ lse_t, float* __restrict__ lse_s,
@@ -212,12 +241,12 @@ kl_fwd_lanes(const float* __restrict__ student, const TT* __restrict__ teachers,
     accumulate<NB>(a, student, teachers, row * v_total, lane, v_total, lanes,
                    static_cast<int64_t>(b_total) * v_total, k_total, temperature);
   for (int off = lanes >> 1; off > 0; off >>= 1) merge(a, shfl_xor(a, off));
-  if (lane == 0 && row < b_total) emit(a, row, kl, lse_t, lse_s);
+  if (lane == 0 && row < b_total) store<kPartial>(a, row, b_total, kl, lse_t, lse_s);
 }
 
 // Cluster mode (kCluster) and block mode: row = blockIdx.x / C, and the
 // block of cluster rank r reduces the r-th slice of V.
-template <int NB, typename TT, bool kCluster>
+template <int NB, typename TT, bool kCluster, bool kPartial>
 __global__ void __launch_bounds__(kMaxThreads)
 kl_fwd_rows(const float* __restrict__ student, const TT* __restrict__ teachers,
             float* __restrict__ kl, float* __restrict__ lse_t, float* __restrict__ lse_s,
@@ -252,7 +281,7 @@ kl_fwd_rows(const float* __restrict__ student, const TT* __restrict__ teachers,
     for (int off = pow2_at_least(n_warps) >> 1; off > 0; off >>= 1) merge(a, shfl_xor(a, off));
     if (lane == 0) {
       if constexpr (kCluster) block_stats = a;
-      else emit(a, row, kl, lse_t, lse_s);
+      else store<kPartial>(a, row, b_total, kl, lse_t, lse_s);
     }
   }
   if constexpr (kCluster) {
@@ -263,7 +292,7 @@ kl_fwd_rows(const float* __restrict__ student, const TT* __restrict__ teachers,
     if (rank == 0 && warp == 0) {
       a = lane < c ? *cluster.map_shared_rank(&block_stats, lane) : empty_stats();
       for (int off = c >> 1; off > 0; off >>= 1) merge(a, shfl_xor(a, off));
-      if (lane == 0) emit(a, row, kl, lse_t, lse_s);
+      if (lane == 0) store<kPartial>(a, row, b_total, kl, lse_t, lse_s);
     }
     cluster.sync();   // no block leaves while rank 0 may still read its Stats
   }
@@ -309,18 +338,18 @@ int log2_exact(int x) {  // -1 unless x is a power of two
   return l;
 }
 
-template <int NB, typename TT>
+template <int NB, typename TT, bool kPartial>
 cudaError_t launch_fwd_typed(const float* s, const TT* t, float* kl, float* lt, float* ls,
                              int k_total, int b_total, int v_total, float temperature, int mode,
                              int lanes, int cluster, int threads, int grid, cudaStream_t st) {
   switch (mode) {
     case kLanes:
-      kl_fwd_lanes<NB, TT><<<grid, threads, 0, st>>>(s, t, kl, lt, ls, k_total, b_total,
-                                                     v_total, temperature, log2_exact(lanes));
+      kl_fwd_lanes<NB, TT, kPartial><<<grid, threads, 0, st>>>(
+          s, t, kl, lt, ls, k_total, b_total, v_total, temperature, log2_exact(lanes));
       return cudaGetLastError();
     case kBlock:
-      kl_fwd_rows<NB, TT, false><<<grid, threads, 0, st>>>(s, t, kl, lt, ls, k_total, b_total,
-                                                           v_total, temperature);
+      kl_fwd_rows<NB, TT, false, kPartial><<<grid, threads, 0, st>>>(
+          s, t, kl, lt, ls, k_total, b_total, v_total, temperature);
       return cudaGetLastError();
     case kCluster: {
       cudaLaunchConfig_t cfg = {};
@@ -335,8 +364,9 @@ cudaError_t launch_fwd_typed(const float* s, const TT* t, float* kl, float* lt, 
       attr[0].val.clusterDim.z = 1;
       cfg.attrs = attr;
       cfg.numAttrs = 1;
-      const cudaError_t err = cudaLaunchKernelEx(&cfg, kl_fwd_rows<NB, TT, true>, s, t, kl, lt,
-                                                 ls, k_total, b_total, v_total, temperature);
+      const cudaError_t err = cudaLaunchKernelEx(&cfg, kl_fwd_rows<NB, TT, true, kPartial>, s,
+                                                 t, kl, lt, ls, k_total, b_total, v_total,
+                                                 temperature);
       const cudaError_t last = cudaGetLastError();
       return err != cudaSuccess ? err : last;
     }
@@ -344,23 +374,30 @@ cudaError_t launch_fwd_typed(const float* s, const TT* t, float* kl, float* lt, 
   }
 }
 
-template <typename TT>
+template <typename TT, bool kPartial>
 cudaError_t launch_fwd_batched(int batch, const float* s, const TT* t, float* kl, float* lt,
                                float* ls, int k_total, int b_total, int v_total,
                                float temperature, int mode, int lanes, int cluster,
                                int threads, int grid, cudaStream_t st) {
   switch (batch) {
-    case 1: return launch_fwd_typed<1>(s, t, kl, lt, ls, k_total, b_total, v_total,
-                                       temperature, mode, lanes, cluster, threads, grid, st);
-    case 4: return launch_fwd_typed<4>(s, t, kl, lt, ls, k_total, b_total, v_total,
-                                       temperature, mode, lanes, cluster, threads, grid, st);
-    case 8: return launch_fwd_typed<8>(s, t, kl, lt, ls, k_total, b_total, v_total,
-                                       temperature, mode, lanes, cluster, threads, grid, st);
+    case 1:
+      return launch_fwd_typed<1, TT, kPartial>(s, t, kl, lt, ls, k_total, b_total, v_total,
+                                                 temperature, mode, lanes, cluster, threads,
+                                                 grid, st);
+    case 4:
+      return launch_fwd_typed<4, TT, kPartial>(s, t, kl, lt, ls, k_total, b_total, v_total,
+                                                 temperature, mode, lanes, cluster, threads,
+                                                 grid, st);
+    case 8:
+      return launch_fwd_typed<8, TT, kPartial>(s, t, kl, lt, ls, k_total, b_total, v_total,
+                                                 temperature, mode, lanes, cluster, threads,
+                                                 grid, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // teacher_kind: 0 float32, 1 bfloat16 (matches kernels/ensemble_kl.py)
+template <bool kPartial>
 int launch_fwd(const void* student, const void* teachers, void* kl, void* lse_t, void* lse_s,
                int k_total, int b_total, int v_total, float temperature, int teacher_kind,
                int batch, int mode, int lanes, int cluster, int threads, int grid, int device,
@@ -389,11 +426,11 @@ int launch_fwd(const void* student, const void* teachers, void* kl, void* lse_t,
   float* o_ls = static_cast<float*>(lse_s);
   switch (teacher_kind) {
     case 0:
-      return static_cast<int>(launch_fwd_batched(
+      return static_cast<int>(launch_fwd_batched<float, kPartial>(
           batch, s, static_cast<const float*>(teachers), o_kl, o_lt, o_ls, k_total, b_total,
           v_total, temperature, mode, lanes, cluster, threads, grid, st));
     case 1:
-      return static_cast<int>(launch_fwd_batched(
+      return static_cast<int>(launch_fwd_batched<__nv_bfloat16, kPartial>(
           batch, s, static_cast<const __nv_bfloat16*>(teachers), o_kl, o_lt, o_ls, k_total,
           b_total, v_total, temperature, mode, lanes, cluster, threads, grid, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -469,8 +506,21 @@ extern "C" int ensemble_kl_fwd(const void* student, const void* teachers, void* 
                                float temperature, int teacher_kind, int batch, int mode,
                                int lanes, int cluster, int threads, int grid, int device,
                                void* stream) {
-  return launch_fwd(student, teachers, kl, lse_t, lse_s, k_total, b_total, v_total, temperature,
-                    teacher_kind, batch, mode, lanes, cluster, threads, grid, device, stream);
+  return launch_fwd<false>(student, teachers, kl, lse_t, lse_s, k_total, b_total, v_total,
+                           temperature, teacher_kind, batch, mode, lanes, cluster, threads, grid,
+                           device, stream);
+}
+
+// K2s: K2f over one vocabulary shard [K, B, V_loc] -> stats [6, B] float32 (the
+// planes m_t, z_t, st, ss, m_s, z_s), with the plan K2f takes at V_loc.
+extern "C" int ensemble_kl_split_fwd(const void* student, const void* teachers, void* stats,
+                                     int k_total, int b_total, int v_total, float temperature,
+                                     int teacher_kind, int batch, int mode, int lanes,
+                                     int cluster, int threads, int grid, int device,
+                                     void* stream) {
+  return launch_fwd<true>(student, teachers, stats, nullptr, nullptr, k_total, b_total, v_total,
+                          temperature, teacher_kind, batch, mode, lanes, cluster, threads, grid,
+                          device, stream);
 }
 
 extern "C" int ensemble_kl_bwd(const void* student, const void* teachers, const void* lse_t,
@@ -487,8 +537,9 @@ extern "C" int ensemble_kl_pre_fwd(const void* student, const void* consensus, v
                                    float temperature, int teacher_kind, int batch, int mode,
                                    int lanes, int cluster, int threads, int grid, int device,
                                    void* stream) {
-  return launch_fwd(student, consensus, kl, lse_t, lse_s, 1, b_total, v_total, temperature,
-                    teacher_kind, batch, mode, lanes, cluster, threads, grid, device, stream);
+  return launch_fwd<false>(student, consensus, kl, lse_t, lse_s, 1, b_total, v_total,
+                           temperature, teacher_kind, batch, mode, lanes, cluster, threads, grid,
+                           device, stream);
 }
 
 extern "C" int ensemble_kl_pre_bwd(const void* student, const void* consensus, const void* lse_t,

@@ -9,7 +9,9 @@ teachers ``[K, B, V]``, the on-the-fly distillation path) and
 teacher consensus of the buffered-async driver).  :func:`ensemble_kl` and
 :func:`ensemble_kl_pre` bind each pair as one ``torch.autograd.Function``:
 the loss ``T^2 * mean_b KL(softmax(mean_k t_k / T) || softmax(s_b / T))``
-is differentiable in the student logits only.
+is differentiable in the student logits only.  :func:`kl_fwd_split` is
+K2f over one shard of the vocabulary (K2s): the row statistics before
+they are finished (``kernels/ops.py`` merges them over the model axis).
 
 These wrappers take CUDA tensors only; ``kernels/ops.py`` routes CPU
 tensors to the plain versions in ``kernels/ref.py``.  Every launch adds
@@ -36,7 +38,8 @@ from repro_torch.kernels import build
 SOURCE = "ensemble_kl"
 LAUNCHES: Dict[str, int] = {"ensemble_kl_fwd": 0, "ensemble_kl_bwd": 0,
                             "ensemble_kl_pre_fwd": 0,
-                            "ensemble_kl_pre_bwd": 0}
+                            "ensemble_kl_pre_bwd": 0,
+                            "ensemble_kl_split_fwd": 0}
 # teacher dtype -> the C interface's teacher_kind
 TEACHER_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -48,6 +51,9 @@ _ARGTYPES = {
     # student, teachers, lse_t, lse_s, g, ds, K, B, V, T, kind, batch,
     # threads, grid, device, stream
     "ensemble_kl_bwd": [_P] * 6 + [_I, _I, _I, _F] + [_I] * 5 + [_P],
+    # student, teachers, stats, K, B, V, T, kind, batch, mode, lanes,
+    # cluster, threads, grid, device, stream
+    "ensemble_kl_split_fwd": [_P] * 3 + [_I, _I, _I, _F] + [_I] * 8 + [_P],
     # the same without K (it is 1)
     "ensemble_kl_pre_fwd": [_P] * 5 + [_I, _I, _F] + [_I] * 8 + [_P],
     "ensemble_kl_pre_bwd": [_P] * 6 + [_I, _I, _F] + [_I] * 5 + [_P],
@@ -254,6 +260,30 @@ def kl_fwd(student, teachers, temperature: float = 1.0, pre: bool = False,
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return kl, lse_t, lse_s
+
+
+STATS = ("m_t", "z_t", "st", "ss", "m_s", "z_s")   # kl_fwd_split's planes
+
+
+def kl_fwd_split(student, teachers, temperature: float = 1.0,
+                 launch: Plan | None = None) -> torch.Tensor:
+    """K2s: K2f over this rank's ``V_loc`` vocabulary columns (student [B,
+    V_loc], teachers [K, B, V_loc]), each row left unfinished: a float32
+    [6, B] tensor of the planes :data:`STATS` (``ref.kl_partial``'s),
+    launched with K2f's plan at ``V_loc``."""
+    k, b, v = _check(student, teachers, False)
+    stats = torch.empty((len(STATS), b), device=student.device,
+                        dtype=torch.float32)
+    name = "ensemble_kl_split_fwd"
+    p = launch or card_plan(student.device, k, b, v)
+    err = _fn(name)(student.data_ptr(), teachers.data_ptr(), stats.data_ptr(),
+                    k, b, v, float(temperature),
+                    TEACHER_KINDS[teachers.dtype], p.teacher_batch,
+                    MODES[p.mode], p.lanes, p.cluster, p.threads, p.grid,
+                    student.device.index, _stream(student))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return stats
 
 
 def kl_bwd(student, teachers, lse_t, lse_s, g, temperature: float = 1.0,

@@ -66,6 +66,67 @@ def ensemble_kl_loss(student_logits: torch.Tensor,
     return ref.ensemble_kl(s2, t2, temperature)
 
 
+class _VocabSplitKL(torch.autograd.Function):
+    """K2 over vocabulary shards: the forward takes each row's statistics
+    over this rank's columns (K2s, or ``ref.kl_partial`` on the CPU),
+    merges them over ``axis`` (the max, then the rescaled sums) and
+    finishes the rows; the backward is K2b (``ref.ensemble_kl_bwd`` on
+    the CPU) on this rank's columns with the merged log-sum-exps and
+    ``n_rows`` in place of the local row count."""
+
+    @staticmethod
+    def forward(ctx, student, teachers, mesh, axis, n_rows, temperature):
+        from repro_torch.common.sharding import all_reduce_max, all_reduce_sum
+        if student.is_cuda:
+            from repro_torch.kernels.ensemble_kl import kl_fwd_split
+            stats = kl_fwd_split(student, teachers, temperature)
+        else:
+            _check_on_cpu(teachers=teachers)
+            stats = ref.kl_partial(student, teachers, temperature)
+        maxes = all_reduce_max(stats[list(ref.MAX_PLANES)], mesh, (axis,))
+        sums = all_reduce_sum(ref.kl_rescale(stats, maxes), mesh, (axis,))
+        kl, lse_t, lse_s = ref.kl_finish(maxes, sums)
+        ctx.save_for_backward(student, teachers, lse_t.contiguous(),
+                              lse_s.contiguous())
+        ctx.n_rows, ctx.temperature = n_rows, temperature
+        return kl.sum() / n_rows * temperature ** 2
+
+    @staticmethod
+    def backward(ctx, g):
+        student, teachers, lse_t, lse_s = ctx.saved_tensors
+        g = g.float()
+        if student.is_cuda:
+            from repro_torch.kernels.ensemble_kl import kl_bwd
+            # K2b divides by its own rows: g scaled by B_local / n_rows
+            g = (g * (student.shape[0] / ctx.n_rows)).contiguous()
+            ds = kl_bwd(student, teachers, lse_t, lse_s, g, ctx.temperature)
+        else:
+            ds = ref.ensemble_kl_bwd(student, teachers, lse_t, lse_s, g,
+                                     ctx.temperature, ctx.n_rows)
+        return ds, None, None, None, None, None
+
+
+def ensemble_kl_loss_split(student_logits: torch.Tensor,
+                           teacher_logits: torch.Tensor, mesh,
+                           axis: str = "model", n_rows: Optional[int] = None,
+                           temperature: float = 1.0) -> torch.Tensor:
+    """The AVGLOGITS loss (K2) when the vocabulary is split over the mesh
+    axis ``axis``: student [..., V_loc] float32 and teachers [K, ..., V_loc]
+    are this rank's columns of its rows (leading dims flattened).  Returns
+    ``T^2 * sum_rows KL / n_rows`` over this rank's rows (``n_rows``: the
+    rows of every data shard, this rank's by default), equal on every rank
+    of ``axis``: summed over the data axes it is the loss.  Differentiable
+    in the student's columns."""
+    v = student_logits.shape[-1]
+    s2 = student_logits.reshape(-1, v)
+    t2 = teacher_logits.reshape(teacher_logits.shape[0], -1, v)
+    if s2.is_cuda:
+        t2 = t2.contiguous()
+    return _VocabSplitKL.apply(s2, t2, mesh, axis,
+                               s2.shape[0] if n_rows is None else n_rows,
+                               float(temperature))
+
+
 def ensemble_kl_loss_pre(student_logits: torch.Tensor,
                          teacher_avg_logits: torch.Tensor,
                          temperature: float = 1.0) -> torch.Tensor:

@@ -41,6 +41,63 @@ def ensemble_kl_grad(student_logits: torch.Tensor,
     return g.to(student_logits.dtype)
 
 
+def kl_partial(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
+               temperature: float = 1.0) -> torch.Tensor:
+    """Plain version of K2s: K2's row statistics over these columns of the
+    vocabulary (student [B, V_loc], teachers [K, B, V_loc]), unfinished: a
+    float32 [6, B] tensor of the planes m_t (max of t = mean_k t_k / T),
+    z_t = sum e^(t - m_t), st = sum e^(t - m_t) t, ss = sum e^(t - m_t)
+    s (s = student / T), m_s (max of s) and z_s = sum e^(s - m_s)."""
+    t = _mean_teacher(teacher_logits, temperature)
+    s = (student_logits / temperature).float()
+    m_t = t.amax(dim=-1)
+    e = torch.exp(t - m_t[:, None])
+    m_s = s.amax(dim=-1)
+    return torch.stack([m_t, e.sum(-1), (e * t).sum(-1), (e * s).sum(-1),
+                        m_s, torch.exp(s - m_s[:, None]).sum(-1)])
+
+
+MAX_PLANES = (0, 4)   # the planes of kl_partial merged by their max
+
+
+def kl_rescale(stats: torch.Tensor, maxes: torch.Tensor) -> torch.Tensor:
+    """A shard's sums (z_t, st, ss, z_s) [4, B] rescaled to the rows' maxes
+    over every shard (``maxes`` [2, B]: m_t, m_s), ready to be summed."""
+    c_t = torch.exp(stats[0] - maxes[0])
+    return torch.stack([stats[1] * c_t, stats[2] * c_t, stats[3] * c_t,
+                        stats[5] * torch.exp(stats[4] - maxes[1])])
+
+
+def kl_finish(maxes: torch.Tensor, sums: torch.Tensor):
+    """(kl, lse_t, lse_s), each [B], from the rows' maxes [2, B] and the
+    shards' rescaled sums [4, B] added up."""
+    lse_t = maxes[0] + torch.log(sums[0])
+    lse_s = maxes[1] + torch.log(sums[3])
+    return (sums[1] - sums[2]) / sums[0] - lse_t + lse_s, lse_t, lse_s
+
+
+def kl_combine(parts) -> tuple:
+    """:func:`kl_finish` of the :func:`kl_partial` statistics of the
+    column chunks ``parts`` of one row set, in one process (on a mesh the
+    max and the sum run over the model axis)."""
+    maxes = torch.stack([p[list(MAX_PLANES)] for p in parts]).amax(dim=0)
+    return kl_finish(maxes, sum(kl_rescale(p, maxes) for p in parts))
+
+
+def ensemble_kl_bwd(student_logits: torch.Tensor,
+                    teacher_logits: torch.Tensor, lse_t: torch.Tensor,
+                    lse_s: torch.Tensor, g: torch.Tensor,
+                    temperature: float = 1.0, n_rows=None) -> torch.Tensor:
+    """Plain version of K2b: ``(e^(s - lse_s) - e^(t - lse_t)) * g * T /
+    n_rows`` [B, V] float32 from the rows' log-sum-exps (``n_rows`` the
+    rows the loss averages over, B by default)."""
+    n = student_logits.shape[0] if n_rows is None else n_rows
+    t = _mean_teacher(teacher_logits, temperature)
+    s = (student_logits / temperature).float()
+    return ((torch.exp(s - lse_s[:, None]) - torch.exp(t - lse_t[:, None]))
+            * (g * temperature / n))
+
+
 def ensemble_kl_pre(student_logits: torch.Tensor,
                     teacher_avg_logits: torch.Tensor,
                     temperature: float = 1.0) -> torch.Tensor:

@@ -17,27 +17,29 @@ and ``bundle.fn(*args)`` runs the step on them: K4 and K5 (and K2 in the
 distill loss) on CUDA tensors, their plain versions on the CPU.  A donated
 argument is updated in place and returned.
 
-On a mesh (``launch/mesh.py``, one process per rank) ``make_train_step``
-and ``make_prefill_step`` take a ``("data", "model")`` or ``("pod",
-"data", "model")`` mesh under the ``tp`` rules: ``args``, ``outs`` and
-``make_args`` are this rank's blocks (``bundle.layout``, a
-``TPLayout``): parameters drawn whole from the one generator on every
-rank and cut (``sharding.shard_tree``), so a sharded run starts from the
-unsharded run's weights; batches drawn whole and cut over the data axes.
-``fsdp=True`` splits d_model over the data axes (each leaf gathered where
-its layer runs, its gradient reduce-scattered; Adam is elementwise, so it
-runs on the blocks); the gradients of leaves whole on the data axes are
-summed over them.  The loss is vocab-parallel (:func:`token_xent`): the
-[B, S, V] logits are never gathered.  Prefill returns the next-token
-logits split over the vocabulary and the caches at this rank's heads.
-``make_fed_round_step`` spreads its clients over the data axes (the
-``shard_clients`` rules, fsdp off), each client's replica
-tensor-parallel over ``"model"``.  Still raising: ``make_serve_step``
-(item 11.8.2, its ``kv_cache_rules`` caches) and ``make_distill_step``
-(item 11.8.1, the distill loss over vocabulary shards) on a mesh, and
+On a mesh (``launch/mesh.py``, one process per rank) every builder takes
+a ``("data", "model")`` or ``("pod", "data", "model")`` mesh under the
+``tp`` rules: ``args``, ``outs`` and ``make_args`` are this rank's
+blocks (``bundle.layout``, a ``TPLayout``): parameters drawn whole from
+the one generator on every rank and cut (``sharding.shard_tree``), so a
+sharded run starts from the unsharded run's weights; batches drawn whole
+and cut over the data axes.  ``fsdp=True`` splits d_model over the data
+axes (each leaf gathered where its layer runs, its gradient
+reduce-scattered; Adam is elementwise, so it runs on the blocks); the
+gradients of leaves whole on the data axes are summed over them.  The
+losses are vocab-parallel (:func:`token_xent`, and the distill step's
+K2 over vocabulary shards, ``ops.ensemble_kl_loss_split``): the [B, S,
+V] logits are never gathered.  Prefill returns the next-token logits
+split over the vocabulary and the caches at this rank's heads;
+``T.serve_caches`` lays them out for ``make_serve_step``, whose caches
+follow JAX's ``kv_cache_rules`` (:func:`serve_layout`: the sequence split,
+every head on each rank).  ``make_fed_round_step`` spreads its clients
+over the data axes (the ``shard_clients`` rules, fsdp off), each
+client's replica tensor-parallel over ``"model"``.  Still raising:
 ``layout`` other than ``"tp"``, ``constrain_acts``, ``naive_xent`` on a
-mesh and ``use_moe_shard_map=False`` on a mesh (item 11.8.4; ROADMAP
-queue 1).
+mesh, ``use_moe_shard_map=False`` on a mesh, and the distill and serve
+steps of an MoE model on a mesh (JAX's partitioner path; item 11.8.4,
+ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -61,11 +63,6 @@ META = torch.device("meta")
 KNOBS_PENDING = ("not ported yet (ROADMAP queue 1 item 11.8.4: layouts "
                  "other than 'tp', activation shardings, the naive loss and "
                  "the MoE's partitioner path on a mesh)")
-SERVE_PENDING = ("the serve step on a mesh is not ported yet (ROADMAP queue "
-                 "1 item 11.8.2: the kv_cache_rules caches)")
-DISTILL_PENDING = ("the distill step on a mesh is not ported yet (ROADMAP "
-                   "queue 1 item 11.8.1: the distill loss over vocabulary "
-                   "shards)")
 
 
 @dataclasses.dataclass
@@ -249,37 +246,63 @@ def _knobs(mesh, **knobs) -> None:
                 f": {KNOBS_PENDING}")
 
 
-def _no_mesh(mesh, pending: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"mesh={mesh!r}: {pending}")
-
-
-def _tp(cfg: ArchConfig, mesh, fsdp: bool):
-    """The ``TPLayout`` of the train and prefill steps on ``mesh`` (None
-    without one): the ``tp`` rules, the batch over every data axis."""
+def _tp(cfg: ArchConfig, mesh, fsdp: bool, batch: Optional[int] = None):
+    """The ``TPLayout`` of the train, prefill and distill steps on
+    ``mesh`` (None without one): the ``tp`` rules, the batch over every
+    data axis; given the global ``batch``, over the axes JAX's fitted
+    spec keeps (a batch they do not divide stays whole on every rank)."""
     if mesh is None:
         return None
     from repro_torch.common import sharding as shd
     multi_pod = "pod" in shd.axis_names(mesh)
     rules = shd.make_rules(multi_pod=multi_pod, fsdp=fsdp)
-    return T.tp_layout(cfg, mesh, rules,
-                       ("pod", "data") if multi_pod else ("data",))
+    tp = T.tp_layout(cfg, mesh, rules,
+                     ("pod", "data") if multi_pod else ("data",))
+    if batch is not None:
+        tp.batch_axes = _fitted_axes(shd.logical_to_pspec(("batch",), rules),
+                                     batch, mesh)
+    return tp
+
+
+def _fitted_axes(spec, n: int, mesh) -> Tuple[str, ...]:
+    """The mesh axes a dimension of ``n`` laid out ``spec[0]`` keeps under
+    ``fit_pspec``."""
+    from repro_torch.common import sharding as shd
+    return shd.entry_axes(shd.fit_pspec(spec, (n,), mesh)[0])
 
 
 def batch_block(batch: dict, layout) -> dict:
     """This rank's rows of a whole batch (dimension 0 over the layout's
-    data axes; JAX's ``batch_pspecs``)."""
+    ``batch_axes``, its data axes unless the batch stays whole; JAX's
+    ``batch_pspecs``)."""
     if layout is None:
         return batch
-    n, i = layout.dp_size, layout.dp_index
+    from repro_torch.common.sharding import block_index
+    i, n = block_index(layout.mesh, layout.batch_axes)
     out = {}
     for k, v in batch.items():
         if v.shape[0] % n:
             raise ValueError(f"a batch of {v.shape[0]} does not divide over "
-                             f"the data axes {layout.dp_axes} of {n} ranks")
+                             f"the axes {layout.batch_axes} of {n} ranks")
         per = v.shape[0] // n
         out[k] = v if n == 1 else v[i * per:(i + 1) * per]
     return out
+
+
+def _moe_on_mesh(cfg: ArchConfig, tp, what: str, tokens_split: bool) -> None:
+    """Raise where ``what`` on a mesh would take the MoE's partitioner
+    path (JAX passes its MoE no mesh there): experts split on the model
+    axis, or tokens split over data axes (item 11.8.4)."""
+    if tp is None or not cfg.has_moe:
+        return
+    from repro_torch.common.sharding import entry_axes
+    from repro_torch.models.moe import UNPORTED
+    split = any(entry_axes(tuple(b["mlp"]["wi_gate"])[-3])
+                for b in tuple(tp.pspecs["blocks"]) + tuple(tp.pspecs["tail"])
+                if b and "wi_gate" in b.get("mlp", {}))
+    if split or tokens_split:
+        raise NotImplementedError(f"{what} of an MoE model on a mesh: "
+                                  f"{UNPORTED}")
 
 
 def _as_param_dtype(batch: dict, dtype) -> dict:
@@ -464,11 +487,14 @@ def make_prefill_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
                       param_dtype=torch.bfloat16) -> StepBundle:
     """(params, batch) -> (next-token logits [B, 1, V], caches sized
     ``shape.seq_len``); on a ``mesh``, this rank's blocks: the logits of
-    its data shard and vocabulary columns, the caches at its heads."""
+    its data shard and vocabulary columns, the caches at its heads
+    (``T.serve_caches`` lays them out for ``make_serve_step``).  A batch
+    the data axes do not divide stays whole on every rank, as JAX's
+    fitted spec leaves it."""
     del unroll
     _knobs(mesh, layout=(layout, "tp"), constrain_acts=(constrain_acts,
                                                         False))
-    tp = _tp(cfg, mesh, fsdp)
+    tp = _tp(cfg, mesh, fsdp, shape.global_batch)
     params = _param_structs(cfg, param_dtype, tp)
     whole = input_specs(cfg, shape)
     batch = batch_block(whole, tp)
@@ -489,9 +515,33 @@ def make_prefill_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
         v = (params["head"].shape[1] if "head" in params
              else params["embed"].shape[0])
     outs = (_meta((b, 1, v), param_dtype),
-            T.init_caches(cfg, b, max_seq, param_dtype, META, layout=tp))
+            T.init_caches(cfg, shape.global_batch, max_seq, param_dtype, META,
+                          layout=tp))
     return StepBundle(prefill_step, (params, batch), outs, make_args,
                       layout=tp)
+
+
+def serve_layout(cfg: ArchConfig, mesh, batch: int, seq_len: int,
+                 fsdp: bool = True):
+    """The serve step's ``TPLayout`` on ``mesh``: the parameters as in
+    the train step's (``tp`` rules, FSDP over the data axes), the batch
+    and the caches under JAX's ``kv_cache_rules`` (the batch released and
+    the cache's sequence over ``("data", "model")`` when the batch is
+    smaller than the data axis, else the batch over the data axes and
+    the sequence over ``"model"``), fitted to ``batch`` and ``seq_len``."""
+    from repro_torch.common import sharding as shd
+    multi_pod = "pod" in shd.axis_names(mesh)
+    rules = shd.make_rules(multi_pod=multi_pod, fsdp=fsdp)
+    cache_rules = shd.kv_cache_rules(rules, batch=batch,
+                                     data_size=shd.axis_size(mesh, "data"))
+    tp = T.tp_layout(cfg, mesh, rules,
+                     ("pod", "data") if multi_pod else ("data",))
+    tp.batch_axes = _fitted_axes(shd.logical_to_pspec(("batch",),
+                                                      cache_rules),
+                                 batch, mesh)
+    tp.cache_pspecs = T.cache_pspecs(cfg, cache_rules, mesh, batch, seq_len,
+                                     tp.pspecs)
+    return tp
 
 
 def make_serve_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
@@ -500,40 +550,57 @@ def make_serve_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
                     cache_dtype=torch.bfloat16) -> StepBundle:
     """One-token decode against a populated cache of ``shape.seq_len``
     tokens: (params, batch, caches, cur_len) -> (logits [B, 1, V],
-    caches), the caches donated (updated in place)."""
-    del fsdp, unroll
-    _no_mesh(mesh, SERVE_PENDING)
-    params = _param_structs(cfg, param_dtype)
-    batch = input_specs(cfg, shape)
-    caches = T.init_caches(cfg, shape.global_batch, shape.seq_len,
-                           cache_dtype, META)
+    caches), the caches donated (updated in place), ``cur_len`` a host
+    int.  On a ``mesh``, every argument and result is this rank's block
+    under :func:`serve_layout` (``bundle.layout``): the logits of its
+    batch rows and vocabulary columns (JAX's ``logits_spec``).  As in JAX
+    the decode takes no ``mesh``: an MoE model whose experts split on
+    ``"model"`` would take its partitioner path, and raises (item
+    11.8.4)."""
+    del unroll
+    b = shape.global_batch
+    tp = None if mesh is None else serve_layout(cfg, mesh, b, shape.seq_len,
+                                                fsdp)
+    if tp is not None:
+        _moe_on_mesh(cfg, tp, "the serve step", bool(tp.batch_axes))
+    params = _param_structs(cfg, param_dtype, tp)
+    whole = input_specs(cfg, shape)
+    batch = batch_block(whole, tp)
+    caches = T.init_caches(cfg, b, shape.seq_len, cache_dtype, META,
+                           layout=tp)
     cur_len = _step_scalar()
 
     def serve_step(params, batch, caches, cur_len):
         with torch.no_grad():
-            return T.decode_step(params, cfg, batch, caches, int(cur_len))
+            return T.decode_step(params, cfg, batch, caches, int(cur_len),
+                                 layout=tp)
 
     def make_args(gen, device):
-        return (T.init(cfg, gen, param_dtype, device),
-                _draw_batch(batch, cfg, gen, device),
+        return (_init_block(cfg, gen, param_dtype, device, tp),
+                batch_block(_draw_batch(whole, cfg, gen, device), tp),
                 _zeros_like_meta(caches, device), _step_scalar("cpu"))
 
-    outs = (_meta((shape.global_batch, 1, cfg.vocab_size), param_dtype),
+    v = cfg.vocab_size if tp is None else (
+        params["head"].shape[1] if "head" in params
+        else params["embed"].shape[0])
+    outs = (_meta((next(iter(batch.values())).shape[0], 1, v), param_dtype),
             caches)
     return StepBundle(serve_step, (params, batch, caches, cur_len), outs,
-                      make_args, donate_argnums=(2,))
+                      make_args, donate_argnums=(2,), layout=tp)
 
 
 def teacher_logits(teachers, cfg: ArchConfig, batch: dict, *,
-                   unroll: bool = False) -> torch.Tensor:
+                   unroll: bool = False, layout=None) -> torch.Tensor:
     """[K, B, S, V] logits of the stacked ``teachers`` [K, ...], one
-    forward after another (JAX vmaps them)."""
+    forward after another (JAX vmaps them); with ``layout`` each
+    teacher's blocks, FSDP-gathered per layer, and the logits this rank's
+    rows and vocabulary columns."""
     k = tree_leaves(teachers)[0].shape[0]
     with torch.no_grad():
         out = None
         for i in range(k):
             lg = T.forward(tree_map(lambda x: x[i], teachers), cfg, batch,
-                           unroll=unroll)
+                           unroll=unroll, layout=layout)
             if out is None:
                 out = lg.new_empty((k,) + tuple(lg.shape))
             out[i] = lg
@@ -542,24 +609,46 @@ def teacher_logits(teachers, cfg: ArchConfig, batch: dict, *,
 
 
 def distill_grads(student, teachers, cfg: ArchConfig, batch: dict, *,
-                  remat: bool = True, unroll: bool = False):
+                  remat: bool = True, unroll: bool = False, layout=None):
     """(grads, loss): the gradient over every leaf of ``student`` (a tree
     like it) of the AVGLOGITS loss against the teachers' mean logits plus
     ``router_aux_coef * aux``, as the distill step takes it.  The loss
     takes float32 student logits and the teachers' in their own dtype:
-    K2 on CUDA tensors, its plain version on the CPU."""
-    t_logits = teacher_logits(teachers, cfg, batch, unroll=unroll)
+    K2 on CUDA tensors, its plain version on the CPU.
+
+    With ``layout`` (a ``TPLayout``) ``student``, ``teachers`` and
+    ``batch`` are this rank's blocks and so are the gradients, each the
+    global loss's.  Where the head splits the vocabulary over
+    ``"model"`` the loss runs over the shards
+    (``ops.ensemble_kl_loss_split``: K2s, the statistics merged over the
+    model axis, K2b with the merged log-sum-exps); each data shard
+    contributes its rows' share of the global mean, and the loss returned
+    is summed over the data axes."""
+    t_logits = teacher_logits(teachers, cfg, batch, unroll=unroll,
+                              layout=layout)
     n, v = t_logits.shape[0], t_logits.shape[-1]
+    rows = t_logits[0].numel() // v
+    n_rows = rows * (1 if layout is None else layout.dp_size)
 
     def loss_fn(p):
         s_logits, aux = T.forward(p, cfg, batch, return_aux=True,
-                                  remat=remat, unroll=unroll)
-        loss = ops.ensemble_kl_loss(s_logits.reshape(-1, v).float(),
-                                    t_logits.reshape(n, -1, v))
+                                  remat=remat, unroll=unroll, layout=layout)
+        s2, t3 = s_logits.reshape(-1, v).float(), t_logits.reshape(n, -1, v)
+        if layout is not None and v != cfg.vocab_size:
+            loss = ops.ensemble_kl_loss_split(s2, t3, layout.mesh,
+                                              layout.model_axis, n_rows)
+        else:
+            loss = ops.ensemble_kl_loss(s2, t3) * (rows / n_rows)
         return loss + cfg.router_aux_coef * aux, loss.detach()
 
     grads, loss = _grads(student, loss_fn)
-    return _unflatten(student, grads), loss
+    grads = _unflatten(student, grads)
+    if layout is not None:
+        from repro_torch.common.sharding import all_reduce_sum
+        grads = layout.sum_replicated_grads(grads, layout.pspecs)
+        if layout.dp_axes:
+            loss = all_reduce_sum(loss, layout.mesh, layout.dp_axes)
+    return grads, loss
 
 
 def make_distill_step(cfg: ArchConfig, mesh=None, *, n_teachers: int = 4,
@@ -573,36 +662,45 @@ def make_distill_step(cfg: ArchConfig, mesh=None, *, n_teachers: int = 4,
     step + 1, loss); student and opt_state donated.  The loss takes
     float32 student logits and the teachers' in their own dtype: K2 on
     CUDA tensors, its plain version on the CPU (JAX runs the Pallas
-    kernel's jnp reference)."""
-    del fsdp
-    _no_mesh(mesh, DISTILL_PENDING)
+    kernel's jnp reference).  On a ``mesh`` every argument is this
+    rank's block (``bundle.layout``, the train step's): the student in
+    the ``tp`` specs, the teachers stacked with the leading axis whole
+    and the student's specs inside (JAX's ``t_specs``), the batch over
+    the data axes; the loss runs over vocabulary shards
+    (:func:`distill_grads`).  As in JAX the forwards take no ``mesh``: an
+    MoE model on a mesh raises (item 11.8.4)."""
     _knobs(mesh, constrain_acts=(constrain_acts, False))
-    student = _param_structs(cfg, param_dtype)
+    tp = _tp(cfg, mesh, fsdp)
+    if tp is not None:
+        _moe_on_mesh(cfg, tp, "the distill step", tp.dp_size > 1)
+    student = _param_structs(cfg, param_dtype, tp)
     teachers = _stacked(student, n_teachers)
     opt_state = _opt_structs(student)
-    batch = {"tokens": _meta((batch_size, seq_len), torch.int32)}
+    whole = {"tokens": _meta((batch_size, seq_len), torch.int32)}
+    batch = batch_block(whole, tp)
     opt = adam(1e-3)
 
     def distill_step(student, teachers, opt_state, step, batch):
         grads, loss = distill_grads(student, teachers, cfg, batch,
                                     remat=remat and not unroll,
-                                    unroll=unroll)
+                                    unroll=unroll, layout=tp)
         _adam_step(opt, student, opt_state, grads, step)
         return student, opt_state, step + 1, loss
 
     def make_args(gen, device):
-        s = T.init(cfg, gen, param_dtype, device)
-        t = [T.init(cfg, gen, param_dtype, device)
+        s = _init_block(cfg, gen, param_dtype, device, tp)
+        t = [_init_block(cfg, gen, param_dtype, device, tp)
              for _ in range(n_teachers)]
         stacked = tree_map(lambda *xs: torch.stack(xs), *t)
         del t
         return (s, stacked, _zeros_like_meta(opt_state, device),
-                _step_scalar("cpu"), _draw_batch(batch, cfg, gen, device))
+                _step_scalar("cpu"),
+                batch_block(_draw_batch(whole, cfg, gen, device), tp))
 
     outs = (student, opt_state, _step_scalar(), _meta((), torch.float32))
     return StepBundle(distill_step, (student, teachers, opt_state,
                                      _step_scalar(), batch), outs, make_args,
-                      donate_argnums=(0, 2))
+                      donate_argnums=(0, 2), layout=tp)
 
 
 def make_fed_round_step(cfg: ArchConfig, mesh=None, *, n_clients: int = 8,

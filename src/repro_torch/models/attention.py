@@ -33,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.common import sharding as shd
 from repro_torch.common.arch_config import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (ParamSpec, apply_rope, rmsnorm,
@@ -160,11 +161,34 @@ def init_cache(cfg: ArchConfig, local: bool, batch: int, max_seq: int,
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
+def cache_logical_axes(local: bool) -> KVCache:
+    """A cache leaf's logical axes (``common/sharding.tree_pspecs``)."""
+    del local
+    ax = ("batch", "cache_seq", "kv_heads", "qkv")
+    return KVCache(ax, ax)
+
+
+def _valid_slots(cs: int, idx: torch.Tensor, slot: int, cur_len: int,
+                 local: bool) -> torch.Tensor:
+    """Which cache slots ``idx`` (of ``cs``) hold a token once the new
+    one is in ``slot``."""
+    if local:
+        # ring buffer: slot occupied iff it holds one of the last `cs` tokens
+        n_valid = min(cur_len + 1, cs)
+        age = (slot - idx) % cs  # 0 = newest
+        return age < n_valid
+    return idx <= cur_len
+
+
 def decode_step(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: KVCache,
-                cur_len: int, *, local: bool):
+                cur_len: int, *, local: bool, tp=None, seq_axes=()):
     """One-token decode.  x: [B, 1, d_model]; cur_len: tokens already in
     the cache.  Returns (out [B,1,d], cache); the new key and value are
-    written into ``cache`` in place (JAX returns an updated copy)."""
+    written into ``cache`` in place (JAX returns an updated copy).  With
+    ``tp`` (a ``TPLayout``: this rank's heads) the cache is this rank's
+    block of the sequence split over ``seq_axes``, every head whole."""
+    if tp is not None:
+        return _decode_split(p, cfg, x, cache, cur_len, local, tp, seq_axes)
     b = x.shape[0]
     cs = cache.k.shape[1]
     positions = torch.full((b, 1), cur_len, dtype=torch.int64,
@@ -175,16 +199,67 @@ def decode_step(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: KVCache,
     cache.k[:, slot] = k_new[:, 0]
     cache.v[:, slot] = v_new[:, 0]
 
-    idx = torch.arange(cs, device=x.device)
-    if local:
-        # ring buffer: slot occupied iff it holds one of the last `cs` tokens
-        n_valid = min(cur_len + 1, cs)
-        age = (slot - idx) % cs  # 0 = newest
-        valid = age < n_valid
-    else:
-        valid = idx <= cur_len
+    valid = _valid_slots(cs, torch.arange(cs, device=x.device), slot,
+                         cur_len, local)
     out = _sdpa(q, cache.k, cache.v, valid, cfg.head_dim)
     return torch.einsum("bshd,hdm->bsm", out, p["wo"]), cache
+
+
+def _decode_split(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: KVCache,
+                  cur_len: int, local: bool, tp, seq_axes):
+    """``decode_step`` on a sequence-split cache (the module docstring).
+    The key / value weights are whole where their heads do not divide the
+    model axis, so a rank then projects every key / value head itself."""
+    b = x.shape[0]
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h_loc = p["wq"].shape[1]
+    positions = torch.full((b, 1), cur_len, dtype=torch.int64,
+                           device=x.device)
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+    if h_loc != h:                 # gather the heads' projections
+        kv_loc = k_new.shape[2] if k_new.shape[2] != kvh else 0
+        parts = [q, k_new, v_new] if kv_loc else [q]
+        new = shd.all_gather(torch.cat(parts, dim=2), tp.mesh,
+                             (tp.model_axis,), dim=2)
+        new = new.reshape(b, 1, tp.model_size, h_loc + 2 * kv_loc, d)
+        q = new[:, :, :, :h_loc].reshape(b, 1, h, d)
+        if kv_loc:
+            k_new = new[:, :, :, h_loc:h_loc + kv_loc].reshape(b, 1, kvh, d)
+            v_new = new[:, :, :, h_loc + kv_loc:].reshape(b, 1, kvh, d)
+
+    cs_loc = cache.k.shape[1]
+    i_seq, n_seq = shd.block_index(tp.mesh, seq_axes)
+    cs = cs_loc * n_seq
+    slot = cur_len % cs
+    if slot // cs_loc == i_seq:    # this rank holds the new token's slot
+        cache.k[:, slot % cs_loc] = k_new[:, 0]
+        cache.v[:, slot % cs_loc] = v_new[:, 0]
+    idx = i_seq * cs_loc + torch.arange(cs_loc, device=x.device)
+    valid = _valid_slots(cs, idx, slot, cur_len, local)
+
+    # this rank's slots: the softmax's running max m, sum l and output o
+    rep = h // kvh
+    qr = q.reshape(b, 1, kvh, rep, d)
+    scores = torch.einsum("bskrd,btkd->bkrst", qr, cache.k) / math.sqrt(d)
+    scores = torch.where(valid, scores, torch.finfo(scores.dtype).min)
+    scores = scores.float()
+    m = scores.amax(dim=-1, keepdim=True)                  # [B,KV,R,1,1]
+    e = torch.exp(scores - m)
+    o = torch.einsum("bkrst,btkd->bkrsd", e, cache.v.float())
+    l = e.sum(dim=-1, keepdim=True)
+    if seq_axes:
+        top = shd.all_reduce_max(m, tp.mesh, seq_axes)
+        c = torch.exp(m - top)
+        lo = shd.all_reduce_sum(torch.cat([l * c, o * c], dim=-1), tp.mesh,
+                                seq_axes)
+        l, o = lo[..., :1], lo[..., 1:]
+    out = (o / l).to(q.dtype)                              # [B,KV,R,1,D]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, d)
+    if h_loc == h:
+        return torch.einsum("bshd,hdm->bsm", out, p["wo"]), cache
+    h0 = tp.model_index * h_loc
+    out = torch.einsum("bshd,hdm->bsm", out[:, :, h0:h0 + h_loc], p["wo"])
+    return tp.reduce_from(out), cache
 
 
 def prefill_cache(p: dict, cfg: ArchConfig, x: torch.Tensor, max_seq: int,

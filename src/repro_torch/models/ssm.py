@@ -168,14 +168,26 @@ def init_ssm_cache(cfg: ArchConfig, batch: int, dtype=torch.float32,
     )
 
 
+def ssm_cache_logical_axes() -> SSMCache:
+    """A cache's logical axes (JAX's; ``transformer.cache_pspecs`` lays
+    the conv history out by segment, as the conv's weights)."""
+    return SSMCache(conv=("batch", None, "inner"),
+                    state=("batch", "heads", "state", None))
+
+
 def ssm_decode_step(p: dict, cfg: ArchConfig, hidden: torch.Tensor,
-                    cache: SSMCache):
+                    cache: SSMCache, tp=None):
     """One-token decode. hidden: [B,1,d_model] -> (out [B,1,d], cache);
     the cache's conv history and state are updated in place (JAX returns
-    an updated copy)."""
+    an updated copy).  ``tp`` a ``TPLayout``: this rank's heads and inner
+    channels, its cache at them (the conv history's x channels of its
+    heads, B and C whole), the gated norm's sum of squares summed over
+    the model axis and the output projection's partial sums too."""
     b = hidden.shape[0]
-    di, ns, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
-    hd = di // nh
+    ns = cfg.ssm_state
+    hd = cfg.d_inner // cfg.n_ssm_heads
+    p, tp, nh = _tp_params(p, cfg, tp)
+    di = nh * hd
     h1 = hidden[:, 0]  # [B, d]
 
     z = h1 @ p["wz"]
@@ -199,7 +211,9 @@ def ssm_decode_step(p: dict, cfg: ArchConfig, hidden: torch.Tensor,
     y = torch.einsum("bn,bhnp->bhp", cmat.float(), state)
     y = y + p["D"][None, :, None] * x.float()
     y = y.reshape(b, di).to(hidden.dtype)
-    y = rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    y = _gated_norm(p["norm"], y * F.silu(z), cfg.norm_eps, cfg.d_inner, tp)
     out = (y @ p["out"])[:, None]
+    if tp is not None:
+        out = tp.reduce_from(out)
     cache.conv.copy_(hist[:, 1:])
     return out, cache

@@ -13,7 +13,8 @@ Public surface:
   forward(params, batch)  — full-sequence logits (and the MoE aux loss)
   prefill(params, batch)  — logits + populated caches
   decode_step(params, …)  — one-token logits; caches updated in place
-  init_caches             — decode-state construction
+  init_caches / cache_logical / cache_pspecs — decode-state construction
+  serve_caches            — prefill's caches on a mesh into the serve layout
 
 Inputs are tokens, or audio frames (``frontend == "audio_frames"``: the
 encoder-only hubert, no embedding, always a head), with projected vision
@@ -31,8 +32,14 @@ other ranks through ``copy_to`` / ``reduce_from``; the embedding and the
 head are split over the vocabulary (a masked take summed over
 ``"model"``; the logits stay this rank's vocabulary columns).  ``mesh``
 keeps JAX's meaning: it routes the MoE blocks through the expert-parallel
-path.  ``act_sharding`` raises (ROADMAP queue 1 item 11.8.4); decode
-runs one device.
+path.  ``act_sharding`` raises (ROADMAP queue 1 item 11.8.4).
+
+Decode on a mesh takes the serve layout (a ``TPLayout`` whose
+``cache_pspecs`` are :func:`cache_pspecs`, JAX's ``kv_cache_rules``):
+the parameters as in the tensor-parallel layout (FSDP gathered per
+layer), the attention caches split by sequence with every head on each
+rank, the SSM caches at the rank's heads.  :func:`serve_caches` turns a
+sharded prefill's caches (at each rank's heads) into that layout.
 """
 from __future__ import annotations
 
@@ -378,12 +385,22 @@ def _stack_caches(caches: list):
 
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
                 dtype=torch.float32, device="cpu", layout=None) -> dict:
-    """Zero decode caches; with ``layout``, this rank's (at its heads, as
-    a sharded ``prefill`` returns them)."""
+    """Zero decode caches for a global ``batch``; with ``layout``, this
+    rank's blocks: in the serve layout (``layout.cache_pspecs``), else at
+    its heads and batch rows, as a sharded ``prefill`` returns them."""
     check_supported(cfg)
+    if layout is not None and layout.cache_pspecs is not None:
+        from repro_torch.common.sharding import local_structs
+        return tree_map(lambda m: torch.zeros(m.shape, dtype=dtype,
+                                              device=device),
+                        local_structs(init_caches(cfg, batch, max_seq, dtype,
+                                                  "meta"),
+                                      layout.cache_pspecs, layout.mesh))
     p, n_full, rem = _layout(cfg)
     specs = {}
     if layout is not None:
+        from repro_torch.common.sharding import block_index
+        batch //= block_index(layout.mesh, layout.batch_axes)[1]
         meta = tree_map(lambda s: torch.empty(s.shape, device="meta"),
                         param_specs(cfg))
         for _, _, (kind, j, _), bspec in _layers(meta, cfg, layout):
@@ -406,24 +423,138 @@ def _layer_cache(caches: dict, where: Tuple):
     return tree_map(lambda x: x[r], caches["blocks"][j])
 
 
+def cache_logical(cfg: ArchConfig) -> dict:
+    """The caches' logical axes (JAX's ``cache_logical``)."""
+    p, n_full, rem = _layout(cfg)
+
+    def one(spec: BlockSpec, stacked: bool):
+        ax = (ssm_mod.ssm_cache_logical_axes() if spec.mixer == "mamba"
+              else attn.cache_logical_axes(spec.mixer == "attn_local"))
+        return type(ax)(*(("layers",) + a if stacked else a for a in ax))
+
+    return {"blocks": tuple(one(cfg.pattern[j], True) if n_full > 0 else {}
+                            for j in range(p)),
+            "tail": tuple(one(cfg.pattern[j], False) for j in range(rem))}
+
+
+def cache_pspecs(cfg: ArchConfig, cache_rules, mesh, batch: int,
+                 max_seq: int, param_pspecs):
+    """The decode caches' PartitionSpecs on ``mesh`` under
+    ``cache_rules`` (``sharding.kv_cache_rules``): JAX's ``fit_pspecs(
+    tree_pspecs(cache_logical(cfg), cache_rules), ...)`` (an attention
+    cache's sequence over ``"model"``, or ``("data", "model")`` with the
+    batch released, each dropped where it does not divide), with the SSM
+    caches laid out as their layer's parameters (``param_pspecs``): the
+    state at the heads of ``A_log``, the conv history by segment as
+    ``conv_w``."""
+    from repro_torch.common import sharding as shd
+    fitted = shd.fit_pspecs(shd.tree_pspecs(cache_logical(cfg), cache_rules),
+                            init_caches(cfg, batch, max_seq, torch.float32,
+                                        "meta"), mesh)
+
+    def fix(spec, params, stacked: bool):
+        if not isinstance(spec, ssm_mod.SSMCache):
+            return spec
+        lead = (None,) if stacked else ()
+        mix = params["mixer"]
+        b = spec.conv[len(lead)]
+        return ssm_mod.SSMCache(
+            conv=shd.P(*lead, b, None, tuple(mix["conv_w"])[-1]),
+            state=shd.P(*lead, b, tuple(mix["A_log"])[-1], None, None))
+    return {"blocks": tuple(fix(c, param_pspecs["blocks"][j], True)
+                            for j, c in enumerate(fitted["blocks"])),
+            "tail": tuple(fix(c, param_pspecs["tail"][j], False)
+                          for j, c in enumerate(fitted["tail"]))}
+
+
+def serve_caches(caches: dict, cfg: ArchConfig, prefill_layout,
+                 serve_layout) -> dict:
+    """This rank's serve-layout caches (``serve_layout.cache_pspecs``)
+    from a sharded prefill's (``prefill_layout``: at this rank's heads and
+    batch rows).  An attention cache's heads are all-gathered over the
+    model axis (where the key / value heads stay whole while the query
+    heads split, each rank held the heads its query heads read:
+    ``attn.kv_keep``), then cut to this rank's block of the sequence; a
+    batch laid out otherwise is gathered and cut the same way
+    (``sharding.reshard_tensor``, the bytes counted per axis)."""
+    from repro_torch.common import sharding as shd
+    meta = tree_map(lambda s: torch.empty(s.shape, device="meta"),
+                    param_specs(cfg))
+    mixers = {(kind, j): bspec["mixer"] for _, _, (kind, j, _), bspec
+              in _layers(meta, cfg, serve_layout)}
+    src_b, tp = prefill_layout.batch_entry, serve_layout
+
+    def attn_leaf(x, dst, mix):
+        lead = x.dim() - 4
+        h_loc = shd.local_shape((cfg.n_heads,), shd.P(mix["wq"][-2]),
+                                tp.mesh)[0]
+        if h_loc != cfg.n_heads:        # heads at each rank's: gather them
+            x = shd.all_gather(x, tp.mesh, (tp.model_axis,), x.dim() - 2)
+            if mix["wk"][-2] is None:   # each held its kv_keep heads
+                held = torch.cat([attn.kv_keep(cfg, h_loc, r) for r in
+                                  range(tp.model_size)]).tolist()
+                first = [held.index(k) for k in range(cfg.n_kv_heads)]
+                x = x[..., first, :]
+        src = shd.P(*((None,) * lead), src_b, None, None, None)
+        return shd.reshard_tensor(x, src, dst, tp.mesh)
+
+    out = {}
+    for kind in ("blocks", "tail"):
+        group = []
+        for j, (c, spec) in enumerate(zip(caches[kind],
+                                          tp.cache_pspecs[kind])):
+            if isinstance(c, attn.KVCache):
+                mix = mixers[(kind, j)]
+                c = attn.KVCache(*(attn_leaf(x, d, mix)
+                                   for x, d in zip(c, spec)))
+            elif isinstance(c, ssm_mod.SSMCache):
+                lead = 1 if kind == "blocks" else 0
+                c = ssm_mod.SSMCache(*(shd.reshard_tensor(
+                    x, shd.P(*tuple(d)[:lead], src_b, *tuple(d)[lead + 1:]),
+                    d, tp.mesh) for x, d in zip(c, spec)))
+            group.append(c)
+        out[kind] = tuple(group)
+    return out
+
+
 def decode_step(params: dict, cfg: ArchConfig, batch: dict, caches: dict,
-                cur_len: int):
+                cur_len: int, layout=None):
     """batch: one new token per sequence ({"tokens": [B, 1]}); ``cur_len``
     tokens are in the caches.  Returns (logits [B,1,V], caches); the
-    caches are updated in place (JAX returns updated copies)."""
+    caches are updated in place (JAX returns updated copies).  With
+    ``layout`` (the serve layout, ``cache_pspecs`` set) ``params``,
+    ``batch`` and ``caches`` are this rank's blocks and the logits its
+    vocabulary columns."""
     check_supported(cfg)
-    h = embed_inputs(params, cfg, batch)
-    for bp, spec, where, _ in _layers(params, cfg):
+    if layout is not None and layout.cache_pspecs is None:
+        raise ValueError("decode on a mesh takes the serve layout (a "
+                         "TPLayout with cache_pspecs)")
+    top = _top(params, layout)
+    h = embed_inputs(top, cfg, batch, layout)
+    for bp, spec, where, bspec in _layers(params, cfg, layout):
         cache = _layer_cache(caches, where)
+        if layout is not None:
+            bp = layout.gather_fsdp(bp, bspec)
         x = rmsnorm(bp["norm1"], h, cfg.norm_eps)
         if spec.mixer == "mamba":
-            out, _ = ssm_mod.ssm_decode_step(bp["mixer"], cfg, x, cache)
+            out, _ = ssm_mod.ssm_decode_step(bp["mixer"], cfg, x, cache,
+                                             tp=layout)
         else:
+            seq = () if layout is None else _seq_axes(layout, where)
             out, _ = attn.decode_step(bp["mixer"], cfg, x, cache, cur_len,
-                                      local=spec.mixer == "attn_local")
-        h, _ = _apply_mlp(bp, cfg, spec, h + out)
-    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    return unembed(params, cfg, h), caches
+                                      local=spec.mixer == "attn_local",
+                                      tp=layout, seq_axes=seq)
+        h, _ = _apply_mlp(bp, cfg, spec, h + out, layout)
+    h = rmsnorm(top["final_norm"], h, cfg.norm_eps)
+    return unembed(top, cfg, h, layout), caches
+
+
+def _seq_axes(layout, where) -> Tuple[str, ...]:
+    """The mesh axes a layer's attention cache splits its sequence
+    over."""
+    from repro_torch.common.sharding import entry_axes
+    kind, j, _ = where
+    return entry_axes(layout.cache_pspecs[kind][j].k[-3])
 
 
 def prefill(params: dict, cfg: ArchConfig, batch: dict, max_seq: int,

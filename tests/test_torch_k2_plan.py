@@ -48,11 +48,16 @@ GRID_MAX = 2 ** 31 - 1
 
 # (K, B, V): V = 1 and 3, B = 1, the paths' and chip_smoke.py's shapes, a
 # ragged cluster, a slice just past the lane groups, block mode just past
-# the SM count, B = 65536, and the JAX kernel's widest V
+# the SM count, B = 65536, and the JAX kernel's widest V; then K2s's
+# vocabulary shards (its plan is K2f's at V_loc): zamba2's 32000 and
+# qwen3-8b's 151936 over two ranks, and odd V_loc on a cluster and in
+# lane groups (5003 over 2 and 3 ranks, 7 over 2)
 PLAN_SHAPES = [(1, 1, 1), (8, 64, 3), (3, 1, 3), (1, 64, 3), (8, 256, 64),
                (5, 37, 5003), (8, 64, 1000), (4, 1024, 32000), (3, 1, 5003),
                (1, 37, 5003), (8, 7, 300), (2, 3, 257), (2, 160, 1000),
-               (1, 65536, 3), (2, 33, 40), (1, 1, 262144)]
+               (1, 65536, 3), (2, 33, 40), (1, 1, 262144),
+               (4, 1024, 16000), (4, 256, 75968), (3, 7, 2501), (2, 1, 1667),
+               (4, 64, 3)]
 
 
 def _chip_smoke():
@@ -264,6 +269,17 @@ def _inputs(student, teachers, temp, dtype_name):
 
 def _model_forward(s, t, p):
     """Per-row (kl, lse_t, lse_s) in the plan's merge order."""
+    tot = _model_stats(s, t, p)
+    with np.errstate(over="ignore", under="ignore"):
+        lt = tot.m_t + np.log(tot.z_t)
+        ls = tot.m_s + np.log(tot.z_s)
+        kl = (tot.st - tot.ss) / tot.z_t - lt + ls
+    return kl.astype(np.float32), lt.astype(np.float32), ls.astype(np.float32)
+
+
+def _model_stats(s, t, p):
+    """Per-row statistics in the plan's merge order, unfinished (K2s's
+    planes)."""
     b, v = s.shape
     with np.errstate(over="ignore", under="ignore"):
         if p.mode == "lanes":
@@ -301,10 +317,7 @@ def _model_forward(s, t, p):
                     [getattr(warps, f), getattr(empty, f)], -1)
                     for f in _Stats.FIELDS})
             tot = _xor_tree(_xor_tree(warps, pad), c_n)
-        lt = tot.m_t + np.log(tot.z_t)
-        ls = tot.m_s + np.log(tot.z_s)
-        kl = (tot.st - tot.ss) / tot.z_t - lt + ls
-    return kl.astype(np.float32), lt.astype(np.float32), ls.astype(np.float32)
+    return tot
 
 
 def _model_grad(s, t, lt, ls, temp, b):
@@ -395,6 +408,52 @@ def test_model_merges_empty_lanes_as_zero_weight():
               k2.Plan(1, "cluster", 32, 1, 8, 32, 8, 32, 1)):
         kl, lt, ls = _model_forward(s, t, p)
         assert lt[0] == t[0, 0] and ls[0] == s[0, 0] and kl[0] == 0.0
+
+
+# K2s's shards: each chunk of V_loc columns planned on its own (lane groups
+# of 4 and 2 for 3 + 2 of 5 classes, clusters of 8 for 2502 / 2501 of
+# 5003, one block per row past the SMs for 234 / 233 of 700 over 3,
+# clusters of 4 for 750 of 3000 over 4 and of 2 for 700 of 1400 over 2),
+# the statistics merged across the chunks in float32 as ops merges them
+# across ranks (the max, the rescaled sums)
+SPLIT_MODEL_SHAPES = [(4, 6, 5, 2), (5, 37, 5003, 2), (2, 140, 700, 3),
+                      (8, 64, 3000, 4), (2, 100, 1400, 2)]
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,b,v,parts", SPLIT_MODEL_SHAPES)
+def test_split_merge_order_model_matches_plain(k, b, v, parts, dtype_name):
+    temp = 2.5
+    student, t_t, stored = _case(k, b, v, dtype_name)
+    s, t = _inputs(student, stored, temp, dtype_name)
+    cols = np.array_split(np.arange(v), parts)
+    shards = [_model_stats(s[:, c], t[:, c], k2.plan(k, b, len(c)))
+              for c in cols]
+    with np.errstate(over="ignore", under="ignore"):
+        m_t = np.max([x.m_t for x in shards], axis=0)
+        m_s = np.max([x.m_s for x in shards], axis=0)
+        c_t = [np.exp(x.m_t - m_t) for x in shards]
+        z_t, st, ss = (np.float32(sum(getattr(x, f) * c for x, c in
+                                      zip(shards, c_t)))
+                       for f in ("z_t", "st", "ss"))
+        z_s = np.float32(sum(x.z_s * np.exp(x.m_s - m_s) for x in shards))
+        lt, ls = m_t + np.log(z_t), m_s + np.log(z_s)
+        kl = (st - ss) / z_t - lt + ls
+    loss = float(np.float32(kl.sum(dtype=np.float32)) / np.float32(b)
+                 * np.float32(temp ** 2))
+    s_t = torch.from_numpy(student)
+    np.testing.assert_allclose(loss, float(ref.ensemble_kl(s_t, t_t, temp)),
+                               rtol=FWD_RTOL, atol=FWD_ATOL)
+    plain = ref.kl_combine([ref.kl_partial(s_t[:, c], t_t[:, :, c], temp)
+                            for c in cols])
+    for got, want in zip((kl, lt, ls), plain):
+        np.testing.assert_allclose(got, want.numpy(), rtol=FWD_RTOL,
+                                   atol=FWD_ATOL)
+    grad = np.concatenate([_model_grad(s[:, c], t[:, c], lt, ls, temp, b)
+                           for c in cols], axis=1)
+    np.testing.assert_allclose(
+        grad, ref.ensemble_kl_grad(s_t, t_t, temp).numpy(), rtol=GRAD_RTOL,
+        atol=GRAD_ATOL)
 
 
 # ---------------------------------------------------------------------------

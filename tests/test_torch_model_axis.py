@@ -573,7 +573,7 @@ def test_blocks_of_every_rank_rebuild_the_global_tree(arch):
             if not dims:
                 return x_of({})
             dim, entry = dims[-1]
-            axis = shd._entry_axes(entry)[0]
+            axis = shd.entry_axes(entry)[0]
             parts = [rebuild(lambda c, i=i: x_of({**c, axis: i}), dims[:-1])
                      for i in range(2)]
             if isinstance(entry, shd.Segmented):

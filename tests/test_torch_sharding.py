@@ -171,3 +171,54 @@ def test_tensor_digest_moves_with_any_element():
     assert shd.tensor_digest(bf) == shd.tensor_digest(bf.clone())
     assert shd.tree_digest({"x": a, "y": (bf,)}) == \
         shd.tree_digest({"x": b, "y": (bf.clone(),)})
+
+
+CACHE_MESHES = (StubMesh(data=2, model=2), StubMesh(data=16, model=16),
+                StubMesh(data=3, model=4), StubMesh(data=4, model=1))
+
+
+def _cache_leaves(tree) -> list:
+    """(field, spec) of each cache leaf in layer order (both packages'
+    trees: a dict of tuples of KVCache / SSMCache)."""
+    return [(f, tuple(x)) for group in (tree["blocks"], tree["tail"])
+            for c in group if c for f, x in zip(c._fields, c)]
+
+
+@pytest.mark.parametrize("batch,max_seq", [(1, 32768), (32, 32768),
+                                           (16, 4001)])
+def test_cache_pspecs_match_jax(batch, max_seq):
+    """``T.cache_pspecs`` (the serve step's decode caches) against JAX's
+    ``fit_pspecs(tree_pspecs(cache_logical(cfg), kv_cache_rules(...)))``
+    for every decoder of the zoo: attention caches and SSM states the
+    same specs (an SSM state's heads split as its layer's ``A_log``, which
+    JAX's fit gives too wherever the port's heads split); the conv
+    history's batch as JAX's, its channels by segment (``Segmented``)
+    over the axis JAX splits them over, or whole where the layer's heads
+    stay whole."""
+    import jax.numpy as jnp
+    for name in ZOO:
+        cfg, cj = configs.get(name), jconfigs.get(name)
+        if not cfg.is_decoder or cfg.frontend != "none":
+            continue
+        for mesh in CACHE_MESHES:
+            rules = shd.make_rules(fsdp=True)
+            got = _cache_leaves(T.cache_pspecs(
+                cfg, shd.kv_cache_rules(rules, batch=batch,
+                                        data_size=mesh.shape["data"]),
+                mesh, batch, max_seq, T.param_pspecs(cfg, rules, mesh)))
+            structs = jax.eval_shape(lambda: JT.init_caches(
+                cj, batch, max_seq, jnp.float32))
+            want = _cache_leaves(jshd.fit_pspecs(jshd.tree_pspecs(
+                JT.cache_logical(cj), jshd.kv_cache_rules(
+                    jshd.make_rules(fsdp=True), batch=batch,
+                    data_size=mesh.shape["data"])), structs, mesh))
+            assert [f for f, _ in got] == [f for f, _ in want], name
+            for (field, g), (_, w) in zip(got, want):
+                if field != "conv":
+                    assert g == w, (name, mesh.shape, field, g, w)
+                    continue
+                assert g[:-1] == w[:-1], (name, g, w)
+                assert g[-1] is None or (
+                    isinstance(g[-1], shd.Segmented)
+                    and g[-1].axis == w[-1]
+                    and g[-1].split == (True, False, False)), (name, g, w)

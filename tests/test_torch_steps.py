@@ -442,24 +442,30 @@ def test_fed_round_step_matches_jax():
 # ---------------------------------------------------------------------------
 
 def test_meshes_and_sharding_knobs_raise_naming_item_11_7():
-    """What still raises, naming its item of 11.8: the serve step (11.8.2)
-    and the distill step (11.8.1) on a mesh, layouts other than ``tp``
-    and ``constrain_acts`` (11.8.4), ``act_sharding`` (11.8.4).  The train
-    and prefill steps and the federated round's model axis run on meshes
-    (``tests/test_torch_model_axis.py``, ``tests/test_torch_multihost.py``).
+    """What still raises, naming its item of 11.8: layouts other than
+    ``tp`` and ``constrain_acts`` (11.8.4), ``act_sharding`` (11.8.4), and
+    the serve and distill steps of an MoE model whose experts split on
+    ``"model"`` (JAX's partitioner path, 11.8.4).  The train, prefill,
+    distill and serve steps and the federated round's model axis run on
+    meshes (``tests/test_torch_model_axis.py``,
+    ``tests/test_torch_mesh_serve.py``, ``tests/test_torch_multihost.py``).
     """
+    from test_torch_model_axis import StubMesh
     ct = reduced(configs.get("qwen3-8b"))
     shape = InputShape("t", S, B, "train")
     for build, kw, item in (
             (steps.make_train_step, dict(layout="dp_heavy"), "11.8.4"),
             (steps.make_train_step, dict(constrain_acts=True), "11.8.4"),
             (steps.make_prefill_step, dict(layout="dp_heavy_z3"),
-             "11.8.4"),
-            (steps.make_serve_step, dict(mesh=object()), "11.8.2")):
+             "11.8.4")):
         with pytest.raises(NotImplementedError, match=item):
             build(ct, shape, **kw)
-    with pytest.raises(NotImplementedError, match="11.8.1"):
-        steps.make_distill_step(ct, object())
+    cm = reduced(configs.get("granite-moe-1b-a400m"))
+    stub = StubMesh((1, 2), ("data", "model"), (0, 0))
+    with pytest.raises(NotImplementedError, match="11.8.4"):
+        steps.make_serve_step(cm, InputShape("d", S, B, "decode"), stub)
+    with pytest.raises(NotImplementedError, match="11.8.4"):
+        steps.make_distill_step(cm, stub)
     # the federated round's client axis runs on a data-only mesh (11.7)
     from repro_torch.launch import mesh as tmesh
     with tmesh.one_rank_world("cpu"):
