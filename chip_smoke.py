@@ -51,7 +51,7 @@ and in order:
    that its float32 N = P = 64 instantiation (the serve path's) spills no
    registers; then one zamba2-1.2b mamba layer at full width, a 2000-token
    prompt split 1000 + 1000 through ``init_cache`` against the whole;
-4. drives seventeen paths on the card, with every launch count set to 0 just
+4. drives eighteen paths on the card, with every launch count set to 0 just
    before a path and read just after it.  Paths 1-3 go through
    ``Experiment(spec).run()`` at the quickstart's published widths, 1
    round each for paths 1 and 2, 2 for path 3:
@@ -224,8 +224,9 @@ and in order:
      mesh (zamba2-1.2b's first 7 layers in float32 against the unsharded
      step, the loss within 1e-5 and the gradients gathered within 4x its
      1-ulp spread; one bf16 step at full depth, 2 x 4096 tokens in 2
-     microbatches, every gradient block finite and non-zero); 16b the
-     7-layer check on a 2 x 2 mesh; 16c prefills on 1 x 2 at path 4's
+     microbatches, every gradient block finite and non-zero, in a world
+     of its own after 16b's); 16b the 7-layer check on a 2 x 2 mesh,
+     its world beside 16a's; 16c prefills on 1 x 2 at path 4's
      traffic (zamba2-1.2b timed at
      full depth, its first 2 layers' logits within 1e-3 of the largest
      against the unsharded; granite-moe-1b-a400m expert-parallel, each
@@ -253,6 +254,20 @@ and in order:
      tokens, its tokens/s and cache bytes a rank; 17c the zamba2 check on
      a 2 x 1 mesh at batch 1 (the batch released, the sequence over both
      axes);
+   - path 18, after path 17, JAX's other step-builder layouts, 2 ranks
+     sharing the card as 16a's: 18a zamba2-1.2b's first 7 layers in f32,
+     a train step of 2 x 512 on 1 x 2 under ``dp_heavy`` and
+     ``dp_heavy_z3`` (every leaf gathered whole where it runs, the batch
+     over both axes; the gradients gathered within 4x the unsharded
+     step's 1-ulp spread, the loss within 1e-6), under ``tp`` with
+     ``constrain_acts`` (bit for bit the step without it) and with
+     ``naive_xent`` (the loss within 1e-6 of ``token_xent``'s, the
+     gradients within the same bound), and 17a's held distill step with
+     ``constrain_acts`` bit for bit the one without it; 18b one bf16
+     ``dp_heavy_z3`` train step at full depth, 2 x 4096 (K4 and K5 at
+     every head, every gradient block finite and non-zero; its seconds,
+     peak memory and collectives); 18c 17b's held serve check with the
+     prefill under ``dp_heavy``;
    paths 1-3 and 5-11 run in six worker processes beside each other
    (``PATH_GROUPS``; each path's launch counts in its own process), after
    step 3 and before path 4, so that the kernel and served-model timings
@@ -262,13 +277,22 @@ and in order:
    exactly where the plain versions are, within tolerance elsewhere, two
    launches equal bit for bit;
 5. prints one ``{"kernels": [...]}`` line (each kernel's launches on its
-   path and, under ``path7_launches`` to ``path17_launches``, on each of
-   paths 7's to 17's sub-paths and ranks), the card line, and as its last
+   path and, under ``path7_launches`` to ``path18_launches``, on each of
+   paths 7's to 18's sub-paths and ranks), the card line, and as its last
    line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the last line, when there is no CUDA device,
 when it does not find the port next to it, or when any phase fails.
 Details go to ``chiprun_out/chip_smoke.json``.
+
+    python3 chip_smoke.py --path18    # the kernels built, path 18 alone
+    python3 chip_smoke.py --four      # path 18 on four cards (NCCL, 2 x 2)
+
+``--four`` runs 18a's held checks on a 2 x 2 mesh and one full-depth bf16
+train step of phi3-medium-14b under ``dp_heavy_z3`` (its weights and
+Adam moments fit no one card) and of minicpm-2b under ``dp_heavy``, 4 x
+4096 tokens, one NCCL rank a card; it needs four cards and prints no
+kernels line.
 """
 from __future__ import annotations
 
@@ -5085,6 +5109,15 @@ def recording_padding(pads: list):
         eng.make_batched_local_update = orig
 
 
+def timed_ranks(fn, n: int, device, **kw) -> tuple:
+    """``launch_ranks(fn, n, device, **kw)``'s reports and its seconds (a
+    world run beside others from a thread pool)."""
+    from repro_torch.launch import mesh as tmesh
+    t0 = time.perf_counter()
+    return (tmesh.launch_ranks(fn, n, device, **kw),
+            time.perf_counter() - t0)
+
+
 def mesh_run(spec, device="cuda") -> dict:
     """One run of ``spec`` on this process's card, its launch counts and
     collectives counted from 0: logs, cohorts, uploads, globals (on the
@@ -5223,28 +5256,29 @@ def mesh_engine_path(device):
     through ``multihost``, (i) over PATH15_RANKS ranks, (ii) over 1 rank
     (nccl), (iii) through ``sync`` in this process; 15b: path 5a's
     heterogeneous spec over PATH15_RANKS ranks against ``sync``, its
-    per-prototype client caps padded to the axis."""
+    per-prototype client caps padded to the axis.  The two worlds and the
+    ``sync`` runs go side by side (each world's launches are counted in
+    its own processes)."""
+    import concurrent.futures
     import torch
-    from repro_torch.launch import mesh as tmesh
     device = torch.device(device).type
     quick, hetero = quickstart_spec(QUICK_ROUNDS), hetero_spec(HETERO_ROUNDS)
     rep, problems = {}, []
-    t0 = time.perf_counter()
-    sync_q, sync_h = mesh_run(quick, device), mesh_run(hetero, device)
-    rep["sync_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    many = tmesh.launch_ranks(
-        path15_rank, PATH15_RANKS, device,
-        args=({"15a": mesh_spec(quick).to_json(),
-               "15b": mesh_spec(hetero).to_json()}, device),
-        threads=PATH15_RANK_THREADS, timeout_s=PATH15_TIMEOUT_S)
-    rep["ranks_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    one = tmesh.launch_ranks(path15_rank, 1, device,
-                             args=({"15a": mesh_spec(quick).to_json()},
-                                   device),
-                             timeout_s=PATH15_TIMEOUT_S)[0]["15a"]
-    rep["one_rank_s"] = time.perf_counter() - t0
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        many = pool.submit(
+            timed_ranks, path15_rank, PATH15_RANKS, device,
+            args=({"15a": mesh_spec(quick).to_json(),
+                   "15b": mesh_spec(hetero).to_json()}, device),
+            threads=PATH15_RANK_THREADS, timeout_s=PATH15_TIMEOUT_S)
+        one = pool.submit(timed_ranks, path15_rank, 1, device,
+                          args=({"15a": mesh_spec(quick).to_json()}, device),
+                          timeout_s=PATH15_TIMEOUT_S)
+        t0 = time.perf_counter()
+        sync_q, sync_h = mesh_run(quick, device), mesh_run(hetero, device)
+        rep["sync_s"] = time.perf_counter() - t0
+        many, rep["ranks_s"] = many.result()
+        one, rep["one_rank_s"] = one.result()
+    one = one[0]["15a"]
     rep["cards"] = torch.cuda.device_count() if device == "cuda" else 0
     rep["15a_i"], more = ranks_report([r["15a"] for r in many], sync_q,
                                       "15a(i)", exact=False)
@@ -5335,24 +5369,24 @@ def mesh_fed_path(device, arch=SERVE_ARCH):
     """15c: ``drive_fed_rounds`` on zamba2-1.2b at full width and depth in
     bf16 (JAX's make_fed_round_step defaults), one round over
     PATH15_FED_RANKS ranks against the same round unsharded in this
-    process: every client's upload bit for bit (digests), the mean within
-    one bf16 ulp per element, K4 and K5 launched on every rank."""
+    process, side by side: every client's upload bit for bit (digests),
+    the mean within one bf16 ulp per element, K4 and K5 launched on every
+    rank."""
+    import concurrent.futures
     import torch
-    from repro_torch.launch import mesh as tmesh
     kw = dict(STEP_FED)
     problems = []
     device = torch.device(device).type
-    t0 = time.perf_counter()
-    ref = fed_rounds_run(None, kw, device, arch)
-    rep = {"unsharded_s": time.perf_counter() - t0,
-           "unsharded": ref["stats"], "unsharded_launches": ref["launches"]}
-    if device == "cuda":
-        torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    runs = tmesh.launch_ranks(path15_fed_rank, PATH15_FED_RANKS, device,
-                              args=(kw, device, arch), threads=4,
-                              timeout_s=PATH15_TIMEOUT_S)
-    rep["ranks_s"] = time.perf_counter() - t0
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(timed_ranks, path15_fed_rank, PATH15_FED_RANKS,
+                            device, args=(kw, device, arch), threads=4,
+                            timeout_s=PATH15_TIMEOUT_S)
+        t0 = time.perf_counter()
+        ref = fed_rounds_run(None, kw, device, arch)
+        rep = {"unsharded_s": time.perf_counter() - t0,
+               "unsharded": ref["stats"],
+               "unsharded_launches": ref["launches"]}
+        runs, rep["ranks_s"] = ranks.result()
     digests = {c: d for r in runs for c, d in r["digests"].items()}
     rep["uploads_bit_equal"] = digests == ref["digests"]
     if not rep["uploads_bit_equal"]:
@@ -5444,7 +5478,8 @@ def print_path15(rep) -> None:
 #   1-ulp spread (measured as 14a measures it, here on the card).  Full
 #   depth: PATH16_TRAIN_STEPS make_train_step at PATH16_TRAIN_BATCH x
 #   4096 tokens, 2 microbatches, remat (cut from 14a's 3 steps of 4 x
-#   4096), every leaf's gradient block finite and non-zero on every rank.
+#   4096), every leaf's gradient block finite and non-zero on every rank,
+#   on a 1 x 2 mesh of its own once 16b's world has ended.
 # 16b: the same 7-layer check on a 2 x 2 mesh (4 ranks: FSDP over "data",
 #   tensor parallelism over "model"), at batch PATH16_HELD_BATCH_2X2 (the
 #   data axis splits it).
@@ -5844,7 +5879,7 @@ def path16_rank(device, spread: float, shape=(1, 2),
         t0 = time.perf_counter()
         if part == "16a":
             out["16a_held"], p = p16_held_train(device, mesh, 1)
-            problems += [f"16a: {x}" for x in p]
+        elif part == "16a_full":
             out["16a_full"], p = p16_full_train(device, mesh)
         elif part == "16b":
             out["16b_held"], p = p16_held_train(device, mesh,
@@ -5863,23 +5898,30 @@ def path16_rank(device, spread: float, shape=(1, 2),
 
 
 def model_axis_path(device, spread: float):
-    """Path 16: 16a, 16c, 16d on a 1 x 2 mesh (2 ranks), 16b on a 2 x 2
-    mesh (4 ranks)."""
+    """Path 16: 16a's held step, 16c, 16d on a 1 x 2 mesh (2 ranks) and,
+    side by side with it (the ranks mostly wait on host-staged
+    collectives), 16b on a 2 x 2 mesh (4 ranks), then 16a's full-depth
+    step on a 1 x 2 mesh of its own."""
+    import concurrent.futures
     import torch
-    from repro_torch.launch import mesh as tmesh
     device = torch.device(device).type
     rep, problems = {"card": card_line()}, []
-    t0 = time.perf_counter()
-    rep["two"] = tmesh.launch_ranks(path16_rank, 2, device,
-                                    args=(device, spread), threads=4,
-                                    timeout_s=PATH16_TIMEOUT_S)
-    rep["two_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rep["four"] = tmesh.launch_ranks(path16_rank, 4, device,
-                                     args=(device, spread, (2, 2), ("16b",)),
-                                     threads=2, timeout_s=PATH16_TIMEOUT_S)
-    rep["four_s"] = time.perf_counter() - t0
-    for world, runs in (("1 x 2", rep["two"]), ("2 x 2", rep["four"])):
+
+    def world(n, args, threads):
+        return timed_ranks(path16_rank, n, device, args=args,
+                           threads=threads, timeout_s=PATH16_TIMEOUT_S)
+
+    def b_then_full():
+        return (world(4, (device, spread, (2, 2), ("16b",)), 2),
+                world(2, (device, spread, (1, 2), ("16a_full",)), 4))
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        two = pool.submit(world, 2, (device, spread), 4)
+        rest = pool.submit(b_then_full)
+        rep["two"], rep["two_s"] = two.result()
+        ((rep["four"], rep["four_s"]),
+         (rep["full"], rep["full_s"])) = rest.result()
+    for world, runs in (("1 x 2", rep["two"] + rep["full"]),
+                        ("2 x 2", rep["four"])):
         problems += [f"{world} rank {r['rank']}: {p}" for r in runs
                      for p in r["problems"]]
     digests = {r["16d"]["full"]["digest"] for r in rep["two"]}
@@ -5888,35 +5930,44 @@ def model_axis_path(device, spread: float):
     return rep, problems
 
 
+def coll_line(r) -> str:
+    """A part's collectives by mesh axes: calls, bytes, seconds."""
+    return "; ".join(
+        f"{axes}: " + ", ".join(
+            f"{k} {v['calls']} x {v['bytes'] / 1e6:.1f} MB "
+            f"{v['seconds']:.2f} s" for k, v in kinds.items()
+            if v["calls"])
+        for axes, kinds in r["by_axes"].items())
+
+
+def print_p16a_full(r) -> None:
+    """16a's full-depth step on one rank."""
+    f = r["16a_full"]
+    for s in f["steps"]:
+        print(f"  path16 16a rank {r['rank']} ({r['backend']}) full depth "
+              f"bf16 batch {f['batch']} x {f['seq']} microbatch "
+              f"{f['microbatch']}: step {s['step']} {s['wall_s']:.3f} s, "
+              f"loss {s['loss']:.6f}, launches {s['launches']}; "
+              f"{coll_line(s)}")
+    print(f"  path16 16a rank {r['rank']}: init {f['init_s']:.1f} s, "
+          f"peak {f['peak_mem_bytes'] / 2 ** 30:.2f} GiB, "
+          f"{f['grad_leaves']} gradient blocks finite and non-zero: "
+          f"{not f['grad_bad_leaves']}; kernels {f['kernel_dtypes']}")
+
+
 def print_path16(rep) -> None:
     gib = 2 ** 30
-
-    def coll(r):
-        return "; ".join(
-            f"{axes}: " + ", ".join(
-                f"{k} {v['calls']} x {v['bytes'] / 1e6:.1f} MB "
-                f"{v['seconds']:.2f} s" for k, v in kinds.items()
-                if v["calls"])
-            for axes, kinds in r["by_axes"].items())
     print(f"  path16 on {rep['card']}:")
     for r in rep["two"]:
-        h, f = r["16a_held"], r["16a_full"]
+        h = r["16a_held"]
         print(f"  path16 16a rank {r['rank']} ({r['backend']}) held "
               f"{STEP_HELD_LAYERS} layers f32 on 1 x 2: loss {h['loss']:.6f}"
               + (f", rel {h['loss_rel']:.2e}, gradient gap "
                  f"{h['grad_gap']:.3g} against 4 x the unsharded 1-ulp "
                  f"spread {h['ulp_spread']:.3g} (worst {h['worst_leaves']})"
                  if "held" in h else "")
-              + f"; {h['step_s']:.2f} s, launches {h['launches']}; {coll(h)}")
-        for s in f["steps"]:
-            print(f"  path16 16a rank {r['rank']} full depth bf16 batch "
-                  f"{f['batch']} x {f['seq']} microbatch {f['microbatch']}: "
-                  f"step {s['step']} {s['wall_s']:.3f} s, loss "
-                  f"{s['loss']:.6f}, launches {s['launches']}; {coll(s)}")
-        print(f"  path16 16a rank {r['rank']}: init {f['init_s']:.1f} s, "
-              f"peak {f['peak_mem_bytes'] / gib:.2f} GiB, {f['grad_leaves']}"
-              f" gradient blocks finite and non-zero: "
-              f"{not f['grad_bad_leaves']}; kernels {f['kernel_dtypes']}")
+              + f"; {h['step_s']:.2f} s, launches {h['launches']}; "
+              f"{coll_line(h)}")
         c = r["16c"]
         for arch in (SERVE_ARCH, MOE_SERVE[0]):
             if f"{arch}_held" in c:
@@ -5931,7 +5982,7 @@ def print_path16(rep) -> None:
                   f"{SERVE_BATCH} x {SERVE_PROMPT} f32: "
                   f"{a['prefill_s']:.3f} s, peak "
                   f"{a['peak_mem_bytes'] / gib:.2f} GiB, launches "
-                  f"{a['launches']}; {coll(a)}{extra}")
+                  f"{a['launches']}; {coll_line(a)}{extra}")
         d = r["16d"]
         if "held" in d:
             print(f"  path16 16d 7-layer round vs unsharded: {d['held']}")
@@ -5942,7 +5993,7 @@ def print_path16(rep) -> None:
               f"{fd['run_s']:.2f} s (round "
               f"{fd['stats'][0]['round_s']:.2f} s), peak "
               f"{fd['stats'][0]['peak_mem_bytes'] / gib:.2f} GiB, launches "
-              f"{fd['launches']}, digest {fd['digest']}; {coll(fd)}")
+              f"{fd['launches']}, digest {fd['digest']}; {coll_line(fd)}")
         print(f"  path16 rank {r['rank']}: 16a {r['16a_s']:.1f} s, 16c "
               f"{r['16c_s']:.1f} s, 16d {r['16d_s']:.1f} s")
     for r in rep["four"]:
@@ -5952,9 +6003,12 @@ def print_path16(rep) -> None:
               + (f", rel {h['loss_rel']:.2e}, gradient gap "
                  f"{h['grad_gap']:.3g} against 4 x {h['ulp_spread']:.3g}"
                  if "held" in h else "")
-              + f"; {h['step_s']:.2f} s, launches {h['launches']}; {coll(h)}")
+              + f"; {h['step_s']:.2f} s, launches {h['launches']}; {coll_line(h)}")
+    for r in rep["full"]:
+        print_p16a_full(r)
     print(f"  path16: 1 x 2 world {rep['two_s']:.1f} s, 2 x 2 world "
-          f"{rep['four_s']:.1f} s, whole path {rep['total_s']:.1f} s",
+          f"{rep['four_s']:.1f} s, then 16a's full step's 1 x 2 world "
+          f"{rep['full_s']:.1f} s, whole path {rep['total_s']:.1f} s",
           flush=True)
 
 
@@ -6237,13 +6291,14 @@ def p17_distill_full(device, mesh) -> tuple:
 
 
 def p17_serve(mesh, cfg, params, toks, dtype, n_tokens, max_seq,
-              held: bool, ref=None) -> dict:
-    """make_prefill_step, T.serve_caches and ``n_tokens`` decode steps of
-    make_serve_step on ``mesh`` from the whole ``params``: the seconds of
-    each part, the caches' bytes a rank, the reshard's collectives, the
-    launches.  With ``held`` (on every rank) each token's logits are
-    gathered, and held against ``ref`` (rank 0's unsharded logits per
-    token) where it is given; else the last token's."""
+              held: bool, ref=None, layout: str = "tp") -> dict:
+    """make_prefill_step (under ``layout``'s rules), T.serve_caches and
+    ``n_tokens`` decode steps of make_serve_step on ``mesh`` from the
+    whole ``params``: the seconds of each part, the caches' bytes a rank,
+    the reshard's collectives, the launches.  With ``held`` (on every
+    rank) each token's logits are gathered, and held against ``ref``
+    (rank 0's unsharded logits per token) where it is given; else the
+    last token's."""
     import torch
     from repro_torch.common import sharding as shd
     from repro_torch.common.pytree import tree_leaves
@@ -6253,7 +6308,7 @@ def p17_serve(mesh, cfg, params, toks, dtype, n_tokens, max_seq,
     b = toks.shape[0]
     pre = steps.make_prefill_step(
         cfg, InputShape("prefill_card", max_seq, b, "prefill"), mesh,
-        param_dtype=dtype)
+        layout=layout, param_dtype=dtype)
     serve = steps.make_serve_step(
         cfg, InputShape("decode_card", max_seq, b, "decode"), mesh,
         param_dtype=dtype, cache_dtype=dtype)
@@ -6282,6 +6337,8 @@ def p17_serve(mesh, cfg, params, toks, dtype, n_tokens, max_seq,
         x.numel() * x.element_size() for x in tree_leaves(
             T.init_caches(cfg, b, max_seq, dtype, "meta")))
     tp, errs, scale = serve.layout, [], 0.0
+    if layout != "tp":       # the serve step's blocks are the tp layout's
+        local = shd.shard_tree(params, tp.pspecs, mesh)
     _p16_reset()
     t0 = time.perf_counter()
     for i in range(n_tokens):
@@ -6326,10 +6383,12 @@ def p17_unsharded(cfg, params, toks, n_tokens, max_seq) -> list:
     return out
 
 
-def p17_serve_held(device, mesh, arch: str, batch: int) -> tuple:
+def p17_serve_held(device, mesh, arch: str, batch: int,
+                   layout: str = "tp") -> tuple:
     """17b / 17c's held check: ``arch``'s first PATH17_HELD_LAYERS layers
     in float32 (zamba2-1.2b's served layers; qwen3-8b drawn as a model of
-    that many layers at full width), ``batch`` sequences."""
+    that many layers at full width), ``batch`` sequences, the prefill
+    under ``layout``'s rules (18c: ``dp_heavy``)."""
     import torch
     from repro_torch import configs
     from repro_torch.common.pytree import tree_map
@@ -6350,8 +6409,8 @@ def p17_serve_held(device, mesh, arch: str, batch: int) -> tuple:
     ref = (p17_unsharded(cn, pn, toks, PATH17_TOKENS, PATH17_MAX_SEQ)
            if tmesh.world_rank() == 0 else None)
     rep = p17_serve(mesh, cn, pn, toks, torch.float32, PATH17_TOKENS,
-                    PATH17_MAX_SEQ, True, ref)
-    rep.update(arch=arch, layers=PATH17_HELD_LAYERS)
+                    PATH17_MAX_SEQ, True, ref, layout)
+    rep.update(arch=arch, layers=PATH17_HELD_LAYERS, layout=layout)
     problems = []
     if ref is not None and not rep["held"]:
         problems.append(f"{arch} first {PATH17_HELD_LAYERS} layers: {rep}")
@@ -6445,14 +6504,6 @@ def mesh_serve_path(device, k2s_rows=()):
 
 def print_path17(rep) -> None:
     gib = 2 ** 30
-
-    def coll(r):
-        return "; ".join(
-            f"{axes}: " + ", ".join(
-                f"{k} {v['calls']} x {v['bytes'] / 1e6:.1f} MB "
-                f"{v['seconds']:.2f} s" for k, v in kinds.items()
-                if v["calls"])
-            for axes, kinds in r["by_axes"].items())
     print(f"  path17 on {rep['card']}:")
     alt = {(a["K"], a["B"], a["V_loc"]): a
            for a in rep["ranks"][0]["17k"]["shapes"]}
@@ -6478,14 +6529,14 @@ def print_path17(rep) -> None:
                  f"{h['worst_leaves']}), Adam on the blocks equal "
                  f"{h['adam_equal']}" if "held" in h else "")
               + f"; {h['step_s']:.2f} s, launches {h['launches']}; "
-              f"{coll(h)}")
+              f"{coll_line(h)}")
         print(f"  path17 17a rank {r['rank']} full depth bf16 "
               f"{f['batch_size']} x {f['seq_len']}, {f['n_teachers']} "
               f"teachers: step {f['step_s']:.2f} s (init {f['init_s']:.1f}"
               f" s), loss {f['loss']:.6f}, peak "
               f"{f['peak_mem_bytes'] / gib:.2f} GiB, vocabulary "
               f"{f['vocab_local']} a rank, launches {f['launches']}; "
-              f"{coll(f)}")
+              f"{coll_line(f)}")
         for key in ("17b_held", "17b_gqa", "17c_held"):
             s = r[key]
             held = (f", gap {s['err']:.3g} of a {s['max_abs_logit']:.4g} "
@@ -6496,15 +6547,15 @@ def print_path17(rep) -> None:
             print(f"  path17 {key} rank {r['rank']} {s['arch']} first "
                   f"{s['layers']} layers f32 batch {s['batch']}: prefill "
                   f"{s['prefill_s']:.3f} s, reshard {s['reshard_s']:.3f} s "
-                  f"({coll(s['reshard'])}), {s['tokens']} tokens "
+                  f"({coll_line(s['reshard'])}), {s['tokens']} tokens "
                   f"{s['decode_s']:.3f} s{held}")
         s = r["17b_full"]
         print(f"  path17 17b rank {r['rank']} full depth bf16 batch "
               f"{s['batch']} prompt {s['prompt']}: prefill "
-              f"{s['prefill_s']:.3f} s ({coll(s['prefill'])}), reshard "
-              f"{s['reshard_s']:.3f} s ({coll(s['reshard'])}), "
+              f"{s['prefill_s']:.3f} s ({coll_line(s['prefill'])}), reshard "
+              f"{s['reshard_s']:.3f} s ({coll_line(s['reshard'])}), "
               f"{s['tokens']} tokens {s['decode_s']:.3f} s = "
-              f"{s['tokens_per_s']:.1f} tokens/s ({coll(s['decode'])}); "
+              f"{s['tokens_per_s']:.1f} tokens/s ({coll_line(s['decode'])}); "
               f"cache {s['cache_bytes'] / 1e6:.1f} MB a rank against "
               f"{s['unsharded_cache_bytes'] / 1e6:.1f} MB unsharded "
               f"(at its heads after prefill "
@@ -6515,6 +6566,430 @@ def print_path17(rep) -> None:
             f"{p} {r[f'{p}_s']:.1f} s" for p in ("17k", "17a", "17b",
                                                   "17c")))
     print(f"  path17: whole path {rep['total_s']:.1f} s", flush=True)
+
+
+# Path 18 (after path 17): JAX's other step-builder layouts on a mesh
+# (items 11.8.4 (a)-(b)), on 2 gloo ranks sharing the card as paths 16-17
+# do, zamba2-1.2b at full width.  18a holds the first STEP_HELD_LAYERS
+# served layers in float32, one make_train_step at PATH18_HELD_BATCH x
+# STEP_HELD_SEQ tokens (one row a rank under dp_heavy) from zero Adam
+# moments, the gradients its Adam takes against the unsharded step's as
+# 16a holds its step: under dp_heavy and
+# dp_heavy_z3 (every leaf gathered whole where it runs, the batch over
+# both axes) the gathered gradients within STEP_SPREAD_FACTOR x the
+# unsharded 1-ulp spread and the loss within PATH18_LOSS_RTOL; under tp
+# with constrain_acts (JAX's activation sharding, checked and changing
+# nothing) equal bit for bit to the step without it (the gradients, the
+# updated blocks and moments, the loss); under tp with
+# naive_xent (the logits all-gathered over "model") the loss within
+# PATH18_LOSS_RTOL of token_xent's and the gradients within the spread
+# bound; and 17a's held distill step with constrain_acts equal bit for bit
+# to the one without it.  18b: make_train_step at full depth in bf16 under
+# dp_heavy_z3, one step at PATH18_TRAIN_BATCH x STEP_TRAIN_SEQ (one row a
+# rank: no microbatches, which would split a row): seconds, peak memory a
+# rank, collectives by axis, K4 / K5 at every head (two forwards' worth:
+# the forward and remat's recompute), every leaf's gradient block finite
+# and non-zero.  18c: 17b's held serve check (the first PATH17_HELD_LAYERS
+# layers, path 4's batch and prompt, PATH17_TOKENS tokens) with the
+# prefill under dp_heavy (every head, the batch over both axes) and
+# T.serve_caches into the tp serve layout.
+# Four cards (``chip_smoke.py --four``: NCCL, one rank a card, 2 x 2; not
+# part of the run with no arguments): 18a's held checks at
+# PATH18_HELD_BATCH_2X2 rows, then PATH18_FOUR's full-depth bf16 steps at
+# PATH18_FOUR_BATCH x STEP_TRAIN_SEQ (one row a rank): phi3-medium-14b
+# (arXiv:2404.14219) under dp_heavy_z3, whose bf16 weights and f32 Adam
+# moments (~147 GB) fit no one card, and minicpm-2b (arXiv:2404.06395)
+# under dp_heavy, its odd vocabulary whole on "model" as JAX's fitted spec
+# leaves it; each a finite loss equal on every rank and every leaf's
+# gradient block finite and non-zero; seconds, MFU over the four cards,
+# peak memory a card, collectives.
+PATH18_HELD_BATCH, PATH18_HELD_BATCH_2X2 = 2, 4
+PATH18_LOSS_RTOL = 1e-6
+PATH18_TRAIN_BATCH, PATH18_FOUR_BATCH = 2, 4
+PATH18_FULL_LAYOUT = "dp_heavy_z3"
+PATH18_FOUR = (("phi3-medium-14b", "dp_heavy_z3"), ("minicpm-2b", "dp_heavy"))
+PATH18_TIMEOUT_S, PATH18_FOUR_TIMEOUT_S = 600, 1500
+
+
+def layer_mixers(cfg) -> dict:
+    """{"attention": layers, "mamba": layers} of ``cfg`` (K4 and K5
+    launches per forward)."""
+    from repro_torch.models import transformer as T
+    p, n_full, rem = T._layout(cfg)
+    kinds = [cfg.pattern[j].mixer for j in range(p)] * n_full + [
+        cfg.pattern[j].mixer for j in range(rem)]
+    mamba = sum(k == "mamba" for k in kinds)
+    return {"attention": len(kinds) - mamba, "mamba": mamba}
+
+
+def p18_held(device, mesh, rows: int) -> tuple:
+    """18a: a float32 make_train_step of zamba2-1.2b's first
+    STEP_HELD_LAYERS served layers on ``mesh`` under each layout and knob,
+    from the unsharded blocks and zero Adam moments: the gradients its Adam
+    takes against the unsharded step's, or (with its updated blocks and
+    moments) against the same step without the knob.  Every rank takes
+    the unsharded step (so every rank's first backward comes before the
+    timed steps) and holds its blocks against the same blocks of it; the
+    per-leaf largest gaps are merged over the ranks (the gathered
+    gradients' gaps, without gathering them); rank 0 also takes it at a
+    1-ulp nudge for the spread and gates."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.common import sharding as shd
+    from repro_torch.common.pytree import tree_flatten, tree_leaves, tree_map
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import steps
+    from repro_torch.optim import optimizers as topt
+    cfg = configs.get(SERVE_ARCH)
+    c7, p7 = served_f32(cfg, device)
+    batch = {k: v.to(device) for k, v in step_tokens(
+        c7, (rows, STEP_HELD_SEQ), 1).items()}
+    rep, problems = {"mesh": [shd.axis_size(mesh, a)
+                              for a in shd.axis_names(mesh)],
+                     "rows": rows}, []
+    rank0 = tmesh.world_rank() == 0
+    ref, m = steps.train_grads(p7, c7, batch, remat=False)
+    ref_loss, flat_ref = float(m["loss"]), tree_flatten(ref)
+    keys = sorted(flat_ref)
+    ref_max = torch.tensor([max(float(flat_ref[k].abs().max()), 1e-30)
+                            for k in keys], dtype=torch.float64)
+    if rank0:
+        g_n, _ = steps.train_grads(ulp_nudged(p7, 5), c7, batch, remat=False)
+        rep["ulp_spread"] = max(leaf_gaps(flat32(g_n),
+                                          flat32(ref)).values())
+        rep["bound"] = STEP_SPREAD_FACTOR * rep["ulp_spread"]
+        del g_n
+    shape = configs.InputShape("held_card", STEP_HELD_SEQ, rows, "train")
+    blocks, took, orig = {}, [], steps._adam_step
+
+    def adam_step(opt, params, opt_state, grads, step):
+        took.append(grads)
+        return orig(opt, params, opt_state, grads, step)
+    steps._adam_step = adam_step
+    try:
+        for name, layout, acts, naive in (
+                ("dp_heavy", "dp_heavy", False, False),
+                ("dp_heavy_z3", "dp_heavy_z3", False, False),
+                ("tp", "tp", False, False), ("tp_acts", "tp", True, False),
+                ("tp_naive", "tp", False, True)):
+            bundle = steps.make_train_step(
+                c7, shape, mesh, layout=layout, constrain_acts=acts,
+                naive_xent=naive, param_dtype=torch.float32)
+            tp = bundle.layout
+            local = shd.shard_tree(p7, tp.pspecs, mesh)
+            opt = topt.AdamState(*(tree_map(torch.zeros_like, local)
+                                   for _ in range(2)))
+            _p17_barrier(mesh, device)
+            _p16_reset()
+            t0 = time.perf_counter()
+            local, opt, _, m = bundle.fn(local, opt,
+                                         torch.zeros((), dtype=torch.int32),
+                                         steps.batch_block(batch, tp))
+            torch.cuda.synchronize()
+            r = {"step_s": time.perf_counter() - t0, **_p16_counts(),
+                 "loss": float(m["loss"]), "batch_axes": list(tp.batch_axes)}
+            g = took.pop()
+            if name in ("tp", "tp_acts"):         # 16a holds tp's gradients
+                blocks[name] = (tree_leaves((g, local, opt)), r["loss"])
+            else:
+                got = tree_flatten(g)
+                want = tree_flatten(shd.shard_tree(ref, tp.pspecs, mesh))
+                gap = torch.stack([(got[k] - want[k]).abs().max().double()
+                                   for k in keys])   # where the blocks live
+                gap = shd.all_reduce_max(gap, mesh,
+                                         shd.axis_names(mesh)).cpu()
+                if rank0:
+                    gaps = dict(zip(keys, (gap / ref_max).tolist()))
+                    r["grad_gap"] = max(gaps.values())
+                    r["worst_leaves"] = sorted(gaps, key=gaps.get,
+                                               reverse=True)[:3]
+                    r["loss_rel"] = abs(r["loss"] - ref_loss) / abs(ref_loss)
+                del want
+            rep[name] = r
+            del local, opt, g
+    finally:
+        steps._adam_step = orig
+    for name, base in (("tp_acts", "tp"),):
+        (a, la), (b, lb) = blocks[name], blocks[base]
+        rep[name]["bit_equal"] = la == lb and all(
+            torch.equal(x, y) for x, y in zip(a, b))
+        if not rep[name]["bit_equal"]:
+            problems.append(f"{name} differs from {base} in its bits")
+    if rank0:
+        for name in ("dp_heavy", "dp_heavy_z3", "tp_naive"):
+            r = rep[name]
+            r["held"] = (r["loss_rel"] <= PATH18_LOSS_RTOL
+                         and r["grad_gap"] <= rep["bound"])
+            if not r["held"]:
+                problems.append(f"held {name} step on {rep['mesh']}: {r}")
+        rep["tp_naive"]["loss_vs_token_xent"] = abs(
+            rep["tp_naive"]["loss"] - rep["tp"]["loss"]) / abs(
+                rep["tp"]["loss"])
+        if rep["tp_naive"]["loss_vs_token_xent"] > PATH18_LOSS_RTOL:
+            problems.append(f"naive_xent's loss off token_xent's: "
+                            f"{rep['tp_naive']}")
+    del p7, ref, blocks
+    torch.cuda.empty_cache()
+    return rep, problems
+
+
+def p18_distill_acts(device, mesh) -> tuple:
+    """18a: 17a's held distill step (STEP_HELD_LAYERS float32 layers, 4
+    teachers, PATH17_HELD_BATCH x STEP_HELD_SEQ) with constrain_acts,
+    equal bit for bit to the same step without it."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.common import sharding as shd
+    from repro_torch.common.pytree import tree_leaves, tree_map
+    from repro_torch.launch import steps
+    from repro_torch.optim import optimizers as topt
+    cfg = configs.get(SERVE_ARCH)
+    k = PATH17_DISTILL["n_teachers"]
+    c7, p7 = served_f32(cfg, device)
+    t7 = tree_map(lambda *xs: torch.stack(xs), *[
+        served_f32(cfg, device, 1 + i)[1] for i in range(k)])
+    batch = {"tokens": step_tokens(c7, (PATH17_HELD_BATCH, STEP_HELD_SEQ),
+                                   3)["tokens"].to(device)}
+    out, rep = {}, {}
+    for acts in (True, False):
+        bundle = steps.make_distill_step(
+            c7, mesh, n_teachers=k, batch_size=PATH17_HELD_BATCH,
+            seq_len=STEP_HELD_SEQ, constrain_acts=acts,
+            param_dtype=torch.float32)
+        tp = bundle.layout
+        student = shd.shard_tree(p7, tp.pspecs, mesh)
+        teachers = shd.shard_tree(t7, shd.stacked_specs(tp.pspecs), mesh)
+        opt = topt.AdamState(*(tree_map(torch.zeros_like, student)
+                               for _ in range(2)))
+        _p17_barrier(mesh, device)
+        _p16_reset()
+        t0 = time.perf_counter()
+        _, opt, _, loss = bundle.fn(student, teachers, opt,
+                                    torch.zeros((), dtype=torch.int32),
+                                    steps.batch_block(batch, tp))
+        torch.cuda.synchronize()
+        rep[f"acts_{acts}"] = {"step_s": time.perf_counter() - t0,
+                               **_p16_counts(), "loss": float(loss)}
+        out[acts] = (tree_leaves((student, opt)), float(loss))
+        del teachers
+    rep["bit_equal"] = out[True][1] == out[False][1] and all(
+        torch.equal(x, y) for x, y in zip(out[True][0], out[False][0]))
+    problems = [] if rep["bit_equal"] else [
+        f"the distill step with constrain_acts differs in its bits: {rep}"]
+    del p7, t7, out
+    torch.cuda.empty_cache()
+    return rep, problems
+
+
+def p18_full_train(device, mesh, arch: str, layout: str, batch: int,
+                   cards: int) -> tuple:
+    """make_train_step on ``arch`` at full width and depth in bf16 under
+    ``layout`` on ``mesh``, one step of ``batch`` x STEP_TRAIN_SEQ: its
+    seconds (after every rank has arrived), MFU over ``cards`` cards,
+    peak memory, collectives, launches (K4 / K5 at every head, two
+    forwards' worth), every leaf's gradient block finite and non-zero."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.common.pytree import tree_flatten
+    from repro_torch.launch import steps
+    cfg = configs.get(arch)
+    shape = configs.InputShape("train_4k_card", STEP_TRAIN_SEQ, batch,
+                               "train")
+    bundle = steps.make_train_step(cfg, shape, mesh, layout=layout)
+    problems = []
+    rep = {"arch": arch, "layout": layout, "batch": batch,
+           "seq": STEP_TRAIN_SEQ, "batch_axes": list(bundle.layout.batch_axes),
+           "param_bytes_rank": sum(m.numel() * m.element_size()
+                                   for m in tree_flatten(
+                                       bundle.args[0]).values())}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    args = bundle.init_args(torch.Generator(device=device).manual_seed(0),
+                            device)
+    torch.cuda.synchronize()
+    rep["init_s"] = time.perf_counter() - t0
+    rep["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    flags = []
+    orig = steps._adam_step
+
+    def adam_step(opt, params, opt_state, grads, step):
+        flags.append({k: torch.stack([torch.isfinite(g).all(),
+                                      g.abs().max() > 0])
+                      for k, g in tree_flatten(grads).items()})
+        return orig(opt, params, opt_state, grads, step)
+    steps._adam_step = adam_step
+    try:
+        _p17_barrier(mesh, device)
+        _p16_reset()
+        t0 = time.perf_counter()
+        _, _, _, metrics = bundle.fn(*args)
+        torch.cuda.synchronize()
+        rep["step_s"] = time.perf_counter() - t0
+    finally:
+        steps._adam_step = orig
+    rep.update(_p16_counts())
+    rep["loss"] = float(metrics["loss"])
+    rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    tokens = batch * STEP_TRAIN_SEQ
+    rep["mfu"] = (6 * cfg.active_param_count() * tokens
+                  / (rep["step_s"] * cards * BF16_FLOPS_PER_S))
+    mixers = layer_mixers(cfg)
+    want = {k: 2 * n for k, n in (("swa_attn", mixers["attention"]),
+                                  ("ssd_scan", mixers["mamba"])) if n}
+    if rep["launches"] != want:
+        problems.append(f"{arch} launched {rep['launches']}, expected "
+                        f"{want}")
+    if not math.isfinite(rep["loss"]):
+        problems.append(f"{arch} loss {rep['loss']}")
+    bad = [k for k, f in flags[0].items() if not bool(f.all())]
+    rep["grad_leaves"], rep["grad_bad_leaves"] = len(flags[0]), bad
+    if bad:
+        problems.append(f"{arch}: leaves without a finite non-zero gradient "
+                        f"block: {bad}")
+    rep["kernel_dtypes"] = kernel_dtypes()
+    del args, bundle, flags
+    torch.cuda.empty_cache()
+    return rep, problems
+
+
+def path18_rank(device, shape=(1, 2), parts=("18a", "18b", "18c"),
+                cards: int = 1) -> dict:
+    """One rank of path 18's ``shape`` mesh: the parts in order, each
+    with its own counts; a part that raises ends the rank (and the
+    launch)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if device == "cuda" else torch.device(device))
+    from repro_torch.launch import mesh as tmesh
+    mesh = tmesh.make_mesh(shape, ("data", "model"))
+    out, problems = {"rank": tmesh.world_rank(),
+                     "backend": tmesh._WORLD["backend"]}, []
+    rows = PATH18_HELD_BATCH if shape == (1, 2) else PATH18_HELD_BATCH_2X2
+    for part in parts:
+        t0 = time.perf_counter()
+        p = []
+        if part == "18a":
+            out["18a_train"], p = p18_held(device, mesh, rows)
+            out["18a_distill"], more = p18_distill_acts(device, mesh)
+            p += more
+        elif part == "18b":
+            out["18b"], p = p18_full_train(
+                device, mesh, SERVE_ARCH, PATH18_FULL_LAYOUT,
+                PATH18_TRAIN_BATCH, cards)
+        elif part == "18c":
+            out["18c"], p = p17_serve_held(device, mesh, SERVE_ARCH,
+                                           SERVE_BATCH, "dp_heavy")
+        else:                          # a PATH18_FOUR model
+            out[part], p = p18_full_train(device, mesh, part,
+                                          dict(PATH18_FOUR)[part],
+                                          PATH18_FOUR_BATCH, cards)
+        problems += [f"{part}: {x}" for x in p]
+        out[f"{part}_s"] = time.perf_counter() - t0
+    out["problems"] = problems
+    return out
+
+
+def layouts_path(device):
+    """Path 18 on 2 ranks sharing the card (``launch_ranks``).  Its parts
+    run in turn: 18b beside 18a's ranks overflows the card's 80 GB."""
+    import torch
+    from repro_torch.launch import mesh as tmesh
+    device = torch.device(device).type
+    rep, problems = {"card": card_line()}, []
+    rep["ranks"] = tmesh.launch_ranks(path18_rank, 2, device,
+                                      args=(device,), threads=4,
+                                      timeout_s=PATH18_TIMEOUT_S)
+    problems += [f"rank {r['rank']}: {p}" for r in rep["ranks"]
+                 for p in r["problems"]]
+    losses = {r["18b"]["loss"] for r in rep["ranks"]}
+    if len(losses) != 1:
+        problems.append(f"18b: the ranks' losses differ {losses}")
+    return rep, problems
+
+
+def layouts_four_path():
+    """Path 18's four-card part: 18a on 2 x 2, then PATH18_FOUR's steps,
+    one NCCL rank a card."""
+    from repro_torch.launch import mesh as tmesh
+    rep, problems = {"card": card_line()}, []
+    parts = ("18a",) + tuple(a for a, _ in PATH18_FOUR)
+    rep["ranks"] = tmesh.launch_ranks(
+        path18_rank, 4, "cuda", args=("cuda", (2, 2), parts, 4), threads=4,
+        timeout_s=PATH18_FOUR_TIMEOUT_S)
+    problems += [f"rank {r['rank']}: {p}" for r in rep["ranks"]
+                 for p in r["problems"]]
+    for arch, _ in PATH18_FOUR:
+        losses = {r[arch]["loss"] for r in rep["ranks"]}
+        if len(losses) != 1:
+            problems.append(f"{arch}: the ranks' losses differ {losses}")
+    return rep, problems
+
+
+def print_path18(rep) -> None:
+    gib = 2 ** 30
+    print(f"  path18 on {rep['card']}:")
+    for r in rep["ranks"]:
+        if "18a_train" in r:
+            h = r["18a_train"]
+            for name in ("dp_heavy", "dp_heavy_z3", "tp", "tp_acts",
+                         "tp_naive"):
+                s = h[name]
+                print(f"  path18 18a rank {r['rank']} ({r['backend']}) "
+                      f"{name} held {STEP_HELD_LAYERS} layers f32 batch "
+                      f"{h['rows']} x {STEP_HELD_SEQ} on {h['mesh']} (rows "
+                      f"over {s['batch_axes']}): loss {s['loss']:.7f}"
+                      + (f", rel {s['loss_rel']:.2e}, gradient gap "
+                         f"{s['grad_gap']:.3g} against 4 x the unsharded "
+                         f"1-ulp spread {h['ulp_spread']:.3g} (worst "
+                         f"{s['worst_leaves']})" if "grad_gap" in s else "")
+                      + (f", bit for bit {s['bit_equal']}"
+                         if "bit_equal" in s else "")
+                      + (f", loss against token_xent's "
+                         f"{s['loss_vs_token_xent']:.2e}"
+                         if "loss_vs_token_xent" in s else "")
+                      + f"; {s['step_s']:.2f} s, launches {s['launches']}; "
+                      f"{coll_line(s)}")
+            d = r["18a_distill"]
+            print(f"  path18 18a rank {r['rank']} distill held with "
+                  f"constrain_acts bit for bit {d['bit_equal']}: loss "
+                  f"{d['acts_True']['loss']:.7f}, "
+                  f"{d['acts_True']['step_s']:.2f} s, launches "
+                  f"{d['acts_True']['launches']}")
+        for key in ["18b"] + [a for a, _ in PATH18_FOUR]:
+            if key not in r:
+                continue
+            f = r[key]
+            print(f"  path18 {key} rank {r['rank']} {f['arch']} "
+                  f"{f['layout']} full depth bf16 batch {f['batch']} x "
+                  f"{f['seq']} (rows over {f['batch_axes']}): step "
+                  f"{f['step_s']:.3f} s (init {f['init_s']:.1f} s, peak "
+                  f"{f['init_peak_bytes'] / gib:.2f} GiB), loss "
+                  f"{f['loss']:.6f}, MFU {f['mfu']:.4f}, peak "
+                  f"{f['peak_mem_bytes'] / gib:.2f} GiB, parameters "
+                  f"{f['param_bytes_rank'] / 1e9:.2f} GB a rank, "
+                  f"{f['grad_leaves']} gradient blocks finite and non-zero "
+                  f"{not f['grad_bad_leaves']}, launches {f['launches']} "
+                  f"{f['kernel_dtypes']}; {coll_line(f)}")
+        if "18c" in r:
+            s = r["18c"]
+            held = (f", gap {s['err']:.3g} of a {s['max_abs_logit']:.4g} "
+                    f"largest (gate {GQA_REL_ATOL:.0e}) held {s['held']}"
+                    if "held" in s else "")
+            print(f"  path18 18c rank {r['rank']} {s['arch']} first "
+                  f"{s['layers']} layers f32 batch {s['batch']}, prefill "
+                  f"{s['layout']}: prefill {s['prefill_s']:.3f} s "
+                  f"({coll_line(s['prefill'])}), reshard {s['reshard_s']:.3f} s "
+                  f"({coll_line(s['reshard'])}), {s['tokens']} tokens "
+                  f"{s['decode_s']:.3f} s{held}")
+        print(f"  path18 rank {r['rank']}: " + ", ".join(
+            f"{k[:-2]} {v:.1f} s" for k, v in r.items()
+            if k.endswith("_s") and isinstance(v, float)))
+    print(f"  path18: whole path {rep.get('total_s', 0.0):.1f} s",
+          flush=True)
 
 
 KERNEL_SOURCES = ["ensemble_kl_bank", "ensemble_kl", "swa_attn", "ssd_scan"]
@@ -6598,9 +7073,46 @@ def run_path_groups(out_dir: Path) -> tuple:
     return paths, problems, time.perf_counter() - t0
 
 
+def path18_main(four: bool) -> int:
+    """``chip_smoke.py --path18``: the kernels built and path 18 alone on
+    one card; ``--four``: path 18's four-card part (four cards, one NCCL
+    rank each).  The report is written to
+    chiprun_out/chip_smoke_path18[_four].json."""
+    start_s = time.perf_counter()
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        return fail(f"the port (src/repro_torch) is not next to "
+                    f"{Path(__file__).name}; run it from a checkout")
+    torch = setup_torch()
+    if torch is None:
+        return fail("torch.cuda.is_available() is False")
+    if four and torch.cuda.device_count() < 4:
+        return fail(f"--four needs 4 cards, found "
+                    f"{torch.cuda.device_count()}")
+    from repro_torch.kernels import build
+    build.build(KERNEL_SOURCES)
+    print(f"build: {time.perf_counter() - start_s:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    rep, problems = layouts_four_path() if four else layouts_path("cuda")
+    rep["total_s"] = time.perf_counter() - t0
+    print_path18(rep)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    name = "chip_smoke_path18" + ("_four" if four else "") + ".json"
+    (out_dir / name).write_text(json.dumps(rep, indent=1, default=str))
+    if problems:
+        for p in problems:
+            print(f"chip_smoke: {p}", file=sys.stderr)
+        return fail(f"{len(problems)} problem(s)")
+    print(f"total {time.perf_counter() - start_s:.1f} s")
+    print(card_line())
+    return 0
+
+
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--paths":
         return group_worker(int(sys.argv[2]), sys.argv[3])
+    if len(sys.argv) == 2 and sys.argv[1] in ("--path18", "--four"):
+        return path18_main(sys.argv[1] == "--four")
     start_s = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
         return fail(f"the port (src/repro_torch) is not next to "
@@ -6982,6 +7494,14 @@ def main() -> int:
     print_path17(rep)
     print(f"path 17 done at {time.perf_counter() - start_s:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    rep, path_problems = layouts_path(device)
+    rep["total_s"] = time.perf_counter() - t0
+    paths["path18_layouts"] = rep
+    problems += [f"path18_layouts: {p}" for p in path_problems]
+    print_path18(rep)
+    print(f"path 18 done at {time.perf_counter() - start_s:.1f} s",
+          flush=True)
 
     # 5. output
     def timing(rows, **key):
@@ -7074,7 +7594,7 @@ def main() -> int:
         p = paths["path16_model_axis"]
         two, four = p["two"], p["four"]
         n = lambda r: r["launches"].get(name, 0)
-        return {"16a": [n(r["16a_full"]["steps"][0]) for r in two],
+        return {"16a": [n(r["16a_full"]["steps"][0]) for r in p["full"]],
                 "16a_held": [n(r["16a_held"]) for r in two],
                 "16b_held": [n(r["16b_held"]) for r in four],
                 "16c_zamba2": [n(r["16c"][SERVE_ARCH]) for r in two],
@@ -7091,6 +7611,22 @@ def main() -> int:
         for key in ("17b_held", "17b_gqa", "17b_full", "17c_held"):
             for part in ("prefill", "decode"):
                 out[f"{key}_{part}"] = [n(r[key][part]) for r in ranks]
+        return out
+
+    def path18_launches(name):
+        """Path 18's launches of ``name`` on each rank: 18a's held steps
+        (each layout and knob) and held distill step, 18b's full-depth
+        step, 18c's prefill and decode."""
+        ranks = paths["path18_layouts"]["ranks"]
+        n = lambda r: r["launches"].get(name, 0)
+        out = {f"18a_{k}": [n(r["18a_train"][k]) for r in ranks]
+               for k in ("dp_heavy", "dp_heavy_z3", "tp", "tp_acts",
+                         "tp_naive")}
+        out["18a_distill"] = [n(r["18a_distill"]["acts_True"])
+                              for r in ranks]
+        out["18b"] = [n(r["18b"]) for r in ranks]
+        for part in ("prefill", "decode"):
+            out[f"18c_{part}"] = [n(r["18c"][part]) for r in ranks]
         return out
 
     def path8_launches(name):
@@ -7120,6 +7656,7 @@ def main() -> int:
                 "path15_launches": path15_launches(name),
                 "path16_launches": path16_launches(name),
                 "path17_launches": path17_launches(name),
+                "path18_launches": path18_launches(name),
                 "max_abs_err": max(e[i] for e in errs),
                 "ms": t[f"{kind}_ms"], "plain_ms": t[f"plain_{kind}_ms"],
                 "call_ms": t[f"{kind}_call_ms"],
@@ -7147,6 +7684,7 @@ def main() -> int:
             "path15_launches": path15_launches(name),
             "path16_launches": path16_launches(name),
             "path17_launches": path17_launches(name),
+            "path18_launches": path18_launches(name),
             "path14_dtypes": sorted({d for sub in ("14a_train", "14b_distill",
                                                    "14c_fed_round",
                                                    "14d_serve")
@@ -7170,6 +7708,7 @@ def main() -> int:
         "launches": paths["path17_mesh_serve"]["ranks"][0]["17a_full"]
         ["launches"].get(name, 0),
         "path17_launches": path17_launches(name),
+        "path18_launches": path18_launches(name),
         "max_abs_err": max(e["fwd_err"] for e in k2s_errors),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "call_ms": t["call_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -23,7 +23,8 @@ collectives below: :func:`all_gather` along a mesh axis (the blocks in
 rank order, as ``P(axis)`` lays them out), :func:`all_reduce_sum` and
 :func:`reduce_scatter_sum`.  Under ``gloo`` a CUDA tensor is staged
 through host memory for the collective only (gloo's CUDA support lacks
-``all_gather``), in float32 where it is a lower-precision float, and a
+``all_gather``), in float32 where it is a lower-precision float that a
+reduction sums (an all-gather moves its bytes as they are), and a
 reduce-scatter is an all-reduce and this rank's slice; under ``nccl`` it
 stays on the card.  :data:`COLLECTIVES` counts each kind's calls, bytes
 and seconds, and :data:`COLLECTIVE_AXES` the same per mesh axes
@@ -362,10 +363,17 @@ def all_gather(tensor: torch.Tensor, mesh, axes: Sequence[str] = ("data",),
     if n == 1:
         return tensor
     staged = _staged(tensor, group)
-    src = _to_wire(tensor, staged)
+    half = (staged and tensor.dim() > 0
+            and tensor.dtype in (torch.bfloat16, torch.float16))
+    # a gather moves bits: a 16-bit float travels as its two bytes, not
+    # widened to float32
+    src = (tensor.detach().cpu().contiguous().view(torch.uint8) if half
+           else _to_wire(tensor, staged))
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim)
+    if half:
+        out = out.view(tensor.dtype)
     if staged:
         out = out.to(tensor.device, tensor.dtype)
     _count("all_gather", axes, out.numel() * out.element_size(), t0)
@@ -516,6 +524,31 @@ def gather_from(x: torch.Tensor, mesh, axes: Sequence[str],
     return _GatherFrom.apply(x, mesh, tuple(axes), dim)
 
 
+class _GatherAlike(torch.autograd.Function):
+    """All-gather along ``dim`` forward, this rank's block of the
+    gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        i, n = block_index(ctx.mesh, ctx.axes)
+        per = g.shape[ctx.dim] // n
+        return g.narrow(ctx.dim, i * per, per), None, None, None
+
+
+def gather_alike(x: torch.Tensor, mesh, axes: Sequence[str],
+                 dim: int) -> torch.Tensor:
+    """The whole of a block split over ``axes`` along ``dim`` where what
+    follows is computed alike on every rank of ``axes`` (the naive loss's
+    gathered logits): its gradient is this rank's block of the gradient,
+    as it is."""
+    return _GatherAlike.apply(x, mesh, tuple(axes), dim)
+
+
 # ---------------------------------------------------------------------------
 # blocks of parameter trees
 # ---------------------------------------------------------------------------
@@ -649,19 +682,19 @@ def reshard_tensor(x: torch.Tensor, src: PartitionSpec, dst: PartitionSpec,
                    mesh) -> torch.Tensor:
     """This rank's block under ``dst`` of the array whose block under
     ``src`` is ``x``: each dimension laid out differently is all-gathered
-    over its ``src`` axes, then cut to this rank's ``dst`` block (the
-    all-gathers counted in :data:`COLLECTIVE_AXES`)."""
+    over its ``src`` axes, then cut to this rank's ``dst`` block, either
+    side by segments where it is :class:`Segmented` (the all-gathers
+    counted in :data:`COLLECTIVE_AXES`)."""
     for d, (a, b) in enumerate(zip(src, dst)):
         if a == b or (not isinstance(a, Segmented)
                       and not isinstance(b, Segmented)
                       and entry_axes(a) == entry_axes(b)):
             continue
+        at = lambda e: P(*((None,) * d), e)
         if a is not None:
-            x = all_gather(x, mesh, entry_axes(a), d)
+            x = gather_tensor(x, at(a), mesh)
         if b is not None:
-            i, n = block_index(mesh, entry_axes(b))
-            per = x.shape[d] // n
-            x = x.narrow(d, i * per, per)
+            x = shard_tensor(x, at(b), mesh)
     return x.contiguous()
 
 
@@ -682,7 +715,13 @@ class TPLayout:
     axes the batch splits over (empty: the batch is whole on every rank,
     as in a client of the federated round).  The model code reads which
     of its dimensions are local from its blocks' shapes; the specs say
-    which dimensions FSDP split over the data axes."""
+    which dimensions FSDP split over the data axes.
+
+    Under the ``dp_heavy*`` rules the model axis is a data axis too
+    (``dp_axes`` ends with it): no module is tensor-parallel, every leaf
+    split over ``"model"`` (the embedding's and head's vocabulary, and
+    under z3 d_model) is gathered whole where it runs, as FSDP gathers,
+    and the logits come out whole."""
 
     mesh: Any
     pspecs: Any
@@ -753,21 +792,33 @@ class TPLayout:
         return map_specs(one, specs, tree)
 
     def sum_replicated_grads(self, grads, specs):
-        """``grads`` with the gradient of every leaf whole on the data
-        axes summed over them (one all-reduce of them all, in float32);
-        the split leaves' gradients came back summed from
-        :meth:`gather_fsdp`."""
+        """``grads`` with the gradient of every leaf summed over the data
+        axes it is whole on (one float32 all-reduce per set of axes, the
+        leaves in tree order); over the axes it splits over, its gradient
+        came back summed from :meth:`gather_fsdp`.  Under the ``tp`` rules
+        a leaf is split over every data axis or whole on them; under
+        ``dp_heavy`` a leaf split over ``"data"`` alone is summed over
+        ``"model"``, whose ranks hold other rows of the batch.  Where the
+        ranks of an axis hold the same rows (a batch the axes do not
+        divide, ``batch_axes``), each rank's loss carries its share
+        (:func:`steps.token_xent` divides by ``dp_size``), so the sums
+        count every row once."""
         if self.dp_size == 1:
             return grads
         flat_g, flat_s = [], []
         map_specs(lambda s, g: (flat_s.append(s), flat_g.append(g)),
                    specs, grads)
-        whole = [i for i, s in enumerate(flat_s) if not self.fsdp_axes(s)]
-        if whole:
-            buf = torch.cat([flat_g[i].reshape(-1).float() for i in whole])
-            buf = all_reduce_sum(buf, self.mesh, self.dp_axes)
-            for i, part in zip(whole, torch.split(
-                    buf, [flat_g[i].numel() for i in whole])):
+        groups: Dict[Tuple[str, ...], list] = {}
+        for i, s in enumerate(flat_s):
+            split = {a for _, axes in self.fsdp_axes(s) for a in axes}
+            rest = tuple(a for a in self.dp_axes if a not in split)
+            if rest:
+                groups.setdefault(rest, []).append(i)
+        for axes, idx in groups.items():
+            buf = torch.cat([flat_g[i].reshape(-1).float() for i in idx])
+            buf = all_reduce_sum(buf, self.mesh, axes)
+            for i, part in zip(idx, torch.split(
+                    buf, [flat_g[i].numel() for i in idx])):
                 flat_g[i] = part.reshape(flat_g[i].shape).to(
                     flat_g[i].dtype)
         it = iter(flat_g)

@@ -7,14 +7,20 @@ compiles).
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-4b --distill
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch phi3-medium-14b \
+        --shape train_4k --layout dp_heavy_z3 --mesh 2x2
 
 Each record holds ``params``, ``active_params`` and ``model_flops`` by
 the JAX package's ``roofline`` formula; the bytes of the bundle's
 arguments (parameters, Adam state, batch, caches) and results, and
 whether they fit one card's memory (activations are not counted);
 ``compute_s = model_flops / peak bf16`` and ``memory_s = argument bytes /
-HBM bandwidth`` at the H100 SXM's published peaks.  There is no
-collective term yet (ROADMAP queue 1 item 11.8.7).
+HBM bandwidth`` at the H100 SXM's published peaks.  With ``--mesh DxM``
+(or ``PxDxM``) the bundle is one rank's (rank 0's blocks, under
+``--layout``: JAX's ``tp``, ``dp_heavy`` or ``dp_heavy_z3``), built on a
+view of the mesh's shape with no world behind it; the terms stay the
+whole step's FLOPs over one card's peak, the bytes that rank's.  There is
+no collective term yet (ROADMAP queue 1 item 11.8.7).
 Outputs one JSON per pair under ``experiments/dryrun_torch/``.  It needs
 no card and allocates nothing.
 """
@@ -85,34 +91,57 @@ def bundle_bytes(bundle) -> dict:
             "card_bytes": HBM_BYTES, "fits": live <= HBM_BYTES}
 
 
+class RankView:
+    """A mesh's axis sizes by name and rank 0's coordinates, with no
+    world behind them: what the step builders read to lay out one rank's
+    blocks."""
+
+    def __init__(self, shape):
+        names = {2: ("data", "model"), 3: ("pod", "data", "model")}
+        if len(shape) not in names:
+            raise ValueError(f"a mesh of {len(shape)} axes: give DxM or "
+                             f"PxDxM")
+        self.mesh_dim_names = names[len(shape)]
+        self.shape = dict(zip(self.mesh_dim_names, shape))
+
+    def get_coordinate(self):
+        return [0] * len(self.mesh_dim_names)
+
+
 def make_bundle(arch: str, shape_name: str, distill: bool = False,
-                **step_kw):
+                mesh=None, **step_kw):
     """(config, shape, bundle, "") for a pair, or (config, shape, None,
     the skip reason) when the pair does not apply."""
     cfg = configs.get(arch)
     if distill:
         shape = configs.InputShape("distill_fusion", DISTILL_KW["seq_len"],
                                    DISTILL_KW["batch_size"], "distill")
-        kw = {k: v for k, v in step_kw.items() if k == "remat"}
-        return cfg, shape, steps_mod.make_distill_step(cfg, **DISTILL_KW,
+        kw = {k: v for k, v in step_kw.items()
+              if k in ("remat", "constrain_acts")}
+        return cfg, shape, steps_mod.make_distill_step(cfg, mesh,
+                                                       **DISTILL_KW,
                                                        **kw), ""
     shape = configs.get_shape(shape_name)
     ok, reason = configs.applicable(cfg, shape)
     if not ok:
         return cfg, shape, None, reason
-    return cfg, shape, steps_mod.make_step(cfg, shape, **step_kw), ""
+    return cfg, shape, steps_mod.make_step(cfg, shape, mesh, **step_kw), ""
 
 
 def run_one(arch: str, shape_name: str, *, distill: bool = False,
             out_dir: str = "experiments/dryrun_torch",
-            variant: str = "baseline", step_kw=None) -> dict:
+            variant: str = "baseline", step_kw=None, mesh=None) -> dict:
+    """One pair's record; ``mesh`` a mesh shape (one rank's bundle on a
+    :class:`RankView` of it) or None (one device)."""
     rec: dict = {"arch": arch, "shape": "distill_fusion" if distill
                  else shape_name, "card": CARD, "variant": variant,
-                 "ok": False}
+                 "mesh": None if mesh is None else list(mesh),
+                 "step_kw": dict(step_kw or {}), "ok": False}
     t0 = time.perf_counter()
     try:
-        cfg, shape, bundle, reason = make_bundle(arch, shape_name, distill,
-                                                 **(step_kw or {}))
+        cfg, shape, bundle, reason = make_bundle(
+            arch, shape_name, distill,
+            None if mesh is None else RankView(mesh), **(step_kw or {}))
         if bundle is None:
             rec.update(skipped=reason, ok=True)
             return _finish(rec, out_dir, t0)
@@ -171,13 +200,32 @@ def main(argv=None) -> int:
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--microbatch", type=int, default=1,
                     help="gradient-accumulation microbatches (train only)")
+    ap.add_argument("--naive-xent", action="store_true",
+                    help="v0 loss (train only)")
+    ap.add_argument("--layout", default="tp",
+                    choices=list(steps_mod.LAYOUTS),
+                    help="sharding layout preset (common/sharding.py; "
+                         "train and prefill)")
+    ap.add_argument("--constrain-acts", action="store_true",
+                    help="assert batch-sharded activations at every block "
+                         "boundary (train, prefill, distill)")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM or PxDxM: one rank's bundle on a mesh of "
+                         "that shape (default: one device)")
     ap.add_argument("--variant", default="baseline")
     ap.add_argument("--out-dir", default="experiments/dryrun_torch")
     args = ap.parse_args(argv)
-    kw = dict(out_dir=args.out_dir, variant=args.variant,
+    mesh = (None if args.mesh is None
+            else tuple(int(n) for n in args.mesh.lower().split("x")))
+    kw = dict(out_dir=args.out_dir, variant=args.variant, mesh=mesh,
               step_kw={**({"remat": False} if args.no_remat else {}),
                        **({"microbatch": args.microbatch}
-                          if args.microbatch > 1 else {})} or None)
+                          if args.microbatch > 1 else {}),
+                       **({"naive_xent": True} if args.naive_xent else {}),
+                       **({"constrain_acts": True}
+                          if args.constrain_acts else {}),
+                       **({"layout": args.layout}
+                          if args.layout != "tp" else {})} or None)
     if args.all:
         recs = run_all(**kw)
     elif not args.arch:

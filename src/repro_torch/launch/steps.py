@@ -19,26 +19,36 @@ argument is updated in place and returned.
 
 On a mesh (``launch/mesh.py``, one process per rank) every builder takes
 a ``("data", "model")`` or ``("pod", "data", "model")`` mesh under the
-``tp`` rules: ``args``, ``outs`` and ``make_args`` are this rank's
-blocks (``bundle.layout``, a ``TPLayout``): parameters drawn whole from
-the one generator on every rank and cut (``sharding.shard_tree``), so a
+``tp`` rules, or, for the train and prefill steps, JAX's other
+``layout``s: ``args``, ``outs`` and ``make_args`` are this rank's blocks
+(``bundle.layout``, a ``TPLayout``): parameters drawn leaf by leaf from
+the one generator on every rank and cut (``sharding.shard_tensor``), so a
 sharded run starts from the unsharded run's weights; batches drawn whole
-and cut over the data axes.  ``fsdp=True`` splits d_model over the data
+and cut over the batch axes.  ``fsdp=True`` splits d_model over the data
 axes (each leaf gathered where its layer runs, its gradient
 reduce-scattered; Adam is elementwise, so it runs on the blocks); the
-gradients of leaves whole on the data axes are summed over them.  The
-losses are vocab-parallel (:func:`token_xent`, and the distill step's
-K2 over vocabulary shards, ``ops.ensemble_kl_loss_split``): the [B, S,
-V] logits are never gathered.  Prefill returns the next-token logits
-split over the vocabulary and the caches at this rank's heads;
-``T.serve_caches`` lays them out for ``make_serve_step``, whose caches
-follow JAX's ``kv_cache_rules`` (:func:`serve_layout`: the sequence split,
-every head on each rank).  ``make_fed_round_step`` spreads its clients
-over the data axes (the ``shard_clients`` rules, fsdp off), each
-client's replica tensor-parallel over ``"model"``.  Still raising:
-``layout`` other than ``"tp"``, ``constrain_acts``, ``naive_xent`` on a
-mesh, ``use_moe_shard_map=False`` on a mesh, and the distill and serve
-steps of an MoE model on a mesh (JAX's partitioner path; item 11.8.4,
+gradients of leaves whole on some data axes are summed over them.  The
+``tp`` losses are vocab-parallel (:func:`token_xent`, and the distill
+step's K2 over vocabulary shards, ``ops.ensemble_kl_loss_split``): the
+[B, S, V] logits are never gathered.  ``layout="dp_heavy"`` (ZeRO: the
+batch over every axis, d_model over ``"data"``, the vocabulary over
+``"model"``, no tensor parallelism) and ``"dp_heavy_z3"`` (d_model over
+every axis) are FSDP over every axis the batch splits over: each leaf is
+gathered whole where it runs and the logits come out whole.  A global
+batch the axes do not divide keeps the axes JAX's fitted spec keeps; the
+ranks of the others hold the same rows, each carrying its share of
+their loss.  ``constrain_acts`` passes JAX's activation sharding to the
+forward, which checks it and changes nothing; ``naive_xent`` gathers the
+logits over the vocabulary first.  Prefill returns the next-token logits
+(split over the vocabulary under ``tp``) and the caches at this rank's
+heads; ``T.serve_caches`` lays them out for ``make_serve_step``, whose
+caches follow JAX's ``kv_cache_rules`` (:func:`serve_layout`: the
+sequence split, every head on each rank).  ``make_fed_round_step``
+spreads its clients over the data axes (the ``shard_clients`` rules,
+fsdp off), each client's replica tensor-parallel over ``"model"``.
+Still raising: an MoE model under ``dp_heavy*`` on a mesh,
+``use_moe_shard_map=False`` on a mesh, and the distill and serve steps
+of an MoE model on a mesh (JAX's partitioner path; item 11.8.4(c),
 ROADMAP queue 1).
 """
 from __future__ import annotations
@@ -52,6 +62,7 @@ from repro_torch.api.experiment import resolve_device
 from repro_torch.common.arch_config import ArchConfig
 from repro_torch.common.pytree import (tree_leaves, tree_leaves_jax,
                                        tree_map)
+from repro_torch.common.sharding import P
 from repro_torch.configs.shapes import InputShape
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
@@ -60,9 +71,7 @@ from repro_torch.models.frontends import (fake_audio_frames,
 from repro_torch.optim.optimizers import AdamState, adam, apply_updates
 
 META = torch.device("meta")
-KNOBS_PENDING = ("not ported yet (ROADMAP queue 1 item 11.8.4: layouts "
-                 "other than 'tp', activation shardings, the naive loss and "
-                 "the MoE's partitioner path on a mesh)")
+LAYOUTS = ("tp", "dp_heavy", "dp_heavy_z3")
 
 
 @dataclasses.dataclass
@@ -146,10 +155,17 @@ def _draw_batch(specs: dict, cfg: ArchConfig, gen: torch.Generator,
 def token_xent_naive(logits: torch.Tensor, labels: torch.Tensor,
                      cfg: ArchConfig, layout=None) -> torch.Tensor:
     """v0 loss: slices the logits and gathers the label logit (JAX keeps
-    it for its sharding record; here it is the same loss by another
-    route, on one device: a ``layout`` raises)."""
-    if layout is not None:
-        raise NotImplementedError(f"naive_xent on a mesh: {KNOBS_PENDING}")
+    it for its sharding record: on vocab-split logits it makes the
+    partitioner all-gather them).  With ``layout`` (a ``TPLayout``) the
+    logits are this rank's rows and, where the head splits the
+    vocabulary, its columns: they are all-gathered over ``"model"``
+    first, that all-gather written out; the result is this shard's sum
+    over the global row count (its sum over the data axes is the
+    loss)."""
+    if layout is not None and logits.shape[-1] != cfg.vocab_size:
+        from repro_torch.common.sharding import gather_alike
+        logits = gather_alike(logits, layout.mesh, (layout.model_axis,),
+                              logits.dim() - 1)
     if cfg.frontend == "vision_patches":
         logits = logits[:, cfg.n_frontend_tokens:]
         labels = labels[:, : logits.shape[1]]
@@ -158,7 +174,9 @@ def token_xent_naive(logits: torch.Tensor, labels: torch.Tensor,
         labels = labels[:, 1:]
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].long())
-    return torch.mean(nll)
+    if layout is None:
+        return torch.mean(nll)
+    return torch.sum(nll) / (nll.numel() * layout.dp_size)
 
 
 def token_xent(logits: torch.Tensor, labels: torch.Tensor,
@@ -236,32 +254,49 @@ def _zeros_like_meta(tree, device):
                                           device=device), tree)
 
 
-def _knobs(mesh, **knobs) -> None:
-    """Raise for a sharding knob the port does not run: ``knobs`` maps a
-    name to (value, the value it runs)."""
-    for name, (value, runs) in knobs.items():
-        if value != runs:
-            raise NotImplementedError(
-                f"{name}={value!r}{' on a mesh' if mesh is not None else ''}"
-                f": {KNOBS_PENDING}")
-
-
-def _tp(cfg: ArchConfig, mesh, fsdp: bool, batch: Optional[int] = None):
-    """The ``TPLayout`` of the train, prefill and distill steps on
-    ``mesh`` (None without one): the ``tp`` rules, the batch over every
-    data axis; given the global ``batch``, over the axes JAX's fitted
-    spec keeps (a batch they do not divide stays whole on every rank)."""
+def _tp(cfg: ArchConfig, mesh, fsdp: bool, batch: int, layout: str = "tp",
+        constrain_acts: bool = False, use_moe_shard_map: bool = True):
+    """(the ``TPLayout`` of the train, prefill and distill steps on
+    ``mesh``, None without one; JAX's activation sharding, None without
+    ``constrain_acts``).  Under ``layout``'s rules the batch splits over
+    the data axes (``dp_heavy*``: and ``"model"``), of which a global
+    ``batch`` keeps the axes JAX's fitted spec keeps (the others hold the
+    same rows).  An MoE model under ``dp_heavy*`` and
+    ``use_moe_shard_map=False`` raise on a mesh (item 11.8.4(c)); without
+    one every knob leaves the mathematics as it is, as JAX's do on one
+    device."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r}: not one of {LAYOUTS}")
     if mesh is None:
-        return None
+        return None, (P(None, None, None) if constrain_acts else None)
     from repro_torch.common import sharding as shd
-    multi_pod = "pod" in shd.axis_names(mesh)
-    rules = shd.make_rules(multi_pod=multi_pod, fsdp=fsdp)
-    tp = T.tp_layout(cfg, mesh, rules,
-                     ("pod", "data") if multi_pod else ("data",))
-    if batch is not None:
-        tp.batch_axes = _fitted_axes(shd.logical_to_pspec(("batch",), rules),
-                                     batch, mesh)
-    return tp
+    from repro_torch.models.moe import UNPORTED
+    if not use_moe_shard_map:
+        raise NotImplementedError(f"use_moe_shard_map=False on a mesh: "
+                                  f"{UNPORTED}")
+    if layout != "tp" and cfg.has_moe:
+        raise NotImplementedError(f"an MoE model under layout {layout!r} "
+                                  f"on a mesh: {UNPORTED}")
+    rules = shd.make_rules(multi_pod="pod" in shd.axis_names(mesh),
+                           fsdp=fsdp, layout=layout)
+    tp = T.tp_layout(cfg, mesh, rules, rules["batch"])
+    tp.batch_axes = _fitted_axes(shd.logical_to_pspec(("batch",), rules),
+                                 batch, mesh)
+    acts = None
+    if constrain_acts:
+        acts = shd.fit_pspec(shd.logical_to_pspec(("batch", None, None),
+                                                  rules), (batch, 1, 1), mesh)
+    return tp, acts
+
+
+def _vocab_out(cfg: ArchConfig, params, tp) -> int:
+    """The logits' last dimension on this rank: its vocabulary columns
+    where the head splits them over a tensor-parallel ``"model"`` axis,
+    else the whole vocabulary (``dp_heavy*`` gathers the head)."""
+    if tp is None or tp.model_axis in tp.dp_axes:
+        return cfg.vocab_size
+    return (params["head"].shape[1] if "head" in params
+            else params["embed"].shape[0])
 
 
 def _fitted_axes(spec, n: int, mesh) -> Tuple[str, ...]:
@@ -292,7 +327,7 @@ def batch_block(batch: dict, layout) -> dict:
 def _moe_on_mesh(cfg: ArchConfig, tp, what: str, tokens_split: bool) -> None:
     """Raise where ``what`` on a mesh would take the MoE's partitioner
     path (JAX passes its MoE no mesh there): experts split on the model
-    axis, or tokens split over data axes (item 11.8.4)."""
+    axis, or tokens split over data axes (item 11.8.4(c))."""
     if tp is None or not cfg.has_moe:
         return
     from repro_torch.common.sharding import entry_axes
@@ -335,7 +370,7 @@ def _grads(params, loss_fn):
 def train_grads(params, cfg: ArchConfig, batch: dict, *,
                 microbatch: int = 1, remat: bool = True,
                 unroll: bool = False, naive_xent: bool = False,
-                layout=None, mesh=None):
+                layout=None, mesh=None, act_sharding=None):
     """(grads, {"loss", "moe_aux"}): the gradient of ``loss +
     router_aux_coef * aux`` over every leaf of ``params`` (a tree like
     it), as the train step takes it.  With ``microbatch`` > 1 the batch
@@ -346,7 +381,8 @@ def train_grads(params, cfg: ArchConfig, batch: dict, *,
     rank's blocks and so are the gradients, each the global loss's;
     ``mesh`` routes the MoE expert-parallel (JAX's ``use_moe_shard_map``).
     Microbatch ``i`` is JAX's: the i-th slice of the global batch, of
-    which this rank takes its data shard."""
+    which this rank takes its block over the layout's ``batch_axes``.
+    ``act_sharding`` goes to ``T.forward``, which checks it."""
     xent = token_xent_naive if naive_xent else token_xent
     dtype = tree_leaves(params)[0].dtype
 
@@ -356,7 +392,8 @@ def train_grads(params, cfg: ArchConfig, batch: dict, *,
         def loss_fn(p):
             logits, aux = T.forward(p, cfg, mb, return_aux=True,
                                     remat=remat, unroll=unroll,
-                                    layout=layout, mesh=mesh)
+                                    layout=layout, mesh=mesh,
+                                    act_sharding=act_sharding)
             loss = xent(logits, mb["labels"], cfg, layout)
             return loss + cfg.router_aux_coef * aux, (loss.detach(),
                                                       aux.detach())
@@ -389,37 +426,66 @@ def train_grads(params, cfg: ArchConfig, batch: dict, *,
 
 def _microbatches(batch: dict, microbatch: int, layout) -> list:
     """The ``microbatch`` slices of the global batch along its first
-    axis, each this rank's data shard of it (on one device, or with the
-    batch whole on every rank, the local batch's slices)."""
+    axis, each this rank's block of it over the layout's ``batch_axes``
+    (on one device, or with the batch whole on every rank, the local
+    batch's slices)."""
+    from repro_torch.common.sharding import all_gather, block_index
     b = next(iter(batch.values())).shape[0]
-    dp = 1 if layout is None else layout.dp_size
+    i, nb = (0, 1) if layout is None else block_index(layout.mesh,
+                                                      layout.batch_axes)
     if b % microbatch:
-        raise ValueError(f"batch {b * dp} is not a multiple of microbatch "
-                         f"{microbatch} x {dp} data ranks")
-    if dp > 1:
-        from repro_torch.common.sharding import all_gather
-        batch = {k: all_gather(v, layout.mesh, layout.dp_axes)
+        raise ValueError(f"batch {b * nb} is not a multiple of microbatch "
+                         f"{microbatch} x {nb} batch blocks")
+    if nb > 1:
+        batch = {k: all_gather(v, layout.mesh, layout.batch_axes)
                  for k, v in batch.items()}
-    n = b * dp // microbatch
-    per, i = n // dp, 0 if layout is None else layout.dp_index
+    n = b * nb // microbatch
+    per = n // nb
     return [{k: v[j * n + i * per: j * n + (i + 1) * per]
              for k, v in batch.items()} for j in range(microbatch)]
+
+
+ADAM_CHUNK = 1 << 26      # elements an Adam update takes at a time
+
+
+def _adam_groups(quads) -> list:
+    """(param, mu, nu, grad) quads packed into groups of at most
+    ADAM_CHUNK elements: whole leaves together, a larger leaf in slices
+    along its first dimension (views, so an update lands in the leaf)."""
+    parts = []
+    for q in quads:
+        n = q[0].numel()
+        if n <= ADAM_CHUNK or q[0].dim() == 0:
+            parts.append(q)
+            continue
+        rows = q[0].shape[0]
+        per = max(1, ADAM_CHUNK * rows // n)
+        parts += [tuple(x[i:i + per] for x in q) for i in range(0, rows, per)]
+    groups, size = [[]], 0
+    for q in parts:
+        if groups[-1] and size + q[0].numel() > ADAM_CHUNK:
+            groups.append([])
+            size = 0
+        groups[-1].append(q)
+        size += q[0].numel()
+    return groups
 
 
 def _adam_step(opt, params, opt_state: AdamState, grads, step) -> AdamState:
     """One Adam update of ``params`` and ``opt_state`` (trees like it) in
     place; leaves pair by path (the JAX package's order), whatever each
-    tree's key order."""
-    leaves = tree_leaves_jax(params)
-    state = AdamState(tree_leaves_jax(opt_state.mu),
-                      tree_leaves_jax(opt_state.nu))
-    deltas, new = opt.update(tree_leaves_jax(grads), state, leaves,
-                             int(step))
-    updated = apply_updates(leaves, deltas)
+    tree's key order.  The update is elementwise, so it runs one
+    multi-tensor call per group of :func:`_adam_groups` (the same values;
+    its float32 temporaries stay a group's size)."""
+    quads = zip(tree_leaves_jax(params), tree_leaves_jax(opt_state.mu),
+                tree_leaves_jax(opt_state.nu), tree_leaves_jax(grads))
     with torch.no_grad():
-        for dst, src in zip(leaves + state.mu + state.nu,
-                            updated + new.mu + new.nu):
-            dst.copy_(src)
+        for group in _adam_groups(quads):
+            p, m, v, g = (list(x) for x in zip(*group))
+            deltas, new = opt.update(g, AdamState(m, v), p, int(step))
+            for dst, src in zip(p + m + v, apply_updates(p, deltas)
+                                + new.mu + new.nu):
+                dst.copy_(src)
     return opt_state
 
 
@@ -436,14 +502,11 @@ def make_train_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
     """(params, opt_state, step, batch) -> (params, opt_state, step + 1,
     {"loss", "moe_aux"}): Adam at 3e-4 with float32 moments; params and
     opt_state are donated (updated in place).  On a ``mesh``, every
-    argument and result is this rank's block (``bundle.layout``);
-    ``fsdp`` splits d_model over the data axes, and shards nothing on one
-    device."""
-    _knobs(mesh, layout=(layout, "tp"), constrain_acts=(constrain_acts,
-                                                        False))
-    if mesh is not None:
-        _knobs(mesh, use_moe_shard_map=(use_moe_shard_map, True))
-    tp = _tp(cfg, mesh, fsdp)
+    argument and result is this rank's block (``bundle.layout``) under
+    ``layout``'s rules; ``fsdp`` splits d_model over the data axes, and
+    shards nothing on one device."""
+    tp, acts = _tp(cfg, mesh, fsdp, shape.global_batch, layout,
+                   constrain_acts, use_moe_shard_map)
     params = _param_structs(cfg, param_dtype, tp)
     opt_state = _opt_structs(params)
     whole = input_specs(cfg, shape)
@@ -454,7 +517,7 @@ def make_train_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
         grads, metrics = train_grads(params, cfg, batch,
                                      microbatch=microbatch, remat=remat,
                                      unroll=unroll, naive_xent=naive_xent,
-                                     layout=tp, mesh=mesh)
+                                     layout=tp, mesh=mesh, act_sharding=acts)
         _adam_step(opt, params, opt_state, grads, step)
         return params, opt_state, step + 1, metrics
 
@@ -472,13 +535,9 @@ def make_train_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
 
 
 def _init_block(cfg: ArchConfig, gen, dtype, device, layout):
-    """``T.init`` from ``gen``, cut to this rank's blocks under
-    ``layout``."""
-    p = T.init(cfg, gen, dtype, device)
-    if layout is None:
-        return p
-    from repro_torch.common.sharding import shard_tree
-    return shard_tree(p, layout.pspecs, layout.mesh)
+    """``T.init`` from ``gen``, each leaf cut to this rank's block under
+    ``layout`` as it is drawn."""
+    return T.init(cfg, gen, dtype, device, layout)
 
 
 def make_prefill_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
@@ -486,15 +545,15 @@ def make_prefill_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
                       layout: str = "tp", constrain_acts: bool = False,
                       param_dtype=torch.bfloat16) -> StepBundle:
     """(params, batch) -> (next-token logits [B, 1, V], caches sized
-    ``shape.seq_len``); on a ``mesh``, this rank's blocks: the logits of
-    its data shard and vocabulary columns, the caches at its heads
-    (``T.serve_caches`` lays them out for ``make_serve_step``).  A batch
-    the data axes do not divide stays whole on every rank, as JAX's
+    ``shape.seq_len``); on a ``mesh``, this rank's blocks under
+    ``layout``'s rules: the logits of its batch rows and (``tp``)
+    vocabulary columns, the caches at its heads (``T.serve_caches`` lays
+    them out for ``make_serve_step``).  A batch the batch axes do not
+    divide stays whole on the ranks of those it does not keep, as JAX's
     fitted spec leaves it."""
     del unroll
-    _knobs(mesh, layout=(layout, "tp"), constrain_acts=(constrain_acts,
-                                                        False))
-    tp = _tp(cfg, mesh, fsdp, shape.global_batch)
+    tp, acts = _tp(cfg, mesh, fsdp, shape.global_batch, layout,
+                   constrain_acts)
     params = _param_structs(cfg, param_dtype, tp)
     whole = input_specs(cfg, shape)
     batch = batch_block(whole, tp)
@@ -504,16 +563,14 @@ def make_prefill_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
         with torch.no_grad():
             return T.prefill(params, cfg,
                              _as_param_dtype(batch, param_dtype), max_seq,
-                             last_only=True, mesh=mesh, layout=tp)
+                             last_only=True, mesh=mesh, layout=tp,
+                             act_sharding=acts)
 
     def make_args(gen, device):
         return (_init_block(cfg, gen, param_dtype, device, tp),
                 batch_block(_draw_batch(whole, cfg, gen, device), tp))
 
-    b, v = next(iter(batch.values())).shape[0], cfg.vocab_size
-    if tp is not None:     # this rank's vocabulary columns
-        v = (params["head"].shape[1] if "head" in params
-             else params["embed"].shape[0])
+    b, v = next(iter(batch.values())).shape[0], _vocab_out(cfg, params, tp)
     outs = (_meta((b, 1, v), param_dtype),
             T.init_caches(cfg, shape.global_batch, max_seq, param_dtype, META,
                           layout=tp))
@@ -556,7 +613,7 @@ def make_serve_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
     batch rows and vocabulary columns (JAX's ``logits_spec``).  As in JAX
     the decode takes no ``mesh``: an MoE model whose experts split on
     ``"model"`` would take its partitioner path, and raises (item
-    11.8.4)."""
+    11.8.4(c))."""
     del unroll
     b = shape.global_batch
     tp = None if mesh is None else serve_layout(cfg, mesh, b, shape.seq_len,
@@ -580,9 +637,7 @@ def make_serve_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
                 batch_block(_draw_batch(whole, cfg, gen, device), tp),
                 _zeros_like_meta(caches, device), _step_scalar("cpu"))
 
-    v = cfg.vocab_size if tp is None else (
-        params["head"].shape[1] if "head" in params
-        else params["embed"].shape[0])
+    v = _vocab_out(cfg, params, tp)
     outs = (_meta((next(iter(batch.values())).shape[0], 1, v), param_dtype),
             caches)
     return StepBundle(serve_step, (params, batch, caches, cur_len), outs,
@@ -590,7 +645,8 @@ def make_serve_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
 
 
 def teacher_logits(teachers, cfg: ArchConfig, batch: dict, *,
-                   unroll: bool = False, layout=None) -> torch.Tensor:
+                   unroll: bool = False, layout=None,
+                   act_sharding=None) -> torch.Tensor:
     """[K, B, S, V] logits of the stacked ``teachers`` [K, ...], one
     forward after another (JAX vmaps them); with ``layout`` each
     teacher's blocks, FSDP-gathered per layer, and the logits this rank's
@@ -600,7 +656,8 @@ def teacher_logits(teachers, cfg: ArchConfig, batch: dict, *,
         out = None
         for i in range(k):
             lg = T.forward(tree_map(lambda x: x[i], teachers), cfg, batch,
-                           unroll=unroll, layout=layout)
+                           unroll=unroll, layout=layout,
+                           act_sharding=act_sharding)
             if out is None:
                 out = lg.new_empty((k,) + tuple(lg.shape))
             out[i] = lg
@@ -609,7 +666,8 @@ def teacher_logits(teachers, cfg: ArchConfig, batch: dict, *,
 
 
 def distill_grads(student, teachers, cfg: ArchConfig, batch: dict, *,
-                  remat: bool = True, unroll: bool = False, layout=None):
+                  remat: bool = True, unroll: bool = False, layout=None,
+                  act_sharding=None):
     """(grads, loss): the gradient over every leaf of ``student`` (a tree
     like it) of the AVGLOGITS loss against the teachers' mean logits plus
     ``router_aux_coef * aux``, as the distill step takes it.  The loss
@@ -623,16 +681,18 @@ def distill_grads(student, teachers, cfg: ArchConfig, batch: dict, *,
     (``ops.ensemble_kl_loss_split``: K2s, the statistics merged over the
     model axis, K2b with the merged log-sum-exps); each data shard
     contributes its rows' share of the global mean, and the loss returned
-    is summed over the data axes."""
+    is summed over the data axes.  ``act_sharding`` goes to every
+    forward, which checks it."""
     t_logits = teacher_logits(teachers, cfg, batch, unroll=unroll,
-                              layout=layout)
+                              layout=layout, act_sharding=act_sharding)
     n, v = t_logits.shape[0], t_logits.shape[-1]
     rows = t_logits[0].numel() // v
     n_rows = rows * (1 if layout is None else layout.dp_size)
 
     def loss_fn(p):
         s_logits, aux = T.forward(p, cfg, batch, return_aux=True,
-                                  remat=remat, unroll=unroll, layout=layout)
+                                  remat=remat, unroll=unroll, layout=layout,
+                                  act_sharding=act_sharding)
         s2, t3 = s_logits.reshape(-1, v).float(), t_logits.reshape(n, -1, v)
         if layout is not None and v != cfg.vocab_size:
             loss = ops.ensemble_kl_loss_split(s2, t3, layout.mesh,
@@ -668,9 +728,9 @@ def make_distill_step(cfg: ArchConfig, mesh=None, *, n_teachers: int = 4,
     and the student's specs inside (JAX's ``t_specs``), the batch over
     the data axes; the loss runs over vocabulary shards
     (:func:`distill_grads`).  As in JAX the forwards take no ``mesh``: an
-    MoE model on a mesh raises (item 11.8.4)."""
-    _knobs(mesh, constrain_acts=(constrain_acts, False))
-    tp = _tp(cfg, mesh, fsdp)
+    MoE model on a mesh raises (item 11.8.4(c)); and the ``tp`` rules
+    only (JAX's distill step takes no ``layout``)."""
+    tp, acts = _tp(cfg, mesh, fsdp, batch_size, constrain_acts=constrain_acts)
     if tp is not None:
         _moe_on_mesh(cfg, tp, "the distill step", tp.dp_size > 1)
     student = _param_structs(cfg, param_dtype, tp)
@@ -683,7 +743,8 @@ def make_distill_step(cfg: ArchConfig, mesh=None, *, n_teachers: int = 4,
     def distill_step(student, teachers, opt_state, step, batch):
         grads, loss = distill_grads(student, teachers, cfg, batch,
                                     remat=remat and not unroll,
-                                    unroll=unroll, layout=tp)
+                                    unroll=unroll, layout=tp,
+                                    act_sharding=acts)
         _adam_step(opt, student, opt_state, grads, step)
         return student, opt_state, step + 1, loss
 

@@ -59,18 +59,22 @@ def is_spec(x) -> bool:
 
 
 def init_params(specs: Any, generator: torch.Generator,
-                dtype=torch.float32, device="cpu") -> Any:
+                dtype=torch.float32, device="cpu", cut: Any = None) -> Any:
     """Materialise ``specs`` leaf by leaf from one generator, drawing in
     the order JAX flattens the tree (dict keys sorted); each leaf is drawn
-    where the generator lives, then moved to ``device``."""
+    where the generator lives, then moved to ``device``.  ``cut``, a tree
+    like ``specs`` of functions, maps each leaf as soon as it is drawn
+    (a rank's block of it: the whole tree is never held at once)."""
     if is_spec(specs):
-        return specs.materialise(generator, dtype).to(device)
+        x = specs.materialise(generator, dtype)
+        return (x if cut is None else cut(x)).to(device)
+    sub = (lambda k: None) if cut is None else (lambda k: cut[k])
     if isinstance(specs, dict):
-        out = {k: init_params(specs[k], generator, dtype, device)
+        out = {k: init_params(specs[k], generator, dtype, device, sub(k))
                for k in sorted(specs)}
         return {k: out[k] for k in specs}
-    return type(specs)(init_params(s, generator, dtype, device)
-                       for s in specs)
+    return type(specs)(init_params(s, generator, dtype, device, sub(i))
+                       for i, s in enumerate(specs))
 
 
 def stack_specs(specs: Any, n: int, axis_name: str = "layers") -> Any:

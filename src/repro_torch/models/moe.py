@@ -38,8 +38,10 @@ from repro_torch.common.arch_config import ArchConfig
 from repro_torch.models.layers import ParamSpec
 
 UNPORTED = ("the MoE's global path over experts split on the model axis "
-            "beside tokens split on data axes, or over too few tokens (JAX's "
-            "partitioner path), is not ported (ROADMAP queue 1 item 11.8.4)")
+            "beside tokens split on data axes (the dp_heavy layouts split "
+            "the tokens over the model axis too), or over too few tokens "
+            "(JAX's partitioner path), is not ported (ROADMAP queue 1 item "
+            "11.8.4(c))")
 
 
 def moe_specs(cfg: ArchConfig) -> dict:
@@ -161,8 +163,13 @@ def moe_block(p: dict, cfg: ArchConfig, x: torch.Tensor, mesh=None,
     count; with no ``dp_axes``, as in the federated round's client,
     whose batch is whole on every rank, the capacity and the drops are
     one device's).  Elsewhere the block runs on one device's whole
-    weights and raises where its experts are split."""
+    weights and raises where its experts are split; with the tokens split
+    over ``"model"`` beside the experts (``dp_axes`` holding it, the
+    ``dp_heavy*`` layouts) it raises (item 11.8.4(c))."""
     from repro_torch.common import sharding as shd
+    if "model" in dp_axes:
+        raise NotImplementedError(f"moe_block over tokens split on the "
+                                  f"model axis: {UNPORTED}")
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
     t = b * s

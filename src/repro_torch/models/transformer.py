@@ -32,7 +32,12 @@ other ranks through ``copy_to`` / ``reduce_from``; the embedding and the
 head are split over the vocabulary (a masked take summed over
 ``"model"``; the logits stay this rank's vocabulary columns).  ``mesh``
 keeps JAX's meaning: it routes the MoE blocks through the expert-parallel
-path.  ``act_sharding`` raises (ROADMAP queue 1 item 11.8.4).
+path.  Under the ``dp_heavy*`` rules (a ``TPLayout`` whose data axes end
+with ``"model"``) every module runs whole heads, columns and vocabulary:
+each leaf is gathered whole where it runs and the logits come out whole.
+``act_sharding`` (JAX's activation constraint at every block boundary)
+is a check here: the hidden state already is this rank's ``("batch",
+None, None)`` block.
 
 Decode on a mesh takes the serve layout (a ``TPLayout`` whose
 ``cache_pspecs`` are :func:`cache_pspecs`, JAX's ``kv_cache_rules``):
@@ -189,10 +194,17 @@ def tp_layout(cfg: ArchConfig, mesh, rules, dp_axes=()):
 
 
 def init(cfg: ArchConfig, generator: torch.Generator, dtype=torch.float32,
-         device="cpu"):
+         device="cpu", layout=None):
     """Parameters from ``generator`` (drawn where it lives, then moved to
-    ``device``)."""
-    return init_params(param_specs(cfg), generator, dtype, device)
+    ``device``); with ``layout`` (a ``TPLayout``) this rank's blocks of
+    them, each leaf cut as soon as it is drawn, from the same draws in
+    the same order."""
+    cut = None
+    if layout is not None:
+        from repro_torch.common.sharding import map_specs, shard_tensor
+        cut = map_specs(lambda s: lambda x: shard_tensor(x, s, layout.mesh),
+                        layout.pspecs)
+    return init_params(param_specs(cfg), generator, dtype, device, cut)
 
 
 # ---------------------------------------------------------------------------
@@ -299,16 +311,27 @@ def unembed(params: dict, cfg: ArchConfig, h: torch.Tensor,
     return h @ w
 
 
-MESH_PENDING = ("activation shardings are not ported yet (ROADMAP queue 1 "
-                "item 11.8.4)")
-
-
-def _check_mesh(mesh, layout, act_sharding) -> None:
-    if act_sharding is not None:
-        raise NotImplementedError(f"act_sharding: {MESH_PENDING}")
+def _check_mesh(mesh, layout, act_sharding):
+    """The activations' PartitionSpec (None without ``act_sharding``, a
+    PartitionSpec or a NamedSharding, as JAX takes it), held to JAX's
+    contract: the port's hidden state is this rank's block of the global
+    [B, S, d] laid out ``("batch", None, None)``, its rows over the
+    layout's ``batch_axes`` (none without a layout), so a spec that lays
+    it out so changes nothing, and any other raises."""
     if mesh is not None and layout is None:
         raise ValueError("a mesh needs the layout of this rank's parameter "
                          "blocks (layout=tp_layout(cfg, mesh, rules))")
+    if act_sharding is None:
+        return None
+    from repro_torch.common.sharding import entry_axes
+    spec = tuple(getattr(act_sharding, "spec", act_sharding))
+    rows = () if layout is None else tuple(layout.batch_axes)
+    if (len(spec) != 3 or spec[1:] != (None, None)
+            or entry_axes(spec[0]) != rows):
+        raise ValueError(f"act_sharding {spec!r}: the hidden state is this "
+                         f"rank's block of [B, S, d] with its rows over "
+                         f"{rows} and the rest whole")
+    return spec
 
 
 def _top(params: dict, tp) -> dict:
@@ -337,7 +360,8 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *,
     ``batch`` its data shard; the logits are [B_local, S, V_local] and
     ``mesh`` routes the MoE through the expert-parallel path.
     ``dp_axes`` is the layout's (JAX reads it only with a mesh);
-    ``act_sharding`` raises (item 11.8.4)."""
+    ``act_sharding`` is checked (:func:`_check_mesh`) and changes
+    nothing."""
     check_supported(cfg)
     _check_mesh(mesh, layout, act_sharding)
     del unroll, dp_axes
@@ -471,17 +495,18 @@ def serve_caches(caches: dict, cfg: ArchConfig, prefill_layout,
                  serve_layout) -> dict:
     """This rank's serve-layout caches (``serve_layout.cache_pspecs``)
     from a sharded prefill's (``prefill_layout``: at this rank's heads and
-    batch rows).  An attention cache's heads are all-gathered over the
-    model axis (where the key / value heads stay whole while the query
-    heads split, each rank held the heads its query heads read:
-    ``attn.kv_keep``), then cut to this rank's block of the sequence; a
-    batch laid out otherwise is gathered and cut the same way
+    batch rows; every head under ``dp_heavy*``).  An attention cache's
+    heads split over the model axis are all-gathered over it (where the
+    key / value heads stay whole while the query heads split, each rank
+    held the heads its query heads read: ``attn.kv_keep``), then cut to
+    this rank's block of the sequence; a batch or SSM heads laid out
+    otherwise are gathered and cut the same way
     (``sharding.reshard_tensor``, the bytes counted per axis)."""
     from repro_torch.common import sharding as shd
     meta = tree_map(lambda s: torch.empty(s.shape, device="meta"),
                     param_specs(cfg))
     mixers = {(kind, j): bspec["mixer"] for _, _, (kind, j, _), bspec
-              in _layers(meta, cfg, serve_layout)}
+              in _layers(meta, cfg, prefill_layout)}
     src_b, tp = prefill_layout.batch_entry, serve_layout
 
     def attn_leaf(x, dst, mix):
@@ -508,10 +533,14 @@ def serve_caches(caches: dict, cfg: ArchConfig, prefill_layout,
                 c = attn.KVCache(*(attn_leaf(x, d, mix)
                                    for x, d in zip(c, spec)))
             elif isinstance(c, ssm_mod.SSMCache):
-                lead = 1 if kind == "blocks" else 0
-                c = ssm_mod.SSMCache(*(shd.reshard_tensor(
-                    x, shd.P(*tuple(d)[:lead], src_b, *tuple(d)[lead + 1:]),
-                    d, tp.mesh) for x, d in zip(c, spec)))
+                lead = (None,) * (1 if kind == "blocks" else 0)
+                mix = mixers[(kind, j)]
+                src = ssm_mod.SSMCache(
+                    conv=shd.P(*lead, src_b, None, tuple(mix["conv_w"])[-1]),
+                    state=shd.P(*lead, src_b, tuple(mix["A_log"])[-1], None,
+                                None))
+                c = ssm_mod.SSMCache(*(shd.reshard_tensor(x, a, d, tp.mesh)
+                                       for x, a, d in zip(c, src, spec)))
             group.append(c)
         out[kind] = tuple(group)
     return out
@@ -558,14 +587,16 @@ def _seq_axes(layout, where) -> Tuple[str, ...]:
 
 
 def prefill(params: dict, cfg: ArchConfig, batch: dict, max_seq: int,
-            last_only: bool = False, *, mesh=None, layout=None):
+            last_only: bool = False, *, mesh=None, layout=None,
+            act_sharding=None):
     """Full-prompt forward that also populates the decode caches.  Returns
     (logits [B,S,V], or [B,1,V] with ``last_only``, and the caches).
-    ``layout`` and ``mesh`` as :func:`forward`'s: this rank's vocabulary
-    columns of the logits, its caches at its heads (the tensor-parallel
-    layout)."""
+    ``layout``, ``mesh`` and ``act_sharding`` as :func:`forward`'s: this
+    rank's vocabulary columns of the logits and its caches at its heads
+    (the tensor-parallel layout), or the whole vocabulary and every head
+    (``dp_heavy*``), at its batch rows."""
     check_supported(cfg)
-    _check_mesh(mesh, layout, None)
+    _check_mesh(mesh, layout, act_sharding)
     p, n_full, rem = _layout(cfg)
     top = _top(params, layout)
     h = embed_inputs(top, cfg, batch, layout)

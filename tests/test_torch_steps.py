@@ -39,6 +39,7 @@ from repro.optim import schedules as jsch
 from repro_torch import configs
 from repro_torch.common.arch_config import reduced
 from repro_torch.common.pytree import tree_flatten, tree_leaves, tree_map
+from repro_torch.common.sharding import P
 from repro_torch.configs.shapes import InputShape
 from repro_torch.convert import to_torch
 from repro_torch.kernels import ops
@@ -167,6 +168,41 @@ def test_adam_weight_decay_matches_jax():
                                    rtol=1e-6, atol=1e-7)
     # the decay term moves the parameters: not the same as without it
     assert not np.allclose(tp[0].numpy(), params[0], atol=1e-3)
+
+
+def test_adam_step_in_groups_equals_one_update_bit_for_bit(monkeypatch):
+    """``_adam_step`` packs small leaves together and slices a leaf larger
+    than ADAM_CHUNK: at a chunk of 16 elements the same bits as one
+    multi-tensor update over every leaf."""
+    rng = np.random.default_rng(0)
+    shapes = {"a": (10, 7), "b": (5,), "c": (), "d": (3, 4, 2), "e": (2,)}
+    dtypes = {"a": torch.bfloat16}
+
+    def tree():
+        return {k: torch.from_numpy(rng.normal(size=s).astype(np.float32)
+                                    ).to(dtypes.get(k, torch.float32))
+                for k, s in shapes.items()}
+    params = tree()
+    grads = [tree() for _ in range(2)]
+    opt = topt.adam(1e-2)
+    out = {}
+    for chunk in (1 << 40, 16):
+        monkeypatch.setattr(steps, "ADAM_CHUNK", chunk)
+        p = tree_map(torch.clone, params)
+        state = topt.AdamState(*(tree_map(
+            lambda x: torch.zeros_like(x, dtype=torch.float32), p)
+            for _ in range(2)))
+        quads = list(zip(*(tree_leaves(t) for t in
+                           (p, state.mu, state.nu, grads[0]))))
+        groups = steps._adam_groups(quads)
+        assert all(sum(q[0].numel() for q in g) <= chunk for g in groups)
+        assert len(groups) == (1 if chunk > 100 else 8), len(groups)
+        for step, g in enumerate(grads):
+            steps._adam_step(opt, p, state, g, step)
+        out[chunk] = tree_leaves((p, state.mu, state.nu))
+    for got, want in zip(out[16], out[1 << 40]):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert not torch.equal(out[16][0], params["a"])
 
 
 # ---------------------------------------------------------------------------
@@ -442,30 +478,38 @@ def test_fed_round_step_matches_jax():
 # ---------------------------------------------------------------------------
 
 def test_meshes_and_sharding_knobs_raise_naming_item_11_7():
-    """What still raises, naming its item of 11.8: layouts other than
-    ``tp`` and ``constrain_acts`` (11.8.4), ``act_sharding`` (11.8.4), and
-    the serve and distill steps of an MoE model whose experts split on
-    ``"model"`` (JAX's partitioner path, 11.8.4).  The train, prefill,
-    distill and serve steps and the federated round's model axis run on
-    meshes (``tests/test_torch_model_axis.py``,
-    ``tests/test_torch_mesh_serve.py``, ``tests/test_torch_multihost.py``).
-    """
+    """What still raises, naming its item of 11.8: the four cases of JAX's
+    MoE partitioner path (11.8.4(c)): an MoE model under ``dp_heavy*`` on a
+    mesh, ``use_moe_shard_map=False`` on a mesh, and the serve and distill
+    steps of an MoE model whose experts split on ``"model"``.  The train,
+    prefill, distill and serve steps, every layout, ``constrain_acts`` and
+    ``naive_xent``, and the federated round's model axis run on meshes
+    (``tests/test_torch_model_axis.py``, ``tests/test_torch_mesh_serve.py``,
+    ``tests/test_torch_layouts.py``, ``tests/test_torch_multihost.py``);
+    without a mesh the layout knobs change nothing, as in JAX on one
+    device."""
     from test_torch_model_axis import StubMesh
     ct = reduced(configs.get("qwen3-8b"))
-    shape = InputShape("t", S, B, "train")
-    for build, kw, item in (
-            (steps.make_train_step, dict(layout="dp_heavy"), "11.8.4"),
-            (steps.make_train_step, dict(constrain_acts=True), "11.8.4"),
-            (steps.make_prefill_step, dict(layout="dp_heavy_z3"),
-             "11.8.4")):
-        with pytest.raises(NotImplementedError, match=item):
-            build(ct, shape, **kw)
     cm = reduced(configs.get("granite-moe-1b-a400m"))
+    shape = InputShape("t", S, B, "train")
     stub = StubMesh((1, 2), ("data", "model"), (0, 0))
-    with pytest.raises(NotImplementedError, match="11.8.4"):
+    for build, cfg, kw in (
+            (steps.make_train_step, cm, dict(layout="dp_heavy")),
+            (steps.make_prefill_step, cm, dict(layout="dp_heavy_z3")),
+            (steps.make_train_step, ct, dict(use_moe_shard_map=False))):
+        with pytest.raises(NotImplementedError, match=r"11\.8\.4\(c\)"):
+            build(cfg, shape, stub, **kw)
+        build(cfg, shape, **kw)
+    with pytest.raises(NotImplementedError, match=r"11\.8\.4\(c\)"):
         steps.make_serve_step(cm, InputShape("d", S, B, "decode"), stub)
-    with pytest.raises(NotImplementedError, match="11.8.4"):
+    with pytest.raises(NotImplementedError, match=r"11\.8\.4\(c\)"):
         steps.make_distill_step(cm, stub)
+    for kw in (dict(layout="dp_heavy", constrain_acts=True,
+                    naive_xent=True), dict(layout="dp_heavy_z3")):
+        steps.make_train_step(ct, shape, **kw)
+        steps.make_train_step(ct, shape, stub, **kw)
+    with pytest.raises(ValueError, match="layout"):
+        steps.make_train_step(ct, shape, layout="fsdp")
     # the federated round's client axis runs on a data-only mesh (11.7)
     from repro_torch.launch import mesh as tmesh
     with tmesh.one_rank_world("cpu"):
@@ -475,10 +519,10 @@ def test_meshes_and_sharding_knobs_raise_naming_item_11_7():
             assert b.client_axes == ("data",)
             assert b.layout is None
             assert tuple(tree_leaves(b.args[0])[0].shape)[0] == 2
-    with pytest.raises(NotImplementedError, match="11.8.4"):
+    with pytest.raises(ValueError, match="act_sharding"):
         T.forward(T.init(ct, torch.Generator().manual_seed(0)), ct,
                   {"tokens": torch.zeros((1, 4), dtype=torch.int64)},
-                  act_sharding=object())
+                  act_sharding=P("data", None, None))
     # fsdp shards nothing on one device: both values build
     steps.make_train_step(ct, shape, fsdp=False)
     bundle = steps.make_train_step(ct, shape, param_dtype=torch.float32)
