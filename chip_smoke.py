@@ -268,6 +268,31 @@ and in order:
      every head, every gradient block finite and non-zero; its seconds,
      peak memory and collectives); 18c 17b's held serve check with the
      prefill under ``dp_heavy``;
+   - path 19, its worlds beside paths 17 and 18, JAX's MoE partitioner
+     path and the MoE under ``dp_heavy*`` on granite-moe-1b-a400m: 19a
+     its first 2 layers at full width in f32 on a 2 x 2 world of 4 ranks
+     sharing the card, at the config's capacity factor 1.25, on batches
+     from two halves of the vocabulary and weights scaled to their
+     fan-in and leaned so that each half's tokens take their own 8
+     experts, 12 logits above the rest, which overflow (the same slots
+     drop under any rounding): a train
+     step of 4 x 512 under ``dp_heavy`` and ``dp_heavy_z3`` (the rows
+     gathered over ``"model"``, expert-parallel per data shard) and of 2
+     x 512 under ``dp_heavy`` (the model axis's ranks sharing their rows),
+     a ``tp`` step with ``use_moe_shard_map=False`` (the global tokens
+     and capacity), the distill step with 4 teachers at 2 x 512 (K2 over
+     the whole vocabulary), a prefill at 2 x 512 and 8 tokens through
+     ``make_serve_step`` (the gather route over split experts), each
+     against the unsharded run of the same weights (the data shards' own
+     where they route alone): losses and aux losses within 1e-6 relative
+     (or 4x their 1-ulp spread where that is larger; the distill loss in
+     absolute terms within 1e-6 x ln V or 4x its spread, which a bf16
+     student's must miss), every leaf's gradient within 4x its own 1-ulp
+     spread, logits within 1e-3 of the largest, each layer's drops (the
+     teachers' too) equal up to the expert choices the last bits moved;
+     19b one bf16 ``dp_heavy`` step at full depth, 2 x 4096 on 1 x 2 (16
+     experts a rank, capacity 2560; every gradient block finite and
+     non-zero, K4 48 a rank);
    paths 1-3 and 5-11 run in six worker processes beside each other
    (``PATH_GROUPS``; each path's launch counts in its own process), after
    step 3 and before path 4, so that the kernel and served-model timings
@@ -277,8 +302,8 @@ and in order:
    exactly where the plain versions are, within tolerance elsewhere, two
    launches equal bit for bit;
 5. prints one ``{"kernels": [...]}`` line (each kernel's launches on its
-   path and, under ``path7_launches`` to ``path18_launches``, on each of
-   paths 7's to 18's sub-paths and ranks), the card line, and as its last
+   path and, under ``path7_launches`` to ``path19_launches``, on each of
+   paths 7's to 19's sub-paths and ranks), the card line, and as its last
    line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the last line, when there is no CUDA device,
@@ -286,13 +311,14 @@ when it does not find the port next to it, or when any phase fails.
 Details go to ``chiprun_out/chip_smoke.json``.
 
     python3 chip_smoke.py --path18    # the kernels built, path 18 alone
-    python3 chip_smoke.py --four      # path 18 on four cards (NCCL, 2 x 2)
+    python3 chip_smoke.py --path19    # the kernels built, path 19 alone
+    python3 chip_smoke.py --four      # paths 18, 19 on four cards (2 x 2)
 
 ``--four`` runs 18a's held checks on a 2 x 2 mesh and one full-depth bf16
 train step of phi3-medium-14b under ``dp_heavy_z3`` (its weights and
 Adam moments fit no one card) and of minicpm-2b under ``dp_heavy``, 4 x
-4096 tokens, one NCCL rank a card; it needs four cards and prints no
-kernels line.
+4096 tokens, then 19a's checks on 2 x 2 and 19b's step at 4 x 4096, one
+NCCL rank a card; it needs four cards and prints no kernels line.
 """
 from __future__ import annotations
 
@@ -6291,14 +6317,15 @@ def p17_distill_full(device, mesh) -> tuple:
 
 
 def p17_serve(mesh, cfg, params, toks, dtype, n_tokens, max_seq,
-              held: bool, ref=None, layout: str = "tp") -> dict:
-    """make_prefill_step (under ``layout``'s rules), T.serve_caches and
-    ``n_tokens`` decode steps of make_serve_step on ``mesh`` from the
-    whole ``params``: the seconds of each part, the caches' bytes a rank,
-    the reshard's collectives, the launches.  With ``held`` (on every
-    rank) each token's logits are gathered, and held against ``ref``
-    (rank 0's unsharded logits per token) where it is given; else the
-    last token's."""
+              held: bool, ref=None, layout: str = "tp",
+              prompt: int = SERVE_PROMPT) -> dict:
+    """make_prefill_step (under ``layout``'s rules) of the first
+    ``prompt`` tokens, T.serve_caches and ``n_tokens`` decode steps of
+    make_serve_step on ``mesh`` from the whole ``params``: the seconds of
+    each part, the caches' bytes a rank, the reshard's collectives, the
+    launches.  With ``held`` (on every rank) each token's logits are
+    gathered, and held against ``ref`` (rank 0's unsharded logits per
+    token) where it is given; else the last token's."""
     import torch
     from repro_torch.common import sharding as shd
     from repro_torch.common.pytree import tree_leaves
@@ -6313,13 +6340,13 @@ def p17_serve(mesh, cfg, params, toks, dtype, n_tokens, max_seq,
         cfg, InputShape("decode_card", max_seq, b, "decode"), mesh,
         param_dtype=dtype, cache_dtype=dtype)
     local = shd.shard_tree(params, pre.layout.pspecs, mesh)
-    rep = {"batch": b, "prompt": SERVE_PROMPT, "tokens": n_tokens,
+    rep = {"batch": b, "prompt": prompt, "tokens": n_tokens,
            "max_seq": max_seq}
     _p17_barrier(mesh, toks.device)
     _p16_reset()
     t0 = time.perf_counter()
     _, caches = pre.fn(local, steps.batch_block(
-        {"tokens": toks[:, :SERVE_PROMPT]}, pre.layout))
+        {"tokens": toks[:, :prompt]}, pre.layout))
     torch.cuda.synchronize()
     rep["prefill_s"] = time.perf_counter() - t0
     rep["prefill"] = _p16_counts()
@@ -6343,8 +6370,8 @@ def p17_serve(mesh, cfg, params, toks, dtype, n_tokens, max_seq,
     t0 = time.perf_counter()
     for i in range(n_tokens):
         tok = steps.batch_block(
-            {"tokens": toks[:, SERVE_PROMPT + i:SERVE_PROMPT + i + 1]}, tp)
-        logits, caches = serve.fn(local, tok, caches, SERVE_PROMPT + i)
+            {"tokens": toks[:, prompt + i:prompt + i + 1]}, tp)
+        logits, caches = serve.fn(local, tok, caches, prompt + i)
         if held or i == n_tokens - 1:
             whole = shd.gather_tensor(logits, shd.P(
                 tp.batch_entry, None,
@@ -6992,6 +7019,1031 @@ def print_path18(rep) -> None:
           flush=True)
 
 
+# Path 19: JAX's MoE partitioner path and the MoE under the
+# dp_heavy layouts on a mesh (ROADMAP 11.8.4(c)), on granite-moe-1b-a400m
+# (hf:ibm-granite/granite-3.0-1b-a400m-base: 24 layers, d_model 1024, 16 /
+# 8 heads, 32 experts top 8 of d_ff 512, vocabulary 49155), weights drawn
+# from seed 0 on the card.
+# 19a: its first MOE_CHECK_LAYERS layers at full width in float32 on one
+#   2 x 2 world of 4 gloo ranks sharing the card, at the config's capacity
+#   factor 1.25, its stacked weights scaled to their fan-in
+#   (p19_conditioned: drawn as the zoo draws them, 2 layers' gradients
+#   are mostly rounding, 1-5% 1-ulp spreads a leaf).  Under random
+#   weights no expert overflows at 1.25 (13a, 16c), and at 1.0, where
+#   some do, a choice that the last bits move into a full expert bumps
+#   another token's slot.  So 19a's batches come from two halves of the
+#   vocabulary (the first half of a batch's rows from the lower, the
+#   rest from the upper: two clients' domains), and p19_lean leans the
+#   weights: the embedding rows of the two halves apart along one
+#   direction (PATH19_LEAN_EMBED times their mean norm), every router
+#   column made orthogonal to the direction that separates the two
+#   domains' MoE inputs and to the inputs' mean, then experts 0..k-1's
+#   columns moved along it and k..2k-1's against it, by the least gains
+#   that put every token's own k experts PATH19_LEAN_MARGIN logits above
+#   all others.  Each domain's tokens then take their own k experts, at
+#   weights of 0.03-0.35 each, which overflow, and no expert choice lies
+#   near a tie: the same slots drop under any rounding (each layer's
+#   least margin is reported).  (i) make_train_step at PATH19_BATCH x
+#   STEP_HELD_SEQ under dp_heavy and dp_heavy_z3 (a row a rank; each data
+#   shard's rows gathered over "model", expert-parallel per data shard),
+#   and under dp_heavy at 2 rows (a batch the axes do not divide: the
+#   model axis's ranks share their rows' loss); (ii) the tp train step
+#   with use_moe_shard_map=False (JAX's partitioner path: the global tokens
+#   and capacity); (iii) make_distill_step, PATH19_DISTILL (the
+#   partitioner path, teachers drawn from seeds 1.., conditioned and
+#   leaned on its batch as the student is; K2 over the whole vocabulary,
+#   which the model axis does not divide);
+#   (iv) make_prefill_step at PATH19_SERVE_BATCH x STEP_HELD_SEQ
+#   (expert-parallel, a row a data shard), then PATH19_TOKENS tokens
+#   through make_serve_step (the partitioner path's gather route: T * k =
+#   16 < 32).  Rank 0 runs the unsharded step of the same weights (the
+#   expert-parallel route's: each data shard's rows alone, the gradients,
+#   losses and aux losses averaged, as JAX's pmean averages them) and
+#   sends it to every rank, which holds its blocks against it: every
+#   leaf's gradient within STEP_SPREAD_FACTOR times that leaf's own
+#   unsharded 1-ulp spread (the larger of PATH19_NUDGES' two nudges; a
+#   leaf's gap and spread both as shares of its
+#   largest gradient; the random init leaves some attention leaves with
+#   gradients that are mostly rounding, whose spread must not set the
+#   bound of the others), the loss and the aux loss within
+#   PATH19_LOSS_RTOL / PATH19_AUX_RTOL relative, or 4 x their own 1-ulp
+#   spread where that is larger; the distill loss, a KL of ~1e-2 that is
+#   the difference of a cross-entropy and an entropy of ~ln V each, in
+#   absolute terms against the unsharded rows' losses summed shard by
+#   shard as the ranks sum them, within 4 x its 1-ulp spread or
+#   PATH19_LOSS_RTOL x ln V (eight units in the last place of ln V in
+#   float32, the rounding of those two terms), and the same loss of a
+#   bfloat16 student must miss that bound; each layer's dropped slots
+#   (summed over "model"), the student's and the teachers', equal but for
+#   expert choices the last bits moved (16c's rule); the logits within
+#   GQA_REL_ATOL of the largest.  (ii)'s drops must differ from what the
+#   expert-parallel route drops on the same world (each data shard's
+#   own), or the check could not tell the routes apart.
+#   chip_probe_moe_gate.py plants faults in the MoE's gradient and shows
+#   that these gates fail.
+# 19b: one bf16 dp_heavy make_train_step at full depth and the config's
+#   capacity factor (uniform tokens, no lean), PATH19_FULL_BATCH x
+#   STEP_TRAIN_SEQ on 1 x 2 (a row a rank; each MoE layer gathers both
+#   rows' 8192 tokens over "model", 16 experts a rank, capacity 2560):
+#   every leaf's gradient block finite and non-zero, K4 2 x 24 a rank;
+#   seconds, peak memory, the collectives by axes.  19b's world runs
+#   beside path 17's (2 x 12.6 GiB beside 17a's 2 x 11.5) and 19a's
+#   beside path 18's (18b 2 x 14.4 GiB); path 18 beside both of path 19's
+#   worlds in turn ran out of the card's 80 GB.  19a draws the teachers
+#   one at a time (rank 0 keeps them whole, for the reference; the others
+#   their blocks) and frees its cache after each part.
+# Four cards (``chip_smoke.py --four``, NCCL, 2 x 2): 19a at PATH19_BATCH
+#   rows, then 19b's step at PATH19_FOUR_BATCH x STEP_TRAIN_SEQ (a row a
+#   rank, each data shard's two rows gathered over "model").
+PATH19_BATCH, PATH19_SERVE_BATCH, PATH19_TOKENS = 4, 2, 8
+PATH19_DISTILL = dict(n_teachers=4, batch_size=2, seq_len=512)
+PATH19_LOSS_RTOL, PATH19_AUX_RTOL = 1e-6, 1e-6
+PATH19_LEAN_EMBED, PATH19_LEAN_MARGIN, PATH19_LEAN_SEED = 3.0, 12.0, 19
+PATH19_NUDGES = (5, 6)          # the 1-ulp spreads: the larger of two
+PATH19_FULL_BATCH, PATH19_FOUR_BATCH = 2, 4
+PATH19_TIMEOUT_S = 600
+
+
+def p19_model(device):
+    """(config, float32 parameters) of granite-moe's first
+    MOE_CHECK_LAYERS layers at full width, drawn on the card from seed 0
+    and conditioned (p19_conditioned), at the config's capacity factor."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(configs.get(MOE_SERVE[0]),
+                              n_layers=MOE_CHECK_LAYERS)
+    params = T.init(cfg, torch.Generator(device=device).manual_seed(0),
+                    torch.float32, device)
+    p19_conditioned(cfg, params)
+    return cfg, params
+
+
+def p19_conditioned(cfg, params) -> None:
+    """Scale in place each stacked weight of T.init's ``params`` (whole or
+    a rank's blocks: [layers, ..., fan-in, fan-out], drawn at 1 /
+    sqrt(layers), its fan-in read from the layers axis) to 1 / sqrt(its
+    fan-in).  Drawn so at 2 layers, its weights ~20x wide, the model's
+    gradients are mostly rounding (1-5% 1-ulp spreads a leaf on the card,
+    chip_probe_conditioning.py), and a bound of 4x the spread could not
+    tell a fault from it."""
+    import torch
+    from repro_torch.common.pytree import tree_flatten
+    from repro_torch.models import transformer as T
+    specs = tree_flatten(T.param_specs(cfg))
+    with torch.no_grad():
+        for k, x in tree_flatten(params).items():
+            spec = specs[k]
+            if spec.init == "normal" and len(spec.shape) >= 3:
+                x.mul_(math.sqrt(spec.shape[0] / spec.shape[-2]))
+
+
+def p19_tokens(cfg, shape, seed: int) -> dict:
+    """step_tokens' batch with the tokens of the first half of the rows
+    from the lower half of the vocabulary and the rest's from the upper
+    (two domains; the labels uniform)."""
+    batch = step_tokens(cfg, shape, seed)
+    half = cfg.vocab_size // 2
+    toks = batch["tokens"] % half
+    toks[shape[0] // 2:] += half
+    return {**batch, "tokens": toks}
+
+
+def p19_inputs(cfg, params, tokens) -> list:
+    """Each MoE layer's input [T, d], as its router takes it, in one
+    device's forward of ``tokens``."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    orig, xs = moe._route, []
+
+    def route(p, cfg, x):
+        xs.append(x.detach())
+        return orig(p, cfg, x)
+    moe._route = route
+    try:
+        with torch.no_grad():
+            T.forward(params, cfg, {"tokens": tokens})
+    finally:
+        moe._route = orig
+    return xs
+
+
+def p19_lean(cfg, params, tokens) -> dict:
+    """Lean ``params`` (whole, one block pattern of stacked layers, as
+    granite-moe's) in place, layer after layer, so that each token of
+    ``tokens`` (p19_tokens') takes its domain's k experts, 0..k-1 for the
+    upper vocabulary half and k..2k-1 for the lower, each of them more
+    than PATH19_LEAN_MARGIN logits above every other expert: the
+    embedding rows of the two halves moved apart by PATH19_LEAN_EMBED
+    times their mean norm along a direction drawn from PATH19_LEAN_SEED;
+    in each layer every router column made orthogonal to the direction
+    that separates the two domains' mean inputs and to the inputs' mean
+    (no expert favoured by them), then the upper set's columns moved
+    along that direction and the lower set's against it, by the least
+    gains (one a set) that part every token's own k experts from the
+    rest by the margin.  Returns, per layer, the other logits' spread and
+    the least and largest margin over the tokens (in logits)."""
+    import torch
+    emb, half = params["embed"], cfg.vocab_size // 2
+    gen = torch.Generator(device=emb.device).manual_seed(PATH19_LEAN_SEED)
+    u = torch.randn(cfg.d_model, generator=gen, device=emb.device)
+    u = u / u.norm()
+    rows, k, e = tokens.shape[0], cfg.top_k, cfg.n_experts
+    upper = torch.zeros(tokens.shape, dtype=torch.bool, device=emb.device)
+    upper[rows // 2:] = True
+    upper = upper.reshape(-1)
+    mine = torch.zeros((upper.shape[0], e), dtype=torch.bool,
+                       device=emb.device)
+    mine[upper, :k] = True
+    mine[~upper, k:2 * k] = True
+    routers = params["blocks"][0]["mlp"]["router"]        # [L, d, E]
+    grid = torch.linspace(0.0, 1.0, 61, device=emb.device)
+    rest = torch.zeros(e - 2 * k, device=emb.device)
+
+    def margins(logits):
+        """Each token's least own logit over its largest other one."""
+        return (logits.masked_fill(~mine, math.inf).min(1).values
+                - logits.masked_fill(mine, -math.inf).max(1).values)
+    rep = {"layers": []}
+    with torch.no_grad():
+        beta = PATH19_LEAN_EMBED * emb.norm(dim=1).mean()
+        rep["beta"] = float(beta)
+        emb[:half] -= beta * u
+        emb[half:] += beta * u
+        for layer in range(cfg.n_layers):
+            x = p19_inputs(cfg, params, tokens)[layer].float()
+            m = x[upper].mean(0) - x[~upper].mean(0)
+            m = m / m.norm()
+            c = x.mean(0)
+            c = c - (c @ m) * m
+            c = c / c.norm()
+            r = routers[layer]
+            for v in (m, c):
+                r -= torch.outer(v, v @ r)
+            base, proj = x @ r, x @ m
+            spread = float(base.std())
+            # gains (g_up, g_low) on a grid up to the size that moves a
+            # token PATH19_LEAN_MARGIN plus the logits' range past the rest
+            top = ((PATH19_LEAN_MARGIN + base.max() - base.min())
+                   / proj.abs().median())
+            gs = grid * top
+            least = torch.stack([torch.stack([margins(
+                base + proj[:, None] * torch.cat([
+                    gu.expand(k), -gl.expand(k), rest])).min()
+                for gl in gs]) for gu in gs])
+            ok = least >= PATH19_LEAN_MARGIN
+            cost = (torch.where(ok, gs[:, None] + gs[None, :], math.inf)
+                    if ok.any() else -least)
+            i, j = divmod(int(cost.argmin()), len(gs))
+            gain = torch.cat([gs[i].expand(k), -gs[j].expand(k), rest])
+            r += torch.outer(m, gain)
+            got = margins(x @ r)
+            rep["layers"].append({"sigma": spread,
+                                  "least_margin": float(got.min()),
+                                  "most_margin": float(got.max())})
+    return rep
+
+
+def p19_shared_lean(cfg, params, tokens) -> dict:
+    """p19_lean on rank 0, the same lean on every rank (its direction,
+    size and routers sent from rank 0; every rank draws the same seed-0
+    weights): the report."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as tmesh
+    routers = params["blocks"][0]["mlp"]["router"]
+    box = [None]
+    if tmesh.world_rank() == 0:
+        rep = p19_lean(cfg, params, tokens)
+        box = [(rep, routers.cpu())]
+    dist.broadcast_object_list(box, src=0)
+    rep, lean_routers = box[0]
+    if tmesh.world_rank() != 0:
+        emb, half = params["embed"], cfg.vocab_size // 2
+        gen = torch.Generator(device=emb.device).manual_seed(
+            PATH19_LEAN_SEED)
+        u = torch.randn(cfg.d_model, generator=gen, device=emb.device)
+        u = u / u.norm()
+        with torch.no_grad():
+            beta = torch.tensor(rep["beta"], device=emb.device)
+            emb[:half] -= beta * u
+            emb[half:] += beta * u
+            routers.copy_(lean_routers)
+    return rep
+
+
+def p19_drops(cfg, params, tokens) -> tuple:
+    """(each layer's dropped slots, each layer's expert choices [T, k] on
+    the CPU) in one device's forward of ``tokens``."""
+    import torch
+    from repro_torch.models import transformer as T
+    with torch.no_grad(), recording_moe([], []) as (drops, routes):
+        T.forward(params, cfg, {"tokens": tokens})
+    return [int(n) for _, n in drops], [i.cpu() for i, _ in routes]
+
+
+def p19_layer_drops(drops, first: int, n: int, mesh) -> list:
+    """Layers ``first`` to ``first + n``'s dropped slots of this rank's
+    experts (``recording_moe``'s), summed over "model"."""
+    import torch
+    from repro_torch.common import sharding as shd
+    mine = torch.stack([d for _, d in drops[first:first + n]]).float()
+    return [int(v) for v in shd.all_reduce_sum(mine, mesh, ("model",))]
+
+
+def p19_moved(routes, ref) -> list:
+    """Each layer's expert choices of one run that the other's token did
+    not choose; -1 where the two routed different token counts."""
+    return [int((~(a.cpu()[:, :, None] == b[:, None, :]).any(-1)).sum())
+            if a.shape == b.shape else -1 for a, b in zip(routes, ref)]
+
+
+def p19_drops_held(drops, ref_drops, moved) -> bool:
+    """Each layer's drops equal the reference's, or, where expert choices
+    moved (the last bits of a gate near a tie), within one slot a moved
+    choice (16c's rule: moving a choice changes one expert's overflow by
+    at most one and another's by at most one the other way); never where
+    the two runs routed different token counts."""
+    return (len(drops) == len(ref_drops) and min(moved, default=0) >= 0
+            and all(abs(a - b) <= m for a, b, m in zip(drops, ref_drops,
+                                                        moved)))
+
+
+def p19_shared(ref: Optional[dict], like) -> dict:
+    """Rank 0's reference on every rank: its gradient tree (shaped like
+    ``like``) broadcast leaf by leaf (through host memory under gloo),
+    the rest as objects.  One reference for every rank: each computing
+    its own could differ from the others in its last bits."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.common.pytree import tree_leaves, tree_map
+    rank0 = dist.get_rank() == 0
+    box = [{k: v for k, v in ref.items() if k != "grads"} if rank0
+           else None]
+    dist.broadcast_object_list(box, src=0)
+    grads = ref["grads"] if rank0 else tree_map(torch.empty_like, like)
+    on_card = dist.get_backend() == "nccl"
+    for x in tree_leaves(grads):
+        buf = x if on_card else x.detach().cpu().contiguous()
+        dist.broadcast(buf, src=0)
+        if not rank0 and buf is not x:
+            x.copy_(buf)
+    return {**box[0], "grads": grads}
+
+
+def p19_reference(cfg, params, batch, shards: int) -> dict:
+    """The unsharded train step's gradient, loss and aux loss, each
+    leaf's 1-ulp spread (the larger of PATH19_NUDGES' nudges), the
+    loss's and aux loss's, and each layer's
+    drops and choices per data shard: the batch whole (``shards`` 1, the
+    partitioner path) or each data shard's rows alone with the gradients,
+    losses and aux losses averaged (the expert-parallel route's
+    mathematics)."""
+    import torch
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.launch import steps
+    rows = batch["tokens"].shape[0] // shards
+    parts = [{k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+             for i in range(shards)]
+
+    def grads(p):
+        g, loss, aux = None, 0.0, 0.0
+        for mb in parts:
+            gi, m = steps.train_grads(p, cfg, mb, remat=False)
+            g = gi if g is None else tree_map(torch.add, g, gi)
+            loss, aux = loss + float(m["loss"]), aux + float(m["moe_aux"])
+        return tree_map(lambda x: x / shards, g), loss / shards, aux / shards
+    out = dict(zip(("grads", "loss", "aux"), grads(params)))
+    runs = [p19_drops(cfg, params, mb["tokens"]) for mb in parts]
+    out["drops"], out["routes"] = [d for d, _ in runs], [r for _, r in runs]
+    base, spreads = flat32(out["grads"]), []
+    for seed in PATH19_NUDGES:
+        g_n, loss_n, aux_n = grads(ulp_nudged(params, seed))
+        spreads.append((leaf_gaps(flat32(g_n), base),
+                        abs(loss_n - out["loss"]) / abs(out["loss"]),
+                        abs(aux_n - out["aux"]) / abs(out["aux"])))
+        del g_n
+    out["leaf_spreads"] = {k: max(g[k] for g, _, _ in spreads)
+                           for k in base}
+    out["ulp_spread"] = max(out["leaf_spreads"].values())
+    out["loss_spread"] = max(x for _, x, _ in spreads)
+    out["aux_spread"] = max(x for _, _, x in spreads)
+    return out
+
+
+def p19_bounds(ref: dict) -> dict:
+    """The loss's and aux loss's bounds, relative: STEP_SPREAD_FACTOR
+    times the unsharded step's own 1-ulp spread, no looser than
+    PATH19_LOSS_RTOL / PATH19_AUX_RTOL unless that spread is (the aux
+    loss is a float32 sum over the layers of each layer's mean)."""
+    return {"loss": max(PATH19_LOSS_RTOL,
+                        STEP_SPREAD_FACTOR * ref["loss_spread"]),
+            "aux": max(PATH19_AUX_RTOL,
+                       STEP_SPREAD_FACTOR * ref.get("aux_spread", 0.0))}
+
+
+def p19_gap(grads, ref, pspecs, mesh) -> dict:
+    """{leaf: the largest gap of this step's blocks against the same
+    blocks of the reference tree, merged over every rank, as a share of
+    the reference leaf's largest}."""
+    import torch
+    from repro_torch.common import sharding as shd
+    from repro_torch.common.pytree import tree_flatten
+    want = tree_flatten(shd.shard_tree(ref, pspecs, mesh))
+    got, ref = tree_flatten(grads), tree_flatten(ref)
+    keys = sorted(ref)
+    gap = torch.stack([(got[k].double() - want[k].double()).abs().max()
+                       for k in keys])
+    gap = shd.all_reduce_max(gap, mesh, shd.axis_names(mesh)).cpu()
+    top = torch.tensor([max(float(ref[k].abs().max()), 1e-30)
+                        for k in keys], dtype=torch.float64)
+    return dict(zip(keys, (gap / top).tolist()))
+
+
+def p19_grad_gate(gaps: dict, spreads: dict) -> dict:
+    """Every leaf's gap against STEP_SPREAD_FACTOR times its own 1-ulp
+    spread: the largest ratio (held where it is at most 1) and the three
+    leaves nearest their bounds, each (gap, spread)."""
+    def ratio(k):
+        bound = STEP_SPREAD_FACTOR * spreads[k]
+        return gaps[k] / bound if bound > 0 else (
+            math.inf if gaps[k] > 0 else 0.0)
+    ratios = {k: ratio(k) for k in gaps}
+    worst = sorted(ratios, key=ratios.get, reverse=True)[:3]
+    return {"grad_ratio": max(ratios.values()),
+            "grad_gap": max(gaps.values()),
+            "worst_leaves": {k: (gaps[k], spreads[k]) for k in worst}}
+
+
+def p19_step(bundle, args, device, first: int, n_layers: int,
+             mesh, teachers: int = 0) -> tuple:
+    """(the gradients a step's Adam takes, its results, a report of its
+    seconds, collectives, launches and each layer's drops and choices
+    from the ``first``-th MoE call on, the drops summed over "model"; and
+    of the ``teachers`` calls before it), timed after every rank has
+    arrived."""
+    import torch
+    from repro_torch.launch import steps
+    took, orig = [], steps._adam_step
+
+    def adam_step(opt, params, opt_state, grads, step):
+        took.append(grads)
+        return orig(opt, params, opt_state, grads, step)
+    _p17_barrier(mesh, device)
+    _p16_reset()
+    steps._adam_step = adam_step
+    try:
+        with recording_moe([], []) as (drops, routes):
+            t0 = time.perf_counter()
+            out = bundle.fn(*args)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+    finally:
+        steps._adam_step = orig
+    rep = {"step_s": step_s, **_p16_counts(),
+           "drops": p19_layer_drops(drops, first, n_layers, mesh)}
+    rep["routes"] = [i for i, _ in routes[first:first + n_layers]]
+    if teachers:
+        rep["teacher_drops"] = p19_layer_drops(drops, 0, teachers, mesh)
+        rep["teacher_routes"] = [i for i, _ in routes[:teachers]]
+    return took[0], out, rep
+
+
+def p19_train(mesh, cfg, params, batch, ref: dict, kw: dict) -> dict:
+    """One float32 make_train_step with ``kw`` on ``mesh`` from the
+    unsharded blocks and zero moments, held against ``ref``
+    (p19_reference's, shared): its seconds, collectives and launches,
+    the loss, the aux loss, every leaf's gradient gap, each layer's drops
+    of this rank's data shard."""
+    import torch
+    from repro_torch.common import sharding as shd
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.optim import optimizers as topt
+    bundle = steps.make_train_step(
+        cfg, InputShape("held_card", STEP_HELD_SEQ, batch["tokens"].shape[0],
+                        "train"), mesh, param_dtype=torch.float32, **kw)
+    tp = bundle.layout
+    local = shd.shard_tree(params, tp.pspecs, mesh)
+    opt = topt.AdamState(*(tree_map(torch.zeros_like, local)
+                           for _ in range(2)))
+    grads, (_, _, _, m), r = p19_step(
+        bundle, (local, opt, torch.zeros((), dtype=torch.int32),
+                 steps.batch_block(batch, tp)),
+        batch["tokens"].device, 0, cfg.n_layers, mesh)
+    r.update(rows=list(tp.batch_axes), loss=float(m["loss"]),
+             aux=float(m["moe_aux"]), data=shd.axis_index(mesh, "data"),
+             ulp_spread=ref["ulp_spread"])
+    r.update(p19_grad_gate(p19_gap(grads, ref["grads"], tp.pspecs, mesh),
+                           ref["leaf_spreads"]))
+    shard = min(r["data"], len(ref["drops"]) - 1)
+    r["ref_drops"] = ref["drops"][shard]
+    r["moved"] = p19_moved(r.pop("routes"), ref["routes"][shard])
+    r["loss_rel"] = abs(r["loss"] - ref["loss"]) / abs(ref["loss"])
+    r["aux_err"] = abs(r["aux"] - ref["aux"]) / abs(ref["aux"])
+    r["bounds"] = p19_bounds(ref)
+    r["held"] = (r["loss_rel"] <= r["bounds"]["loss"]
+                 and r["aux_err"] <= r["bounds"]["aux"]
+                 and r["grad_ratio"] <= 1.0
+                 and p19_drops_held(r["drops"], r["ref_drops"], r["moved"]))
+    del local, opt, grads
+    return r
+
+
+def p19_distill(mesh, cfg, params, device) -> dict:
+    """19a (iii): make_distill_step on ``mesh`` (the partitioner path),
+    PATH19_DISTILL, from the unsharded blocks, against rank 0's unsharded
+    distill step: the loss in absolute terms (the control, a bfloat16
+    student's, beside), every leaf's gradient within 4 x its 1-ulp
+    spread, the student's and the teachers' drops and choices per layer
+    (the teachers drawn from seeds 1.., conditioned and leaned as the
+    student is); whether K2 runs over the whole vocabulary
+    (``steps._vocab_out``)."""
+    import torch
+    from repro_torch.common import sharding as shd
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizers as topt
+    k, b, s = (PATH19_DISTILL[x] for x in ("n_teachers", "batch_size",
+                                            "seq_len"))
+    bundle = steps.make_distill_step(cfg, mesh, param_dtype=torch.float32,
+                                     **PATH19_DISTILL)
+    tp = bundle.layout
+    rank0 = tmesh.world_rank() == 0
+    batch = {"tokens": p19_tokens(cfg, (b, s), 3)["tokens"].to(device)}
+
+    def into(stack, tree, i):
+        """``tree`` as row ``i`` of ``stack`` (made at the first)."""
+        if stack is None:
+            stack = tree_map(lambda x: x.new_empty((k,) + x.shape), tree)
+        tree_map(lambda dst, src: dst[i].copy_(src), stack, tree)
+        return stack
+    # the K teachers (seeds 1..K), each drawn whole, conditioned and
+    # leaned on this batch as the student is, one at a time: rank 0 keeps
+    # them whole for the reference, every rank its blocks
+    teachers, local_t, rep_lean = None, None, []
+    for i in range(k):
+        t = T.init(cfg, torch.Generator(device=device).manual_seed(1 + i),
+                   torch.float32, device)
+        p19_conditioned(cfg, t)
+        rep_lean.append(p19_shared_lean(cfg, t, batch["tokens"]))
+        local_t = into(local_t, shd.shard_tree(t, tp.pspecs, mesh), i)
+        if rank0:
+            teachers = into(teachers, t, i)
+        del t
+    ref = None
+    if rank0:
+        g, loss = steps.distill_grads(params, teachers, cfg, batch,
+                                      remat=False)
+        base, spreads, loss_spread = flat32(g), [], 0.0
+        for seed in PATH19_NUDGES:
+            g_n, loss_n = steps.distill_grads(ulp_nudged(params, seed),
+                                              teachers, cfg, batch,
+                                              remat=False)
+            spreads.append(leaf_gaps(flat32(g_n), base))
+            loss_spread = max(loss_spread, abs(float(loss_n) - float(loss)))
+            del g_n
+        drops, routes = p19_drops(cfg, params, batch["tokens"])
+        t_runs = [p19_drops(cfg, tree_map(lambda x: x[i], teachers),
+                            batch["tokens"]) for i in range(k)]
+        split, bf16 = p19_split_losses(
+            cfg, [params, tree_map(lambda x: x.bfloat16(), params)],
+            teachers, batch, shd.axis_size(mesh, "data"))
+        ref = {"grads": g, "loss": float(loss), "split_loss": split,
+               "bf16_split_loss": bf16,
+               "leaf_spreads": {k: max(x[k] for x in spreads)
+                                for k in base},
+               "loss_spread": loss_spread,
+               "drops": drops, "routes": routes,
+               "teacher_drops": [n for d, _ in t_runs for n in d],
+               "teacher_routes": [i for _, r in t_runs for i in r]}
+    ref = p19_shared(ref, params)
+    del teachers
+    torch.cuda.empty_cache()
+    student = shd.shard_tree(params, tp.pspecs, mesh)
+    opt = topt.AdamState(*(tree_map(torch.zeros_like, student)
+                           for _ in range(2)))
+    # the student's forward follows the K teachers' (remat's recompute
+    # after it)
+    grads, (_, _, _, loss), r = p19_step(
+        bundle, (student, local_t, opt, torch.zeros((), dtype=torch.int32),
+                 steps.batch_block(batch, tp)), device, k * cfg.n_layers,
+        cfg.n_layers, mesh, teachers=k * cfg.n_layers)
+    r.update(loss=float(loss), rows=list(tp.batch_axes),
+             vocab_out=steps._vocab_out(cfg, student, tp),
+             ref_drops=ref["drops"],
+             ulp_spread=max(ref["leaf_spreads"].values()),
+             moved=p19_moved(r.pop("routes"), ref["routes"]),
+             ref_teacher_drops=ref["teacher_drops"],
+             teacher_moved=p19_moved(r.pop("teacher_routes"),
+                                     ref["teacher_routes"]),
+             teacher_margins=[min(x["least_margin"] for x in t["layers"])
+                              for t in rep_lean])
+    r["k2_whole_vocab"] = r["vocab_out"] == cfg.vocab_size
+    r.update(p19_grad_gate(p19_gap(grads, ref["grads"], tp.pspecs, mesh),
+                           ref["leaf_spreads"]))
+    # absolute: the loss, a KL of ~1e-2, is the difference of a
+    # cross-entropy and an entropy of ~ln V each, rounded at ln V's scale
+    r["loss_gap"] = abs(r["loss"] - ref["split_loss"])
+    r["whole_loss_gap"] = abs(r["loss"] - ref["loss"])
+    r["loss_bound"] = max(PATH19_LOSS_RTOL * math.log(cfg.vocab_size),
+                          STEP_SPREAD_FACTOR * ref["loss_spread"])
+    r["bf16_loss_gap"] = abs(ref["bf16_split_loss"] - ref["split_loss"])
+    r["loss_spread"] = ref["loss_spread"]
+    r["held"] = (r["loss_gap"] <= r["loss_bound"]
+                 and r["bf16_loss_gap"] > r["loss_bound"]
+                 and r["grad_ratio"] <= 1.0
+                 and p19_drops_held(r["drops"], ref["drops"], r["moved"])
+                 and p19_drops_held(r["teacher_drops"],
+                                    ref["teacher_drops"],
+                                    r["teacher_moved"])
+                 and r["k2_whole_vocab"])
+    del local_t, student, opt, grads, ref
+    torch.cuda.empty_cache()
+    return r
+
+
+def p19_split_losses(cfg, students: list, teachers, batch,
+                     shards: int) -> list:
+    """Each of ``students``' unsharded distill loss as ``shards`` data
+    ranks sum it: each shard's rows' AVGLOGITS loss at its share of the
+    rows, summed in rank order (the whole batch's is one float32 sum over
+    every row)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    out = []
+    with torch.no_grad():
+        t_logits = steps.teacher_logits(teachers, cfg, batch)
+        for params in students:
+            s_logits = T.forward(params, cfg, batch)
+            v, b = s_logits.shape[-1], s_logits.shape[0]
+            per = b // shards
+            total = None
+            for d in range(shards):
+                rows = slice(d * per, (d + 1) * per)
+                s2 = s_logits[rows].reshape(-1, v).float()
+                t3 = t_logits[:, rows].reshape(t_logits.shape[0], -1, v)
+                part = ops.ensemble_kl_loss(s2, t3) * (per / b)
+                total = part if total is None else total + part
+            out.append(float(total))
+            del s_logits
+    return out
+
+
+def p19_serve(mesh, cfg, params, device) -> dict:
+    """19a (iv): a tp prefill at PATH19_SERVE_BATCH x STEP_HELD_SEQ
+    (expert-parallel: each data shard's row routes alone), then
+    PATH19_TOKENS tokens through make_serve_step (the partitioner path),
+    against rank 0's unsharded prefill of each row alone and decode_step
+    of the batch; the prefill's drops per layer against each row's own,
+    and no capacity dispatch in the decode where ``T * top_k <
+    n_experts`` (the gather route)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.common import sharding as shd
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import transformer as T
+    b, prompt, n = PATH19_SERVE_BATCH, STEP_HELD_SEQ, PATH19_TOKENS
+    max_seq = prompt + n
+    toks = p19_tokens(cfg, (b, prompt + n), 4)["tokens"].to(device)
+    ref, box = None, [None]
+    if tmesh.world_rank() == 0:
+        with torch.no_grad():
+            runs = [T.prefill(params, cfg, {"tokens": toks[i:i + 1,
+                                                           :prompt]},
+                              max_seq) for i in range(b)]
+            caches = tree_map(lambda *xs: torch.cat(xs, xs[0].dim() - 4),
+                              *[c for _, c in runs])
+            ref = []
+            for i in range(n):
+                lg, caches = T.decode_step(
+                    params, cfg,
+                    {"tokens": toks[:, prompt + i:prompt + i + 1]}, caches,
+                    prompt + i)
+                ref.append(lg.float())
+        del runs, caches
+        box = [[p19_drops(cfg, params, toks[i:i + 1, :prompt])
+                for i in range(b)]]
+    dist.broadcast_object_list(box, src=0)
+    with recording_moe([], []) as (drops, routes):
+        rep = p17_serve(mesh, cfg, params, toks, torch.float32, n, max_seq,
+                        True, ref, prompt=prompt)
+    gather = b * cfg.top_k < cfg.n_experts
+    rep["drops"] = p19_layer_drops(drops, 0, cfg.n_layers, mesh)
+    rep["capacity_calls"] = len(drops)
+    rep["decode_route"] = "gather" if gather else "capacity"
+    ref_drops, ref_routes = box[0][shd.axis_index(mesh, "data")]
+    rep["ref_drops"] = ref_drops
+    rep["moved"] = p19_moved([i for i, _ in routes[:cfg.n_layers]],
+                             ref_routes)
+    rep["drops_held"] = (p19_drops_held(rep["drops"], ref_drops,
+                                        rep["moved"])
+                         and rep["capacity_calls"] == cfg.n_layers * (
+                             1 if gather else 1 + n))
+    return rep
+
+
+# 19a (i)-(ii): (name, make_train_step's knobs, the batch's rows, the
+# reference: "per_shard" each data shard's rows alone, "whole" the batch)
+P19_TRAIN = (("dp_heavy", dict(layout="dp_heavy"), slice(0, PATH19_BATCH),
+              "per_shard"),
+             ("dp_heavy_z3", dict(layout="dp_heavy_z3"),
+              slice(0, PATH19_BATCH), "per_shard"),
+             ("dp_heavy_shares", dict(layout="dp_heavy"), slice(1, 3),
+              "per_shard"),
+             ("tp_noep", dict(use_moe_shard_map=False),
+              slice(0, PATH19_BATCH), "whole"))
+
+
+def p19_references(mesh, cfg, params, batch) -> dict:
+    """Rank 0's references of P19_TRAIN's batches, on every rank:
+    {(rows, kind): p19_reference's}."""
+    from repro_torch.common import sharding as shd
+    from repro_torch.launch import mesh as tmesh
+    refs = {}
+    for _, _, rows, kind in P19_TRAIN:
+        key = (rows.start, rows.stop, kind)
+        if key not in refs:
+            part = {k: v[rows] for k, v in batch.items()}
+            shards = shd.axis_size(mesh, "data") if kind == "per_shard" \
+                else 1
+            refs[key] = p19_shared(
+                p19_reference(cfg, params, part, shards)
+                if tmesh.world_rank() == 0 else None, params)
+    return refs
+
+
+def p19_held(device, mesh, rows: int) -> tuple:
+    """19a on ``mesh``: the lean, then (i)-(iv), each with its own
+    counts."""
+    import torch
+    from repro_torch.launch import mesh as tmesh
+    cfg, params = p19_model(device)
+    batch = {k: v.to(device) for k, v in p19_tokens(
+        cfg, (rows, STEP_HELD_SEQ), 1).items()}
+    rank0 = tmesh.world_rank() == 0
+    rep, problems = {"rows": rows, "layers": cfg.n_layers,
+                     "capacity_factor": cfg.capacity_factor, "peaks": {}}, []
+
+    def peak(part: str) -> None:
+        """This part's peak allocated and reserved bytes (path 18's ranks
+        share the card), the cache freed after it."""
+        rep["peaks"][part] = (torch.cuda.max_memory_allocated(),
+                              torch.cuda.max_memory_reserved())
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_memory_stats()
+    rep["lean"] = p19_shared_lean(cfg, params, batch["tokens"])
+    refs = p19_references(mesh, cfg, params, batch)
+    rep["ref"] = {f"{a}:{b} {kind}": {k: r[k] for k in (
+        "loss", "aux", "drops", "ulp_spread", "loss_spread", "aux_spread")}
+        for (a, b, kind), r in refs.items()}
+    peak("references")
+    for name, kw, part, kind in P19_TRAIN:
+        ref = refs[(part.start, part.stop, kind)]
+        rep[name] = p19_train(mesh, cfg, params,
+                              {k: v[part] for k, v in batch.items()}, ref,
+                              kw)
+        rep[name]["batch"] = part.stop - part.start
+        peak(name)
+        if not rep[name]["held"]:
+            problems.append(f"19a {name}: {rep[name]}")
+    # the partitioner path drops the global batch's slots, the
+    # expert-parallel route on this world each data shard's: a check that
+    # could not tell the two apart would hold either way
+    ep = [sum(x) for x in zip(*refs[(0, rows, "per_shard")]["drops"])]
+    rep["tp_noep"]["expert_parallel_drops"] = ep
+    if rep["tp_noep"]["drops"] == ep:
+        problems.append(f"19a tp_noep: the partitioner path's drops "
+                        f"{rep['tp_noep']['drops']} equal the expert-"
+                        f"parallel route's {ep}")
+    del refs
+    rep["distill"] = p19_distill(mesh, cfg, params, device)
+    peak("distill")
+    if not rep["distill"]["held"]:
+        problems.append(f"19a distill: {rep['distill']}")
+    rep["serve"] = p19_serve(mesh, cfg, params, device)
+    peak("serve")
+    s = rep["serve"]
+    if not s["drops_held"] or (rank0 and not s["held"]):
+        problems.append(f"19a serve: {s}")
+    rep["peak_mem_bytes"] = max(a for a, _ in rep["peaks"].values())
+    del params
+    torch.cuda.empty_cache()
+    return rep, problems
+
+
+def p19_full(device, mesh, batch: int, cards: int) -> tuple:
+    """19b: p18_full_train's bf16 dp_heavy step of granite-moe-1b-a400m at
+    full depth, ``batch`` x STEP_TRAIN_SEQ, with each MoE call's tokens
+    and the capacity they take."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    with recording_moe([]) as (drops, _):
+        rep, problems = p18_full_train(device, mesh, MOE_SERVE[0],
+                                       "dp_heavy", batch, cards)
+    tokens = sorted({int(t) for t, _ in drops})
+    rep["moe_tokens_per_call"] = tokens
+    rep["capacity"] = [moe.capacity(configs.get(MOE_SERVE[0]), t)
+                       for t in tokens]
+    rep["dropped_forward"] = int(sum(
+        int(n) for _, n in drops[:configs.get(MOE_SERVE[0]).n_layers]))
+    return rep, problems
+
+
+def path19_rank(device, shape=(2, 2), parts=("19a",), cards: int = 1,
+                full_batch: int = PATH19_FULL_BATCH) -> dict:
+    """One rank of path 19's ``shape`` mesh: the parts in order."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if device == "cuda" else torch.device(device))
+    from repro_torch.launch import mesh as tmesh
+    mesh = tmesh.make_mesh(shape, ("data", "model"))
+    out, problems = {"rank": tmesh.world_rank(),
+                     "backend": tmesh._WORLD["backend"],
+                     "mesh": list(shape)}, []
+    for part in parts:
+        t0 = time.perf_counter()
+        if part == "19a":
+            out["19a"], p = p19_held(device, mesh, PATH19_BATCH)
+        else:
+            out["19b"], p = p19_full(device, mesh, full_batch, cards)
+        problems += [f"{part}: {x}" for x in p]
+        out[f"{part}_s"] = time.perf_counter() - t0
+    out["problems"] = problems
+    return out
+
+
+def path19_world(device, part: str) -> tuple:
+    """One of path 19's worlds, on ranks sharing the card: "19a" the
+    2 x 2 world of 4 ranks, "19b" the 1 x 2 world; (its ranks' reports,
+    its seconds)."""
+    shape, threads = ((2, 2), 2) if part == "19a" else ((1, 2), 4)
+    return timed_ranks(path19_rank, math.prod(shape), device,
+                       args=(device, shape, (part,)), threads=threads,
+                       timeout_s=PATH19_TIMEOUT_S)
+
+
+def path19_report(a: tuple, b: tuple) -> tuple:
+    """Path 19's report and problems from its two worlds' (ranks,
+    seconds)."""
+    rep = {"card": card_line(), "a": a[0], "a_s": a[1], "b": b[0],
+           "b_s": b[1]}
+    problems = [f"rank {r['rank']} of {r['mesh']}: {p}"
+                for r in rep["a"] + rep["b"] for p in r["problems"]]
+    losses = {r["19b"]["loss"] for r in rep["b"]}
+    if len(losses) != 1:
+        problems.append(f"19b: the ranks' losses differ {losses}")
+    return rep, problems
+
+
+def moe_mesh_path(device):
+    """Path 19 alone: 19a's 2 x 2 world of 4 ranks sharing the card, then
+    19b's 1 x 2 world (in the default run 19b's world runs beside path
+    17's and 19a's beside path 18's)."""
+    import torch
+    device = torch.device(device).type
+    return path19_report(path19_world(device, "19a"),
+                         path19_world(device, "19b"))
+
+
+@contextlib.contextmanager
+def least_free(out: dict, key: str, period_s: float = 0.25):
+    """While open, the card's free bytes (``torch.cuda.mem_get_info``,
+    every process's use counted) sampled every ``period_s``; the least
+    goes to ``out[key]``."""
+    import threading
+    import torch
+    least, stop = [torch.cuda.mem_get_info()[0]], threading.Event()
+
+    def sample():
+        while not stop.wait(period_s):
+            least[0] = min(least[0], torch.cuda.mem_get_info()[0])
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        t.join()
+        out[key] = least[0]
+
+
+def paths_17_to_19(device, k2s_rows, paths: dict, start_s: float) -> list:
+    """Paths 17, 18 and 19 into ``paths`` (printed; their problems
+    returned): path 17 beside path 19's 1 x 2 world (19b), then path 18
+    beside its 2 x 2 world (19a).  Their ranks mostly wait on host-staged
+    collectives; the least free memory on the card during each pair is
+    recorded (path 18 beside 19a's and 19b's worlds in turn ran out of
+    the card's 80 GB)."""
+    import concurrent.futures
+    import gc
+    import torch
+    problems, worlds, free = [], {}, {}
+    # this process's cache from the served models and the kernel phases
+    # goes back to the card first
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before paths 17-19 this process holds "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+          f"({torch.cuda.memory_reserved() / 2 ** 30:.2f} reserved), the "
+          f"card {torch.cuda.mem_get_info()[0] / 2 ** 30:.2f} GiB free",
+          flush=True)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        for part, name, fn, args, show in (
+                ("19b", "path17_mesh_serve", mesh_serve_path,
+                 (device, k2s_rows), print_path17),
+                ("19a", "path18_layouts", layouts_path, (device,),
+                 print_path18)):
+            with least_free(free, part):
+                job = pool.submit(path19_world, torch.device(device).type,
+                                  part)
+                t0 = time.perf_counter()
+                rep, more = fn(*args)
+                rep["total_s"] = time.perf_counter() - t0
+                worlds[part] = job.result()
+            paths[name] = rep
+            problems += [f"{name}: {p}" for p in more]
+            show(rep)
+            print(f"{name} and path 19's {part} done at "
+                  f"{time.perf_counter() - start_s:.1f} s, the card's "
+                  f"least free memory {free[part] / 2 ** 30:.2f} GiB",
+                  flush=True)
+    rep, more = path19_report(worlds["19a"], worlds["19b"])
+    rep["total_s"] = worlds["19a"][1] + worlds["19b"][1]
+    rep["least_free_bytes"] = free
+    paths["path19_moe_mesh"] = rep
+    problems += [f"path19_moe_mesh: {p}" for p in more]
+    print_path19(rep)
+    return problems
+
+
+def moe_mesh_four_path():
+    """Path 19's four-card part: 19a on 2 x 2, then 19b's step at
+    PATH19_FOUR_BATCH rows, one NCCL rank a card."""
+    rep, problems = {"card": card_line()}, []
+    rep["a"], rep["a_s"] = timed_ranks(
+        path19_rank, 4, "cuda",
+        args=("cuda", (2, 2), ("19a", "19b"), 4, PATH19_FOUR_BATCH),
+        threads=4, timeout_s=PATH18_FOUR_TIMEOUT_S)
+    rep["b"] = []
+    problems += [f"rank {r['rank']} of {r['mesh']}: {p}"
+                 for r in rep["a"] for p in r["problems"]]
+    losses = {r["19b"]["loss"] for r in rep["a"]}
+    if len(losses) != 1:
+        problems.append(f"19b: the ranks' losses differ {losses}")
+    return rep, problems
+
+
+def print_path19(rep) -> None:
+    gib = 2 ** 30
+    print(f"  path19 on {rep['card']}:")
+    for r in rep["a"] + rep["b"]:
+        if "19a" in r:
+            a = r["19a"]
+            print(f"  path19 19a rank {r['rank']} lean (embedding rows "
+                  f"moved {a['lean']['beta']:.4g}; per layer: the logits'"
+                  f" spread before it, the least / largest margin of a "
+                  f"token's own experts over the rest) " +
+                  "; ".join(f"{x['sigma']:.4g}, {x['least_margin']:.4g} / "
+                            f"{x['most_margin']:.4g}"
+                            for x in a["lean"]["layers"]))
+            for name, _, _, _ in P19_TRAIN:
+                s = a[name]
+                print(f"  path19 19a rank {r['rank']} ({r['backend']}) "
+                      f"{name} {a['layers']} layers f32 capacity factor "
+                      f"{a['capacity_factor']} batch {s['batch']} x "
+                      f"{STEP_HELD_SEQ} on {r['mesh']} (rows over "
+                      f"{s['rows']}): loss {s['loss']:.7f} rel "
+                      f"{s['loss_rel']:.2e} (bound "
+                      f"{s['bounds']['loss']:.1e}), aux {s['aux']:.7f} rel "
+                      f"{s['aux_err']:.2e} (bound {s['bounds']['aux']:.1e}),"
+                      f" gradient: largest gap {s['grad_gap']:.3g}, largest"
+                      f" share of its leaf's bound (4 x the leaf's unsharded"
+                      f" 1-ulp spread) {s['grad_ratio']:.3g} (nearest "
+                      f"{s['worst_leaves']}; the largest spread "
+                      f"{s['ulp_spread']:.3g}), drops per layer "
+                      f"{s['drops']} (unsharded {s['ref_drops']}, expert "
+                      f"choices moved {s['moved']}"
+                      + (f"; expert-parallel on this world "
+                         f"{s['expert_parallel_drops']}"
+                         if "expert_parallel_drops" in s else "")
+                      + f") held {s['held']}; {s['step_s']:.2f} s, launches "
+                      f"{s['launches']}; {coll_line(s)}")
+            d = a["distill"]
+            print(f"  path19 19a rank {r['rank']} distill "
+                  f"{PATH19_DISTILL} (rows over {d['rows']}, vocab out "
+                  f"{d['vocab_out']}: K2 whole {d['k2_whole_vocab']}): loss "
+                  f"{d['loss']:.7f} off by {d['loss_gap']:.3g} against the "
+                  f"rows summed shard by shard (bound "
+                  f"{d['loss_bound']:.3g}, 4 x its 1-ulp spread "
+                  f"{d['loss_spread']:.3g}; a bf16 student off by "
+                  f"{d['bf16_loss_gap']:.3g}; against the whole batch's "
+                  f"{d['whole_loss_gap']:.3g}), gradient: largest gap "
+                  f"{d['grad_gap']:.3g}, largest share of its bound "
+                  f"{d['grad_ratio']:.3g} (nearest {d['worst_leaves']}), "
+                  f"student drops {d['drops']} (unsharded "
+                  f"{d['ref_drops']}, choices moved {d['moved']}), teacher "
+                  f"drops {d['teacher_drops']} (unsharded "
+                  f"{d['ref_teacher_drops']}, choices moved "
+                  f"{d['teacher_moved']}, least lean margins "
+                  f"{[round(x, 2) for x in d['teacher_margins']]}) held "
+                  f"{d['held']}; "
+                  f"{d['step_s']:.2f} s, launches {d['launches']}; "
+                  f"{coll_line(d)}")
+            s = a["serve"]
+            held = (f", gap {s['err']:.3g} of a {s['max_abs_logit']:.4g} "
+                    f"largest (gate {GQA_REL_ATOL:.0e}) held {s['held']}"
+                    if "held" in s else "")
+            print(f"  path19 19a rank {r['rank']} prefill {s['batch']} x "
+                  f"{s['prompt']} + {s['tokens']} tokens: prefill "
+                  f"{s['prefill_s']:.3f} s ({coll_line(s['prefill'])}), "
+                  f"drops {s['drops']} (each row alone {s['ref_drops']}, "
+                  f"choices moved {s['moved']}, "
+                  f"{s['capacity_calls']} capacity calls, decode by "
+                  f"{s['decode_route']}) held "
+                  f"{s['drops_held']}, reshard {s['reshard_s']:.3f} s, "
+                  f"decode {s['decode_s']:.3f} s "
+                  f"({coll_line(s['decode'])}){held}; launches prefill "
+                  f"{s['prefill']['launches']} decode "
+                  f"{s['decode']['launches']}")
+        if "19b" in r:
+            f = r["19b"]
+            print(f"  path19 19b rank {r['rank']} {f['arch']} {f['layout']} "
+                  f"full depth bf16 batch {f['batch']} x {f['seq']} on "
+                  f"{r['mesh']} (rows over {f['batch_axes']}; MoE tokens a "
+                  f"call {f['moe_tokens_per_call']}, capacity "
+                  f"{f['capacity']}, {f['dropped_forward']} slots dropped "
+                  f"in the forward): step {f['step_s']:.3f} s (init "
+                  f"{f['init_s']:.1f} s), loss {f['loss']:.6f}, MFU "
+                  f"{f['mfu']:.4f}, peak {f['peak_mem_bytes'] / gib:.2f} "
+                  f"GiB, parameters {f['param_bytes_rank'] / 1e9:.2f} GB a "
+                  f"rank, {f['grad_leaves']} gradient blocks finite and "
+                  f"non-zero {not f['grad_bad_leaves']}, launches "
+                  f"{f['launches']}; {coll_line(f)}")
+        if "19a" in r:
+            print(f"  path19 19a rank {r['rank']}: peak "
+                  f"{r['19a']['peak_mem_bytes'] / gib:.2f} GiB; by part "
+                  f"(allocated / reserved GiB) " + ", ".join(
+                      f"{k} {a / gib:.2f} / {b / gib:.2f}"
+                      for k, (a, b) in r["19a"]["peaks"].items()))
+        print(f"  path19 rank {r['rank']} of {r['mesh']}: " + ", ".join(
+            f"{k[:-2]} {v:.1f} s" for k, v in r.items()
+            if k.endswith("_s") and isinstance(v, float)))
+    print(f"  path19: worlds {rep.get('a_s', 0.0):.1f} + "
+          f"{rep.get('b_s', 0.0):.1f} s, whole path "
+          f"{rep.get('total_s', 0.0):.1f} s", flush=True)
+
+
 KERNEL_SOURCES = ["ensemble_kl_bank", "ensemble_kl", "swa_attn", "ssd_scan"]
 
 
@@ -7073,11 +8125,12 @@ def run_path_groups(out_dir: Path) -> tuple:
     return paths, problems, time.perf_counter() - t0
 
 
-def path18_main(four: bool) -> int:
-    """``chip_smoke.py --path18``: the kernels built and path 18 alone on
-    one card; ``--four``: path 18's four-card part (four cards, one NCCL
-    rank each).  The report is written to
-    chiprun_out/chip_smoke_path18[_four].json."""
+def alone_main(path: int, four: bool) -> int:
+    """``chip_smoke.py --path18`` / ``--path19``: the kernels built and
+    that path alone on one card; ``--four``: paths 18's and 19's
+    four-card parts (four cards, one NCCL rank each).  The report is
+    written to
+    chiprun_out/chip_smoke_path{18,19}[_four].json."""
     start_s = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
         return fail(f"the port (src/repro_torch) is not next to "
@@ -7091,14 +8144,22 @@ def path18_main(four: bool) -> int:
     from repro_torch.kernels import build
     build.build(KERNEL_SOURCES)
     print(f"build: {time.perf_counter() - start_s:.2f} s", flush=True)
-    t0 = time.perf_counter()
-    rep, problems = layouts_four_path() if four else layouts_path("cuda")
-    rep["total_s"] = time.perf_counter() - t0
-    print_path18(rep)
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    name = "chip_smoke_path18" + ("_four" if four else "") + ".json"
-    (out_dir / name).write_text(json.dumps(rep, indent=1, default=str))
+    runs = {18: (layouts_four_path if four else
+                 lambda: layouts_path("cuda"), print_path18),
+            19: (moe_mesh_four_path if four else
+                 lambda: moe_mesh_path("cuda"), print_path19)}
+    problems = []
+    for p in ((18, 19) if path == 0 else (path,)):
+        run, show = runs[p]
+        t0 = time.perf_counter()
+        rep, more = run()
+        rep["total_s"] = time.perf_counter() - t0
+        show(rep)
+        problems += more
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        name = f"chip_smoke_path{p}" + ("_four" if four else "") + ".json"
+        (out_dir / name).write_text(json.dumps(rep, indent=1, default=str))
     if problems:
         for p in problems:
             print(f"chip_smoke: {p}", file=sys.stderr)
@@ -7111,8 +8172,10 @@ def path18_main(four: bool) -> int:
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--paths":
         return group_worker(int(sys.argv[2]), sys.argv[3])
-    if len(sys.argv) == 2 and sys.argv[1] in ("--path18", "--four"):
-        return path18_main(sys.argv[1] == "--four")
+    alone = {"--path18": (18, False), "--path19": (19, False),
+             "--four": (0, True)}
+    if len(sys.argv) == 2 and sys.argv[1] in alone:
+        return alone_main(*alone[sys.argv[1]])
     start_s = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
         return fail(f"the port (src/repro_torch) is not next to "
@@ -7486,22 +8549,7 @@ def main() -> int:
     print_path16(rep)
     print(f"path 16 done at {time.perf_counter() - start_s:.1f} s",
           flush=True)
-    t0 = time.perf_counter()
-    rep, path_problems = mesh_serve_path(device, k2s_timings)
-    rep["total_s"] = time.perf_counter() - t0
-    paths["path17_mesh_serve"] = rep
-    problems += [f"path17_mesh_serve: {p}" for p in path_problems]
-    print_path17(rep)
-    print(f"path 17 done at {time.perf_counter() - start_s:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    rep, path_problems = layouts_path(device)
-    rep["total_s"] = time.perf_counter() - t0
-    paths["path18_layouts"] = rep
-    problems += [f"path18_layouts: {p}" for p in path_problems]
-    print_path18(rep)
-    print(f"path 18 done at {time.perf_counter() - start_s:.1f} s",
-          flush=True)
+    problems += paths_17_to_19(device, k2s_timings, paths, start_s)
 
     # 5. output
     def timing(rows, **key):
@@ -7629,6 +8677,19 @@ def main() -> int:
             out[f"18c_{part}"] = [n(r["18c"][part]) for r in ranks]
         return out
 
+    def path19_launches(name):
+        """Path 19's launches of ``name`` on each rank: 19a's held steps
+        (each layout), distill step, prefill and decode; 19b's
+        full-depth step."""
+        p = paths["path19_moe_mesh"]
+        n = lambda r: r["launches"].get(name, 0)
+        out = {f"19a_{k}": [n(r["19a"][k]) for r in p["a"]]
+               for k in [t[0] for t in P19_TRAIN] + ["distill"]}
+        for part in ("prefill", "decode"):
+            out[f"19a_{part}"] = [n(r["19a"]["serve"][part]) for r in p["a"]]
+        out["19b"] = [n(r["19b"]) for r in p["b"]]
+        return out
+
     def path8_launches(name):
         """Each path 8 sub-path's launches of ``name``."""
         b = paths["path8b_bucketing"]
@@ -7657,6 +8718,7 @@ def main() -> int:
                 "path16_launches": path16_launches(name),
                 "path17_launches": path17_launches(name),
                 "path18_launches": path18_launches(name),
+                "path19_launches": path19_launches(name),
                 "max_abs_err": max(e[i] for e in errs),
                 "ms": t[f"{kind}_ms"], "plain_ms": t[f"plain_{kind}_ms"],
                 "call_ms": t[f"{kind}_call_ms"],
@@ -7685,6 +8747,7 @@ def main() -> int:
             "path16_launches": path16_launches(name),
             "path17_launches": path17_launches(name),
             "path18_launches": path18_launches(name),
+            "path19_launches": path19_launches(name),
             "path14_dtypes": sorted({d for sub in ("14a_train", "14b_distill",
                                                    "14c_fed_round",
                                                    "14d_serve")
@@ -7709,6 +8772,7 @@ def main() -> int:
         ["launches"].get(name, 0),
         "path17_launches": path17_launches(name),
         "path18_launches": path18_launches(name),
+        "path19_launches": path19_launches(name),
         "max_abs_err": max(e["fwd_err"] for e in k2s_errors),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "call_ms": t["call_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -36,10 +36,11 @@ hand, Megatron-style: a rank holds its block of each parameter
 :func:`gather_tree` returns the global one) and the model code meets the
 other ranks through collectives that autograd differentiates
 (:func:`copy_to`, :func:`reduce_from`, :func:`sum_over`,
-:func:`gather_from`).  A :class:`TPLayout` carries the mesh, the
-parameters' specs and the data axes to the model code.  A
-:class:`Segmented` entry splits a dimension by segments rather than in
-contiguous blocks (the Mamba2 conv's ``[x | B | C]`` channels).
+:func:`gather_from` and its adjoint :func:`scatter_from`).  A
+:class:`TPLayout` carries the mesh, the parameters' specs and the data
+axes to the model code.  A :class:`Segmented` entry splits a dimension
+by segments rather than in contiguous blocks (the Mamba2 conv's ``[x |
+B | C]`` channels).
 """
 from __future__ import annotations
 
@@ -522,6 +523,28 @@ def gather_from(x: torch.Tensor, mesh, axes: Sequence[str],
     gather); its gradient summed over ``axes`` and cut back to this
     rank's block (a reduce-scatter)."""
     return _GatherFrom.apply(x, mesh, tuple(axes), dim)
+
+
+class _ScatterFrom(torch.autograd.Function):
+    """Reduce-scatter along ``dim`` forward, all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return reduce_scatter_sum(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+def scatter_from(x: torch.Tensor, mesh, axes: Sequence[str],
+                 dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of every rank's partial
+    ``x`` over ``axes`` (the adjoint of :func:`gather_from`): its gradient
+    all-gathered, each rank's partial feeding every rank's block (the
+    MoE's outputs of tokens gathered over ``"model"``)."""
+    return _ScatterFrom.apply(x, mesh, tuple(axes), dim)
 
 
 class _GatherAlike(torch.autograd.Function):

@@ -46,10 +46,15 @@ caches follow JAX's ``kv_cache_rules`` (:func:`serve_layout`: the
 sequence split, every head on each rank).  ``make_fed_round_step``
 spreads its clients over the data axes (the ``shard_clients`` rules,
 fsdp off), each client's replica tensor-parallel over ``"model"``.
-Still raising: an MoE model under ``dp_heavy*`` on a mesh,
-``use_moe_shard_map=False`` on a mesh, and the distill and serve steps
-of an MoE model on a mesh (JAX's partitioner path; item 11.8.4(c),
-ROADMAP queue 1).
+
+An MoE model's blocks take JAX's two routes (``models/moe.py``): the
+train and prefill steps pass the ``mesh`` (JAX's expert-parallel
+``shard_map`` where its conditions hold, per data shard, under every
+layout: the ``dp_heavy*`` batch's rows gathered over ``"model"``, whose
+ranks hold the experts); ``use_moe_shard_map=False``, the distill
+step's student and teachers and the serve step's decode pass none, as
+JAX's do, and take the partitioner path (the global tokens gathered,
+the global capacity, the global batch's aux loss).
 """
 from __future__ import annotations
 
@@ -255,28 +260,19 @@ def _zeros_like_meta(tree, device):
 
 
 def _tp(cfg: ArchConfig, mesh, fsdp: bool, batch: int, layout: str = "tp",
-        constrain_acts: bool = False, use_moe_shard_map: bool = True):
+        constrain_acts: bool = False):
     """(the ``TPLayout`` of the train, prefill and distill steps on
     ``mesh``, None without one; JAX's activation sharding, None without
     ``constrain_acts``).  Under ``layout``'s rules the batch splits over
     the data axes (``dp_heavy*``: and ``"model"``), of which a global
     ``batch`` keeps the axes JAX's fitted spec keeps (the others hold the
-    same rows).  An MoE model under ``dp_heavy*`` and
-    ``use_moe_shard_map=False`` raise on a mesh (item 11.8.4(c)); without
-    one every knob leaves the mathematics as it is, as JAX's do on one
-    device."""
+    same rows).  Without a mesh every knob leaves the mathematics as it
+    is, as JAX's do on one device."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout {layout!r}: not one of {LAYOUTS}")
     if mesh is None:
         return None, (P(None, None, None) if constrain_acts else None)
     from repro_torch.common import sharding as shd
-    from repro_torch.models.moe import UNPORTED
-    if not use_moe_shard_map:
-        raise NotImplementedError(f"use_moe_shard_map=False on a mesh: "
-                                  f"{UNPORTED}")
-    if layout != "tp" and cfg.has_moe:
-        raise NotImplementedError(f"an MoE model under layout {layout!r} "
-                                  f"on a mesh: {UNPORTED}")
     rules = shd.make_rules(multi_pod="pod" in shd.axis_names(mesh),
                            fsdp=fsdp, layout=layout)
     tp = T.tp_layout(cfg, mesh, rules, rules["batch"])
@@ -324,22 +320,6 @@ def batch_block(batch: dict, layout) -> dict:
     return out
 
 
-def _moe_on_mesh(cfg: ArchConfig, tp, what: str, tokens_split: bool) -> None:
-    """Raise where ``what`` on a mesh would take the MoE's partitioner
-    path (JAX passes its MoE no mesh there): experts split on the model
-    axis, or tokens split over data axes (item 11.8.4(c))."""
-    if tp is None or not cfg.has_moe:
-        return
-    from repro_torch.common.sharding import entry_axes
-    from repro_torch.models.moe import UNPORTED
-    split = any(entry_axes(tuple(b["mlp"]["wi_gate"])[-3])
-                for b in tuple(tp.pspecs["blocks"]) + tuple(tp.pspecs["tail"])
-                if b and "wi_gate" in b.get("mlp", {}))
-    if split or tokens_split:
-        raise NotImplementedError(f"{what} of an MoE model on a mesh: "
-                                  f"{UNPORTED}")
-
-
 def _as_param_dtype(batch: dict, dtype) -> dict:
     """Frames and patches in the parameters' dtype (JAX promotes them)."""
     return {k: v.to(dtype) if v.is_floating_point() else v
@@ -379,7 +359,8 @@ def train_grads(params, cfg: ArchConfig, batch: dict, *,
 
     With ``layout`` (a ``TPLayout``) ``params`` and ``batch`` are this
     rank's blocks and so are the gradients, each the global loss's;
-    ``mesh`` routes the MoE expert-parallel (JAX's ``use_moe_shard_map``).
+    ``mesh`` routes the MoE expert-parallel (JAX's ``use_moe_shard_map``;
+    without it, the partitioner path).
     Microbatch ``i`` is JAX's: the i-th slice of the global batch, of
     which this rank takes its block over the layout's ``batch_axes``.
     ``act_sharding`` goes to ``T.forward``, which checks it."""
@@ -504,9 +485,13 @@ def make_train_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
     opt_state are donated (updated in place).  On a ``mesh``, every
     argument and result is this rank's block (``bundle.layout``) under
     ``layout``'s rules; ``fsdp`` splits d_model over the data axes, and
-    shards nothing on one device."""
+    shards nothing on one device.  The forward takes the mesh for its
+    MoE blocks (expert-parallel where JAX's conditions hold), or none
+    with ``use_moe_shard_map=False`` (JAX's ``moe_mesh``: the
+    partitioner path)."""
     tp, acts = _tp(cfg, mesh, fsdp, shape.global_batch, layout,
-                   constrain_acts, use_moe_shard_map)
+                   constrain_acts)
+    moe_mesh = mesh if use_moe_shard_map else None
     params = _param_structs(cfg, param_dtype, tp)
     opt_state = _opt_structs(params)
     whole = input_specs(cfg, shape)
@@ -517,7 +502,8 @@ def make_train_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
         grads, metrics = train_grads(params, cfg, batch,
                                      microbatch=microbatch, remat=remat,
                                      unroll=unroll, naive_xent=naive_xent,
-                                     layout=tp, mesh=mesh, act_sharding=acts)
+                                     layout=tp, mesh=moe_mesh,
+                                     act_sharding=acts)
         _adam_step(opt, params, opt_state, grads, step)
         return params, opt_state, step + 1, metrics
 
@@ -611,15 +597,14 @@ def make_serve_step(cfg: ArchConfig, shape: InputShape, mesh=None, *,
     int.  On a ``mesh``, every argument and result is this rank's block
     under :func:`serve_layout` (``bundle.layout``): the logits of its
     batch rows and vocabulary columns (JAX's ``logits_spec``).  As in JAX
-    the decode takes no ``mesh``: an MoE model whose experts split on
-    ``"model"`` would take its partitioner path, and raises (item
-    11.8.4(c))."""
+    the decode takes no ``mesh``: an MoE model's blocks take the
+    partitioner path, the batch's tokens gathered and, at ``T * top_k <
+    n_experts``, only the touched experts' weights read, each rank its
+    own experts'."""
     del unroll
     b = shape.global_batch
     tp = None if mesh is None else serve_layout(cfg, mesh, b, shape.seq_len,
                                                 fsdp)
-    if tp is not None:
-        _moe_on_mesh(cfg, tp, "the serve step", bool(tp.batch_axes))
     params = _param_structs(cfg, param_dtype, tp)
     whole = input_specs(cfg, shape)
     batch = batch_block(whole, tp)
@@ -728,11 +713,10 @@ def make_distill_step(cfg: ArchConfig, mesh=None, *, n_teachers: int = 4,
     and the student's specs inside (JAX's ``t_specs``), the batch over
     the data axes; the loss runs over vocabulary shards
     (:func:`distill_grads`).  As in JAX the forwards take no ``mesh``: an
-    MoE model on a mesh raises (item 11.8.4(c)); and the ``tp`` rules
-    only (JAX's distill step takes no ``layout``)."""
+    MoE model's blocks take the partitioner path (the global capacity
+    and aux loss); and the ``tp`` rules only (JAX's distill step takes
+    no ``layout``)."""
     tp, acts = _tp(cfg, mesh, fsdp, batch_size, constrain_acts=constrain_acts)
-    if tp is not None:
-        _moe_on_mesh(cfg, tp, "the distill step", tp.dp_size > 1)
     student = _param_structs(cfg, param_dtype, tp)
     teachers = _stacked(student, n_teachers)
     opt_state = _opt_structs(student)

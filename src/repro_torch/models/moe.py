@@ -11,14 +11,28 @@ Two execution paths, one math:
   ``T * top_k < n_experts`` (single-token decode): reads only the touched
   experts' weights.
 
-* ``_moe_expert_parallel`` — JAX's ``_moe_shard_map`` on the port's
-  meshes (``moe_block(mesh=...)``, under JAX's conditions): a rank holds
+Two routes on the port's meshes, as JAX's ``moe_block`` takes them:
+
+* ``_moe_expert_parallel`` — JAX's ``_moe_shard_map``
+  (``moe_block(mesh=...)``, under JAX's conditions): a rank holds
   ``n_experts / m`` whole experts of the ``"model"`` axis of ``m`` and
-  its data shard of the tokens, routes them with the whole router,
-  dispatches to its experts with a capacity from its own token count,
-  and the partial outputs are summed over ``"model"``; the aux loss is
-  the mean of the shards' over the data axes (JAX's ``pmean``, not the
-  global batch's).
+  the tokens of its data shard (JAX's ``dp_axes``; under the
+  ``dp_heavy*`` layouts, whose batch splits over ``"model"`` too, the
+  rank's rows all-gathered over ``"model"``), routes them with the whole
+  router, dispatches to its experts with a capacity from the shard's
+  token count, and the partial outputs are summed over ``"model"``; the
+  aux loss is the mean of the shards' over the data axes (JAX's
+  ``pmean``, not the global batch's).
+* ``_moe_global`` — JAX's local route on global arrays, which XLA's
+  partitioner spreads over the mesh without changing its mathematics
+  (``moe_block(layout=...)`` without ``mesh``, and where the
+  expert-parallel conditions fail): every rank all-gathers the tokens
+  over the axes that split them, routes every global token, dispatches
+  to its experts with the global capacity (the stable sort restricted to
+  its experts leaves each choice's position within its expert as it
+  is, so the same choices drop as on one device), and keeps its own rows
+  of the outputs summed over ``"model"``; the aux loss is the global
+  batch's.
 
 No Pallas kernel runs here in JAX; the per-expert SwiGLU products are
 plain batched products here too.
@@ -36,13 +50,6 @@ import torch.nn.functional as F
 
 from repro_torch.common.arch_config import ArchConfig
 from repro_torch.models.layers import ParamSpec
-
-UNPORTED = ("the MoE's global path over experts split on the model axis "
-            "beside tokens split on data axes (the dp_heavy layouts split "
-            "the tokens over the model axis too), or over too few tokens "
-            "(JAX's partitioner path), is not ported (ROADMAP queue 1 item "
-            "11.8.4(c))")
-
 
 def moe_specs(cfg: ArchConfig) -> dict:
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
@@ -138,9 +145,16 @@ def _moe_capacity(p: dict, cfg: ArchConfig, x: torch.Tensor, w, idx,
     return flat.reshape(t, k, d).sum(dim=1)
 
 
-def _moe_gather(p: dict, cfg: ArchConfig, x: torch.Tensor, w, idx
-                ) -> torch.Tensor:
-    """Tiny-T decode path: gather only the touched experts' weights."""
+def _moe_gather(p: dict, cfg: ArchConfig, x: torch.Tensor, w, idx,
+                e_start: int = 0) -> torch.Tensor:
+    """Tiny-T decode path: gather only the touched experts' weights.  With
+    ``p`` a block of experts from ``e_start``, the choices of the other
+    experts weigh 0 (the ranks that hold them add their share)."""
+    e_local = p["wi_gate"].shape[0]
+    if e_local != cfg.n_experts:
+        local = idx - e_start
+        w = w * ((local >= 0) & (local < e_local)).to(w.dtype)
+        idx = local.clamp(0, e_local - 1)
     wg = p["wi_gate"][idx]  # [T, k, d, ff]
     wu = p["wi_up"][idx]
     wo = p["wo"][idx]  # [T, k, ff, d]
@@ -151,72 +165,197 @@ def _moe_gather(p: dict, cfg: ArchConfig, x: torch.Tensor, w, idx
 
 
 def moe_block(p: dict, cfg: ArchConfig, x: torch.Tensor, mesh=None,
-              dp_axes: Tuple[str, ...] = ()
+              dp_axes: Tuple[str, ...] = (), layout=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d] -> (out [B, S, d], aux loss).
 
-    With a ``mesh`` that has a ``"model"`` axis, ``p`` is this rank's
-    block (its experts whole, the router whole) and ``x`` its data shard
-    over ``dp_axes``, equal on every ``"model"`` rank; the block runs
-    expert-parallel where JAX's runs ``_moe_shard_map`` (the experts
-    divide the axis, and the global tokens times top-k reach the expert
-    count; with no ``dp_axes``, as in the federated round's client,
-    whose batch is whole on every rank, the capacity and the drops are
-    one device's).  Elsewhere the block runs on one device's whole
-    weights and raises where its experts are split; with the tokens split
-    over ``"model"`` beside the experts (``dp_axes`` holding it, the
-    ``dp_heavy*`` layouts) it raises (item 11.8.4(c))."""
+    Without ``mesh`` or ``layout``: one device's whole weights and
+    tokens.  On a mesh ``p`` is this rank's block (its experts, whole
+    or split over ``"model"``, the router whole) and ``x`` its rows of
+    the global batch: over the ``layout``'s ``batch_axes`` (a
+    ``TPLayout``), or over ``dp_axes`` without one.  With ``mesh`` the
+    block runs expert-parallel where JAX's runs ``_moe_shard_map`` (over
+    JAX's data axes: the layout's ``dp_axes`` but its model axis, or
+    ``dp_axes`` without a layout; the experts divide the model axis, and
+    the global tokens divide the data axes and times top-k reach the
+    expert count); elsewhere, and with a ``layout`` but no ``mesh``, it
+    runs JAX's partitioner path (``_moe_global``)."""
     from repro_torch.common import sharding as shd
-    if "model" in dp_axes:
-        raise NotImplementedError(f"moe_block over tokens split on the "
-                                  f"model axis: {UNPORTED}")
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
-    t = b * s
-    e = cfg.n_experts
-    split = p["wi_gate"].shape[0] != e
-    if mesh is not None and "model" in shd.axis_names(mesh):
-        dp = tuple(a for a in dp_axes if a in shd.axis_names(mesh))
-        dp_size = math.prod(shd.axis_size(mesh, a) for a in dp)
-        m = shd.axis_size(mesh, "model")
-        if e % m == 0 and t * dp_size * cfg.top_k >= e:
-            out, aux = _moe_expert_parallel(p, cfg, x2, mesh, dp)
-            return out.reshape(b, s, d), aux
-        if split or dp_size > 1:
-            raise NotImplementedError(f"moe_block(mesh=...) over {t} local "
-                                      f"tokens: {UNPORTED}")
-    elif split:
-        raise NotImplementedError(f"moe_block over experts split on the "
-                                  f"model axis: {UNPORTED}")
-    w, idx, aux = _route(p, cfg, x2)
-    if t * cfg.top_k < cfg.n_experts:
-        out = _moe_gather(p, cfg, x2, w, idx)
+    where = mesh if mesh is not None else getattr(layout, "mesh", None)
+    if where is None:
+        if p["wi_gate"].shape[0] != cfg.n_experts:
+            raise ValueError("experts split over the model axis: give the "
+                             "layout of this rank's blocks (layout=)")
+        w, idx, aux = _route(p, cfg, x2)
+        if b * s * cfg.top_k < cfg.n_experts:
+            out = _moe_gather(p, cfg, x2, w, idx)
+        else:
+            out = _moe_capacity(p, cfg, x2, w, idx, 0, cfg.n_experts)
+        return out.reshape(b, s, d), aux
+    names = shd.axis_names(where)
+    if layout is not None:
+        rows = tuple(layout.batch_axes)
+        dp = tuple(a for a in layout.dp_axes if a != layout.model_axis)
     else:
-        out = _moe_capacity(p, cfg, x2, w, idx, 0, cfg.n_experts)
+        rows = tuple(a for a in dp_axes if a in names)
+        dp = tuple(a for a in rows if a != "model")
+    t = b * s * shd.block_index(where, rows)[1]          # global tokens
+    if mesh is not None and "model" in names:
+        dp_size = math.prod(shd.axis_size(mesh, a) for a in dp)
+        m, e = shd.axis_size(mesh, "model"), cfg.n_experts
+        if (e % m == 0 and p["wi_gate"].shape[0] * m == e
+                and t % dp_size == 0 and t >= dp_size
+                and t * cfg.top_k >= e):
+            out, aux = _moe_expert_parallel(p, cfg, x2, mesh, rows, dp,
+                                            layout)
+            return out.reshape(b, s, d), aux
+    out, aux = _moe_global(p, cfg, x2, where, rows, layout)
     return out.reshape(b, s, d), aux
 
 
+def _carried(aux: torch.Tensor, value: torch.Tensor, n: int) -> torch.Tensor:
+    """``value`` (the aux loss every rank reports), its gradient carried
+    at ``aux / n``: ``n`` ranks each add their share of the router's and
+    the tokens' gradient to the sums over the mesh that follow."""
+    carried = aux / n
+    return carried + (value - carried).detach()
+
+
+def _layout_ranks(layout, mesh, dp: Tuple[str, ...]) -> int:
+    """The ranks whose gradients of a leaf whole on the data axes are
+    summed: the layout's data axes, or ``dp`` without a layout."""
+    from repro_torch.common import sharding as shd
+    if layout is not None:
+        return layout.dp_size
+    return math.prod(shd.axis_size(mesh, a) for a in dp)
+
+
+def _replicas(layout, alike: bool) -> str:
+    """How the ranks of the model axis, each holding its own experts, hold
+    the tokens: ``"gathered"`` (each its own rows, all-gathered over the
+    axis), ``"copies"`` (the same rows, each computing what follows in
+    full: the ``tp`` layout's model axis) or ``"shares"`` (the same rows,
+    each carrying its share of their loss: a ``dp_heavy*`` batch the axes
+    do not divide, whose model ranks are data ranks)."""
+    if not alike:
+        return "gathered"
+    shares = layout is not None and layout.model_axis in layout.dp_axes
+    return "shares" if shares else "copies"
+
+
+def _enter(p: dict, x2: torch.Tensor, mesh, model: str, mode):
+    """(the tokens, the parameters) as the rank's experts take them: as
+    copies, through ``copy_to`` with the router (each rank's gradient of
+    them is its experts' share, summed over the axis); else as they are
+    (their gradients are summed over the axis later: by the gather's
+    backward, or over the data axes the model axis is one of)."""
+    from repro_torch.common import sharding as shd
+    if mode != "copies":
+        return x2, p
+    return (shd.copy_to(x2, mesh, (model,)),
+            dict(p, router=shd.copy_to(p["router"], mesh, (model,))))
+
+
+def _leave(out: torch.Tensor, mesh, model: str, mode) -> torch.Tensor:
+    """The rank's experts' partial outputs summed over the model axis: cut
+    to the rank's rows with their gradient all-gathered (``"gathered"``),
+    as the same rows with the gradient as it is (``"copies"``, each rank
+    carrying the whole loss), or with the gradient summed too
+    (``"shares"``: every share of the loss reaches each rank's
+    experts)."""
+    from repro_torch.common import sharding as shd
+    if mode == "gathered":
+        return shd.scatter_from(out, mesh, (model,), 0)
+    if mode == "copies":
+        return shd.reduce_from(out, mesh, (model,))
+    if mode == "shares":
+        return shd.sum_over(out, mesh, (model,))
+    return out
+
+
 def _moe_expert_parallel(p: dict, cfg: ArchConfig, x2: torch.Tensor, mesh,
-                         dp: Tuple[str, ...]):
-    """JAX's ``_moe_shard_map`` on this rank: (its tokens' output summed
-    over ``"model"``, the aux loss's mean over ``dp``).  The tokens and
-    the router enter through ``copy_to``: each rank's gradient of them is
-    its experts' share.  The aux loss is the same on every ``"model"``
-    rank, so its gradient is carried at 1 / (m * |dp|) of the loss's
-    (the model axis's sum and the data axes' sum of the router's gradient
-    restore JAX's ``pmean``), while its value is the mean itself."""
+                         rows: Tuple[str, ...], dp: Tuple[str, ...],
+                         layout=None):
+    """JAX's ``_moe_shard_map`` on this rank: (its rows' output summed
+    over ``"model"``, the aux loss's mean over ``dp``).  JAX's shard is
+    the global tokens' block over ``dp``: this rank's rows (over
+    ``rows``) all-gathered over the axes of ``rows`` not in ``dp`` (the
+    ``dp_heavy*`` layouts' ``"model"``), or cut to this rank's block of
+    them over the axes of ``dp`` whose ranks hold the same rows (a batch
+    the data axes do not divide; the outputs all-gathered back).  The
+    model axis's ranks meet as :func:`_replicas` says (``_enter`` /
+    ``_leave``), and the aux loss's gradient is carried once over the
+    ranks that sum it."""
     from repro_torch.common import sharding as shd
     m = shd.axis_size(mesh, "model")
-    dp_size = math.prod(shd.axis_size(mesh, a) for a in dp)
     e_local = cfg.n_experts // m
-    x2 = shd.copy_to(x2, mesh, ("model",))
-    pl = dict(p, router=shd.copy_to(p["router"], mesh, ("model",)))
+    extra = tuple(a for a in rows if a not in dp)
+    chunk = tuple(a for a in dp if a not in rows)
+    if extra:
+        x2 = shd.gather_from(x2, mesh, extra, 0)
+    if chunk:
+        i, n = shd.block_index(mesh, chunk)
+        per = x2.shape[0] // n
+        x2 = x2.narrow(0, i * per, per)
+    mode = _replicas(layout, "model" not in extra)
+    x2, pl = _enter(p, x2, mesh, "model", mode)
     w, idx, aux = _route(pl, cfg, x2)
     out = _moe_capacity(pl, cfg, x2, w, idx,
                         shd.axis_index(mesh, "model") * e_local, e_local)
-    out = shd.reduce_from(out, mesh, ("model",))
+    out = _leave(out, mesh, "model", mode)
+    if chunk:
+        out = shd.gather_from(out, mesh, chunk, 0)
     mean = aux.detach()
     if dp:
-        mean = shd.all_reduce_sum(mean, mesh, dp) / dp_size
-    carried = aux / (m * dp_size)
-    return out, carried + (mean - carried).detach()
+        mean = shd.all_reduce_sum(mean, mesh, dp) / math.prod(
+            shd.axis_size(mesh, a) for a in dp)
+    n = (m if mode == "copies" else 1) * _layout_ranks(layout, mesh, dp)
+    return out, _carried(aux, mean, n)
+
+
+def _moe_global(p: dict, cfg: ArchConfig, x2: torch.Tensor, mesh,
+                rows: Tuple[str, ...], layout=None):
+    """JAX's local route on the global tokens, from this rank's rows
+    (over ``rows``) and experts: (its rows' output, the global batch's
+    aux loss).  The rows are all-gathered over ``rows``; every rank
+    routes every token with the whole router and dispatches to its
+    experts with the global capacity (``dispatch`` at the global count),
+    or gathers its experts' weights where ``T * top_k < n_experts``.
+    With the experts split over ``"model"``, its ranks meet as
+    :func:`_replicas` says (``_enter`` / ``_leave``; with the tokens
+    split over ``"model"`` too, ``dp_heavy*``, the sum cut to this rank's
+    rows is ``scatter_from``).  A rank keeps its rows (the others'
+    gradient 0), so the gather's backward (a reduce-scatter) counts every
+    row once; the aux loss, equal on every rank, carries its gradient
+    once over the ranks that sum it."""
+    from repro_torch.common import sharding as shd
+    model = "model"
+    e_local = p["wi_gate"].shape[0]
+    split = e_local != cfg.n_experts
+    e0 = shd.axis_index(mesh, model) * e_local if split else 0
+    if split and model in rows and rows[-1] != model:
+        raise ValueError(f"rows over {rows}: the model axis comes last")
+    if rows:
+        x2 = shd.gather_from(x2, mesh, rows, 0)
+    mode = _replicas(layout, model not in rows) if split else None
+    x2, pl = _enter(p, x2, mesh, model, mode)
+    w, idx, aux = _route(pl, cfg, x2)
+    t = x2.shape[0]
+    if t * cfg.top_k < cfg.n_experts:
+        out = _moe_gather(pl, cfg, x2, w, idx, e0)
+    else:
+        out = _moe_capacity(pl, cfg, x2, w, idx, e0, e_local)
+    if mode != "gathered":
+        out = _leave(out, mesh, model, mode)
+    keep = tuple(a for a in rows if not (split and a == model))
+    i, n = shd.block_index(mesh, keep)
+    if n > 1:
+        per = out.shape[0] // n
+        out = out.narrow(0, i * per, per)
+    if mode == "gathered":
+        out = _leave(out, mesh, model, mode)
+    m = shd.axis_size(mesh, model) if mode == "copies" else 1
+    return out, _carried(aux, aux.detach(), m * _layout_ranks(layout, mesh,
+                                                              rows))

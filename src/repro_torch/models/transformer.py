@@ -32,9 +32,14 @@ other ranks through ``copy_to`` / ``reduce_from``; the embedding and the
 head are split over the vocabulary (a masked take summed over
 ``"model"``; the logits stay this rank's vocabulary columns).  ``mesh``
 keeps JAX's meaning: it routes the MoE blocks through the expert-parallel
-path.  Under the ``dp_heavy*`` rules (a ``TPLayout`` whose data axes end
-with ``"model"``) every module runs whole heads, columns and vocabulary:
-each leaf is gathered whole where it runs and the logits come out whole.
+path; a ``layout`` without it routes them through JAX's partitioner path
+(``moe._moe_global``: the global tokens, the global capacity).  Under the
+``dp_heavy*`` rules (a ``TPLayout`` whose data axes end with
+``"model"``) every module runs whole heads, columns and vocabulary: each
+leaf is gathered whole where it runs and the logits come out whole, but
+for the MoE's experts, which stay split over ``"model"`` (JAX's
+``"experts"`` rule) and meet the rows of that axis's ranks (the MoE
+reads JAX's data axes, the layout's without ``"model"``).
 ``act_sharding`` (JAX's activation constraint at every block boundary)
 is a check here: the hidden state already is this rank's ``("batch",
 None, None)`` block.
@@ -215,7 +220,8 @@ def _apply_mlp(bp: dict, cfg: ArchConfig, spec: BlockSpec, h: torch.Tensor,
                tp=None, mesh=None):
     """(h + the MLP of h, the MoE aux loss or 0.0); ``tp`` a
     ``TPLayout`` (this rank's MLP columns or experts), ``mesh`` the MoE's
-    expert-parallel route."""
+    expert-parallel route (without it, on a layout, the partitioner
+    path)."""
     if spec.mlp == "none":
         return h, 0.0
     x = rmsnorm(bp["norm2"], h, cfg.norm_eps)
@@ -223,9 +229,21 @@ def _apply_mlp(bp: dict, cfg: ArchConfig, spec: BlockSpec, h: torch.Tensor,
         mlp = swiglu if spec.mlp == "swiglu" else gelu_mlp
         split = tp is not None and bp["mlp"]["wo"].shape[0] != cfg.d_ff
         return h + mlp(bp["mlp"], x, tp if split else None), 0.0
-    out, aux = moe_mod.moe_block(bp["mlp"], cfg, x, mesh,
-                                 () if tp is None else tp.dp_axes)
+    out, aux = moe_mod.moe_block(bp["mlp"], cfg, x, mesh, layout=tp)
     return h + out, aux
+
+
+def _gather_layer(tp, bp: dict, bspec: dict) -> dict:
+    """A layer's leaves split over the data axes gathered whole (FSDP),
+    but for the MoE's expert dimension: its blocks of experts stay this
+    rank's (under ``dp_heavy*`` too, whose data axes hold ``"model"``)."""
+    mlp = bspec.get("mlp", {})
+    if "router" in mlp:
+        from repro_torch.common.sharding import P
+        bspec = dict(bspec, mlp={k: P(None, *tuple(v)[1:])
+                                 if k in ("wi_gate", "wi_up", "wo") else v
+                                 for k, v in mlp.items()})
+    return tp.gather_fsdp(bp, bspec)
 
 
 def _apply_block(bp: dict, cfg: ArchConfig, spec: BlockSpec,
@@ -233,7 +251,7 @@ def _apply_block(bp: dict, cfg: ArchConfig, spec: BlockSpec,
     """One layer; with ``tp`` its leaves split over the data axes are
     gathered first (``bspec`` their specs)."""
     if tp is not None:
-        bp = tp.gather_fsdp(bp, bspec)
+        bp = _gather_layer(tp, bp, bspec)
     x = rmsnorm(bp["norm1"], h, cfg.norm_eps)
     if spec.mixer == "mamba":
         h = h + ssm_mod.ssm_forward(bp["mixer"], cfg, x, tp=tp)
@@ -358,7 +376,8 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *,
     ``unroll`` changes nothing: the layer loop is already unrolled.  With
     ``layout`` (a ``TPLayout``) ``params`` are this rank's blocks and
     ``batch`` its data shard; the logits are [B_local, S, V_local] and
-    ``mesh`` routes the MoE through the expert-parallel path.
+    ``mesh`` routes the MoE through the expert-parallel path (without
+    it, JAX's partitioner path over the layout's blocks).
     ``dp_axes`` is the layout's (JAX reads it only with a mesh);
     ``act_sharding`` is checked (:func:`_check_mesh`) and changes
     nothing."""
@@ -563,7 +582,7 @@ def decode_step(params: dict, cfg: ArchConfig, batch: dict, caches: dict,
     for bp, spec, where, bspec in _layers(params, cfg, layout):
         cache = _layer_cache(caches, where)
         if layout is not None:
-            bp = layout.gather_fsdp(bp, bspec)
+            bp = _gather_layer(layout, bp, bspec)
         x = rmsnorm(bp["norm1"], h, cfg.norm_eps)
         if spec.mixer == "mamba":
             out, _ = ssm_mod.ssm_decode_step(bp["mixer"], cfg, x, cache,
@@ -604,7 +623,7 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, max_seq: int,
     tail_caches = []
     for bp, spec, (kind, j, _), bspec in _layers(params, cfg, layout):
         if layout is not None:
-            bp = layout.gather_fsdp(bp, bspec)
+            bp = _gather_layer(layout, bp, bspec)
         x = rmsnorm(bp["norm1"], h, cfg.norm_eps)
         if spec.mixer == "mamba":
             out, cache = ssm_mod.ssm_forward(bp["mixer"], cfg, x,

@@ -42,8 +42,9 @@ gets the same leaves), and the parent computes the references meanwhile.
   both axes) through ``T.serve_caches`` into the ``tp`` serve step on 2 x
   2: each of 6 tokens' logits within ``SERVE_REL`` of the largest against
   the unsharded prefill + ``decode_step``.
-* What raises: an MoE model under ``dp_heavy*`` on a mesh (11.8.4(c)),
-  an ``act_sharding`` that is not the layout's.
+* An MoE model builds under ``dp_heavy*`` on a mesh (it raised until
+  item 11.8.4(c); ``tests/test_torch_moe_mesh.py`` runs it); what
+  raises: an ``act_sharding`` that is not the layout's.
 * ``launch/dryrun.py --layout --mesh``: the per-rank argument bytes under
   ``dp_heavy_z3`` on 2 x 2 a quarter of the unsharded bytes, but for the
   leaves that stay whole.
@@ -532,21 +533,38 @@ def test_all_gather_moves_each_dtypes_bits(world, dtype):
 
 @pytest.mark.parametrize("layout", ["dp_heavy", "dp_heavy_z3"])
 def test_an_moe_model_under_dp_heavy_raises_naming_its_item(layout):
+    """An MoE model under ``dp_heavy*`` on a mesh once raised naming item
+    11.8.4(c); it builds now (``tests/test_torch_moe_mesh.py`` runs it):
+    the batch over both axes, the experts split over ``"model"`` (JAX's
+    ``"experts"`` rule in every layout) and kept split where the layer
+    runs, every other leaf gathered whole; without a mesh the layout
+    changes nothing, as in JAX on one device; and on one device the MoE
+    block reads no ``dp_axes`` (JAX reads them only with a mesh)."""
+    from repro_torch.common.pytree import tree_flatten
+    from repro_torch.configs.shapes import InputShape
     from repro_torch.launch import steps
+    from repro_torch.models import moe
     cfg = _cfg("granite-moe-1b-a400m", None)
     mesh = StubMesh((2, 2), NAMES, (0, 0))
     for build, kind in ((steps.make_train_step, "train"),
                         (steps.make_prefill_step, "prefill")):
-        with pytest.raises(NotImplementedError, match=r"11\.8\.4\(c\)"):
-            from repro_torch.configs.shapes import InputShape
-            build(cfg, InputShape("x", S, B, kind), mesh, layout=layout)
-    # without a mesh the layout changes nothing, as in JAX on one device
+        bundle = build(cfg, InputShape("x", S, B, kind), mesh, layout=layout)
+        tp = bundle.layout
+        assert tp.batch_axes == NAMES and tp.dp_axes == NAMES
+        flat = tree_flatten(bundle.args[0])
+        gates = [v for k, v in flat.items() if k.endswith("wi_gate")]
+        assert gates and all(g.shape[-3] == cfg.n_experts // 2
+                             for g in gates)
+        spec = tp.pspecs["blocks"][0]["mlp"]["wi_gate"]   # [L, E, d, ff]
+        assert tuple(spec) == (None, "model", "data", None), spec
     steps.make_train_step(cfg, _shape(B), layout=layout)
-    # nor does the MoE block run with tokens split over "model"
-    from repro_torch.models import moe
-    with pytest.raises(NotImplementedError, match=r"11\.8\.4\(c\)"):
-        moe.moe_block({}, cfg, torch.zeros((1, 2, cfg.d_model)), None,
-                      NAMES)
+    p = _init("granite-moe-1b-a400m", None)["blocks"][0]["mlp"]
+    p = {k: v[0] for k, v in p.items()}
+    x = torch.randn((1, 2, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(0))
+    got = moe.moe_block(p, cfg, x, None, NAMES)
+    want = moe.moe_block(p, cfg, x)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_act_sharding_is_the_layouts_batch_block_or_raises():

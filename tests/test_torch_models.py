@@ -252,24 +252,31 @@ def test_formerly_unported_configs_match_jax(name, over, what):
 
 
 def test_unported_configs_raise():
-    """The one route of the MoE still unported: JAX's partitioner path
-    over experts split on the model axis (item 11.8.4), here a mesh whose
-    tokens are too few for the expert-parallel block (JAX's
-    ``_moe_shard_map`` runs on meshes since item 11.8.3)."""
+    """Every config runs, and so does the MoE's last route once unported
+    (item 11.8.4(c), JAX's partitioner path): on a mesh whose tokens are
+    too few for the expert-parallel block, ``moe_block(mesh=...)`` takes
+    it and equals the one-device block bit for bit on a one-rank world
+    (``tests/test_torch_moe_mesh.py`` holds it over split experts).  A
+    block of split experts without the layout of its mesh raises."""
+    from repro_torch.launch import mesh as tmesh
     from repro_torch.models import moe
     for name in ("granite-moe-1b-a400m", "qwen3-moe-235b-a22b",
                  "internvl2-1b", "hubert-xlarge"):
         T.check_supported(configs.get(name))
     cfg = reduced(configs.get("granite-moe-1b-a400m"))
     p = init_params(moe.moe_specs(cfg), torch.Generator().manual_seed(0))
-    x = torch.zeros(1, 4, cfg.d_model)
-
-    class ModelAxis:                  # a stub mesh: sizes by axis name
-        shape = {"data": 1, "model": 2}
+    x = torch.randn(1, 4, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
     half = {k: v if k == "router" else v[: cfg.n_experts // 2]
             for k, v in p.items()}
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item 11.8"):
-        moe.moe_block(half, cfg, x[:, :1], mesh=ModelAxis())
+    with pytest.raises(ValueError, match="layout"):
+        moe.moe_block(half, cfg, x[:, :1])
+    with tmesh.one_rank_world("cpu"):
+        mesh = tmesh.make_mesh((1, 1), ("data", "model"))
+        for n in (1, 4):              # the gather route, then capacity
+            got, aux = moe.moe_block(p, cfg, x[:, :n], mesh=mesh,
+                                     dp_axes=("data",))
+            want, aux_w = moe.moe_block(p, cfg, x[:, :n])
+            assert torch.equal(got, want) and torch.equal(aux, aux_w)
     out, aux = moe.moe_block(p, cfg, x)
     assert out.shape == x.shape and aux.shape == ()

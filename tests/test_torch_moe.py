@@ -18,8 +18,9 @@ JAX package's init converted (``repro_torch.convert``).
   decode steps at batch 1, which decodes through gather, and at batch 2,
   which decodes through capacity) against JAX within rtol 2e-3 plus 1e-3
   of the largest logit (``tests/test_torch_serve.py``'s tolerance).
-* ``moe_block(mesh=...)`` (JAX's expert-parallel shard_map) is the one
-  axis still unported: ``tests/test_torch_models.py``.
+* ``moe_block`` on a mesh (JAX's expert-parallel shard_map and its
+  partitioner path): ``tests/test_torch_model_axis.py`` and
+  ``tests/test_torch_moe_mesh.py``.
 
 JAX is imported inside the tests that use it.
 """

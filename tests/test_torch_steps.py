@@ -478,32 +478,43 @@ def test_fed_round_step_matches_jax():
 # ---------------------------------------------------------------------------
 
 def test_meshes_and_sharding_knobs_raise_naming_item_11_7():
-    """What still raises, naming its item of 11.8: the four cases of JAX's
-    MoE partitioner path (11.8.4(c)): an MoE model under ``dp_heavy*`` on a
-    mesh, ``use_moe_shard_map=False`` on a mesh, and the serve and distill
-    steps of an MoE model whose experts split on ``"model"``.  The train,
-    prefill, distill and serve steps, every layout, ``constrain_acts`` and
-    ``naive_xent``, and the federated round's model axis run on meshes
-    (``tests/test_torch_model_axis.py``, ``tests/test_torch_mesh_serve.py``,
-    ``tests/test_torch_layouts.py``, ``tests/test_torch_multihost.py``);
-    without a mesh the layout knobs change nothing, as in JAX on one
-    device."""
+    """What raised until item 11.8.4(c), JAX's MoE partitioner path, now
+    builds: an MoE model under ``dp_heavy*`` on a mesh,
+    ``use_moe_shard_map=False`` on a mesh, and the serve and distill steps
+    of an MoE model whose experts split on ``"model"`` (each rank's
+    bundle holds half the experts; ``tests/test_torch_moe_mesh.py`` runs
+    them).  The train, prefill, distill and serve steps, every layout,
+    ``constrain_acts`` and ``naive_xent``, and the federated round's model
+    axis run on meshes (``tests/test_torch_model_axis.py``,
+    ``tests/test_torch_mesh_serve.py``, ``tests/test_torch_layouts.py``,
+    ``tests/test_torch_multihost.py``); without a mesh the layout knobs
+    change nothing, as in JAX on one device.  An unknown layout
+    raises."""
     from test_torch_model_axis import StubMesh
+    from repro_torch.common.pytree import tree_flatten
     ct = reduced(configs.get("qwen3-8b"))
     cm = reduced(configs.get("granite-moe-1b-a400m"))
     shape = InputShape("t", S, B, "train")
     stub = StubMesh((1, 2), ("data", "model"), (0, 0))
+
+    def half_experts(bundle):
+        gates = [v for k, v in tree_flatten(bundle.args[0]).items()
+                 if k.endswith("wi_gate")]
+        return bool(gates) and all(g.shape[-3] == cm.n_experts // 2
+                                   for g in gates)
     for build, cfg, kw in (
             (steps.make_train_step, cm, dict(layout="dp_heavy")),
             (steps.make_prefill_step, cm, dict(layout="dp_heavy_z3")),
-            (steps.make_train_step, ct, dict(use_moe_shard_map=False))):
-        with pytest.raises(NotImplementedError, match=r"11\.8\.4\(c\)"):
-            build(cfg, shape, stub, **kw)
-        build(cfg, shape, **kw)
-    with pytest.raises(NotImplementedError, match=r"11\.8\.4\(c\)"):
-        steps.make_serve_step(cm, InputShape("d", S, B, "decode"), stub)
-    with pytest.raises(NotImplementedError, match=r"11\.8\.4\(c\)"):
-        steps.make_distill_step(cm, stub)
+            (steps.make_train_step, ct, dict(use_moe_shard_map=False)),
+            (steps.make_train_step, cm, dict(use_moe_shard_map=False))):
+        bundle = build(cfg, shape, stub, **kw)
+        assert bundle.layout is not None
+        assert cfg is ct or half_experts(bundle)
+        assert build(cfg, shape, **kw).layout is None
+    for bundle in (steps.make_serve_step(cm, InputShape("d", S, B, "decode"),
+                                         stub),
+                   steps.make_distill_step(cm, stub)):
+        assert half_experts(bundle)
     for kw in (dict(layout="dp_heavy", constrain_acts=True,
                     naive_xent=True), dict(layout="dp_heavy_z3")):
         steps.make_train_step(ct, shape, **kw)
